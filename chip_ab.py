@@ -10,9 +10,13 @@ sequence such as ``parent change change parent`` compares two versions
 on the same card. Each process imports that checkout's ``chip_smoke.py``,
 builds its kernels, and times them with ``chip_smoke.time_kernels`` (B=1,
 pos 128) and, where the checkout has it, ``chip_smoke.time_batched`` (B=8,
-pos 128), at the whisper-tiny and large-v3 decoder shapes. It prints one
-line per run, ``AB <dir> <json>``, with the device microseconds of each
-kernel and stack, and a table of them all at the end. Needs one CUDA GPU.
+pos 128), at the whisper-tiny and large-v3 decoder shapes; then the host
+clock of the whisper-tiny end-to-end path: bench.py's protocol through
+``chip_smoke.bench_rtf`` (30 s of noise, 224 forced tokens, B=1; best of
+5) and a ``BatchScheduler`` of 8 slots draining 8 clips (ms per tick). It
+prints one line per run, ``AB <dir> <json>``, with the device
+microseconds of each kernel and stack and the host milliseconds of the
+end-to-end runs, and a table of them all at the end. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -51,7 +55,38 @@ def time_tree(root: Path) -> dict:
                                  for k, v in t.items()}
         del blk
         torch.cuda.empty_cache()
+    out["e2e_tiny"] = time_e2e(c, root)
     return out
+
+
+def time_e2e(c, root: Path) -> dict:
+    """Host milliseconds of one checkout's whisper-tiny path: the bench
+    protocol (best of 5) and the mean tick of 8 slots draining 8 clips
+    (admission included)."""
+    import tempfile
+    import time
+    import numpy as np
+    from whisper_apr_tpu_torch import ComputeConfig, ModelConfig, WhisperApr
+    from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as work:
+        apr = Path(work) / "tiny.apr"
+        c.write_random_apr(apr, ModelConfig.tiny())
+        eng = WhisperApr.load_from_apr(str(apr), ComputeConfig(
+            quantization="int8", compute_dtype="bfloat16"))
+    audio = np.random.default_rng(0).normal(0, 0.1, 480_000).astype(
+        np.float32)
+    rtf = c.bench_rtf(eng, audio, runs=5)
+    sched = BatchScheduler(eng, n_slots=8)
+    for clip in c.make_clips(c.SERVE_SECONDS[:8], seed=1):
+        sched.submit(clip, "en")
+    c.sync("cuda")
+    t0 = time.perf_counter()
+    sched.run_until_drained()
+    c.sync("cuda")
+    wall = time.perf_counter() - t0
+    return {"bench_ms": round(rtf["seconds"] * 1e3, 1),
+            "serve_tick_ms": round(1e3 * wall / sched.stats()["ticks"], 3)}
 
 
 def main() -> int:
@@ -80,7 +115,8 @@ def main() -> int:
         print(lines[-1], flush=True)
         runs.append((d, json.loads(lines[-1].split(" ", 2)[2])))
     rows = sorted({(s, k) for _, t in runs for s in t for k in t[s]})
-    print(f"{'us':40s}" + "".join(f" {d:>13s}" for d, _ in runs))
+    print(f"{'us (e2e_tiny: ms)':40s}" + "".join(f" {d:>13s}"
+                                                 for d, _ in runs))
     for s, k in rows:
         print(f"{s + '.' + k:40s}" + "".join(
             f" {t.get(s, {}).get(k, '-'):>13}" for _, t in runs))

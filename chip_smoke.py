@@ -5,31 +5,47 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. device  - require CUDA; print the card, its power limit, torch/CUDA.
-2. build   - build (or load) the hand-written kernels from csrc/, one
-             nvcc per source, all started together.
-3. kernels - K1-K4 at batch 1 and K5-K8 and K4 at M > 1 against their
-             plain PyTorch versions on the card, in bf16 at the
-             whisper-tiny and large-v3 decoder shapes (and in f32 at tiny),
-             over bf16 / int8 / fp8 cache rows, single and per-slot mixed
-             positions (0 ... 447), planted argmax ties and suppressed
-             columns; then CUDA-event times of kernel and plain version at
-             B=1 and B=8, and of the large-v3 B=8 serving tick.
-4. e2e     - write a random-weight full-width whisper-tiny .apr with the
-             port's AprWriter, load it through WhisperApr.load_from_apr
-             (int8 weights, bf16 compute) and transcribe 30 s of noise, a
-             5 s tone and silence; check the kernel launch counts; check
-             f32 tokens through the kernels equal the plain path's; time
-             bench.py's protocol (30 s, 224 forced tokens, EOT
-             suppressed, B=1).
-5. serve   - BatchScheduler(n_slots=8) drains a dozen clips (3-30 s) in
-             two bursts: every tick launches K5-K7 L times and K8 once,
-             K1-K4 never; then, in f32 with int8 KV, the scheduler's tokens
-             through the kernels equal those through the plain versions
-             and follow per-clip transcribe (a difference only where the
-             top two logits are within 1e-4).
-6. batch   - transcribe_batch of 4 clips: K5-K7 L times and K4 once per
-             step; f32 tokens as in phase 5.
+1. device   - require CUDA; print the card, its power limit, torch/CUDA.
+2. build    - build (or load) the hand-written kernels from csrc/, one
+              nvcc per source, all started together.
+3. kernels  - K1-K4 at batch 1, K5-K8 and K4 at M > 1 (up to 40 rows: the
+              32-row chunking) and K9 against their plain PyTorch versions
+              on the card, in bf16 at the whisper-tiny and large-v3 decoder
+              shapes (and in f32 at tiny), over bf16 / int8 / fp8 cache
+              rows, single and per-slot mixed positions (0 ... 447),
+              planted argmax ties and suppressed columns; then CUDA-graph
+              times of kernel and plain version at B=1 and B=8, of the
+              large-v3 B=8 serving tick, and of the large-v3 scan step
+              (decode_step_q) beside the fused step (decode_step_qf).
+4. e2e      - write a random-weight full-width whisper-tiny .apr with the
+              port's AprWriter, load it through WhisperApr.load_from_apr
+              (int8 weights, bf16 compute) and transcribe 30 s of noise, a
+              5 s tone and silence; check the kernel launch counts; check
+              f32 tokens through the kernels equal the plain path's; time
+              bench.py's protocol (30 s, 224 forced tokens, EOT
+              suppressed, B=1).
+5. serve    - BatchScheduler(n_slots=8) drains a dozen clips (3-30 s) in
+              two bursts: every tick launches K5-K7 L times and K8 once,
+              K1-K4 never; then, in f32 with int8 KV, the scheduler's tokens
+              through the kernels equal those through the plain versions
+              and follow per-clip transcribe (a difference only where the
+              top two logits are within 1e-4). Then the same over a
+              kv_mode "scan" engine: K8 4L+1 and K9 L times per tick.
+6. batch    - transcribe_batch of 4 clips: K5-K7 L times and K4 once per
+              step; f32 tokens as in phase 5.
+7. decoders - the other decoders through the engine's entry points: greedy
+              in kv_mode "scan" (K8 4L+1 and K9 L times per token), beam
+              search (5 beams on one clip and on 8 clips: 40 rows),
+              transcribe_nbest, sampling (T=0 is greedy; T=0.8, top_k=40,
+              seed 0 twice gives the same tokens; best_of 3 with top_p),
+              timestamp tokens (K8 tail, no K4) and the temperature
+              fallback; in f32 each gives
+              the same tokens through the kernels as through the plain
+              versions (near-tie rule).
+8. large-v3 - a large-v3-shaped model built in memory (random int8
+              weights): 30 s of noise through encoder, prefill and decode
+              at full width, f32 tokens through the kernels against the
+              plain versions (near-tie rule).
 
 The last three lines of stdout are the kernel summary JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -365,6 +381,7 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
     wq = torch.randint(-127, 128, (1, D, v_pad), generator=gen, device=dev,
                        dtype=torch.int8)
     bias = torch.zeros((1, v_pad), device=dev)
+    ones = torch.ones((1, 1, v_pad), device=dev)
     layer = L - 1
     cases = {
         "self_block": (
@@ -381,6 +398,17 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
         "qmatvec_greedy_head": (
             lambda: qm.qmatvec_greedy_head(x, wq, bias, n_vocab),
             lambda: qm.qmatvec_greedy_head_plain(x, wq, bias, n_vocab)),
+        # the logits tail of beam, sampling and timestamps at one row
+        "qmatvec_stacked": (
+            lambda: qm.qmatvec_stacked(x, wq, ones, 0,
+                                       out_dtype=torch.float32),
+            lambda: qm.qmatvec_stacked_plain(x, wq, ones, 0,
+                                             out_dtype=torch.float32)),
+        "ffn_fused": (
+            lambda: qm.ffn_fused(x, blk["w1"], blk["s1"], blk["b1"],
+                                 blk["w2"], layer),
+            lambda: qm.ffn_fused_plain(x, blk["w1"], blk["s1"], blk["b1"],
+                                       blk["w2"], layer)),
     }
 
     def stack(kernels: bool):
@@ -402,7 +430,8 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
     cases["layer_stack"] = (stack(True), stack(False))
     shapes = {"self_block": dict(rows=pos, cache_bytes=2),
               "cross_block": dict(rows=enc_len, cache_bytes=1, scales=True),
-              "ffn_block": {}, "qmatvec_greedy_head": {}}
+              "ffn_block": {}, "qmatvec_greedy_head": {},
+              "qmatvec_stacked": {}, "ffn_fused": {}}
     out = {}
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: report the better of each pair
@@ -414,6 +443,7 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
             out[name]["bound_ms"], out[name]["bound_by"] = bound(
                 name, D, 1, n_vocab, **shapes[name])
             out[name]["library_ms"] = None
+    out["qmatvec_stacked"]["library_ms"] = library_int8_mm(x, wq)
     log(f"[time] {label} (pos {pos}, cross8 rows, bf16), device ms per call "
         f"(eager ms): " + ", ".join(
             f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f}) vs plain "
@@ -534,6 +564,7 @@ def bound(name: str, D: int, B: int, n_vocab: int = 0, rows: int = 0,
         "ffn_block": (8 * D * D, 12 * D, 16 * B * D * D),
         "qmatvec_greedy_head": (D * v_pad, v_pad, 2 * B * D * v_pad),
         "qmatvec_stacked": (D * v_pad, v_pad, 2 * B * D * v_pad),
+        "ffn_fused": (8 * D * D, 8 * D, 16 * B * D * D),
     }[name.replace("_batched", "")]
     row_bytes = D * cache_bytes + (4 if scales else 0)
     nbytes = w_bytes + 4 * n_f32 + 2 * rows * row_bytes \
@@ -613,6 +644,11 @@ def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
         "qmatvec_greedy_head": (
             lambda: qm.qmatvec_greedy_head(x, wq, bias, n_vocab),
             lambda: qm.qmatvec_greedy_head_plain(x, wq, bias, n_vocab)),
+        "ffn_fused": (
+            lambda: qm.ffn_fused(x, blk["w1"], blk["s1"], blk["b1"],
+                                 blk["w2"], layer),
+            lambda: qm.ffn_fused_plain(x, blk["w1"], blk["s1"], blk["b1"],
+                                       blk["w2"], layer)),
     }
 
     def tick(kernels: bool):
@@ -659,8 +695,101 @@ def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
     return out
 
 
+def check_ffn_fused(blk, D: int, L: int, cdt, label: str, seed: int,
+                    rows=(1, 2, 8, 40)) -> float:
+    """K9 against its plain version at M rows (40: two chunks), the first
+    and last layer; returns the max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = 0.0
+    for M in rows:
+        for layer in (0, L - 1):
+            x = torch.randn((M, D), generator=gen, device=dev).to(cdt)
+            args = (x, blk["w1"], blk["s1"], blk["b1"], blk["w2"], layer)
+            got, ref = qm.ffn_fused(*args), qm.ffn_fused_plain(*args)
+            assert got.dtype == cdt and got.shape == (M, D)
+            e = rel_err(got, ref)
+            assert e <= tol, (f"[{label}] ffn_fused M {M} layer {layer}: "
+                              f"rel err {e:.3g} > {tol:.3g}")
+            worst = max(worst, abs_err(got, ref))
+    torch.cuda.synchronize()
+    log(f"[kernels] {label}: K9 at M in {list(rows)} agrees with the plain "
+        f"version; max abs err {worst:.3g}")
+    return worst
+
+
+def scan_case(blk, D: int, L: int, n_vocab: int, B: int, gen, device,
+              cdt, T: int = 448, S: int = 1500):
+    """Random operands of both decode steps at B rows: a params dict with
+    the parts a step reads (token and position embeddings, final
+    LayerNorm), a qd over ``blk``, and a dense KVCache (self rows T,
+    cross rows S) in the compute dtype."""
+    import torch
+    from whisper_apr_tpu_torch.model.decoder import KVCache
+    from whisper_apr_tpu_torch.ops.quant import QTensor
+    v_pad = n_vocab + (-n_vocab) % 128
+    wq = torch.randint(-127, 128, (1, D, v_pad), generator=gen,
+                       device=device, dtype=torch.int8)
+    ks = torch.full((1, D), 1.0 / (127 * np.sqrt(D)), device=device)
+    params = {"decoder": {
+        "token_emb": QTensor(wq[0, :, :n_vocab].t().contiguous(), ks),
+        "pos_emb": torch.randn((T, D), generator=gen, device=device) * 0.1,
+        "ln_post": {"w": torch.ones(D, device=device),
+                    "b": torch.zeros(D, device=device)}}}
+    qd = {"blk": blk, "vocab_qT": wq,
+          "vocab_ones": torch.ones((1, 1, v_pad), device=device),
+          "vocab_k_scale": ks}
+    kv = KVCache(*(torch.randn((L, B, t, D), generator=gen, device=device,
+                               dtype=cdt) for t in (T, T, S, S)))
+    return params, qd, kv
+
+
+def time_scan_steps(blk, D: int, H: int, L: int, n_vocab: int, label: str,
+                    seed: int, pos: int = 128) -> dict:
+    """Device time of one decode step (CUDA-graph replay; eager in
+    brackets) through the scan step decode_step_q (K8 and K9, attention
+    in torch over the dense cache) and through the fused step
+    decode_step_qf with the logits tail (K1-K3 + K8 at B=1 over a cross8
+    cache, K5-K7 + K8 at B=8 over an int8 cache, the serving form), bf16,
+    at ``pos`` for every row."""
+    import torch
+    from whisper_apr_tpu_torch.config import ModelConfig
+    from whisper_apr_tpu_torch.model import qdecode
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = ModelConfig("timing", n_vocab, 1500, D, H, L, 448, D, H, L, 80)
+    out = {}
+    for B, mode in ((1, "cross8"), (8, "int8")):
+        params, qd, kv = scan_case(blk, D, L, n_vocab, B, gen, dev,
+                                   torch.bfloat16)
+        qkv = qdecode.quantize_cache(kv, mode)
+        tok = torch.randint(0, n_vocab, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        p = pos if B == 1 else torch.full((B,), pos, dtype=torch.int32,
+                                          device=dev)
+        steps = {
+            "scan": lambda: qdecode.decode_step_q(
+                params, qd, tok, p, kv, cfg, compute_dtype=torch.bfloat16),
+            "fused": lambda: qdecode.decode_step_qf(
+                params, qd, tok, p, qkv, cfg, compute_dtype=torch.bfloat16)}
+        for name, fn in steps.items():
+            out[f"{name}_b{B}"] = {
+                "ms": min(graph_ms(fn, reps=3, replays=5),
+                          graph_ms(fn, reps=3, replays=5)),
+                "eager_ms": cuda_ms(fn, iters=10)}
+        del params, qd, kv, qkv
+        torch.cuda.empty_cache()
+    log(f"[time] {label} decode step, device ms (eager ms), pos {pos}, bf16: "
+        + ", ".join(f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f})"
+                    for k, v in out.items()))
+    return out
+
+
 def phase_kernels():
-    """K1-K4 at batch 1 and K5-K8, K4 at M > 1 against their plain
+    """K1-K4 at batch 1, K5-K8 and K4 at M > 1 and K9 against their plain
     versions, then their times. Returns (max abs errors at tiny bf16,
     {shape label: times})."""
     import torch
@@ -670,20 +799,28 @@ def phase_kernels():
                  T_cross=1536, enc_len=1500)
     errs, blk_tiny = check_kernels(**tiny, cdt=torch.bfloat16,
                                    label="tiny bf16", seed=1)
+    # B=1: K8 with f32 out is the logits tail of beam, sampling and
+    # timestamps; B=40: two 32-row chunks per launch
     errs_b = check_batched(blk_tiny, **tiny, cdt=torch.bfloat16,
-                           label="tiny bf16", seed=11)
+                           label="tiny bf16", seed=11,
+                           batches=(1, 2, 4, 8, 40))
     errs["qmatvec_greedy_head"] = max(errs["qmatvec_greedy_head"],
                                       errs_b.pop("qmatvec_greedy_head"))
     errs.update(errs_b)
+    errs["ffn_fused"] = check_ffn_fused(blk_tiny, 384, 4, torch.bfloat16,
+                                        "tiny bf16", seed=21)
     _, blk32 = check_kernels(**tiny, cdt=torch.float32, label="tiny f32",
                              seed=2)
     check_batched(blk32, **tiny, cdt=torch.float32, label="tiny f32",
-                  seed=12)
+                  seed=12, batches=(1, 2, 4, 8, 40))
+    check_ffn_fused(blk32, 384, 4, torch.float32, "tiny f32", seed=22)
     del blk32
     _, blk_large = check_kernels(**large, cdt=torch.bfloat16,
                                  label="large-v3 bf16", seed=3)
     check_batched(blk_large, **large, cdt=torch.bfloat16,
                   label="large-v3 bf16", seed=13)
+    check_ffn_fused(blk_large, 1280, 32, torch.bfloat16, "large-v3 bf16",
+                    seed=23)
     times = {
         "tiny_b1": time_kernels(blk_tiny, **tiny, pos=128, label="tiny",
                                 seed=4),
@@ -692,7 +829,9 @@ def phase_kernels():
         "tiny_b8": time_batched(blk_tiny, **tiny, B=8, pos=128,
                                 label="tiny", seed=6),
         "large_v3_b8": time_batched(blk_large, **large, B=8, pos=128,
-                                    label="large-v3", seed=7)}
+                                    label="large-v3", seed=7),
+        "large_v3_steps": time_scan_steps(
+            blk_large, 1280, 20, 32, 51866, label="large-v3", seed=8)}
     del blk_large
     torch.cuda.empty_cache()
     return errs, times
@@ -709,8 +848,8 @@ def plain_kernels():
     from whisper_apr_tpu_torch.ops import qmatvec as qm
     names = ("self_block", "cross_block", "ffn_block", "self_block_batched",
              "cross_block_batched", "ffn_block_batched")
-    saved = [getattr(db, n) for n in names] + [qm.qmatvec_greedy_head,
-                                               qm.qmatvec_stacked]
+    saved = [getattr(db, n) for n in names] + [
+        qm.qmatvec_greedy_head, qm.qmatvec_stacked, qm.ffn_fused]
     plain = {"self_block": db.self_block_plain,
              "cross_block": db.cross_block_plain,
              "ffn_block": db.ffn_block_plain}
@@ -718,12 +857,13 @@ def plain_kernels():
         setattr(db, n, plain[n.replace("_batched", "")])
     qm.qmatvec_greedy_head = qm.qmatvec_greedy_head_plain
     qm.qmatvec_stacked = qm.qmatvec_stacked_plain
+    qm.ffn_fused = qm.ffn_fused_plain
     try:
         yield
     finally:
         for n, f in zip(names, saved):
             setattr(db, n, f)
-        qm.qmatvec_greedy_head, qm.qmatvec_stacked = saved[-2:]
+        qm.qmatvec_greedy_head, qm.qmatvec_stacked, qm.ffn_fused = saved[-3:]
 
 
 def launches():
@@ -1012,7 +1152,76 @@ def phase_serve(apr: Path, eng, device="cuda", specials=None,
         f"plain versions ({sum(map(len, kern))} tokens); against per-clip "
         f"transcribe: {sum(g is None for g in gaps)} of {len(gaps)} "
         f"identical, near-tie gaps {[g for g in gaps if g is not None]}")
+    out["scan"] = serve_scan(apr, clips, device, specials, n_slots)
     return out
+
+
+def serve_scan(apr: Path, clips: list, device="cuda", specials=None,
+               n_slots: int = 8) -> dict:
+    """BatchScheduler over a kv_mode "scan" engine (dense slots, the scan
+    step): the same clips in two bursts, every tick K8 4L+1 and K9 L
+    times; then in f32 the tokens through the kernels equal the plain
+    versions' and follow per-clip scan transcribe (near-tie rule)."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+    from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
+
+    def engine(dtype):
+        return WhisperApr.load_from_apr(
+            str(apr), ComputeConfig(quantization="int8", compute_dtype=dtype,
+                                    kv_mode="scan"),
+            specials=specials, device=device)
+    eng = engine("bfloat16")
+    L = eng.config.n_text_layer
+    sched = BatchScheduler(eng, n_slots=n_slots)
+    assert sched._qf is None
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    ids = [sched.submit(c, "en") for c in clips[:8]]
+    for _ in range(16):
+        sched.step()
+    ids += [sched.submit(c, "en") for c in clips[8:]]
+    sched.run_until_drained()
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    counts = launches()
+    st = sched.stats()
+    n_ticks = st["ticks"]
+    want = want_counts(qmatvec_stacked=(4 * L + 1) * n_ticks,
+                       ffn_fused=L * n_ticks)
+    assert all(sched.result(i).status == "ok" for i in ids)
+    log(f"[serve] scan engine: {len(clips)} clips in {n_ticks} ticks, "
+        f"{wall_s:.3f} s wall ({1e3 * wall_s / n_ticks:.4f} ms per tick, "
+        f"admission included); launches {counts}")
+    assert counts == want or torch.device(device).type == "cpu", \
+        f"[serve] scan launches {counts}, want {want}"
+
+    eng32 = engine("float32")
+    short, max_tokens = clips[:4], 48
+
+    def serve_tokens():
+        s = BatchScheduler(eng32, n_slots=n_slots)
+        rid = [s.submit(c, "en", max_tokens=max_tokens) for c in short]
+        s.run_until_drained()
+        return [s.result(i).tokens for i in rid]
+
+    kern = serve_tokens()
+    with plain_kernels():
+        plain = serve_tokens()
+    gaps = [check_follows(eng32, c, k, p, "serve scan")
+            for c, k, p in zip(short, kern, plain)]
+    P = len(eng32.get_initial_tokens("en"))
+    opts = TranscribeOptions(language="en", max_tokens=P + max_tokens)
+    gaps += [check_follows(eng32, c, k, eng32.transcribe(c, opts).tokens,
+                           "serve scan") for c, k in zip(short, kern)]
+    log(f"[serve] scan f32: scheduler tokens through the kernels against "
+        f"the plain versions and per-clip scan transcribe: "
+        f"{sum(g is None for g in gaps)} of {len(gaps)} identical, near-tie "
+        f"gaps {[g for g in gaps if g is not None]}")
+    return {"ticks": n_ticks, "launches": counts, "wall_s": wall_s,
+            "f32_gaps": gaps}
 
 
 def serve_device_ms(eng, clips: list, n_slots: int, n: int = 20) -> float:
@@ -1078,6 +1287,218 @@ def phase_batch(eng, eng32, device="cuda") -> dict:
     assert counts == want, f"[batch] launches {counts}, want {want}"
     return {"launches": counts, "want_launches": want, "steps": steps,
             "seconds": dt, "f32_gaps": gaps}
+
+
+def check_same(eng, audio, got: list, want: list, what: str):
+    """Kernels against plain versions: identical token lists, or a first
+    difference where the top two logits are within NEAR_TIE."""
+    if got == want:
+        return None
+    return check_follows(eng, audio, got, want, what)
+
+
+def phase_decoders(apr: Path, device="cuda", specials=None,
+                   max_tokens: int = 64) -> dict:
+    """The logits-tail decoders and the scan step through the engine's
+    entry points at full width (whisper-tiny), each path's launches
+    counted from 0 just before it: greedy in kv_mode "scan", beam search
+    (one clip, and 8 clips x 5 beams = 40 rows), n-best, sampling,
+    timestamp tokens, the temperature fallback; then in f32 every path
+    through the kernels against the plain versions, beam_size=1 and
+    sampling at T=0 against greedy (near-tie rule). Returns the launch
+    counts and the times. On the CPU (a rehearsal through the plain
+    versions) nothing launches and the counts are not held."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+
+    def engine(dtype, kv_mode="auto"):
+        return WhisperApr.load_from_apr(
+            str(apr), ComputeConfig(quantization="int8", compute_dtype=dtype,
+                                    kv_mode=kv_mode),
+            specials=specials, device=device)
+    eng, scan = engine("bfloat16"), engine("bfloat16", "scan")
+    check_counts = torch.device(device).type == "cuda"
+    cfg = eng.config
+    L = cfg.n_text_layer
+    sp = eng.specials
+    P = len(eng.get_initial_tokens("en"))
+    clips = make_clips((30, 5, 12, 8, 20, 4, 25, 10), seed=3)
+    base = dict(language="en", max_tokens=P + max_tokens)
+    out = {"paths": {}}
+
+    def path(name, fn, want=None):
+        """Run ``fn`` from zeroed counts; hold them to ``want(result)``."""
+        reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = launches()
+        out["paths"][name] = {"seconds": dt, "launches": counts}
+        log(f"[decoders] {name}: {dt * 1e3:.1f} ms, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if want is not None and check_counts:
+            w = want(res, counts)
+            assert counts == w, f"[decoders] {name}: launches {counts}, " \
+                f"want {w}"
+        return res
+
+    def steps(r, prompt_len=P):
+        return len(r.tokens) - prompt_len - 1
+
+    def tail(prompt_len=P):  # K1-K3 per layer and K8 per step, B = 1
+        def want(r, _):
+            n = steps(r, prompt_len)
+            return want_counts(self_block=L * n, cross_block=L * n,
+                               ffn_block=L * n, qmatvec_stacked=n)
+        return want
+
+    def batched(r, c):       # K5-K7 L times per K8 launch, nothing else
+        k8 = c["qmatvec_stacked"]
+        assert k8 > 0, c
+        return want_counts(self_block_batched=L * k8,
+                           cross_block_batched=L * k8,
+                           ffn_block_batched=L * k8, qmatvec_stacked=k8)
+
+    opts = TranscribeOptions(**base)
+    path("scan greedy", lambda: scan.transcribe(
+        clips[0], TranscribeOptions(language="en")),
+        lambda r, _: want_counts(qmatvec_stacked=(4 * L + 1) * steps(r),
+                                 ffn_fused=L * steps(r)))
+    beam = TranscribeOptions(**base, strategy="beam", beam_size=5)
+    path("beam 5, 1 clip", lambda: eng.transcribe(clips[1], beam), batched)
+    res8 = path("beam 5, 8 clips (40 rows)",
+                lambda: eng.transcribe_batch(clips, beam), batched)
+    # two 32-row chunks a step
+    assert out["paths"]["beam 5, 8 clips (40 rows)"]["launches"][
+        "qmatvec_stacked"] % 2 == 0
+    assert len(res8.results) == 8
+    nbest = path("nbest 5", lambda: eng.transcribe_nbest(clips[2], beam),
+                 batched)
+    assert len(nbest) == 5
+    samp = TranscribeOptions(**base, temperature=0.8, top_k=40, seed=0)
+    s1 = path("sampling T=0.8 top_k 40", lambda: eng.transcribe(clips[3],
+                                                                samp), tail())
+    s2 = eng.transcribe(clips[3], samp)
+    assert s1.tokens == s2.tokens, "[decoders] same seed, other tokens"
+    best_of = TranscribeOptions(**base, temperature=0.8, top_p=0.95,
+                                best_of=3, seed=1)
+    path("sampling best_of 3, top_p 0.95",
+         lambda: eng.transcribe(clips[3], best_of), batched)
+    P_ts = len(eng.get_initial_tokens("en", timestamps=True))
+    ts = path("timestamps", lambda: eng.transcribe(
+        clips[4], TranscribeOptions(**base, timestamps=True)), tail(P_ts))
+    gen = ts.tokens[P_ts:]
+    stamps = [t for t in gen if sp.timestamp_base <= t < cfg.n_vocab]
+    assert sp.timestamp_base <= gen[0] <= sp.timestamp_base + 50, gen[:4]
+    assert stamps == sorted(stamps), stamps
+    fb = path("fallback", lambda: eng.transcribe_with_fallback(clips[5],
+                                                               opts))
+    log(f"[decoders] timestamps: first {gen[0] - sp.timestamp_base} steps "
+        f"after base, {len(stamps)} timestamps, non-decreasing; fallback "
+        f"ends at T={fb.temperature}; same seed, same {len(s1.tokens)} "
+        f"tokens")
+
+    # f32: through the kernels against the plain versions, same card
+    e32, s32 = engine("float32"), engine("float32", "scan")
+    checks = {
+        "scan greedy": lambda: s32.transcribe(clips[0], opts).tokens,
+        "beam 5": lambda: e32.transcribe(clips[1], beam).tokens,
+        "beam 5, 8 clips": lambda: [
+            r.tokens for r in e32.transcribe_batch(clips, beam).results],
+        "nbest 5": lambda: [r.tokens for r in
+                            e32.transcribe_nbest(clips[2], beam)],
+        "sampling": lambda: e32.transcribe(clips[3], samp).tokens,
+        "sampling best_of 3": lambda: e32.transcribe(clips[3],
+                                                     best_of).tokens,
+        "fallback": lambda: e32.transcribe_with_fallback(clips[5],
+                                                         opts).tokens,
+        "timestamps": lambda: e32.transcribe(
+            clips[4], TranscribeOptions(**base, timestamps=True)).tokens,
+        "scan beam 5": lambda: s32.transcribe(clips[1], beam).tokens}
+    gaps = {}
+    for name, fn in checks.items():
+        kern = fn()
+        with plain_kernels():
+            plain = fn()
+        if isinstance(kern[0], list):
+            audios = clips if len(kern) == len(clips) else [clips[2]] * 5
+            g = [check_same(e32, a, k, p, name)
+                 for a, k, p in zip(audios, kern, plain)]
+        else:
+            audio = clips[{"scan greedy": 0, "beam 5": 1, "sampling": 3,
+                           "sampling best_of 3": 3, "fallback": 5,
+                           "timestamps": 4, "scan beam 5": 1}[name]]
+            g = [check_same(e32, audio, kern, plain, name)]
+        gaps[name] = [x for x in g if x is not None]
+    greedy = e32.transcribe(clips[1], opts).tokens
+    gaps["beam_size=1 vs greedy"] = [check_follows(
+        e32, clips[1], e32.transcribe(clips[1], TranscribeOptions(
+            **base, strategy="beam", beam_size=1)).tokens, greedy,
+        "decoders")]
+    gaps["sampling T=0 vs greedy"] = [check_follows(
+        e32, clips[1], e32.transcribe(clips[1], TranscribeOptions(
+            **base, strategy="sampling", temperature=0.0)).tokens, greedy,
+        "decoders")]
+    log(f"[decoders] f32: kernels == plain versions on every path, "
+        f"beam_size=1 and sampling at T=0 == greedy; near-tie gaps "
+        f"{ {k: v for k, v in gaps.items() if any(x is not None for x in v)} }")
+    out["f32_gaps"] = gaps
+    return out
+
+
+def phase_large_v3(device="cuda", max_tokens: int = 24) -> dict:
+    """A large-v3-shaped model built in memory (init_params seed 0 +
+    int8 quantize_params, no .apr): 30 s of noise through the mel, the
+    encoder, the prefill and ``max_tokens`` decode steps at full width,
+    f32 compute, cross8 cache; tokens through the kernels against the
+    plain versions (near-tie rule), launch counts, times."""
+    from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
+                                       TranscribeOptions, WhisperApr)
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    quantize_params)
+    cfg = ModelConfig.large_v3()
+    t0 = time.perf_counter()
+    params = quantize_params(init_params(cfg, seed=0), "int8")
+    eng = WhisperApr(cfg, params, compute=ComputeConfig(
+        quantization="int8", compute_dtype="float32"), device=device)
+    del params
+    build_s = time.perf_counter() - t0
+    audio = np.random.default_rng(7).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    opts = TranscribeOptions(language="en", max_tokens=max_tokens)
+    P = len(eng.get_initial_tokens("en"))
+    eng.transcribe(audio, opts)                         # warm-up
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    kern = eng.transcribe(audio, opts)
+    sync(device)
+    dt = time.perf_counter() - t0
+    counts = launches()
+    n = len(kern.tokens) - P - 1
+    L = cfg.n_text_layer
+    want = want_counts(self_block=L * n, cross_block=L * n, ffn_block=L * n,
+                       qmatvec_greedy_head=n)
+    assert counts == want, f"[large-v3] launches {counts}, want {want}"
+    with plain_kernels():
+        t1 = time.perf_counter()
+        plain = eng.transcribe(audio, opts)
+        sync(device)
+        dt_plain = time.perf_counter() - t1
+    gap = check_same(eng, audio, kern.tokens, plain.tokens, "large-v3")
+    log(f"[large-v3] built in {build_s:.1f} s; 30 s noise, {len(kern.tokens)}"
+        f" tokens ({n} decode steps), f32: {dt * 1e3:.1f} ms through the "
+        f"kernels, {dt_plain * 1e3:.1f} ms through the plain versions; "
+        f"tokens {'identical' if gap is None else f'near tie {gap:.3g}'}; "
+        f"launches {counts}")
+    out = {"build_s": build_s, "seconds": dt, "plain_seconds": dt_plain,
+           "decode_steps": n, "tokens": len(kern.tokens), "launches": counts,
+           "near_tie_gap": gap}
+    del eng
+    return out
 
 
 def device_busy(eng, audio: np.ndarray, wall_s: float) -> dict:
@@ -1173,6 +1594,8 @@ KERNELS = [
      "whisper_apr_tpu/ops/decode_blocks.py:1099", "tiny_b8"),
     ("qmatvec_stacked", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
      "whisper_apr_tpu/ops/qmatvec.py:86", "tiny_b8"),
+    ("ffn_fused", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
+     "whisper_apr_tpu/ops/qmatvec.py:279", "tiny_b1"),
 ]
 
 
@@ -1197,13 +1620,17 @@ def main() -> int:
                                     e2e["clips"]["noise_30s"],
                                     rtf["seconds"])
         serve = phase_serve(e2e["apr"], e2e["engine"])
-    assert serve["launches"] == serve["want_launches"], (
-        f"[serve] launches over {serve['ticks']} ticks {serve['launches']}, "
-        f"want {serve['want_launches']}")
-    batch = phase_batch(e2e["engine"], e2e["engine_f32"])
+        assert serve["launches"] == serve["want_launches"], (
+            f"[serve] launches over {serve['ticks']} ticks "
+            f"{serve['launches']}, want {serve['want_launches']}")
+        batch = phase_batch(e2e["engine"], e2e["engine_f32"])
+        decoders = phase_decoders(e2e["apr"])
+    large = phase_large_v3()
     # each path's counts, taken from 0 just before it ran
-    total = {k: e2e["total"][k] + serve["launches"][k] + batch["launches"][k]
-             for k in e2e["total"]}
+    runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
+            batch["launches"], large["launches"],
+            *(p["launches"] for p in decoders["paths"].values())]
+    total = {k: sum(r[k] for r in runs) for k in e2e["total"]}
     assert all(total[name] > 0 for name, *_ in KERNELS), total
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = {"kernels": [
@@ -1219,7 +1646,8 @@ def main() -> int:
                   "serve": {k: v for k, v in serve.items()
                             if k != "want_launches"},
                   "batch": {k: v for k, v in batch.items()
-                            if k != "want_launches"}}
+                            if k != "want_launches"},
+                  "decoders": decoders, "large_v3": large}
         detail_path.parent.mkdir(parents=True, exist_ok=True)
         detail_path.write_text(json.dumps(detail, indent=1))
     log(json.dumps(summary))

@@ -39,6 +39,17 @@ from whisper_apr_tpu_torch.ops.quant import QTensor
 from whisper_apr_tpu_torch.tokenizer import BpeTokenizer as TBpe
 from whisper_apr_tpu_torch.tokenizer import Vocabulary as TVocab
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "whisper_apr_tpu_torch"
 

@@ -24,6 +24,17 @@ from whisper_apr_tpu_torch.ops import decode_blocks as tdb
 from whisper_apr_tpu_torch.ops import qmatvec as tqm
 from whisper_apr_tpu_torch.ops.decode_attention import quantize_row
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 SELF_T, CROSS_T = 256, 512          # padded cache lengths (qdecode pads)
 ROW_MODES = ("f32", "bf16", "int8", "fp8")
@@ -256,11 +267,13 @@ class TestDispatch:
         tdb.ffn_block(x, tq["blk"], 0)
         tdb.ffn_block_batched(x.repeat(3, 1), tq["blk"], 0)
         tqm.qmatvec_stacked(x, tq["vocab_qT"], tq["vocab_ones"], 0)
+        blk = tq["blk"]
+        tqm.ffn_fused(x, blk["w1"], blk["s1"], blk["b1"], blk["w2"], 0)
         assert tdb.LAUNCHES == dict.fromkeys(
             ["self_block", "cross_block", "ffn_block", "self_block_batched",
              "cross_block_batched", "ffn_block_batched"], 0)
         assert tqm.LAUNCHES == {"qmatvec_greedy_head": 0,
-                                "qmatvec_stacked": 0}
+                                "qmatvec_stacked": 0, "ffn_fused": 0}
 
     @pytest.mark.parametrize("bad", ["layer", "batch", "shape", "dtype",
                                      "scales"])

@@ -37,6 +37,17 @@ from whisper_apr_tpu_torch.model.params import \
 from whisper_apr_tpu_torch.tokenizer import SpecialTokens as TSpecials
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cfg():
     return ModelConfig(
@@ -124,7 +135,7 @@ class TestFrontEnd:
         fb = JMel.create(80)
         a = j_log_mel(jnp.asarray(audio), fb._window, fb._basis,
                       fb._filters_t, N_FFT, HOP_LENGTH)
-        b = t_log_mel(torch.from_numpy(audio), *TMel.create(80).constants(),
+        b = t_log_mel(torch.from_numpy(audio), *TMel.create(80).constants("cpu"),
                       N_FFT, HOP_LENGTH)
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=2e-5,
                                    rtol=0)
@@ -377,11 +388,8 @@ class TestWholeSlice:
         assert float(res.sum_logprob[0]) == pytest.approx(0.0, abs=1e-6)
 
     @pytest.mark.parametrize("opts,slice_", [
-        (dict(strategy="beam"), "slice 3"),
-        (dict(temperature=0.4), "slice 3"),
-        (dict(timestamps=True), "slice 3"),
-        (dict(hotwords=["a"]), "slice 3"),
-        (dict(speculative=True), "slice 3"),
+        (dict(hotwords=["a"]), "slice 3b"),
+        (dict(speculative=True), "slice 3b"),
         (dict(word_timestamps=True), "slice 6"),
     ])
     def test_later_slices_raise(self, cfg, params, opts, slice_):

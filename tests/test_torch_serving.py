@@ -31,6 +31,17 @@ COUNTS = ("completed_ok", "cancelled", "timeout", "tokens_generated",
           "admitted", "ticks", "completed_total")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cfg():
     return ModelConfig(
@@ -215,14 +226,68 @@ class TestSchedulerControl:
         with pytest.raises(NotImplementedError, match=slice_):
             BatchScheduler(teng, n_slots=2, **kw)
 
-    @pytest.mark.parametrize("how", ["f32 weights", "scan"])
-    def test_engine_without_the_fused_step_raises(self, cfg, params, how):
-        jp, tp = params
-        if how == "scan":
-            _, teng = _engines(cfg, params, "scan")
-        else:
-            f32 = from_jax_params(init_params(cfg, seed=3))
-            teng = WhisperApr(cfg, f32, specials=_specials(cfg, TSpecials),
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            BatchScheduler(teng, n_slots=2)
+
+class TestDenseSlots:
+    """Engines without a fused-step cache mode serve dense ``KVCache``
+    slots, as the JAX scheduler does: kv_mode "scan" ticks through the
+    scan step (K8 and K9), f32 weights through the plain
+    ``decode_step_multi``."""
+
+    def test_scan_engine_matches_jax(self, cfg, params):
+        jeng, teng = _engines(cfg, params, "scan")
+        audios = _audios(3, seed=12)
+        js, ts = JScheduler(jeng, n_slots=2), BatchScheduler(teng, n_slots=2)
+        assert ts._qf is None and js._qf is None
+        assert ts._cache.self_k.dtype == torch.float32
+        want = _run_jax(js, audios)
+        got = _drain(ts, audios)
+        assert [g.tokens for g in got] == [w.tokens for w in want]
+        jst, tst = js.stats(), ts.stats()
+        assert {k: tst[k] for k in COUNTS} == {k: jst[k] for k in COUNTS}
+
+    def test_f32_engine_matches_jax(self, cfg, params):
+        jp = init_params(cfg, seed=3)
+        jeng = JWhisperApr(cfg, jp, specials=_specials(cfg, SpecialTokens))
+        teng = WhisperApr(cfg, from_jax_params(jp),
+                          specials=_specials(cfg, TSpecials), device="cpu")
+        assert teng._qdecode is None
+        audios = _audios(3, seed=13)
+        js, ts = JScheduler(jeng, n_slots=2), BatchScheduler(teng, n_slots=2)
+        want = _drain(js, audios)
+        got = _drain(ts, audios)
+        assert [g.tokens for g in got] == [w.tokens for w in want]
+
+    @pytest.mark.parametrize("staged", [False, True])
+    def test_scan_slots_follow_transcribe(self, cfg, params, staged):
+        """Each completion over the scan engine starts with the tokens
+        scan ``transcribe`` gives for its clip alone, with batched or
+        staged admission."""
+        _, teng = _engines(cfg, params, "scan")
+        audios = _audios(3, seed=14)
+        opts = TranscribeOptions(language="en", max_tokens=8)
+        expected = [teng.transcribe(a, opts).tokens for a in audios]
+        got = _drain(BatchScheduler(teng, n_slots=2,
+                                    batched_admission=not staged), audios)
+        for g, e in zip(got, expected):
+            assert g.tokens[: len(e)] == e
+
+    def test_scan_ticks_run_k8_and_k9(self, cfg, params, monkeypatch):
+        """Every scan tick is one decode_step_q at B = n_slots: K8 4L + 1
+        times and K9 L times, no per-block kernel."""
+        from whisper_apr_tpu_torch.ops import qmatvec as tqm
+        _, teng = _engines(cfg, params, "scan")
+        calls = {"qmatvec_stacked": 0, "ffn_fused": 0, "self_block_batched": 0}
+        mods = {"qmatvec_stacked": tqm, "ffn_fused": tqm,
+                "self_block_batched": tdb}
+        for name, mod in mods.items():
+            real = getattr(mod, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                calls[_name] += 1
+                return _real(*a, **kw)
+            monkeypatch.setattr(mod, name, spy)
+        sched = BatchScheduler(teng, n_slots=2)
+        _drain(sched, _audios(3, seed=15), max_tokens=4)
+        L, n = cfg.n_text_layer, sched.stats()["ticks"]
+        assert calls == {"qmatvec_stacked": (4 * L + 1) * n,
+                         "ffn_fused": L * n, "self_block_batched": 0}

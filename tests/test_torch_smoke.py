@@ -1,8 +1,9 @@
 """chip_smoke.py, the port's GPU check, exercised without a GPU: it must
 refuse to run (non-zero exit, no result line) where there is no CUDA
-device or no repository beside it; its end-to-end phase must run on the
-CPU at a small width through the plain versions; and the kernel check's
-inputs must be what the kernels take, with the planted head tie a tie."""
+device or no repository beside it; its end-to-end, serve, batch and
+decoders phases must run on the CPU at a small width through the plain
+versions; and the kernel check's and the step timing's inputs must be
+what the kernels and steps take, with the planted head tie a tie."""
 
 import importlib.util
 import os
@@ -13,6 +14,17 @@ from pathlib import Path
 
 import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -71,7 +83,7 @@ def test_end_to_end_phase_on_cpu(smoke, e2e_small):
     assert set(out["total"]) == {
         "self_block", "cross_block", "ffn_block", "qmatvec_greedy_head",
         "self_block_batched", "cross_block_batched", "ffn_block_batched",
-        "qmatvec_stacked"}
+        "qmatvec_stacked", "ffn_fused"}
     assert not any(out["total"].values())
     steps = requests[0]["decode_steps"]
     assert requests[0]["want_launches"]["self_block"] == \
@@ -91,7 +103,8 @@ def test_serve_phase_on_cpu(smoke, e2e_small):
     """The serve phase through BatchScheduler at a small width: a dozen
     clips drain with status "ok", the f32 kernels-vs-plain and
     per-clip-transcribe checks run, and the launch counts it holds the
-    card to are L per tick for K5-K7, one for K8 (none on the CPU)."""
+    card to are L per tick for K5-K7, one for K8 (none on the CPU); then
+    the same clips over a kv_mode "scan" engine."""
     out, sp = e2e_small
     serve = smoke.phase_serve(out["apr"], out["engine"], device="cpu",
                               specials=sp)
@@ -104,6 +117,11 @@ def test_serve_phase_on_cpu(smoke, e2e_small):
     assert want["qmatvec_stacked"] == serve["ticks"]
     assert want["self_block"] == want["qmatvec_greedy_head"] == 0
     assert not any(serve["launches"].values())
+    # the kv_mode "scan" scheduler: dense slots, f32 checks without a
+    # difference
+    scan = serve["scan"]
+    assert scan["ticks"] > 0 and all(g is None for g in scan["f32_gaps"])
+    assert not any(scan["launches"].values())
 
 
 def test_batch_phase_on_cpu(smoke, e2e_small):
@@ -146,3 +164,61 @@ def test_kernel_check_phase_on_cpu(smoke, cdt):
     bias[0, [first, second]] = 0.0
     tok = int(qm.qmatvec_greedy_head_plain(x, wq, bias, n_vocab)[0])
     assert tok < n_vocab - 100 or n_vocab - 50 <= tok < n_vocab
+
+
+def _ts_specials():
+    """Special ids of the small vocabulary with timestamps from 510 up
+    (above EOT, as in Whisper)."""
+    from whisper_apr_tpu_torch.tokenizer import SpecialTokens
+    return SpecialTokens(eot=500, sot=501, lang_base=390, transcribe=502,
+                         no_timestamps=503, timestamp_base=510,
+                         is_multilingual=False, translate=504,
+                         no_speech=505, speaker_turn=506, prev=507)
+
+
+def test_decoders_phase_on_cpu(smoke, e2e_small):
+    """The decoders phase at a small width through the plain versions:
+    every path runs (scan greedy, beam on 1 and 8 clips, n-best,
+    sampling twice with one seed, timestamps, the fallback), nothing
+    launches, and its f32 kernels-vs-plain checks find no difference."""
+    out, _ = e2e_small
+    dec = smoke.phase_decoders(out["apr"], device="cpu",
+                               specials=_ts_specials(), max_tokens=10)
+    assert set(dec["paths"]) == {
+        "scan greedy", "beam 5, 1 clip", "beam 5, 8 clips (40 rows)",
+        "nbest 5", "sampling T=0.8 top_k 40",
+        "sampling best_of 3, top_p 0.95", "timestamps", "fallback"}
+    assert not any(any(p["launches"].values())
+                   for p in dec["paths"].values())
+    assert all(g in ([], [None]) for g in dec["f32_gaps"].values())
+
+
+def test_scan_step_timing_operands_on_cpu(smoke):
+    """The operands the scan-step timing builds drive both decode steps
+    (scan and fused) at B = 1 and B = 8."""
+    from whisper_apr_tpu_torch import ModelConfig
+    from whisper_apr_tpu_torch.model import qdecode
+    gen = torch.Generator().manual_seed(0)
+    blk = smoke.make_blk(128, 2, gen, "cpu")
+    cfg = ModelConfig("timing", 700, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
+    for B, mode in ((1, "cross8"), (8, "int8")):
+        params, qd, kv = smoke.scan_case(blk, 128, 2, 700, B, gen, "cpu",
+                                         torch.float32, T=40, S=32)
+        tok = torch.randint(0, 700, (B,), generator=gen, dtype=torch.int32)
+        pos = 5 if B == 1 else torch.full((B,), 5, dtype=torch.int32)
+        a, _ = qdecode.decode_step_q(params, qd, tok, pos, kv, cfg,
+                                     compute_dtype=torch.float32)
+        b, _ = qdecode.decode_step_qf(params, qd, tok, pos,
+                                      qdecode.quantize_cache(kv, mode), cfg,
+                                      compute_dtype=torch.float32)
+        assert a.shape == b.shape == (B, 700)
+        assert bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+
+
+def test_ffn_fused_bound(smoke):
+    """K9's bound: its int8 weights (2·D·4D bytes) and s1/b1 over the
+    memory rate, about 0.36 us at tiny and 3.9 us at large-v3."""
+    tiny, _ = smoke.bound("ffn_fused", 384, 1)
+    large, by = smoke.bound("ffn_fused", 1280, 1)
+    assert by == "bytes"
+    assert 0.35e-3 < tiny < 0.37e-3 and 3.9e-3 < large < 4.0e-3

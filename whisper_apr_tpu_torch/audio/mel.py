@@ -158,9 +158,10 @@ class MelFilterbank:
         n_fft = 2 * (data.n_freqs - 1)
         return MelFilterbank(data.data, n_fft, sample_rate)
 
-    def constants(self, device="cpu") -> Tuple[torch.Tensor, ...]:
+    def constants(self, device="cuda") -> Tuple[torch.Tensor, ...]:
         """(window [n_fft], basis [n_fft, 2*n_freqs], filters_t
-        [n_freqs, n_mels]) as f32 tensors on ``device``."""
+        [n_freqs, n_mels]) as f32 tensors on ``device`` (the card by
+        default, as the engine)."""
         key = str(torch.device(device))
         if key not in self._consts:
             self._consts[key] = tuple(
@@ -170,7 +171,7 @@ class MelFilterbank:
         return self._consts[key]
 
     def compute_device(self, audio, hop_length: int = HOP_LENGTH,
-                       device="cpu") -> torch.Tensor:
+                       device="cuda") -> torch.Tensor:
         """Log-mel of raw audio on ``device``: ``[n_frames, n_mels]``."""
         if hop_length <= 0:
             raise AudioError("hop_length must be positive")
@@ -184,7 +185,7 @@ class MelFilterbank:
     def compute_30s_device(self, audio: np.ndarray,
                            hop_length: int = HOP_LENGTH,
                            n_frames: int = N_FRAMES,
-                           device="cpu") -> torch.Tensor:
+                           device="cuda") -> torch.Tensor:
         """Whisper's fixed window -> exactly ``[n_frames, n_mels]`` on
         ``device``: audio padded/truncated to ``n_frames * hop`` samples,
         mel frames padded with the silence value -1.0."""
@@ -204,4 +205,5 @@ class MelFilterbank:
     def compute_30s(self, audio: np.ndarray, hop_length: int = HOP_LENGTH,
                     n_frames: int = N_FRAMES) -> np.ndarray:
         """Host (numpy) variant of :meth:`compute_30s_device`."""
-        return self.compute_30s_device(audio, hop_length, n_frames).numpy()
+        return self.compute_30s_device(audio, hop_length, n_frames,
+                                       device="cpu").numpy()

@@ -225,7 +225,7 @@ class ComputeConfig:
     # "fp8"     = float8_e4m3fn KV rows, no scales (self and cross),
     # "cross8"  = int8 rows for the cross cache only, compute-dtype self,
     # "crossf8" = fp8 rows for the cross cache only, compute-dtype self,
-    # "scan"    = per-kernel scan step (decode_step_q; not in the port yet)
+    # "scan"    = per-kernel scan step (decode_step_q: K8 and K9)
     kv_mode: str = "auto"
 
     # decode in larger position buckets to bound recompilation

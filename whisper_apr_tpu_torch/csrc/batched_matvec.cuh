@@ -1,5 +1,6 @@
 // The int8 weight matvec for a batch of activation rows, the building
-// block of the batched decode kernels (K5-K7), K8 and the fused head K4.
+// block of the batched decode kernels (K5-K7), K8, K9 and the fused head
+// K4.
 //
 // out[b, n] = sum_k h[b, k] * w[k, n] for the rows b of a block's row
 // tile and its MV_COLS columns, h = [LN](x) [rounded to bf16], f32
@@ -165,7 +166,8 @@ __device__ __forceinline__ void bmv_block(
 }
 
 enum BmvEpi {
-    BEPI_AFFINE = 0, BEPI_GELU = 1, BEPI_RESID = 2, BEPI_SCALE = 3
+    BEPI_AFFINE = 0, BEPI_GELU = 1, BEPI_RESID = 2, BEPI_SCALE = 3,
+    BEPI_RAW = 4
 };
 
 // out[b, n] = epilogue(sum_k h[b, k] * w[k, n]) for x [B, K], w [K, N]:
@@ -173,6 +175,7 @@ enum BmvEpi {
 //   BEPI_GELU:   gelu(acc * scale + bias) [bf16-rounded] (OT = float)
 //   BEPI_RESID:  acc * scale + bias + resid[b, n]    (OT = resid's type)
 //   BEPI_SCALE:  acc * scale                         (K8)
+//   BEPI_RAW:    acc, rounded to OT                  (K9's fc2)
 // Grid (N / MV_COLS, ceil(B / ROWS)).
 template <typename IT, typename OT, int EPI, int ROWS>
 __global__ void __launch_bounds__(MV_THREADS) bmv_kernel(
@@ -189,6 +192,10 @@ __global__ void __launch_bounds__(MV_THREADS) bmv_kernel(
         const int r = i / MV_COLS, c = i % MV_COLS;
         const int n = blockIdx.x * MV_COLS + c;
         const size_t o = (size_t)(r0 + r) * N + n;
+        if constexpr (EPI == BEPI_RAW) {
+            out[o] = from_f32<OT>(s.out[r][c]);
+            continue;
+        }
         const float y = s.out[r][c] * scale[n];
         if constexpr (EPI == BEPI_SCALE) {
             out[o] = from_f32<OT>(y);

@@ -1,25 +1,29 @@
 """The WhisperApr engine: load, transcribe, detect language.
 
-Port of ``whisper_apr_tpu/engine.py``, greedy surface over a batch of
-clips:
+Port of ``whisper_apr_tpu/engine.py``: transcription of a batch of
+clips by greedy search (with or without timestamp tokens), sampling
+(temperature, best-of, top-k, top-p) or beam search, the temperature
+fallback and n-best lists:
 
     audio (host) -> log-mel (torch) -> encoder (torch)
-                 -> greedy decode (per-block CUDA kernels, Python loop:
-                    K1-K4 for one clip, K5-K7 and K4 for several)
+                 -> decode (Python loop over the per-token step)
                  -> BPE decode (host)
 
-The engine lives on one ``device`` ("cuda" by default; "cpu" runs the
-kernels' plain PyTorch versions). Continuous-batching serving over an
-engine is ``parallel/serving.BatchScheduler``. Beam search, sampling,
-hotwords, speculative decoding and timestamps are the port's slice 3;
-word timestamps need the traced decoder of slice 6.
+The decode step follows ``ComputeConfig.kv_mode`` and the weights: int8
+weights with a cache mode run the per-block CUDA kernels (K1-K3 for one
+row, K5-K7 for several) with the fused greedy head K4 or the logits tail
+K8; kv_mode "scan" runs ``decode_step_q`` (K8 and K9); f32 weights the
+plain step. The engine lives on one ``device`` ("cuda" by default; "cpu"
+runs the kernels' plain PyTorch versions). Continuous-batching serving
+over an engine is ``parallel/serving.BatchScheduler``. Hotwords,
+speculative decoding and audio longer than one window are the port's
+slice 3b; word timestamps need the traced decoder of slice 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-import zlib
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -32,7 +36,10 @@ from .config import ComputeConfig, ModelConfig, SAMPLE_RATE
 from .detection import LanguageProbs
 from .errors import ModelError
 from .format import AprReader
+from .inference.beam import beam_generate
 from .inference.processors import WhisperTokenSuppressor
+from .inference.sampling import (DEFAULT_TEMPERATURES, compression_ratio,
+                                 is_silence, needs_fallback, sample_generate)
 from .model.decoder import init_cache, prefill
 from .model.encoder import encode as encode_fn
 from .model.params import Params, load_params_from_apr, to_device
@@ -41,15 +48,6 @@ from .tokenizer import BpeTokenizer, SpecialTokens, Vocabulary
 from .tokenizer import special_tokens as st
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def compression_ratio(text: str) -> float:
-    """zlib compression ratio of the text (copied from the JAX package's
-    ``inference/sampling.py``): repetitive hallucinations compress well."""
-    data = text.encode("utf-8")
-    if not data:
-        return 0.0
-    return len(data) / max(len(zlib.compress(data)), 1)
 
 
 @dataclasses.dataclass
@@ -227,13 +225,14 @@ class WhisperApr:
     @property
     def _qf_mode(self) -> Optional[str]:
         """Cache mode of the fused decode step (ComputeConfig.kv_mode):
-        "auto" resolves to "cross8" at B=1 as in the JAX package."""
+        "auto" resolves to "cross8" as in the JAX package; "scan" (and
+        weights without the int8 step) to None: the scan step
+        ``decode_step_q``, or the plain step for f32 weights."""
         if self._qdecode is None:
             return None
         mode = self.compute.kv_mode
         if mode == "scan":
-            raise NotImplementedError(
-                "kv_mode 'scan' (decode_step_q): the port's slice 3")
+            return None
         return "cross8" if mode == "auto" else mode
 
     def compute_mel(self, audio: np.ndarray) -> np.ndarray:
@@ -241,6 +240,15 @@ class WhisperApr:
         return self.mel_filters.compute_30s(
             np.asarray(audio, dtype=np.float32),
             n_frames=2 * self.config.n_audio_ctx)
+
+    def _encode_clips(self, audios: Sequence[np.ndarray]) -> torch.Tensor:
+        """Encoder features [B, S, D] of 30 s-padded clips, mel on the
+        device."""
+        return self.encode(torch.stack([
+            self.mel_filters.compute_30s_device(
+                np.asarray(a, np.float32),
+                n_frames=2 * self.config.n_audio_ctx, device=self.device)
+            for a in audios]))
 
     def encode(self, mel) -> torch.Tensor:
         """Encoder features; accepts [T, M] or [B, T, M]."""
@@ -291,75 +299,196 @@ class WhisperApr:
         """Transcribe one clip (reference: src/lib.rs:364)."""
         return self.transcribe_batch([audio], options).results[0]
 
+    def _needs_retry(self, result: TranscriptionResult,
+                     options: TranscribeOptions) -> bool:
+        prompt_n = len(self.get_initial_tokens(
+            result.language or "en", options.task, options.timestamps))
+        gen = max(len(result.tokens) - prompt_n, 1)  # generated incl. EOT
+        return needs_fallback(
+            result.text, result.avg_logprob, gen,
+            logprob_thold=options.logprob_thold,
+            compression_thold=options.compression_ratio_thold,
+            entropy_thold=options.entropy_thold,
+            tokens=result.tokens,
+            no_speech_prob=result.no_speech_prob,
+            no_speech_thold=options.no_speech_thold)
+
+    def _skip_if_silence(self, result: TranscriptionResult,
+                         options: TranscribeOptions) -> TranscriptionResult:
+        if is_silence(result.no_speech_prob, result.avg_logprob,
+                      no_speech_thold=options.no_speech_thold,
+                      logprob_thold=options.logprob_thold):
+            # segment skipped as silence (OpenAI's should_skip rule)
+            return dataclasses.replace(
+                result, text="", segments=[], tokens=[], words=[])
+        return result
+
+    def transcribe_with_fallback(self, audio: np.ndarray,
+                                 options: Optional[TranscribeOptions] = None,
+                                 temperatures: Sequence[float] = DEFAULT_TEMPERATURES
+                                 ) -> TranscriptionResult:
+        """whisper.cpp-style temperature fallback: retry at increasing
+        temperature until the quality gates pass (average log-prob,
+        compression ratio, token entropy). A high no-speech probability
+        never retries; if the average log-prob is also below its threshold
+        the clip is skipped as silence (empty text)."""
+        options = options or TranscribeOptions()
+        result = None
+        for t in temperatures:
+            opts = dataclasses.replace(
+                options, temperature=t,
+                strategy="greedy" if t == 0.0 else "sampling")
+            result = self.transcribe(audio, opts)
+            if not self._needs_retry(result, options):
+                break
+        return self._skip_if_silence(result, options) if result else result
+
+    def transcribe_batch_with_fallback(
+            self, audios: Sequence[np.ndarray],
+            options: Optional[TranscribeOptions] = None,
+            temperatures: Sequence[float] = DEFAULT_TEMPERATURES
+            ) -> BatchTranscriptionResult:
+        """Batched temperature fallback: the whole batch decodes at the
+        first temperature in one call; only the clips that fail the gates
+        decode again at each higher temperature."""
+        t0 = time.time()
+        options = options or TranscribeOptions()
+        first = dataclasses.replace(
+            options, temperature=temperatures[0],
+            strategy="greedy" if temperatures[0] == 0.0 else "sampling")
+        results = list(self.transcribe_batch(audios, first).results)
+        pending = [i for i, r in enumerate(results)
+                   if self._needs_retry(r, options)]
+        for t in temperatures[1:]:
+            if not pending:
+                break
+            opts = dataclasses.replace(options, temperature=t,
+                                       strategy="sampling")
+            retry = self.transcribe_batch([audios[i] for i in pending], opts)
+            still = []
+            for i, r in zip(pending, retry.results):
+                results[i] = r
+                if self._needs_retry(r, options):
+                    still.append(i)
+            pending = still
+        results = [self._skip_if_silence(r, options) for r in results]
+        return BatchTranscriptionResult(results, time.time() - t0)
+
+    def _language(self, audio: np.ndarray, language: Optional[str]) -> str:
+        """The given language, or the one detected from ``audio``."""
+        if language not in (None, "auto"):
+            return language
+        if not self.specials.is_multilingual:
+            return "en"
+        mel = self.mel_filters.compute_30s_device(
+            audio, n_frames=2 * self.config.n_audio_ctx, device=self.device)
+        return self.detect_language_from_features(self.encode(mel)).best[0]
+
+    def _suppress_bias(self, timestamps: bool) -> torch.Tensor:
+        return torch.from_numpy(WhisperTokenSuppressor(
+            suppress_timestamps=not timestamps, n_vocab=self.config.n_vocab,
+            tokens=self.specials).bias()).to(self.device)
+
+    @property
+    def _no_speech_id(self) -> int:
+        ns = self.specials.no_speech
+        return ns if ns < self.config.n_vocab else -1
+
+    def _max_tokens(self, options: TranscribeOptions) -> int:
+        return min(options.max_tokens or self.config.n_text_ctx,
+                   self.config.n_text_ctx)
+
     def transcribe_batch(self, audios: Sequence[np.ndarray],
                          options: Optional[TranscribeOptions] = None
                          ) -> BatchTranscriptionResult:
-        """Greedy transcription of a batch of clips through the kernel path,
-        one aligned decode for all of them (the language, when not given,
-        is detected from the first clip)."""
+        """Transcription of a batch of clips in one decode (the language,
+        when not given, is detected from the first clip): greedy through
+        ``pipeline.fused_transcribe_step`` (timestamp tokens with
+        ``timestamps``), sampling (``strategy="sampling"``, or greedy at a
+        temperature above 0: ``best_of`` samples per clip, the best by
+        average log-prob; ``top_k``, ``top_p``; a generator seeded from
+        ``seed``) or beam search (``beam_size``, ``patience``)."""
         t0 = time.time()
         options = options or TranscribeOptions()
         if not audios:
             raise ValueError("transcribe_batch needs at least one clip")
         if options.hotwords:
-            raise NotImplementedError("hotwords: the port's slice 3")
+            raise NotImplementedError(
+                "hotwords (vocabulary.py): the port's slice 3b")
         if options.speculative:
             raise NotImplementedError(
-                "speculative decoding: the port's slice 3")
-        if options.strategy != "greedy" or options.temperature > 0:
-            raise NotImplementedError(
-                f"strategy {options.strategy!r} at temperature "
-                f"{options.temperature}: the port's slice 3")
-        if options.timestamps:
-            raise NotImplementedError("timestamp tokens: the port's slice 3")
+                "speculative decoding: the port's slice 3b")
         if options.word_timestamps:
             raise NotImplementedError(
                 "word timestamps need the traced decoder: the port's slice 6")
 
-        lang = options.language
-        if lang in (None, "auto"):
-            if self.specials.is_multilingual:
-                mel0 = self.mel_filters.compute_30s_device(
-                    audios[0], n_frames=2 * self.config.n_audio_ctx,
-                    device=self.device)
-                lang = self.detect_language_from_features(
-                    self.encode(mel0)).best[0]
-            else:
-                lang = "en"
-
+        lang = self._language(audios[0], options.language)
         prompt_list = self.get_initial_tokens(lang, options.task,
                                               options.timestamps)
+        P = len(prompt_list)
         prompt = torch.tensor([prompt_list] * len(audios), dtype=torch.int64,
                               device=self.device)
-        suppressor = WhisperTokenSuppressor(
-            suppress_timestamps=True, n_vocab=self.config.n_vocab,
-            tokens=self.specials)
-        bias = torch.from_numpy(suppressor.bias()).to(self.device)
-        ns_id = (self.specials.no_speech
-                 if self.specials.no_speech < self.config.n_vocab else -1)
-        max_tokens = min(options.max_tokens or self.config.n_text_ctx,
-                         self.config.n_text_ctx)
+        bias = self._suppress_bias(options.timestamps)
+        eot = self.specials.eot
+        common = dict(max_len=self._max_tokens(options), prompt_len=P,
+                      compute_dtype=self._compute_dtype,
+                      no_speech=self._no_speech_id, qf_mode=self._qf_mode)
 
-        from .pipeline import fused_transcribe_step, pad_audio_batch
-        n_samples = 2 * self.config.n_audio_ctx * 160
-        batch = torch.from_numpy(pad_audio_batch(audios, n_samples)).to(
-            self.device)
-        res = fused_transcribe_step(
-            self.params, batch, *self.mel_filters.constants(self.device),
-            prompt, bias, self.specials.eot, self.config,
-            max_len=max_tokens, prompt_len=len(prompt_list),
-            compute_dtype=self._compute_dtype, no_speech=ns_id,
-            qd=self._qd_for(len(audios)), qf_mode=self._qf_mode)
+        if options.strategy == "sampling" or (
+                options.strategy == "greedy" and options.temperature > 0):
+            enc = self._encode_clips(audios)
+            B, n = enc.shape[0], max(1, options.best_of)
+            # best_of: n independent samples per clip as one batch, the
+            # winner by length-normalized log-prob
+            gen = torch.Generator(device=self.device).manual_seed(
+                options.seed)
+            res = sample_generate(
+                self.params, enc.repeat_interleave(n, dim=0),
+                prompt.repeat_interleave(n, dim=0), bias, eot, gen,
+                self.config, temperature=options.temperature,
+                top_k=options.top_k, top_p=options.top_p,
+                qd=self._qd_for(B * n), **common)
+            lens = res.lengths.reshape(B, n)
+            sum_lp = res.sum_logprob.reshape(B, n)
+            avg = sum_lp / torch.clamp_min(lens - P, 1).float()
+            best = torch.argmax(avg, dim=1)[:, None]
+            tokens = res.tokens.reshape(B, n, -1).gather(
+                1, best[:, :, None].expand(-1, -1, res.tokens.shape[1]))[:, 0]
+            lengths = lens.gather(1, best)[:, 0]
+            sum_lp = sum_lp.gather(1, best)[:, 0]
+            ns_prob = res.no_speech_prob.reshape(B, n)[:, 0]
+        elif options.strategy == "beam":
+            enc = self._encode_clips(audios)
+            res = beam_generate(
+                self.params, enc, prompt, bias, eot, self.config,
+                beam_size=options.beam_size, patience=options.patience,
+                qd=self._qd_for(enc.shape[0] * options.beam_size), **common)
+            tokens, lengths = res.tokens, res.lengths
+            sum_lp, ns_prob = res.sum_logprob, res.no_speech_prob
+        else:
+            from .pipeline import fused_transcribe_step, pad_audio_batch
+            n_samples = 2 * self.config.n_audio_ctx * 160
+            batch = torch.from_numpy(pad_audio_batch(audios, n_samples)).to(
+                self.device)
+            ts_base = self.specials.timestamp_base
+            res = fused_transcribe_step(
+                self.params, batch, *self.mel_filters.constants(self.device),
+                prompt, bias, eot, self.config,
+                timestamp_base=(ts_base if options.timestamps
+                                and ts_base < self.config.n_vocab else -1),
+                qd=self._qd_for(len(audios)), **common)
+            tokens, lengths = res.tokens, res.lengths
+            sum_lp, ns_prob = res.sum_logprob, res.no_speech_prob
 
-        tokens_np = res.tokens.cpu().numpy()
-        lengths_np = res.lengths.cpu().numpy()
-        sum_lp_np = res.sum_logprob.cpu().numpy().astype(np.float64)
-        ns_prob_np = res.no_speech_prob.cpu().numpy().astype(np.float64)
+        tokens_np = tokens.cpu().numpy()
+        lengths_np = lengths.cpu().numpy()
+        sum_lp_np = sum_lp.cpu().numpy().astype(np.float64)
+        ns_prob_np = ns_prob.cpu().numpy().astype(np.float64)
 
         results = []
         for i in range(len(audios)):
             toks = tokens_np[i, : lengths_np[i]].tolist()
-            gen = toks[len(prompt_list):]
+            gen = toks[P:]
             text = self.tokenizer.decode_with_options(gen, skip_special=True)
             if has_timestamps(gen, self.specials.timestamp_base):
                 segments = extract_segments(
@@ -379,13 +508,51 @@ class WhisperApr:
                 temperature=options.temperature))
         return BatchTranscriptionResult(results, time.time() - t0)
 
+    def transcribe_nbest(self, audio: np.ndarray,
+                         options: Optional[TranscribeOptions] = None,
+                         n: Optional[int] = None) -> List[TranscriptionResult]:
+        """N-best hypotheses from beam search, best first (reference:
+        src/inference/beam.rs:300 decode_nbest). ``n`` defaults to the
+        beam size; the results follow the normalized-score order."""
+        options = options or TranscribeOptions(strategy="beam")
+        n = min(n or options.beam_size, options.beam_size)
+        audio = np.asarray(audio, np.float32)
+        lang = self._language(audio, options.language)
+        prompt_list = self.get_initial_tokens(lang, options.task,
+                                              options.timestamps)
+        P = len(prompt_list)
+        res = beam_generate(
+            self.params, self._encode_clips([audio]),
+            torch.tensor([prompt_list], dtype=torch.int64,
+                         device=self.device),
+            self._suppress_bias(options.timestamps), self.specials.eot,
+            self.config, beam_size=options.beam_size,
+            patience=options.patience, max_len=self._max_tokens(options),
+            prompt_len=P, compute_dtype=self._compute_dtype,
+            return_nbest=True, no_speech=self._no_speech_id,
+            qd=self._qd_for(options.beam_size), qf_mode=self._qf_mode)
+        toks = res.tokens[0].cpu().numpy()       # [K, max_len]
+        lens = res.lengths[0].cpu().numpy()      # [K]
+        scores = res.sum_logprob[0].cpu().numpy()
+        ns = float(res.no_speech_prob[0])
+        out = []
+        for k in range(min(n, toks.shape[0])):
+            seq = toks[k, : lens[k]].tolist()
+            gen = seq[P:]
+            text = self.tokenizer.decode_with_options(gen, skip_special=True)
+            out.append(TranscriptionResult(
+                text=text.strip(), language=lang, segments=[], tokens=seq,
+                avg_logprob=float(scores[k]) / max(len(gen), 1),
+                no_speech_prob=ns))
+        return out
+
     # -- file helpers ----------------------------------------------------------
     def transcribe_file(self, path: str,
                         options: Optional[TranscribeOptions] = None
                         ) -> TranscriptionResult:
         """Transcribe a WAV file of at most one window (30 s for the
         standard models); longer files are chunked by ``transcribe_long``,
-        which the port's slice 3 brings."""
+        which the port's slice 3b brings."""
         with open(path, "rb") as f:
             samples, sr = parse_wav(f.read())
         if sr != SAMPLE_RATE:
@@ -393,5 +560,5 @@ class WhisperApr:
         if len(samples) > 2 * self.config.n_audio_ctx * 160:
             raise NotImplementedError(
                 "audio longer than one window needs transcribe_long: the "
-                "port's slice 3")
+                "port's slice 3b")
         return self.transcribe(samples, options)

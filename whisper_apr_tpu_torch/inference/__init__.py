@@ -1,4 +1,5 @@
-"""Decoding support: token suppression (the greedy loop itself is in
+"""Decoding support: token suppression, timestamp rules, sampling and the
+quality gates, beam search (the greedy loop itself is in
 ``model/decoder.py``)."""
 
 from .processors import WhisperTokenSuppressor, suppression_bias

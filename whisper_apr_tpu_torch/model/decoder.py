@@ -3,24 +3,27 @@
 - KV caches are pre-allocated ``[L, B, T_max, D]`` tensors; the cross K/V
   are computed once from the encoder output.
 - ``prefill`` runs the whole prompt in one plain-PyTorch forward and fills
-  the self cache rows ``[0, T)``.
+  the self cache rows ``[0, T)``; ``decode_step`` is the plain f32 /
+  unquantized single-token step (rows written in place) and
+  ``decoder_forward`` the teacher-forced forward over every position.
 - ``greedy_generate_body`` is a Python loop over steps for B sequences
-  at one aligned position; each step is ``qdecode.decode_step_qf`` with
-  the fused greedy head, i.e. the hand-written kernels
-  (``ops/decode_blocks.py``: K1-K3 at B=1, K5-K7 at B>1;
-  ``ops/qmatvec.py``: K4) on a CUDA device and their plain versions on the
-  CPU. Its outputs equal the JAX body's: EOT-padded tokens with the EOT
-  appended (a finished row is held at EOT and adds 0 to its log-prob),
-  lengths up to and including the first EOT after the prompt, the summed
-  log-prob of the generated tokens, and the no-speech probability at SOT.
-
-The timestamp-rules branch and the logits tail (beam, sampling, f32
-weights) come with the port's slice 3.
+  at one aligned position, with one host sync per step. Its step is, as
+  in the JAX body: ``qdecode.decode_step_qf`` with the fused greedy head
+  K4 (int8 weights and a ``quantize_cache`` mode, no timestamp rules);
+  ``decode_step_qf`` with the logits tail K8 and the timestamp rules;
+  ``qdecode.decode_step_q`` (kv_mode "scan": K8 and K9); or
+  ``decode_step`` (no qd: f32 weights). On a CUDA device the kernels run,
+  on the CPU their plain versions. Its outputs equal the JAX body's:
+  EOT-padded tokens with the EOT appended (a finished row is held at EOT
+  and adds 0 to its log-prob), lengths up to and including the first EOT
+  after the prompt, the summed log-prob of the generated tokens, and the
+  no-speech probability at SOT.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -149,6 +152,94 @@ def prefill(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     return logits, cache
 
 
+def block_step(x: torch.Tensor, b: dict, k_c: torch.Tensor,
+               v_c: torch.Tensor, c_k: torch.Tensor, c_v: torch.Tensor,
+               at, valid: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """One decoder block for ONE new token (the JAX ``_block_step`` and
+    ``decode_step_multi`` body): x [B, 1, D]; ``b`` one layer's params;
+    k_c/v_c that layer's self cache [B, T, D], whose rows at ``at`` (an
+    index of (row, position)) take the new k/v in place before the
+    attention over the rows ``valid`` [B or 1, 1, 1, T] marks; c_k/c_v the
+    cross K/V [B, S, D]."""
+    h = layer_norm(x, b["ln1"]["w"], b["ln1"]["b"])
+    sa = b["self_attn"]
+    q = linear(h, sa["q_w"], sa["q_b"])
+    k_c[at] = linear(h, sa["k_w"], sa["k_b"])[:, 0].to(k_c.dtype)
+    v_c[at] = linear(h, sa["v_w"], sa["v_b"])[:, 0].to(v_c.dtype)
+    x = x + linear(mha(q, k_c, v_c, n_heads, mask=valid), sa["o_w"],
+                   sa["o_b"])
+
+    h = layer_norm(x, b["ln2"]["w"], b["ln2"]["b"])
+    ca = b["cross_attn"]
+    q = linear(h, ca["q_w"], ca["q_b"])
+    x = x + linear(mha(q, c_k, c_v, n_heads), ca["o_w"], ca["o_b"])
+
+    h = layer_norm(x, b["ln3"]["w"], b["ln3"]["b"])
+    h = linear(gelu(linear(h, b["fc1"]["w"], b["fc1"]["b"])),
+               b["fc2"]["w"], b["fc2"]["b"])
+    return x + h
+
+
+def decode_step(params: dict, token: torch.Tensor, pos: int,
+                cache: KVCache, config: ModelConfig,
+                compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token forward in plain torch (the f32 / unquantized step):
+    token [B] at the host position ``pos`` -> (logits [B, V] f32, cache),
+    the self rows at ``pos`` written in place. Callers validate the ids
+    (:func:`check_tokens`)."""
+    pos = int(pos)
+    T = cache.self_k.shape[2]
+    if not 0 <= pos < min(T, params["decoder"]["pos_emb"].shape[0]):
+        raise ValueError(f"pos {pos} outside the self cache ({T} rows)")
+    x = embed(params, token[:, None], pos, compute_dtype)       # [B, 1, D]
+    valid = (torch.arange(T, device=x.device) <= pos)[None, None, None, :]
+    blocks = params["decoder"]["blocks"]
+    for l in range(config.n_text_layer):
+        x = block_step(x, layer_slice(blocks, l), cache.self_k[l],
+                       cache.self_v[l], cache.cross_k[l], cache.cross_v[l],
+                       (slice(None), pos), valid, config.n_text_head)
+    dec = params["decoder"]
+    x = layer_norm(x, dec["ln_post"]["w"], dec["ln_post"]["b"])
+    return project_to_vocab(params, x[:, 0, :]), cache
+
+
+def decoder_forward(params: dict, tokens: torch.Tensor,
+                    enc_out: torch.Tensor, config: ModelConfig,
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """Teacher-forced forward over every position: tokens [B, T] ->
+    logits [B, T, V] (the oracle of KV-cache correctness)."""
+    check_tokens(tokens, config.n_vocab)
+    T = tokens.shape[1]
+    x = embed(params, tokens, 0, compute_dtype)
+    enc_out = enc_out.to(compute_dtype)
+    n_heads = config.n_text_head
+    causal = causal_mask(T, device=x.device)
+    blocks = params["decoder"]["blocks"]
+    for l in range(config.n_text_layer):
+        b = layer_slice(blocks, l)
+        h = layer_norm(x, b["ln1"]["w"], b["ln1"]["b"])
+        sa = b["self_attn"]
+        q = linear(h, sa["q_w"], sa["q_b"])
+        k = linear(h, sa["k_w"], sa["k_b"])
+        v = linear(h, sa["v_w"], sa["v_b"])
+        x = x + linear(mha(q, k, v, n_heads, mask=causal), sa["o_w"],
+                       sa["o_b"])
+        h = layer_norm(x, b["ln2"]["w"], b["ln2"]["b"])
+        ca = b["cross_attn"]
+        q = linear(h, ca["q_w"], ca["q_b"])
+        k = linear(enc_out, ca["k_w"], ca["k_b"])
+        v = linear(enc_out, ca["v_w"], ca["v_b"])
+        x = x + linear(mha(q, k, v, n_heads), ca["o_w"], ca["o_b"])
+        h = layer_norm(x, b["ln3"]["w"], b["ln3"]["b"])
+        x = x + linear(gelu(linear(h, b["fc1"]["w"], b["fc1"]["b"])),
+                       b["fc2"]["w"], b["fc2"]["b"])
+    dec = params["decoder"]
+    x = layer_norm(x, dec["ln_post"]["w"], dec["ln_post"]["b"])
+    return project_to_vocab(params, x)
+
+
 # ---------------------------------------------------------------------------
 # Greedy generation
 # ---------------------------------------------------------------------------
@@ -176,54 +267,51 @@ def _no_speech_prob(logits_all: torch.Tensor, no_speech: int
     return probs[:, no_speech]
 
 
-def greedy_generate_body(params: dict, enc_out: torch.Tensor,
-                         prompt: torch.Tensor, suppress_bias: torch.Tensor,
-                         eot: int, config: ModelConfig, max_len: int = 448,
-                         prompt_len: int = 4,
-                         compute_dtype: torch.dtype = torch.float32,
-                         timestamp_base: int = -1, no_speech: int = -1,
-                         qd: Optional[dict] = None,
-                         qf_mode: Optional[str] = None) -> DecodeResult:
-    """Greedy decode of B sequences through the fused per-block step and
-    the fused greedy head (reference semantics: argmax until EOT, EOT
-    appended, total length capped at ``max_len`` including the prompt,
-    suppression applied to every step).
+def chosen_logprob(biased_logits: torch.Tensor,
+                   token: torch.Tensor) -> torch.Tensor:
+    """Log-prob of the chosen token [B] under the distribution decoded
+    from (log_softmax of the biased logits in f32)."""
+    logp = torch.log_softmax(biased_logits.float(), dim=-1)
+    return logp.gather(1, token[:, None].long())[:, 0]
 
-    prompt [B, prompt_len] int32; suppress_bias [V] f32 (0 or -inf). A row
-    that has produced EOT is done: its later tokens are forced to EOT and
-    add 0 to its log-prob. The loop stops when every row is done or at
-    ``max_len``, with one host sync per step (the new tokens).
-    ``qd`` (``qdecode.prepare_qdecode``) and ``qf_mode`` (a
-    ``quantize_cache`` mode) are required: the logits-tail decoders of the
-    JAX body (f32 weights, kv_mode "scan", timestamp rules) are the port's
-    slice 3.
-    """
-    from .qdecode import decode_step_qf, qf_supported, quantize_cache
 
-    B = enc_out.shape[0]
-    if timestamp_base >= 0:
-        raise NotImplementedError(
-            "timestamp rules need the logits tail: the port's slice 3")
-    if not qf_mode or not qf_supported(qd, B):
-        raise NotImplementedError(
-            "decode without the int8 fused step (f32 weights or kv_mode "
-            "'scan') is the port's slice 3")
-    device = enc_out.device
-    cache = init_cache(params, enc_out, config, max_len,
-                       compute_dtype=compute_dtype)
-    v_pad = qd["vocab_qT"].shape[2]
-    gb = torch.zeros((1, v_pad), dtype=torch.float32, device=device)
-    gb[0, : suppress_bias.shape[0]] = suppress_bias.float()
+def logits_step(params: dict, qd: Optional[dict], qf_mode: Optional[str],
+                batch: int, config: ModelConfig,
+                compute_dtype: torch.dtype, enc_len: int
+                ) -> Tuple[bool, Callable]:
+    """The per-token step of a decoder that reads the logits (greedy with
+    timestamp rules or without qd, sampling, beam), picked as the JAX
+    bodies pick it: no qd -> ``decode_step``; an int8 qd with a cache mode
+    -> ``decode_step_qf`` with the logits tail (the caller quantizes the
+    cache); a qd without one -> ``decode_step_q``. Returns (uses the
+    fused step, ``step(token, pos, cache) -> (logits [B, V] f32, cache)``)
+    with the cache rows written in place."""
+    from .qdecode import decode_step_q, decode_step_qf, qf_supported
+    if qd is None:
+        return False, functools.partial(decode_step, params, config=config,
+                                        compute_dtype=compute_dtype)
+    if qf_mode and qf_supported(qd, batch):
+        return True, functools.partial(decode_step_qf, params, qd,
+                                       config=config,
+                                       compute_dtype=compute_dtype,
+                                       enc_len=enc_len)
+    return False, functools.partial(decode_step_q, params, qd, config=config,
+                                    compute_dtype=compute_dtype)
 
-    logits_all, cache = prefill(params, prompt, enc_out, cache, config,
-                                compute_dtype, all_logits=True)
-    qcache = quantize_cache(cache, mode=qf_mode)
-    ns_prob = _no_speech_prob(logits_all, no_speech)
-    first_logits = logits_all[:, -1, :] + suppress_bias[None, :].float()
-    first = torch.argmax(first_logits, dim=-1).to(torch.int32)   # [B]
-    sum_lp = torch.log_softmax(first_logits.float(), dim=-1).gather(
-        1, first[:, None].long())[:, 0]
 
+def decode_loop(first: torch.Tensor, sum_lp: torch.Tensor,
+                prompt: torch.Tensor, eot: int, config: ModelConfig,
+                max_len: int, prompt_len: int,
+                next_tokens: Callable) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The host loop of the greedy and sampled decoders. From the first
+    generated tokens ``first`` [B] (and their log-probs ``sum_lp``), call
+    ``next_tokens(tok, pos, done) -> (nxt [B] int32, lp [B] f32)`` until
+    every row has produced EOT or the length reaches ``max_len``;
+    ``next_tokens`` holds a done row at EOT with lp 0 (:func:`hold_done`).
+    One host sync per step (the new tokens). Returns (tokens [B, max_len]
+    EOT-padded, lengths [B], sum_lp [B]) on the device of ``first``."""
+    device = first.device
     rows = [[int(t) for t in r] for r in prompt.tolist()]
     for r, t in zip(rows, first.tolist()):
         r.append(t)
@@ -232,17 +320,13 @@ def greedy_generate_body(params: dict, enc_out: torch.Tensor,
     tok = first
     pos = prompt_len
     while pos + 1 < max_len and not all(done_h):
-        (nxt, mx, lz), qcache = decode_step_qf(
-            params, qd, tok, pos, qcache, config,
-            compute_dtype=compute_dtype, enc_len=enc_out.shape[1],
-            greedy_bias=gb)
-        nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
-        sum_lp = sum_lp + torch.where(done, torch.zeros_like(mx), mx - lz)
+        nxt, lp = next_tokens(tok, pos, done)
+        sum_lp = sum_lp + lp
         done = done | (nxt == eot)
         new = nxt.tolist()                # the loop's one host sync
         bad = [t for t in new if not 0 <= t < config.n_vocab]
         if bad:
-            raise InferenceError(f"head produced tokens {bad} outside "
+            raise InferenceError(f"decode produced tokens {bad} outside "
                                  f"n_vocab={config.n_vocab}")
         for r, t in zip(rows, new):
             r.append(t)
@@ -250,7 +334,7 @@ def greedy_generate_body(params: dict, enc_out: torch.Tensor,
         tok = nxt
         pos += 1
 
-    out = torch.full((B, max_len), eot, dtype=torch.int32)
+    out = torch.full((len(rows), max_len), eot, dtype=torch.int32)
     lengths = []
     for i, r in enumerate(rows):
         r = r[:max_len]
@@ -259,7 +343,91 @@ def greedy_generate_body(params: dict, enc_out: torch.Tensor,
         gen = r[prompt_len:]
         lengths.append(prompt_len + gen.index(eot) + 1 if eot in gen
                        else max_len)
-    return DecodeResult(out.to(device),
-                        torch.tensor(lengths, dtype=torch.int32,
-                                     device=device),
-                        sum_lp.float(), ns_prob.float())
+    return (out.to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device),
+            sum_lp.float())
+
+
+def hold_done(nxt: torch.Tensor, lp: torch.Tensor, done: torch.Tensor,
+              eot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A finished row's next token is EOT and adds 0 to its log-prob."""
+    return (torch.where(done, torch.full_like(nxt, eot), nxt),
+            torch.where(done, torch.zeros_like(lp), lp))
+
+
+def greedy_generate_body(params: dict, enc_out: torch.Tensor,
+                         prompt: torch.Tensor, suppress_bias: torch.Tensor,
+                         eot: int, config: ModelConfig, max_len: int = 448,
+                         prompt_len: int = 4,
+                         compute_dtype: torch.dtype = torch.float32,
+                         timestamp_base: int = -1, no_speech: int = -1,
+                         qd: Optional[dict] = None,
+                         qf_mode: Optional[str] = None) -> DecodeResult:
+    """Greedy decode of B sequences (reference semantics: argmax until
+    EOT, EOT appended, total length capped at ``max_len`` including the
+    prompt, suppression applied to every step).
+
+    prompt [B, prompt_len] int32; suppress_bias [V] f32 (0 or -inf).
+    ``qd`` (``qdecode.prepare_qdecode``) with ``qf_mode`` (a
+    ``quantize_cache`` mode) runs the fused per-block step, with the
+    fused greedy head unless ``timestamp_base`` >= 0 turns on the
+    timestamp rules (``inference/timestamp_rules.py``), which need the
+    logits row; ``qd`` without ``qf_mode`` runs the scan step
+    ``decode_step_q``; no ``qd`` the plain ``decode_step``.
+    """
+    from ..inference import timestamp_rules as tsr
+    from .qdecode import quantize_cache
+
+    B = enc_out.shape[0]
+    device = enc_out.device
+    use_ts = timestamp_base >= 0
+    use_qf, step = logits_step(params, qd, qf_mode, B, config, compute_dtype,
+                               enc_out.shape[1])
+    fused_head = use_qf and not use_ts
+    cache = init_cache(params, enc_out, config, max_len,
+                       compute_dtype=compute_dtype)
+    logits_all, cache = prefill(params, prompt, enc_out, cache, config,
+                                compute_dtype, all_logits=True)
+    if use_qf:
+        cache = quantize_cache(cache, mode=qf_mode)
+    ns_prob = _no_speech_prob(logits_all, no_speech)
+    bias = suppress_bias[None, :].float()
+    first_logits = logits_all[:, -1, :] + bias
+    ts = None
+    if use_ts:
+        ts = tsr.init_state(B, device)
+        first_logits = tsr.apply_rules(
+            first_logits, ts, timestamp_base, eot,
+            is_first=torch.ones(B, dtype=torch.bool, device=device))
+    first = torch.argmax(first_logits, dim=-1).to(torch.int32)   # [B]
+    sum_lp = chosen_logprob(first_logits, first)
+    if use_ts:
+        ts = tsr.update_state(ts, first, timestamp_base)
+    not_first = torch.zeros(B, dtype=torch.bool, device=device)
+
+    if fused_head:
+        v_pad = qd["vocab_qT"].shape[2]
+        gb = torch.zeros((1, v_pad), dtype=torch.float32, device=device)
+        gb[0, : suppress_bias.shape[0]] = suppress_bias.float()
+
+        def next_tokens(tok, pos, done):
+            (nxt, mx, lz), _ = step(token=tok, pos=pos, cache=cache,
+                                    greedy_bias=gb)
+            return hold_done(nxt, mx - lz, done, eot)
+    else:
+        def next_tokens(tok, pos, done):
+            nonlocal ts
+            logits, _ = step(token=tok, pos=pos, cache=cache)
+            biased = logits + bias
+            if use_ts:
+                biased = tsr.apply_rules(biased, ts, timestamp_base, eot,
+                                         is_first=not_first)
+            nxt = torch.argmax(biased, dim=-1).to(torch.int32)
+            nxt, lp = hold_done(nxt, chosen_logprob(biased, nxt), done, eot)
+            if use_ts:
+                ts = tsr.update_state(ts, nxt, timestamp_base)
+            return nxt, lp
+
+    tokens, lengths, sum_lp = decode_loop(first, sum_lp, prompt, eot, config,
+                                          max_len, prompt_len, next_tokens)
+    return DecodeResult(tokens, lengths, sum_lp, ns_prob.float())

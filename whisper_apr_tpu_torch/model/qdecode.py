@@ -1,6 +1,10 @@
-"""Quantized fused decode step: port of the parts of
-``whisper_apr_tpu/model/qdecode.py`` that greedy transcription and
-batched serving run.
+"""Quantized decode steps: port of ``whisper_apr_tpu/model/qdecode.py``
+for int8 weights.
+
+``decode_step_q`` (kv_mode "scan") runs every decoder linear through the
+stacked matvec K8 and the FFN through K9 (``ops/qmatvec.py``), with the
+attention over the dense ``KVCache`` in plain torch (the JAX step runs it
+in XLA, outside Pallas).
 
 ``decode_step_qf`` runs three per-block kernels per layer
 (``ops/decode_blocks.py``: K1-K3 at B=1, the batched K5-K7 at B>1) and
@@ -24,7 +28,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops import decode_blocks, qmatvec
-from ..ops.basic import layer_norm
+from ..ops.basic import layer_norm, mha
 from ..ops.decode_attention import quantize_rows
 from ..ops.quant import is_quantized
 from .decoder import KVCache, embed
@@ -122,6 +126,92 @@ def prepare_qdecode(params: dict, config: ModelConfig) -> Optional[dict]:
             "vocab_ones": torch.ones((1, 1, qT.shape[1]), dtype=torch.float32,
                                      device=qT.device),
             "vocab_k_scale": k_scale}
+
+
+def _positions(pos, B: int, T: int, device):
+    """(host int, None) for one position shared by every row, or (None,
+    device int64 [B]) for per-row positions. Host positions are checked
+    against ``T`` rows (the cache and the position table); a tensor
+    already on the device is taken unchecked (no sync)."""
+    pos_t = pos if isinstance(pos, torch.Tensor) else torch.as_tensor(pos)
+    if pos_t.dim() == 0:
+        p = int(pos_t)
+        if not 0 <= p < T:
+            raise ValueError(f"pos {p} outside the self cache and position "
+                             f"table ({T} rows)")
+        return p, None
+    return None, _slot_pos(pos_t, B, T, device).long()
+
+
+def _qmv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, l: int,
+         b: torch.Tensor) -> torch.Tensor:
+    """One int8 linear through K8, bias added in x's dtype (the JAX
+    ``_qmv``: ``y + b.astype(y.dtype)``)."""
+    y = qmatvec.qmatvec_stacked(x.contiguous(), w, s, l)
+    return y + b[l].to(y.dtype)
+
+
+def decode_step_q(params: dict, qd: dict, token: torch.Tensor, pos,
+                  cache: KVCache, config: ModelConfig,
+                  compute_dtype: torch.dtype = torch.bfloat16):
+    """One decode token of B sequences, kernel edition of the scan step
+    (the JAX ``decode_step_q``): token [B] int32 at ``pos`` (a host int
+    for every row, or per-row positions [B], a host tensor checked here
+    or a device tensor taken as is) -> (logits [B, n_vocab] f32, cache).
+
+    Per layer: LN1 -> QKV through K8 (+ bias) -> the new k/v rows written
+    into the dense cache at each row's position -> attention over rows
+    <= pos (plain torch) -> o-proj through K8; the same for the cross
+    attention over every encoder row; LN3 -> K9 -> fc2 scale and bias in
+    f32. Then the final LayerNorm, the vocab K-side scale folded into the
+    activation in f32, and the logits through K8. The cache rows are
+    written in place (the JAX step returns a new cache).
+    """
+    if str(qd.get("mode", "int8")) in KQ_MODES:
+        raise NotImplementedError(
+            "k-quant matvecs in the scan step (K10, K11): the port's slice 4")
+    B = token.shape[0]
+    dec = params["decoder"]
+    T = min(cache.self_k.shape[2], dec["pos_emb"].shape[0])
+    device = token.device
+    p, pos_d = _positions(pos, B, T, device)
+    x = embed(params, token[:, None], p if pos_d is None else pos_d,
+              compute_dtype)[:, 0]                               # [B, D]
+    rows = torch.arange(cache.self_k.shape[2], device=device)
+    if pos_d is None:
+        valid = (rows <= p)[None, None, None, :]
+        at = (slice(None), p)
+    else:
+        valid = (rows[None, :] <= pos_d[:, None])[:, None, None, :]
+        at = (torch.arange(B, device=device), pos_d)
+    blk = qd["blk"]
+    n_heads = config.n_text_head
+    D = config.n_text_state
+    for l in range(config.n_text_layer):
+        h = layer_norm(x, blk["ln1_w"][l], blk["ln1_b"][l])
+        qkv = _qmv(h, blk["wqkv"], blk["sqkv"], l, blk["bqkv"])
+        k_c, v_c = cache.self_k[l], cache.self_v[l]
+        k_c[at] = qkv[:, D:2 * D].to(k_c.dtype)
+        v_c[at] = qkv[:, 2 * D:].to(v_c.dtype)
+        attn = mha(qkv[:, None, :D], k_c, v_c, n_heads, mask=valid)
+        x = x + _qmv(attn[:, 0], blk["self_wo"], blk["self_wos"], l,
+                     blk["self_wob"])
+
+        h = layer_norm(x, blk["ln2_w"][l], blk["ln2_b"][l])
+        q = _qmv(h, blk["wcq"], blk["scq"], l, blk["bcq"])
+        attn = mha(q[:, None], cache.cross_k[l], cache.cross_v[l], n_heads)
+        x = x + _qmv(attn[:, 0], blk["cross_wo"], blk["cross_wos"], l,
+                     blk["cross_wob"])
+
+        h = layer_norm(x, blk["ln3_w"][l], blk["ln3_b"][l])
+        y = qmatvec.ffn_fused(h, blk["w1"], blk["s1"], blk["b1"], blk["w2"],
+                              l)
+        x = x + (y.float() * blk["fc2_s"][l] + blk["fc2_b"][l]).to(x.dtype)
+    x = layer_norm(x, dec["ln_post"]["w"], dec["ln_post"]["b"])
+    xs = (x.float() * qd["vocab_k_scale"]).to(x.dtype).contiguous()
+    logits = qmatvec.qmatvec_stacked(xs, qd["vocab_qT"], qd["vocab_ones"],
+                                     0, out_dtype=torch.float32)
+    return logits[:, : config.n_vocab], cache
 
 
 class QKVCache(NamedTuple):

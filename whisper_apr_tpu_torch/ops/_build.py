@@ -61,7 +61,11 @@ _SIGNATURES = {
     "wa_greedy_head": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                        _P, _P],
     "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+    "wa_ffn_fused": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
+
+MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc
+                       # BMV_MAX_B); the wrappers chunk larger batches
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -141,6 +145,17 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def in_row_chunks(n: int, launch, max_rows: int = MAX_ROWS) -> None:
+    """Call ``launch(rows)`` for consecutive slices ``rows`` of at most
+    ``max_rows`` of ``n`` rows, in order. Rows (slots) are independent, so
+    a wrapper launches its kernel once per chunk: the chunk's rows of a
+    contiguous [B, ...] operand (x, positions, outputs, one layer's
+    [B, T, D] cache block and [B, T] scales) start at a pointer offset,
+    and nothing is gathered or copied."""
+    for r0 in range(0, n, max_rows):
+        launch(slice(r0, min(n, r0 + max_rows)))
 
 
 def check(rc: int, what: str) -> None:

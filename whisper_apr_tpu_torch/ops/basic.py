@@ -14,6 +14,7 @@ import torch
 from .quant import dequant, is_quantized
 
 LN_EPS = 1e-5  # reference: src/model/encoder.rs:219
+_F32_MIN = torch.finfo(torch.float32).min
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -66,10 +67,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
     vh = v.reshape(B, Tk, n_heads, hd)
     scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
     if mask is not None:
-        scores = torch.where(mask, scores,
-                             torch.tensor(torch.finfo(torch.float32).min,
-                                          dtype=scores.dtype,
-                                          device=scores.device))
+        # a Python scalar (no host-to-device copy: CUDA-graph capturable);
+        # the f32 minimum rounds to -inf in bf16, as the JAX mask's does
+        fill = _F32_MIN if scores.dtype in (torch.float32, torch.float64) \
+            else float("-inf")
+        scores = torch.where(mask, scores, fill)
     weights = softmax(scores, dim=-1).to(vh.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, vh)
     return out.reshape(B, Tq, D)

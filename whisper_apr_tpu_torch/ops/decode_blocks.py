@@ -18,6 +18,10 @@ Each wrapper runs its hand-written CUDA kernel (``csrc/decode_blocks.cu``,
 ``csrc/decode_blocks_batched.cu``) for CUDA tensors and the plain PyTorch
 version, in this module, for CPU tensors — nothing else picks between the
 two. One plain version per sub-block serves both kernels: it takes any B.
+A batched launch takes at most ``_build.MAX_ROWS`` slots; the wrappers
+launch once per chunk of slots (``_build.in_row_chunks``), each chunk a
+pointer offset into x, the positions, the outputs and the layer's
+[B, T, D] cache block.
 Operands are the stacked ``blk`` views of ``model.qdecode.prepare_qdecode``
 and the [L, B, T, D] cache stacks; the layer is a host integer. Their
 layouts are checked once, where they are made (``check_blk``,
@@ -47,8 +51,6 @@ from .decode_attention import quantize_row
 NEG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64          # every Whisper size; the kernels require it
 _ATT_ROWS = 64         # cache rows per attention split (csrc ATT_ROWS)
-
-MAX_BATCH = 32         # rows the batched entries take (csrc BMV_MAX_B)
 
 # launches of each kernel in this process (reset by the caller)
 LAUNCHES = {"self_block": 0, "cross_block": 0, "ffn_block": 0,
@@ -242,19 +244,19 @@ def _check_call(x: torch.Tensor, w: torch.Tensor, layer: int,
                 batched: bool = False) -> int:
     """Per-call checks before a launch: x [B, D] f32/bf16 beside the
     [L, D, N] input weight ``w`` of a checked ``blk`` (B = 1 for K1-K3,
-    1 <= B <= MAX_BATCH for the batched kernels), the layer, and a
+    any B >= 1 for the batched kernels), the layer, and a
     checked cache of the same L, B, D. Returns B. The C entries check the
     rest (head dim 64, widths, enc_len inside the cache)."""
     L, D = w.shape[0], w.shape[1]
     if x.dtype not in _X_DTYPES:
         raise TypeError(f"activations must be f32 or bf16, got {x.dtype}")
     B = x.shape[0] if x.dim() == 2 else 0
-    max_b = MAX_BATCH if batched else 1
-    if not (x.dim() == 2 and 1 <= B <= max_b and x.shape[1] == D) \
+    ok_b = B >= 1 if batched else B == 1
+    if not (x.dim() == 2 and ok_b and x.shape[1] == D) \
             or x.device != w.device or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, {D}] tensor on "
-                         f"{w.device} with 1 <= B <= {max_b}, got "
-                         f"{tuple(x.shape)} on {x.device}")
+                         f"{w.device} with B {'>=' if batched else '=='} 1, "
+                         f"got {tuple(x.shape)} on {x.device}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside the {L}-layer stacks")
     if kq is not None and (kq.device != x.device or kq.shape[0] != L
@@ -364,21 +366,29 @@ def _self_block_batched_cuda(x, blk, kq, ks, vq, vs, pos, l: int,
     v_scale = torch.empty(B, dtype=torch.float32, device=dev)
     W = _build.workspace
     P = _build.ptr
-    rc = _build.library().wa_self_block_batched(
-        P(x), _build.DTYPE_CODES[x.dtype], B, D, n_heads,
-        P(blk["ln1_w"], l * D), P(blk["ln1_b"], l * D),
-        P(blk["wqkv"], l * D * 3 * D), P(blk["sqkv"], l * 3 * D),
-        P(blk["bqkv"], l * 3 * D),
-        P(kq, l * B * T * D), P(ks, l * B * T), P(vq, l * B * T * D),
-        P(vs, l * B * T), _build.DTYPE_CODES[kq.dtype], T, P(pos),
-        P(blk["self_wo"], l * D * D), P(blk["self_wos"], l * D),
-        P(blk["self_wob"], l * D),
-        P(x_out), P(k_row), P(k_scale), P(v_row), P(v_scale),
-        W(st, dev, "qkv", B * 3 * D),
-        W(st, dev, "part", _n_part(n_heads, T, B)),
-        W(st, dev, "attn", B * D), st)
-    _build.check(rc, "self_block_batched")
-    LAUNCHES["self_block_batched"] += 1
+    n = min(B, _build.MAX_ROWS)
+    scratch = (W(st, dev, "qkv", n * 3 * D),
+               W(st, dev, "part", _n_part(n_heads, T, n)),
+               W(st, dev, "attn", n * D))
+    c0, s0 = l * B * T * D, l * B * T      # the layer's cache block
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_self_block_batched(
+            P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D,
+            n_heads, P(blk["ln1_w"], l * D), P(blk["ln1_b"], l * D),
+            P(blk["wqkv"], l * D * 3 * D), P(blk["sqkv"], l * 3 * D),
+            P(blk["bqkv"], l * 3 * D),
+            P(kq, c0 + r * T * D), P(ks, s0 + r * T), P(vq, c0 + r * T * D),
+            P(vs, s0 + r * T), _build.DTYPE_CODES[kq.dtype], T, P(pos, r),
+            P(blk["self_wo"], l * D * D), P(blk["self_wos"], l * D),
+            P(blk["self_wob"], l * D),
+            P(x_out, r * D), P(k_row, r * D), P(k_scale, r), P(v_row, r * D),
+            P(v_scale, r), *scratch, st)
+        _build.check(rc, "self_block_batched")
+        LAUNCHES["self_block_batched"] += 1
+
+    _build.in_row_chunks(B, launch)
     return x_out, k_row, k_scale, v_row, v_scale
 
 
@@ -390,18 +400,28 @@ def _cross_block_batched_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
     x_out = torch.empty_like(x)
     W = _build.workspace
     P = _build.ptr
-    rc = _build.library().wa_cross_block_batched(
-        P(x), _build.DTYPE_CODES[x.dtype], B, D, n_heads,
-        P(blk["ln2_w"], l * D), P(blk["ln2_b"], l * D),
-        P(blk["wcq"], l * D * D), P(blk["scq"], l * D), P(blk["bcq"], l * D),
-        P(kq, l * B * T * D), P(ks, l * B * T), P(vq, l * B * T * D),
-        P(vs, l * B * T), _build.DTYPE_CODES[kq.dtype], T, int(enc_len),
-        P(blk["cross_wo"], l * D * D), P(blk["cross_wos"], l * D),
-        P(blk["cross_wob"], l * D), P(x_out),
-        W(st, dev, "qkv", B * D), W(st, dev, "part", _n_part(n_heads, T, B)),
-        W(st, dev, "attn", B * D), st)
-    _build.check(rc, "cross_block_batched")
-    LAUNCHES["cross_block_batched"] += 1
+    n = min(B, _build.MAX_ROWS)
+    scratch = (W(st, dev, "qkv", n * D),
+               W(st, dev, "part", _n_part(n_heads, T, n)),
+               W(st, dev, "attn", n * D))
+    c0, s0 = l * B * T * D, l * B * T      # the layer's cache block
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_cross_block_batched(
+            P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D,
+            n_heads, P(blk["ln2_w"], l * D), P(blk["ln2_b"], l * D),
+            P(blk["wcq"], l * D * D), P(blk["scq"], l * D),
+            P(blk["bcq"], l * D),
+            P(kq, c0 + r * T * D), P(ks, s0 + r * T), P(vq, c0 + r * T * D),
+            P(vs, s0 + r * T), _build.DTYPE_CODES[kq.dtype], T,
+            int(enc_len),
+            P(blk["cross_wo"], l * D * D), P(blk["cross_wos"], l * D),
+            P(blk["cross_wob"], l * D), P(x_out, r * D), *scratch, st)
+        _build.check(rc, "cross_block_batched")
+        LAUNCHES["cross_block_batched"] += 1
+
+    _build.in_row_chunks(B, launch)
     return x_out
 
 
@@ -411,15 +431,21 @@ def _ffn_block_batched_cuda(x, blk, l: int):
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
     P = _build.ptr
-    rc = _build.library().wa_ffn_block_batched(
-        P(x), _build.DTYPE_CODES[x.dtype], B, D, H,
-        P(blk["ln3_w"], l * D), P(blk["ln3_b"], l * D),
-        P(blk["w1"], l * D * H), P(blk["s1"], l * H), P(blk["b1"], l * H),
-        P(blk["w2"], l * H * D), P(blk["fc2_s"], l * D),
-        P(blk["fc2_b"], l * D), P(x_out),
-        _build.workspace(st, dev, "g", B * H), st)
-    _build.check(rc, "ffn_block_batched")
-    LAUNCHES["ffn_block_batched"] += 1
+    g = _build.workspace(st, dev, "g", min(B, _build.MAX_ROWS) * H)
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_ffn_block_batched(
+            P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D, H,
+            P(blk["ln3_w"], l * D), P(blk["ln3_b"], l * D),
+            P(blk["w1"], l * D * H), P(blk["s1"], l * H),
+            P(blk["b1"], l * H), P(blk["w2"], l * H * D),
+            P(blk["fc2_s"], l * D), P(blk["fc2_b"], l * D), P(x_out, r * D),
+            g, st)
+        _build.check(rc, "ffn_block_batched")
+        LAUNCHES["ffn_block_batched"] += 1
+
+    _build.in_row_chunks(B, launch)
     return x_out
 
 

@@ -9,10 +9,14 @@
   (-inf bias) columns add nothing.
 - K8 ``qmatvec_stacked``: y [M, N] = (x [M, K] @ wq[layer]) * scale[layer]
   over a stacked int8 [L, K, N] weight (``qmatvec`` for one [K, N]).
+- K9 ``ffn_fused``: y [M, D] = gelu(x @ w1[layer] * s1[layer] +
+  b1[layer]) @ w2[layer], the scan step's FFN; the caller applies fc2's
+  scale and bias.
 
 Each wrapper runs its hand-written CUDA kernel (``csrc/qmatvec.cu``) for
-CUDA tensors and the plain PyTorch version below for CPU tensors. The
-kernels take up to ``MAX_ROWS`` rows.
+CUDA tensors and the plain PyTorch version below for CPU tensors. One
+launch takes at most ``_build.MAX_ROWS`` rows; a wrapper launches once
+per chunk of rows (``_build.in_row_chunks``).
 """
 
 from __future__ import annotations
@@ -22,12 +26,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .basic import gelu
 
-MAX_ROWS = 32          # rows the entries take (csrc BMV_MAX_B)
 _COLS = 32             # columns per block (csrc MV_COLS)
 
 # launches of each kernel in this process (reset by the caller)
-LAUNCHES = {"qmatvec_greedy_head": 0, "qmatvec_stacked": 0}
+LAUNCHES = {"qmatvec_greedy_head": 0, "qmatvec_stacked": 0, "ffn_fused": 0}
 
 
 def reset_launches() -> None:
@@ -62,12 +66,21 @@ def qmatvec_stacked_plain(x: torch.Tensor, wq: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
+def ffn_fused_plain(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+                    b1: torch.Tensor, w2: torch.Tensor,
+                    layer: int) -> torch.Tensor:
+    l = layer
+    h = (x.float() @ w1[l].float()) * s1[l] + b1[l]
+    g = gelu(h).to(x.dtype)
+    return (g.float() @ w2[l].float()).to(x.dtype)
+
+
 def _check_rows(x: torch.Tensor, K: int) -> int:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     M = x.shape[0] if x.dim() == 2 else 0
-    if not (x.dim() == 2 and 1 <= M <= MAX_ROWS and x.shape[1] == K):
-        raise ValueError(f"x must be [M, {K}] with 1 <= M <= {MAX_ROWS}, got "
+    if not (x.dim() == 2 and M >= 1 and x.shape[1] == K):
+        raise ValueError(f"x must be [M, {K}] with M >= 1, got "
                          f"{tuple(x.shape)}")
     return M
 
@@ -97,14 +110,20 @@ def _greedy_head_cuda(x, wq, bias, n_vocab):
     lse = torch.empty(M, dtype=torch.float32, device=dev)
     W = _build.workspace
     P = _build.ptr
-    rc = _build.library().wa_greedy_head(
-        P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(bias),
-        int(n_vocab), W(st, dev, "head_m", M * nb),
-        W(st, dev, "head_z", M * nb),
-        W(st, dev, "head_i", M * nb, torch.int32), P(tok), P(mx), P(lse),
-        st)
-    _build.check(rc, "qmatvec_greedy_head")
-    LAUNCHES["qmatvec_greedy_head"] += 1
+    n_part = min(M, _build.MAX_ROWS) * nb
+    part = (W(st, dev, "head_m", n_part), W(st, dev, "head_z", n_part),
+            W(st, dev, "head_i", n_part, torch.int32))
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_greedy_head(
+            P(x, r * K), _build.DTYPE_CODES[x.dtype], rows.stop - r, K,
+            P(wq), N, P(bias), int(n_vocab), *part, P(tok, r), P(mx, r),
+            P(lse, r), st)
+        _build.check(rc, "qmatvec_greedy_head")
+        LAUNCHES["qmatvec_greedy_head"] += 1
+
+    _build.in_row_chunks(M, launch)
     return tok, mx, lse
 
 
@@ -124,12 +143,50 @@ def _stacked_cuda(x, wq, scale, layer, out_dtype):
     _check_on(x.device, x=x, wq=wq, scale=scale)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     P = _build.ptr
-    rc = _build.library().wa_qmatvec_stacked(
-        P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq, layer * K * N), N,
-        P(scale, layer * N), P(out), _build.DTYPE_CODES[out_dtype],
-        _build.stream())
-    _build.check(rc, "qmatvec_stacked")
-    LAUNCHES["qmatvec_stacked"] += 1
+    st = _build.stream()
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_qmatvec_stacked(
+            P(x, r * K), _build.DTYPE_CODES[x.dtype], rows.stop - r, K,
+            P(wq, layer * K * N), N, P(scale, layer * N), P(out, r * N),
+            _build.DTYPE_CODES[out_dtype], st)
+        _build.check(rc, "qmatvec_stacked")
+        LAUNCHES["qmatvec_stacked"] += 1
+
+    _build.in_row_chunks(M, launch)
+    return out
+
+
+def _ffn_fused_cuda(x, w1, s1, b1, w2, layer):
+    if w1.dtype != torch.int8 or w2.dtype != torch.int8 \
+            or s1.dtype != torch.float32 or b1.dtype != torch.float32:
+        raise TypeError("fc1/fc2 weights must be int8, s1 and b1 f32")
+    L, D, H = w1.shape
+    if tuple(w2.shape) != (L, H, D) or s1.shape != (L, 1, H) \
+            or b1.shape != (L, 1, H):
+        raise ValueError(f"w1 {tuple(w1.shape)}, s1 {tuple(s1.shape)}, b1 "
+                         f"{tuple(b1.shape)}, w2 {tuple(w2.shape)}: want "
+                         "[L, D, H], [L, 1, H], [L, 1, H], [L, H, D]")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the {L}-layer stack")
+    M = _check_rows(x, D)
+    _check_on(x.device, x=x, w1=w1, s1=s1, b1=b1, w2=w2)
+    dev, st = x.device, _build.stream()
+    out = torch.empty_like(x)
+    g = _build.workspace(st, dev, "ffn_g", min(M, _build.MAX_ROWS) * H)
+    P = _build.ptr
+
+    def launch(rows):
+        r = rows.start                     # chunk = pointer offsets
+        rc = _build.library().wa_ffn_fused(
+            P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D, H,
+            P(w1, layer * D * H), P(s1, layer * H), P(b1, layer * H),
+            P(w2, layer * H * D), g, P(out, r * D), st)
+        _build.check(rc, "ffn_fused")
+        LAUNCHES["ffn_fused"] += 1
+
+    _build.in_row_chunks(M, launch)
     return out
 
 
@@ -170,3 +227,17 @@ def qmatvec(x: torch.Tensor, wq: torch.Tensor, scale) -> torch.Tensor:
                                            device=wq.device).reshape(1, -1),
                            (1, N))
     return qmatvec_stacked(x, wq[None], s[None].contiguous(), 0)
+
+
+def ffn_fused(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+              b1: torch.Tensor, w2: torch.Tensor, layer: int) -> torch.Tensor:
+    """K9: y = gelu(x @ w1[l] * s1[l] + b1[l]) @ w2[l] with f32
+    accumulation, the GELU output and the unscaled fc2 sum rounded to x's
+    dtype. x [M, D] f32 or bf16; w1 [L, D, H] / w2 [L, H, D] int8; s1, b1
+    [L, 1, H] f32; the layer a host int. Returns [M, D] in x.dtype; fc2's
+    per-channel scale and bias are the caller's, in f32."""
+    if x.device.type == "cpu":
+        return ffn_fused_plain(x, w1, s1, b1, w2, int(layer))
+    if x.device.type == "cuda":
+        return _ffn_fused_cuda(x, w1, s1, b1, w2, int(layer))
+    raise ValueError(f"no kernel for device {x.device}")

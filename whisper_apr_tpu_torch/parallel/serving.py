@@ -1,21 +1,27 @@
 """Multi-stream batched serving with continuous batching: port of
-``whisper_apr_tpu/parallel/serving.py`` over dense fused-step slots.
+``whisper_apr_tpu/parallel/serving.py`` over dense slots.
 
 A fixed number of SLOTS share one decode step. Each slot holds one
 request's cache rows, token buffer and position. Every scheduler tick
 admits queued requests into free slots (``pipeline.fused_admit_step``:
 log-mel, encoder, cross K/V, prompt prefill, suppressed first token; then
 one scatter into the slot cache) and advances ALL slots by one token in
-one step (``kv_variants.decode_steps_multi``: K5-K7 per layer, K8 for the
-vocab logits, bias + argmax); finished slots are refilled from the queue
-at the next tick.
+one step (``kv_variants.decode_steps_multi``), bias + argmax; finished
+slots are refilled from the queue at the next tick. The engine picks the
+slot cache and the step, as in the JAX scheduler:
 
-Kept from the JAX scheduler on purpose: a cache mode of "cross8" (the
-transcription default, whether from "auto" or explicit) is served as full
-int8 KV, and the slot cache of every other non-int8 mode holds
-compute-dtype rows. Not here yet: paged slots (the port's slice 5), a
-device mesh (slice 7), and engines without the int8 fused step (f32
-weights or kv_mode "scan": slice 3).
+- int8 weights and a fused-step cache mode: a ``QKVCache`` and
+  ``decode_step_qf`` (K5-K7 per layer, K8 for the vocab logits). A cache
+  mode of "cross8" (the transcription default, whether from "auto" or
+  explicit) is served as full int8 KV, kept from the JAX scheduler on
+  purpose; every other non-int8 mode holds compute-dtype rows;
+- int8 weights with kv_mode "scan": a dense ``KVCache`` and the scan step
+  ``decode_step_q`` (K8 four times and K9 once per layer, K8 for the
+  vocab logits);
+- f32 weights: a dense ``KVCache`` and the plain ``decode_step_multi``.
+
+Not here yet: paged slots (the port's slice 5) and a device mesh (slice
+7).
 """
 
 from __future__ import annotations
@@ -36,6 +42,20 @@ from ..model.kv_variants import decode_steps_multi
 from ..model.qdecode import (CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache,
                              qf_supported)
 from ..ops.decode_attention import quantize_rows
+
+
+def _scatter_dense_slots(cache: KVCache, slots: torch.Tensor,
+                         new: KVCache) -> KVCache:
+    """Write freshly-admitted sequences into their dense slots, in place:
+    the self rows [:P] of ``new`` ([L, n, P, D]) and its full cross K/V
+    [L, n, S, D], cast to the cache's dtype."""
+    P = new.self_k.shape[2]
+    dt = cache.self_k.dtype
+    cache.self_k[:, slots, :P] = new.self_k.to(dt)
+    cache.self_v[:, slots, :P] = new.self_v.to(dt)
+    cache.cross_k[:, slots] = new.cross_k.to(dt)
+    cache.cross_v[:, slots] = new.cross_v.to(dt)
+    return cache
 
 
 def _scatter_qf_slots(cache: QKVCache, slots: torch.Tensor, new: KVCache,
@@ -135,17 +155,13 @@ class BatchScheduler:
             "tokens_generated": 0, "queue_seconds_sum": 0.0,
             "decode_seconds_sum": 0.0, "admitted": 0, "ticks": 0}
 
-        # dense fused-step slots: the JAX scheduler's cache forms
+        # dense slots: the JAX scheduler's cache forms (module docstring)
         self._qf = engine._qf_mode
-        if engine._qdecode is None or not self._qf:
-            raise NotImplementedError(
-                "serving without the int8 fused step (f32 weights or "
-                "kv_mode 'scan'): the port's slice 3")
         if self._qf == "cross8":
             # the reference serves cross8 as FULL int8 KV at B > 1
             self._qf = "int8"
-        self._qd = engine._qd_for(n_slots)
-        if not qf_supported(self._qd, n_slots):
+        self._qd = engine._qd_for(n_slots) if self._qf else engine._qdecode
+        if self._qf and not qf_supported(self._qd, n_slots):
             raise NotImplementedError(
                 "k-quant serving slots: the port's slice 4")
         D = self.config.n_text_state
@@ -163,11 +179,16 @@ class BatchScheduler:
             return torch.zeros(shape, dtype=d, device=dev)
 
         f32 = torch.float32
-        self._cache = QKVCache(
-            z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
-            z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
-            z((L, B, Sp, D), rdt), z((L, B, Sp, 1), f32) if kv8 else None,
-            z((L, B, Sp, D), rdt), z((L, B, Sp, 1), f32) if kv8 else None)
+        if self._qf:
+            self._cache = QKVCache(
+                z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
+                z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
+                z((L, B, Sp, D), rdt), z((L, B, Sp, 1), f32) if kv8 else None,
+                z((L, B, Sp, D), rdt), z((L, B, Sp, 1), f32) if kv8 else None)
+        else:
+            self._cache = KVCache(
+                z((L, B, self.max_len, D), dt), z((L, B, self.max_len, D), dt),
+                z((L, B, S, D), dt), z((L, B, S, D), dt))
         self._tokens = np.full((B, self.max_len), engine.specials.eot,
                                dtype=np.int32)
         self._pos = np.zeros(B, dtype=np.int32)
@@ -299,9 +320,8 @@ class BatchScheduler:
             self._params, torch.from_numpy(audio).to(dev),
             *eng.mel_filters.constants(dev), torch.from_numpy(prompt).to(dev),
             self._bias, self.config, compute_dtype=eng._compute_dtype)
-        slots_t = torch.tensor(targets, dtype=torch.long, device=dev)
-        self._cache = _scatter_qf_slots(self._cache, slots_t, new,
-                                        int8=self._qf == "int8")
+        self._scatter(torch.tensor(targets, dtype=torch.long, device=dev),
+                      new)
         first = first.cpu().numpy()
         now = time.time()
         eot = eng.specials.eot
@@ -331,9 +351,8 @@ class BatchScheduler:
                               compute_dtype=eng._compute_dtype)
         first = int(torch.argmax(logits[0] + self._bias))
         P = len(req.prompt)
-        slot_t = torch.tensor([slot], dtype=torch.long, device=eng.device)
-        self._cache = _scatter_qf_slots(self._cache, slot_t, one,
-                                        int8=self._qf == "int8")
+        self._scatter(torch.tensor([slot], dtype=torch.long,
+                                   device=eng.device), one)
         self._tokens[slot] = eng.specials.eot
         self._tokens[slot, :P] = req.prompt
         self._tokens[slot, P] = first
@@ -344,6 +363,14 @@ class BatchScheduler:
         self._counters["admitted"] += 1
         if first == eng.specials.eot:
             self._finish(slot)
+
+    def _scatter(self, slots: torch.Tensor, new: KVCache) -> None:
+        """Write admitted sequences' caches into ``slots``."""
+        if self._qf:
+            self._cache = _scatter_qf_slots(self._cache, slots, new,
+                                            int8=self._qf == "int8")
+        else:
+            self._cache = _scatter_dense_slots(self._cache, slots, new)
 
     def _complete_unadmitted(self, req: Request, status: str,
                              now: float) -> None:

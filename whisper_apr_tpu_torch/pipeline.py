@@ -51,7 +51,11 @@ def fused_transcribe_step(params: dict, audio: torch.Tensor,
     """audio [B, n_samples] (pre-padded to a full window) -> DecodeResult.
 
     Log-mel per item (per-item normalization), frames padded to
-    2 * n_audio_ctx with -1.0, encoder, then the greedy decode. The JAX
+    2 * n_audio_ctx with -1.0, encoder, then the greedy decode of
+    ``decoder.greedy_generate_body``: the fused step with the fused head
+    (``qd`` and ``qf_mode``), with the logits tail and the timestamp rules
+    (``timestamp_base`` >= 0), the scan step (``qd`` with ``qf_mode``
+    None) or the plain step (no ``qd``). The JAX
     step's ``fidelity`` (HIGHEST matmul precision) has no argument here:
     f32 matmuls are full f32 while TF32 is off, PyTorch's default.
     """
