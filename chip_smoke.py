@@ -46,6 +46,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               weights): 30 s of noise through encoder, prefill and decode
               at full width, f32 tokens through the kernels against the
               plain versions (near-tie rule).
+3b. kquant kernels (after phase 3) - K10-K14 against their plain versions
+              in Q4_K, Q5_K and Q6_K at the whisper-base and large-v3
+              decoder shapes (bf16; f32 at base) over bf16 and int8 self
+              rows and int8 cross rows (cross8), K10/K11 at M = 1, 8 and
+              40; their times and bounds; the large-v3 32-layer B=1
+              k-quant step (q4k, q5k).
+7b. kquant (after phase 7) - whisper-base .apr files with header
+              quantization q4k, q5k and q6k written by the port and loaded
+              by load_from_apr: 30 s of noise at B=1 (K12-K14 L times and
+              K4 once per step), the bench protocol's RTF, f32 tokens
+              through the kernels == plain; kv_mode "scan" (K10 over q4k,
+              K11 over q5k; K8 for the logits); over the q4k engine
+              transcribe_batch of 4 and BatchScheduler(n_slots=4) on the
+              int8 transcode (K5-K8), f32 tokens following per-clip
+              decoding through the transcode (near-tie rule).
 
 The last three lines of stdout are the kernel summary JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -841,42 +856,41 @@ def phase_kernels():
 # phase 4: end to end
 # ---------------------------------------------------------------------------
 
+def _kernel_modules():
+    """The modules of the kernel wrappers, each with its LAUNCHES."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    from whisper_apr_tpu_torch.ops import kquants, q4k
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    return db, qm, q4k, kquants, dbk
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the decode step through the plain versions (same device)."""
-    from whisper_apr_tpu_torch.ops import decode_blocks as db
-    from whisper_apr_tpu_torch.ops import qmatvec as qm
-    names = ("self_block", "cross_block", "ffn_block", "self_block_batched",
-             "cross_block_batched", "ffn_block_batched")
-    saved = [getattr(db, n) for n in names] + [
-        qm.qmatvec_greedy_head, qm.qmatvec_stacked, qm.ffn_fused]
-    plain = {"self_block": db.self_block_plain,
-             "cross_block": db.cross_block_plain,
-             "ffn_block": db.ffn_block_plain}
-    for n in names:
-        setattr(db, n, plain[n.replace("_batched", "")])
-    qm.qmatvec_greedy_head = qm.qmatvec_greedy_head_plain
-    qm.qmatvec_stacked = qm.qmatvec_stacked_plain
-    qm.ffn_fused = qm.ffn_fused_plain
+    """Route the decode step through the plain versions (same device):
+    every wrapper of every kernel module is swapped for its plain
+    version, K5-K7 for K1-K3's (which take any B)."""
+    swaps = []
+    for mod in _kernel_modules():
+        for name in mod.LAUNCHES:
+            plain = getattr(mod, name.replace("_batched", "") + "_plain")
+            swaps.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, plain)
     try:
         yield
     finally:
-        for n, f in zip(names, saved):
-            setattr(db, n, f)
-        qm.qmatvec_greedy_head, qm.qmatvec_stacked, qm.ffn_fused = saved[-3:]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
 
 
 def launches():
-    from whisper_apr_tpu_torch.ops import decode_blocks as db
-    from whisper_apr_tpu_torch.ops import qmatvec as qm
-    return {**db.LAUNCHES, **qm.LAUNCHES}
+    return {k: v for mod in _kernel_modules()
+            for k, v in mod.LAUNCHES.items()}
 
 
 def reset_launches():
-    from whisper_apr_tpu_torch.ops import decode_blocks as db
-    from whisper_apr_tpu_torch.ops import qmatvec as qm
-    db.reset_launches()
-    qm.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def write_random_apr(path: Path, cfg) -> None:
@@ -1501,6 +1515,457 @@ def phase_large_v3(device="cuda", max_tokens: int = 24) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: k-quant models (K10-K14)
+# ---------------------------------------------------------------------------
+
+KQ_MODES = ("q4k", "q5k", "q6k")
+# planar bytes a weight (values and f32 group scales and zeros)
+KQ_WEIGHT_BYTES = {"q4k": 0.75, "q5k": 1.25, "q6k": 1.25}
+# mean magnitude of a planar value: random values centre on 0 after the zero
+KQ_AMP = {"q4k": 7.5, "q5k": 15.5, "q6k": 32.0}
+KQ_MATVEC = {"q4k": "q4k_matvec_stacked", "q5k": "kq_matvec_stacked",
+             "q6k": "kq_matvec_stacked"}
+
+
+def make_kq_blk(fmt: str, D: int, L: int, gen, device):
+    """Random planar k-quant stacks of ``fmt`` in the kq_block_operands
+    layout (checked by ``check_blk_kq``, as that function checks its
+    own): uniform values over the format's range, effective scales that
+    keep matvec outputs O(1), zeros near the values' mean (Q4_K, Q5_K)."""
+    import torch
+    from whisper_apr_tpu_torch.ops.decode_blocks_kq import check_blk_kq
+    sub = 16 if fmt == "q6k" else 32
+    lo, hi = {"q4k": (-128, 128), "q5k": (0, 32), "q6k": (-32, 32)}[fmt]
+
+    def f32(*shape, lo=0.5, hi=1.5):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=device)
+
+    def tri(K, N, gain=1.0):
+        rows = K // 2 if fmt == "q4k" else K
+        wq = torch.randint(lo, hi, (L, rows, N), generator=gen,
+                           device=device, dtype=torch.int8)
+        s = f32(L, K // sub, N) * gain / (KQ_AMP[fmt] * np.sqrt(K))
+        z = None if fmt == "q6k" else \
+            s * KQ_AMP[fmt] * f32(L, K // sub, N, lo=0.9, hi=1.1)
+        return wq, s, z
+
+    def b(N):
+        return f32(L, 1, N, lo=-0.1, hi=0.1)
+
+    blk = {"ln1_w": f32(L, 1, D), "ln1_b": b(D), "ln2_w": f32(L, 1, D),
+           "ln2_b": b(D), "ln3_w": f32(L, 1, D), "ln3_b": b(D),
+           "qkv": tri(D, 3 * D, 4.0), "bqkv": b(3 * D),
+           "self_o": tri(D, D), "b_self_o": b(D),
+           "cross_q": tri(D, D, 4.0), "b_cross_q": b(D),
+           "cross_o": tri(D, D), "b_cross_o": b(D),
+           "fc1": tri(D, 4 * D), "b_fc1": b(4 * D),
+           "fc2": tri(4 * D, D), "b_fc2": b(D)}
+    assert check_blk_kq(blk) == fmt
+    return blk
+
+
+def kq_bound(name: str, fmt: str, D: int, M: int = 1, rows: int = 0,
+             cache_bytes: int = 2, scales: bool = False, act_bytes: int = 2,
+             K: int = 0, N: int = 0):
+    """(bound_ms, "bytes" or "operations") of one K10-K14 call, as
+    ``bound``: the planar weight bytes (KQ_WEIGHT_BYTES a weight), the f32
+    LayerNorm and bias vectors, the activations in and out and the cache
+    rows, each once, over HBM_BPS, against 2 flops a weight per row (and
+    4 per cache element) over the bf16 peak. K10/K11 (``*matvec*``) take
+    their [K, N] shape."""
+    n_w, n_f32 = {"self_block_kq": (4 * D * D, 6 * D),
+                  "cross_block_kq": (2 * D * D, 4 * D),
+                  "ffn_block_kq": (8 * D * D, 7 * D)}.get(name, (K * N, 0))
+    row_bytes = D * cache_bytes + (4 if scales else 0)
+    acts = M * (K + N) if n_f32 == 0 else 2 * M * D
+    nbytes = n_w * KQ_WEIGHT_BYTES[fmt] + 4 * n_f32 + acts * act_bytes \
+        + 2 * rows * row_bytes
+    if name == "self_block_kq":
+        nbytes += 2 * M * (row_bytes + 4)            # the new k/v rows
+    flops = 2 * M * n_w + 4 * rows * D
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _kq_matvec(fmt: str, plain: bool = False):
+    from whisper_apr_tpu_torch.ops import kquants, q4k
+    mod = q4k if fmt == "q4k" else kquants
+    name = KQ_MATVEC[fmt] + ("_plain" if plain else "")
+    return getattr(mod, name)
+
+
+def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
+             enc_len: int, cdt, label: str, seed: int,
+             rows=(1, 8, 40)) -> dict:
+    """K12-K14 against their plain versions at one shape in ``fmt``: self
+    over compute-dtype and int8 rows at several positions, cross over
+    int8 rows (cross8), the FFN, at the first and last layer; then K10 or
+    K11 over fc1's and fc2's weights at M in ``rows`` (40: two 32-row
+    chunks). Returns each kernel's max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = make_kq_blk(fmt, D, L, gen, dev)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    mv = KQ_MATVEC[fmt]
+    worst = dict.fromkeys(["self_block_kq", "cross_block_kq",
+                           "ffn_block_kq", mv], 0.0)
+
+    def x_in(M=1, K=D):
+        return torch.randn((M, K), generator=gen, device=dev).to(cdt)
+
+    def agree(name, got, ref, what):
+        e = rel_err(got, ref)
+        assert e <= tol, (f"[kquant] {label} {fmt} {name} {what}: rel err "
+                          f"{e:.3g} > {tol:.3g}")
+        worst[name] = max(worst[name], abs_err(got, ref))
+
+    for mode in ("rows", "int8"):
+        kq, ks, vq, vs = make_cache(mode, L, T_self, D, gen, dev, cdt)
+        for pos in (1, 129, 447):
+            layer = (pos * 7) % L
+            x = x_in()
+            got = dbk.self_block_kq(x, blk, kq, ks, vq, vs, pos, layer, H)
+            ref = dbk.self_block_kq_plain(x, blk, kq, ks, vq, vs, pos,
+                                          layer, H)
+            agree("self_block_kq", got[0], ref[0], f"{mode} pos {pos}")
+            for i, what in ((1, "k_row"), (3, "v_row"), (2, "k_scale"),
+                            (4, "v_scale")):
+                check_row(f"[kquant] {label} {fmt} self {mode} pos {pos} "
+                          f"{what}", got[i], ref[i])
+    kq, ks, vq, vs = make_cache("int8", L, T_cross, D, gen, dev, cdt)
+    for layer in (0, L - 1):
+        x = x_in()
+        agree("cross_block_kq",
+              dbk.cross_block_kq(x, blk, kq, ks, vq, vs, enc_len, layer, H),
+              dbk.cross_block_kq_plain(x, blk, kq, ks, vq, vs, enc_len,
+                                       layer, H), f"layer {layer}")
+        x = x_in()
+        agree("ffn_block_kq", dbk.ffn_block_kq(x, blk, layer),
+              dbk.ffn_block_kq_plain(x, blk, layer), f"layer {layer}")
+    kern, plain = _kq_matvec(fmt), _kq_matvec(fmt, plain=True)
+    for M in rows:
+        for w, K in (("fc1", D), ("fc2", 4 * D)):
+            for layer in (0, L - 1):
+                x = x_in(M, K)
+                got = kern(x, *blk[w], layer)
+                assert got.dtype == cdt and got.shape == (
+                    M, blk[w][0].shape[2])
+                agree(mv, got, plain(x, *blk[w], layer),
+                      f"{w} M {M} layer {layer}")
+    torch.cuda.synchronize()
+    log(f"[kquant] {label} {fmt}: K12-K14 and {mv} at M in {list(rows)} "
+        f"agree with the plain versions; max abs err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
+            enc_len: int, pos: int, label: str, seed: int) -> dict:
+    """K12-K14 and K10/K11 (M=1, fc1's weight) against their plain
+    versions, device ms per call by CUDA-graph replay (eager in
+    "eager_*"), at the main path's B=1 shapes: bf16 activations, bf16
+    self rows at ``pos``, int8 cross rows (cross8); with the bound and no
+    library call (no single PyTorch call computes a k-quant matvec)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cdt = torch.bfloat16
+    blk = make_kq_blk(fmt, D, L, gen, dev)
+    sk, _, sv, _ = make_cache("rows", L, T_self, D, gen, dev, cdt)
+    ck, cks, cv, cvs = make_cache("int8", L, T_cross, D, gen, dev, cdt)
+    x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+    layer = L - 1
+    mv = KQ_MATVEC[fmt]
+    kern, plain = _kq_matvec(fmt), _kq_matvec(fmt, plain=True)
+    cases = {
+        "self_block_kq": (
+            lambda: dbk.self_block_kq(x, blk, sk, None, sv, None, pos,
+                                      layer, H),
+            lambda: dbk.self_block_kq_plain(x, blk, sk, None, sv, None, pos,
+                                            layer, H)),
+        "cross_block_kq": (
+            lambda: dbk.cross_block_kq(x, blk, ck, cks, cv, cvs, enc_len,
+                                       layer, H),
+            lambda: dbk.cross_block_kq_plain(x, blk, ck, cks, cv, cvs,
+                                             enc_len, layer, H)),
+        "ffn_block_kq": (lambda: dbk.ffn_block_kq(x, blk, layer),
+                         lambda: dbk.ffn_block_kq_plain(x, blk, layer)),
+        mv: (lambda: kern(x, *blk["fc1"], layer),
+             lambda: plain(x, *blk["fc1"], layer))}
+    shapes = {"self_block_kq": dict(rows=pos),
+              "cross_block_kq": dict(rows=enc_len, cache_bytes=1,
+                                     scales=True),
+              "ffn_block_kq": {}, mv: dict(K=D, N=4 * D)}
+    out = {}
+    for name, (k, p) in cases.items():
+        p1, k1, k2, p2 = graph_ms(p), graph_ms(k), graph_ms(k), graph_ms(p)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "eager_ms": cuda_ms(k), "eager_plain_ms": cuda_ms(p),
+                     "library_ms": None}
+        out[name]["bound_ms"], out[name]["bound_by"] = kq_bound(
+            name, fmt, D, **shapes[name])
+    log(f"[time] {label} {fmt} (pos {pos}, bf16 self rows, cross8), device "
+        f"ms per call (eager) vs plain, bound: " + "; ".join(
+            f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f}) vs {v['plain_ms']:.4f}"
+            f", bound {v['bound_ms']:.4f}" for k, v in out.items()))
+    return out
+
+
+def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
+                  seed: int, pos: int = 128, fmts=("q4k", "q5k")) -> dict:
+    """Device ms of one B=1 decode step over a k-quant qd (K12-K14 per
+    layer, the K8 logits tail; cross8 cache, bf16) by CUDA-graph replay,
+    eager in brackets, with random planar stacks of each format."""
+    import torch
+    from whisper_apr_tpu_torch.config import ModelConfig
+    from whisper_apr_tpu_torch.model import qdecode
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = ModelConfig("timing", n_vocab, 1500, D, H, L, 448, D, H, L, 80)
+    out = {}
+    for fmt in fmts:
+        blk = make_kq_blk(fmt, D, L, gen, dev)
+        params, qd, kv = scan_case(blk, D, L, n_vocab, 1, gen, dev,
+                                   torch.bfloat16)
+        qd["mode"] = fmt
+        qkv = qdecode.quantize_cache(kv, "cross8")
+        tok = torch.randint(0, n_vocab, (1,), generator=gen, device=dev,
+                            dtype=torch.int32)
+
+        def step():
+            return qdecode.decode_step_qf(params, qd, tok, pos, qkv, cfg,
+                                          compute_dtype=torch.bfloat16)
+        out[fmt] = {"ms": min(graph_ms(step, reps=3, replays=5),
+                              graph_ms(step, reps=3, replays=5)),
+                    "eager_ms": cuda_ms(step, iters=10)}
+        del blk, params, qd, kv, qkv
+        torch.cuda.empty_cache()
+    log(f"[time] {label} k-quant B=1 decode step (K12-K14 x {L} + K8), "
+        f"device ms (eager ms), pos {pos}, bf16, cross8: " + ", ".join(
+            f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f})" for k, v in out.items()))
+    return out
+
+
+def phase_kquant_kernels() -> tuple:
+    """K10-K14 against their plain versions in every format at the
+    whisper-base and large-v3 decoder shapes (bf16; f32 at base), then
+    their times at both and the large-v3 B=1 k-quant step. Returns (max
+    abs errors, times)."""
+    import torch
+    base = dict(D=512, H=8, L=4, T_self=512, T_cross=1536, enc_len=1500)
+    large = dict(D=1280, H=20, L=4, T_self=512, T_cross=1536, enc_len=1500)
+    errs = {}
+    for i, fmt in enumerate(KQ_MODES):
+        for shape, cdt, label in ((base, torch.bfloat16, "base bf16"),
+                                  (base, torch.float32, "base f32"),
+                                  (large, torch.bfloat16, "large-v3 bf16")):
+            w = check_kq(fmt, **shape, cdt=cdt, label=label, seed=30 + i)
+            for k, v in w.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    times = {}
+    for i, fmt in enumerate(KQ_MODES):
+        times[f"base_{fmt}"] = time_kq(fmt, **base, pos=128, label="base",
+                                       seed=40 + i)
+        times[f"large_v3_{fmt}"] = time_kq(fmt, **large, pos=128,
+                                           label="large-v3", seed=50 + i)
+    times["large_v3_kq_steps"] = time_kq_steps(1280, 20, 32, 51866,
+                                               "large-v3", seed=60)
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def write_kq_apr(path: Path, cfg, mode: str) -> None:
+    """Random-weight (seed 0) .apr of ``cfg`` with header quantization
+    q4k/q5k/q6k, via the port's writer."""
+    from whisper_apr_tpu_torch.format import (QUANT_Q4K, QUANT_Q5K,
+                                              QUANT_Q6K, AprWriter)
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    params_to_apr_tensors)
+    code = {"q4k": QUANT_Q4K, "q5k": QUANT_Q5K, "q6k": QUANT_Q6K}[mode]
+    w = AprWriter.from_config(cfg, quantization=code)
+    for name, arr in params_to_apr_tensors(init_params(cfg, seed=0)).items():
+        w.add_tensor(name, arr)
+    w.write_file(str(path))
+
+
+@contextlib.contextmanager
+def transcode_as_qd(eng):
+    """Decode a k-quant engine at every batch through its int8 transcode
+    (K1-K4 at B=1): the per-clip reference of its batched paths."""
+    saved = eng._qdecode
+    eng._qdecode_cache = eng._qdecode_batched
+    try:
+        yield
+    finally:
+        eng._qdecode_cache = saved
+
+
+def phase_kquant(workdir: Path, cfg=None, device="cuda", specials=None,
+                 max_tokens: int = 48) -> dict:
+    """k-quant models through the engine's entry points: for each of
+    q4k, q5k, q6k an .apr of ``cfg`` (default whisper-base, the smallest
+    preset whose decoder is 256-aligned) written by the port, loaded with
+    WhisperApr.load_from_apr, 30 s of noise at B=1 (K12-K14 L times and K4
+    once per step), the bench protocol's RTF in bf16, and in f32 the
+    tokens through the kernels against the plain versions (identical);
+    kv_mode "scan" on the q4k engine (K10 6L times and K8 once per step)
+    and the q5k engine (K11); then over the q4k engine transcribe_batch of
+    4 clips (K5-K7 L times and K4 once per step, on the int8 transcode)
+    and BatchScheduler(n_slots=4) (K5-K7 L times and K8 once per tick),
+    whose f32 tokens follow per-clip decoding through the transcode
+    (near-tie rule). Each path's launches count from 0 just before it;
+    ``launch_checks`` lists (path, counts, want) for the card."""
+    from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
+                                       TranscribeOptions, WhisperApr)
+    from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
+    cfg = cfg or ModelConfig.base()
+    L = cfg.n_text_layer
+    rng = np.random.default_rng(0)
+    noise = rng.normal(0, 0.1, 30 * 16_000).astype(np.float32)
+    clips = make_clips((4, 9, 17, 30), seed=4)
+    out = {"paths": {}, "launch_checks": [], "rtf": {}, "f32_gaps": {}}
+
+    def engine(apr, mode, dtype, kv_mode="auto"):
+        return WhisperApr.load_from_apr(
+            str(apr), ComputeConfig(quantization=mode, compute_dtype=dtype,
+                                    kv_mode=kv_mode),
+            specials=specials, device=device)
+
+    def path(name, fn, want):
+        reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = launches()
+        out["paths"][name] = {"seconds": dt, "launches": counts}
+        out["launch_checks"].append((name, counts, want(res, counts)))
+        log(f"[kquant] {name}: {dt * 1e3:.1f} ms, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return res, dt
+
+    aprs = {}
+    for mode in KQ_MODES:
+        apr = aprs[mode] = workdir / f"whisper-{cfg.model_type}-random-" \
+            f"{mode}.apr"
+        t0 = time.perf_counter()
+        write_kq_apr(apr, cfg, mode)
+        eng = engine(apr, mode, "bfloat16")
+        assert eng._qdecode["mode"] == mode, eng._qdecode
+        P = len(eng.get_initial_tokens("en"))
+        opts = TranscribeOptions(language="en", max_tokens=P + max_tokens)
+        log(f"[kquant] {apr.name}: {apr.stat().st_size / 1e6:.1f} MB, "
+            f"written and loaded in {time.perf_counter() - t0:.1f} s")
+        eng.transcribe(clips[0], opts)                   # warm-up
+
+        def b1(r, _):
+            n = len(r.tokens) - P - 1
+            return want_counts(self_block_kq=L * n, cross_block_kq=L * n,
+                               ffn_block_kq=L * n, qmatvec_greedy_head=n)
+        res, dt = path(f"{mode} noise 30 s", lambda: eng.transcribe(
+            noise, opts), b1)
+        toks = np.asarray(res.tokens)
+        assert toks.size > P and toks.min() >= 0 \
+            and toks.max() < cfg.n_vocab and np.isfinite(res.avg_logprob)
+        out["paths"][f"{mode} noise 30 s"]["ms_per_step"] = \
+            1e3 * dt / max(len(res.tokens) - P - 1, 1)
+        out["rtf"][mode] = bench_rtf(eng, noise, runs=2)
+        log(f"[kquant] {mode} bench protocol (30 s, {TOKENS_FORCED} forced "
+            f"tokens, B=1, bf16, cross8): RTF {out['rtf'][mode]['rtf']:.6f}"
+            f" ({out['rtf'][mode]['seconds'] * 1e3:.1f} ms)")
+        e32 = engine(apr, mode, "float32")
+        kern = e32.transcribe(clips[1], opts).tokens
+        with plain_kernels():
+            plain = e32.transcribe(clips[1], opts).tokens
+        assert kern == plain, (f"[kquant] {mode} f32 tokens differ: kernels "
+                               f"{kern[:16]}..., plain {plain[:16]}...")
+        log(f"[kquant] {mode} f32: {len(kern)} tokens through the kernels "
+            f"== plain versions")
+        if mode in ("q4k", "q5k"):
+            scan = engine(apr, mode, "bfloat16", "scan")
+            mv = KQ_MATVEC[mode]
+
+            def scan_want(r, _, mv=mv):
+                n = len(r.tokens) - P - 1
+                return want_counts(**{mv: 6 * L * n}, qmatvec_stacked=n)
+            path(f"{mode} scan greedy", lambda: scan.transcribe(
+                clips[1], opts), scan_want)
+        del eng, e32
+
+    # B > 1 over the q4k engine: the int8 transcode on K5-K8
+    eng = engine(aprs["q4k"], "q4k", "bfloat16")
+    P = len(eng.get_initial_tokens("en"))
+    opts = TranscribeOptions(language="en", max_tokens=P + max_tokens)
+    eng.transcribe_batch(clips[:2], opts)                # warm-up
+
+    def batch_want(r, _):
+        n = max(len(x.tokens) for x in r.results) - P - 1
+        return want_counts(self_block_batched=L * n,
+                           cross_block_batched=L * n,
+                           ffn_block_batched=L * n, qmatvec_greedy_head=n)
+    res, dt = path("q4k transcribe_batch of 4", lambda: eng.transcribe_batch(
+        clips, opts), batch_want)
+    out["paths"]["q4k transcribe_batch of 4"]["ms_per_step"] = 1e3 * dt / max(
+        max(len(x.tokens) for x in res.results) - P - 1, 1)
+
+    def serve(e, kv):
+        s = BatchScheduler(e, n_slots=4)
+        assert s._qd is e._qdecode_batched and s._qf == kv
+        rid = [s.submit(c, "en", max_tokens=max_tokens) for c in clips]
+        s.run_until_drained()
+        return s
+
+    def serve_want(s, c):
+        t = s.stats()["ticks"]
+        return want_counts(self_block_batched=L * t,
+                           cross_block_batched=L * t,
+                           ffn_block_batched=L * t, qmatvec_stacked=t)
+    sched, _ = path("q4k BatchScheduler(n_slots=4)", lambda: serve(
+        eng, "int8"), serve_want)
+    assert sched.stats()["completed_ok"] == len(clips)
+
+    # f32: kernels == plain; follows per-clip decoding on the transcode
+    e32 = engine(aprs["q4k"], "q4k", "float32", kv_mode="int8")
+    kern = [r.tokens for r in e32.transcribe_batch(clips, opts).results]
+    with plain_kernels():
+        plain = [r.tokens for r in e32.transcribe_batch(clips, opts).results]
+    assert kern == plain, "[kquant] q4k f32 batch tokens: kernels vs plain"
+
+    def served(e):
+        s = serve(e, "int8")
+        return [s.result(i).tokens for i in range(len(clips))]
+    skern = served(e32)
+    with plain_kernels():
+        splain = served(e32)
+    assert skern == splain, "[kquant] q4k f32 scheduler: kernels vs plain"
+    with transcode_as_qd(e32):
+        per_clip = [e32.transcribe(c, opts).tokens for c in clips]
+        gaps = [check_follows(e32, c, k, w, "kquant batch")
+                for c, k, w in zip(clips, kern, per_clip)]
+        gaps += [check_follows(e32, c, k, w, "kquant serve")
+                 for c, k, w in zip(clips, skern, per_clip)]
+    out["f32_gaps"]["q4k batch and serve"] = gaps
+    log(f"[kquant] q4k f32 batch and scheduler: kernels == plain versions; "
+        f"against per-clip decoding on the transcode "
+        f"{sum(g is None for g in gaps)} of {len(gaps)} identical, near-tie "
+        f"gaps {[g for g in gaps if g is not None]}")
+    return out
+
+
+def check_kq_launches(kq: dict) -> None:
+    """Every path of the k-quant phase launched exactly what it should."""
+    for name, counts, want in kq["launch_checks"]:
+        assert counts == want, f"[kquant] {name}: launches {counts}, want " \
+            f"{want}"
+
+
 def device_busy(eng, audio: np.ndarray, wall_s: float) -> dict:
     """Kernel time on the card during one bench run (torch.profiler), as a
     share of the best unprofiled wall time, and the kernels that take it."""
@@ -1596,6 +2061,16 @@ KERNELS = [
      "whisper_apr_tpu/ops/qmatvec.py:86", "tiny_b8"),
     ("ffn_fused", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
      "whisper_apr_tpu/ops/qmatvec.py:279", "tiny_b1"),
+    ("q4k_matvec_stacked", "whisper_apr_tpu_torch/csrc/kquant_matvec.cu",
+     "whisper_apr_tpu/ops/q4k.py:329", "base_q4k"),
+    ("kq_matvec_stacked", "whisper_apr_tpu_torch/csrc/kquant_matvec.cu",
+     "whisper_apr_tpu/ops/kquants.py:458", "base_q5k"),
+    ("self_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+     "whisper_apr_tpu/ops/decode_blocks_kq.py:395", "base_q4k"),
+    ("cross_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+     "whisper_apr_tpu/ops/decode_blocks_kq.py:549", "base_q4k"),
+    ("ffn_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+     "whisper_apr_tpu/ops/decode_blocks_kq.py:672", "base_q4k"),
 ]
 
 
@@ -1610,6 +2085,9 @@ def main() -> int:
     import torch
     phase_build()
     errs, times = phase_kernels()
+    kq_errs, kq_times = phase_kquant_kernels()
+    errs.update(kq_errs)
+    times.update(kq_times)
     out_dir = ROOT / "build" / "smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -1625,11 +2103,14 @@ def main() -> int:
             f"{serve['launches']}, want {serve['want_launches']}")
         batch = phase_batch(e2e["engine"], e2e["engine_f32"])
         decoders = phase_decoders(e2e["apr"])
+        kq = phase_kquant(Path(work))
+        check_kq_launches(kq)
     large = phase_large_v3()
     # each path's counts, taken from 0 just before it ran
     runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
             batch["launches"], large["launches"],
-            *(p["launches"] for p in decoders["paths"].values())]
+            *(p["launches"] for p in decoders["paths"].values()),
+            *(p["launches"] for p in kq["paths"].values())]
     total = {k: sum(r[k] for r in runs) for k in e2e["total"]}
     assert all(total[name] > 0 for name, *_ in KERNELS), total
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1647,7 +2128,9 @@ def main() -> int:
                             if k != "want_launches"},
                   "batch": {k: v for k, v in batch.items()
                             if k != "want_launches"},
-                  "decoders": decoders, "large_v3": large}
+                  "decoders": decoders, "large_v3": large,
+                  "kquant": {k: v for k, v in kq.items()
+                             if k != "launch_checks"}}
         detail_path.parent.mkdir(parents=True, exist_ok=True)
         detail_path.write_text(json.dumps(detail, indent=1))
     log(json.dumps(summary))

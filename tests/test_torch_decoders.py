@@ -166,13 +166,17 @@ class TestDecodeStepQ:
                                    rtol=1e-5, atol=1e-5)
 
     def test_kquant_qd_raises(self, cfg, params, qds, enc):
+        """A k-quant qd serves the fused step at B = 1 only: at B = 2 it
+        raises, as the JAX step does (B > 1 decodes over the int8
+        transcode)."""
         _, tp = params
         _, tq = qds
         _, tc = _prefilled(cfg, params, enc, np.array([[1, 2]] * 2, np.int32))
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tqd.decode_step_q(tp, dict(tq, mode="q4k"),
-                              torch.tensor([1, 2], dtype=torch.int32), 2, tc,
-                              cfg)
+        assert not tqd.qf_supported(dict(tq, mode="q4k"), 2)
+        with pytest.raises(NotImplementedError, match="B=1 only"):
+            tqd.decode_step_qf(tp, dict(tq, mode="q4k"),
+                               torch.tensor([1, 2], dtype=torch.int32), 2,
+                               tqd.quantize_cache(tc, "bf16"), cfg)
 
 
 class TestPlainSteps:

@@ -150,12 +150,25 @@ class TestAprRoundTrip:
                 assert torch.equal(a, b)
         walk(j, t)
 
-    def test_kquant_files_name_slice_4(self):
+    @pytest.mark.parametrize("code", [4, 5, 6])
+    def test_kquant_files_name_slice_4(self, code):
+        """The k-quant files of slice 4 (header quantization 4, 5, 6):
+        the port's writer gives the JAX writer's bytes, and both readers
+        give the same dequantized tensor."""
         cfg = _cfg()
-        w = tfmt.AprWriter.from_config(cfg, quantization=4)
-        w.add_tensor("x", np.zeros((64, 64), np.float32))
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            w.to_bytes()
+        x = np.random.default_rng(code).normal(0, 0.1, (64, 96)).astype(
+            np.float32)
+        blobs = []
+        for fmt in (tfmt, jfmt):
+            w = fmt.AprWriter.from_config(cfg, quantization=code)
+            w.add_tensor("x", x)
+            blobs.append(w.to_bytes())
+        assert blobs[0] == blobs[1]
+        got = tfmt.AprReader(blobs[0]).load_tensor("x")
+        want = jfmt.AprReader(blobs[0]).load_tensor("x")
+        np.testing.assert_array_equal(got, want)
+        # within one 4-bit step of a 32-value group (range ~0.6 here)
+        assert got.shape == x.shape and np.abs(got - x).max() < 0.05
 
 
 class TestCopiedHostModules:

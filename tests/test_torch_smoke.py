@@ -83,7 +83,9 @@ def test_end_to_end_phase_on_cpu(smoke, e2e_small):
     assert set(out["total"]) == {
         "self_block", "cross_block", "ffn_block", "qmatvec_greedy_head",
         "self_block_batched", "cross_block_batched", "ffn_block_batched",
-        "qmatvec_stacked", "ffn_fused"}
+        "qmatvec_stacked", "ffn_fused", "q4k_matvec_stacked",
+        "kq_matvec_stacked", "self_block_kq", "cross_block_kq",
+        "ffn_block_kq"}
     assert not any(out["total"].values())
     steps = requests[0]["decode_steps"]
     assert requests[0]["want_launches"]["self_block"] == \
@@ -222,3 +224,69 @@ def test_ffn_fused_bound(smoke):
     large, by = smoke.bound("ffn_fused", 1280, 1)
     assert by == "bytes"
     assert 0.35e-3 < tiny < 0.37e-3 and 3.9e-3 < large < 4.0e-3
+
+
+def test_kquant_phase_on_cpu(smoke, tmp_path):
+    """The k-quant phase at a small 256-wide model through the plain
+    versions: each format's .apr loads with its k-quant qd, every path
+    runs, the f32 checks find no difference, nothing launches, and the
+    launch check (which the GPU run applies) refuses the zero counts."""
+    from whisper_apr_tpu_torch import ModelConfig
+    cfg = ModelConfig(model_type="tiny", n_vocab=700, n_audio_ctx=32,
+                      n_audio_state=256, n_audio_head=4, n_audio_layer=1,
+                      n_text_ctx=40, n_text_state=256, n_text_head=4,
+                      n_text_layer=2, n_mels=80)
+    _, sp = _small()
+    out = smoke.phase_kquant(tmp_path, cfg=cfg, device="cpu", specials=sp,
+                             max_tokens=8)
+    assert set(out["paths"]) == {
+        "q4k noise 30 s", "q5k noise 30 s", "q6k noise 30 s",
+        "q4k scan greedy", "q5k scan greedy", "q4k transcribe_batch of 4",
+        "q4k BatchScheduler(n_slots=4)"}
+    assert not any(any(p["launches"].values())
+                   for p in out["paths"].values())
+    assert all(g is None for g in out["f32_gaps"]["q4k batch and serve"])
+    want = {name: w for name, _, w in out["launch_checks"]}
+    L = cfg.n_text_layer
+    n = want["q4k noise 30 s"]["qmatvec_greedy_head"]
+    assert n > 0 and want["q4k noise 30 s"]["self_block_kq"] == L * n
+    scan = want["q5k scan greedy"]
+    assert scan["kq_matvec_stacked"] == 6 * L * scan["qmatvec_stacked"] > 0
+    with pytest.raises(AssertionError, match="launches"):
+        smoke.check_kq_launches(out)
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q6k"])
+def test_kquant_kernel_operands_on_cpu(smoke, fmt):
+    """The random planar stacks of the kernel check pass the layout check
+    of the main path and drive the plain K12-K14 and K10/K11 to finite
+    O(1) outputs."""
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    gen = torch.Generator().manual_seed(0)
+    D, L = 256, 2
+    blk = smoke.make_kq_blk(fmt, D, L, gen, "cpu")
+    kq, ks, vq, vs = smoke.make_cache("int8", L, 256, D, gen, "cpu",
+                                      torch.float32)
+    x = torch.randn((1, D), generator=gen)
+    outs = [dbk.self_block_kq_plain(x, blk, kq, ks, vq, vs, 5, 1, 4)[0],
+            dbk.cross_block_kq_plain(x, blk, kq, ks, vq, vs, 200, 1, 4),
+            dbk.ffn_block_kq_plain(x, blk, 1),
+            smoke._kq_matvec(fmt, plain=True)(
+                torch.randn((3, 4 * D), generator=gen), *blk["fc2"], 1)]
+    for y in outs:
+        assert bool(torch.isfinite(y).all()) and float(y.abs().max()) < 50
+
+
+def test_kquant_bounds(smoke):
+    """The k-quant bounds from the planar bytes (0.75 a weight for Q4_K,
+    1.25 for Q5_K and Q6_K) at large-v3, pos 128, cross8: about 1.7 /
+    2.6 us for K12, 1.9 / 2.4 for K13 and 2.9 / 4.9 for K14."""
+    want = {("self_block_kq", "q4k"): 1.7, ("self_block_kq", "q5k"): 2.6,
+            ("cross_block_kq", "q4k"): 1.9, ("cross_block_kq", "q6k"): 2.4,
+            ("ffn_block_kq", "q4k"): 2.9, ("ffn_block_kq", "q6k"): 4.9}
+    for (name, fmt), us in want.items():
+        shape = {"self_block_kq": dict(rows=128),
+                 "cross_block_kq": dict(rows=1500, cache_bytes=1,
+                                        scales=True)}.get(name, {})
+        ms, by = smoke.kq_bound(name, fmt, 1280, **shape)
+        assert by == "bytes" and abs(1e3 * ms - us) < 0.1, (name, fmt, ms)

@@ -12,8 +12,10 @@ fallback and n-best lists:
 The decode step follows ``ComputeConfig.kv_mode`` and the weights: int8
 weights with a cache mode run the per-block CUDA kernels (K1-K3 for one
 row, K5-K7 for several) with the fused greedy head K4 or the logits tail
-K8; kv_mode "scan" runs ``decode_step_q`` (K8 and K9); f32 weights the
-plain step. The engine lives on one ``device`` ("cuda" by default; "cpu"
+K8; kv_mode "scan" runs ``decode_step_q`` (K8 and K9); k-quant weights
+(Q4_K, Q5_K, Q6_K) run K12-K14 for one row and, for several, K5-K7 over
+their int8 transcode, and in kv_mode "scan" K10 (Q4_K) or K11; f32, int4
+and group-int4 weights the plain step. The engine lives on one ``device`` ("cuda" by default; "cpu"
 runs the kernels' plain PyTorch versions). Continuous-batching serving
 over an engine is ``parallel/serving.BatchScheduler``. Hotwords,
 speculative decoding and audio longer than one window are the port's
@@ -155,9 +157,12 @@ class WhisperApr:
                       progress: Optional[Callable] = None,
                       device: Union[str, torch.device] = "cuda"
                       ) -> "WhisperApr":
-        """Load a model from an .apr (v1) container. int8 files stay int8
-        on the device with the file's scales; f32 files are quantized at
-        load when ``compute.quantization`` is "int8"."""
+        """Load a model from an .apr (v1) container. Quantized files stay
+        quantized on the device: int8 with the file's scales, q4k/q5k/q6k
+        bit-exact from the super-blocks (block linears whose d_in is a
+        multiple of 256; the others load dequantized), when
+        ``compute.quantization`` is "none" or the file's own mode; other
+        files are quantized at load to ``compute.quantization``."""
         if progress is not None:
             raise NotImplementedError(
                 "load progress reporting: the port's slice 6 (utils)")
@@ -170,8 +175,10 @@ class WhisperApr:
         config = reader.header.to_model_config()
         compute = compute or ComputeConfig()
         dtype = _DTYPES.get(compute.param_dtype, torch.float32)
-        file_int8 = reader.header.quantization == 2
-        keep = file_int8 and compute.quantization in ("none", "int8")
+        file_mode = {2: "int8", 4: "q4k", 5: "q5k", 6: "q6k"}.get(
+            reader.header.quantization)
+        keep = file_mode is not None \
+            and compute.quantization in ("none", file_mode)
         params = load_params_from_apr(reader, dtype=dtype, keep_quantized=keep)
         if compute.quantization != "none" and not keep:
             from .model.params import quantize_params
@@ -195,24 +202,33 @@ class WhisperApr:
 
     @property
     def _qdecode(self):
-        """Kernel operands of the fused decode step, prepared once; None
-        when the params are not int8."""
+        """Kernel operands of the quantized decode steps, prepared once:
+        an int8 qd, else a Q4_K, else a Q5_K/Q6_K one; None for other
+        weights (f32, int4, group int4: the plain step)."""
         if not hasattr(self, "_qdecode_cache"):
-            from .model.qdecode import prepare_qdecode
-            self._qdecode_cache = prepare_qdecode(self.params, self.config)
+            from .model.qdecode import (prepare_kq_decode,
+                                        prepare_q4k_decode, prepare_qdecode)
+            qd = prepare_qdecode(self.params, self.config)
+            if qd is None:
+                qd = prepare_q4k_decode(self.params, self.config)
+            if qd is None:
+                qd = prepare_kq_decode(self.params, self.config)
+            self._qdecode_cache = qd
         return self._qdecode_cache
 
     @property
     def _qdecode_batched(self):
-        """qd of a batched (B > 1) decode: the int8 qd itself. A k-quant
-        qd would be transcoded to int8 here (``transcode_kq_to_int8``),
-        which comes with the port's slice 4."""
-        from .model.qdecode import KQ_MODES
-        qd = self._qdecode
-        if qd is not None and str(qd.get("mode", "int8")) in KQ_MODES:
-            raise NotImplementedError(
-                "k-quant transcode to int8 for B > 1: the port's slice 4")
-        return qd
+        """qd of a batched (B > 1) fused decode: the int8 qd itself, or for
+        k-quant params their per-channel int8 transcode
+        (``qdecode.transcode_kq_to_int8``), built once at first use, so
+        that B > 1 runs K5-K8; storage and the B = 1 path stay k-quant."""
+        if not hasattr(self, "_qdecode_batched_cache"):
+            from .model.qdecode import KQ_MODES, transcode_kq_to_int8
+            qd = self._qdecode
+            if qd is not None and str(qd.get("mode", "int8")) in KQ_MODES:
+                qd = transcode_kq_to_int8(self.params, self.config) or qd
+            self._qdecode_batched_cache = qd
+        return self._qdecode_batched_cache
 
     def _qd_for(self, batch: int):
         """The qd serving a decode at this batch size."""

@@ -13,6 +13,9 @@ from .container import (
     QUANT_F32,
     QUANT_INT4,
     QUANT_INT8,
+    QUANT_Q4K,
+    QUANT_Q5K,
+    QUANT_Q6K,
     TENSOR_INDEX_ENTRY_SIZE,
     AprHeader,
     AprReader,
@@ -25,5 +28,5 @@ __all__ = [
     "AprHeader", "AprReader", "AprWriter", "Crc32", "MelFilterbankData",
     "TensorDescriptor", "crc32", "MAGIC", "FORMAT_VERSION", "HEADER_SIZE",
     "TENSOR_INDEX_ENTRY_SIZE", "QUANT_F32", "QUANT_F16", "QUANT_INT8",
-    "QUANT_INT4",
+    "QUANT_INT4", "QUANT_Q4K", "QUANT_Q5K", "QUANT_Q6K",
 ]

@@ -67,15 +67,25 @@ _KQUANT_BLOCK_BYTES = {QUANT_Q4K: 144, QUANT_Q5K: 176, QUANT_Q6K: 210}
 
 
 def _kquant_dequantize(code: int, raw: "np.ndarray") -> "np.ndarray":
-    raise NotImplementedError(
-        f"{_QUANT_NAMES[code]} tensors: the k-quant codecs come with the "
-        "port's slice 4 (quantized formats)")
+    if code == QUANT_Q4K:
+        from ..ops.q4k import dequantize_q4k_raw
+        return dequantize_q4k_raw(raw)
+    if code == QUANT_Q5K:
+        from ..ops.kquants import dequantize_q5k_raw
+        return dequantize_q5k_raw(raw)
+    from ..ops.kquants import dequantize_q6k_raw
+    return dequantize_q6k_raw(raw)
 
 
 def _kquant_quantize(code: int, flat: "np.ndarray") -> "np.ndarray":
-    raise NotImplementedError(
-        f"{_QUANT_NAMES[code]} tensors: the k-quant codecs come with the "
-        "port's slice 4 (quantized formats)")
+    if code == QUANT_Q4K:
+        from ..ops.q4k import quantize_q4k_raw
+        return quantize_q4k_raw(flat)
+    if code == QUANT_Q5K:
+        from ..ops.kquants import quantize_q5k_raw
+        return quantize_q5k_raw(flat)
+    from ..ops.kquants import quantize_q6k_raw
+    return quantize_q6k_raw(flat)
 
 
 @dataclasses.dataclass

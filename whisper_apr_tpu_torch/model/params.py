@@ -1,15 +1,17 @@
-"""Parameter trees: schema, seeded random init, .apr loading, int8
+"""Parameter trees: schema, seeded random init, .apr loading, weight
 quantization, and the bridge from the JAX package's params.
 
 Port of ``whisper_apr_tpu/model/params.py``. Parameters are nested dicts
 of tensors with the JAX package's layout: per-layer tensors STACKED on a
 leading layer axis, linear weights input-major ``[d_in, d_out]``, int8
-weights as :class:`~..ops.quant.QTensor`. Tensor names in .apr files are
+weights as :class:`~..ops.quant.QTensor` (int8, int4, group int4 and the
+planar k-quants). Tensor names in .apr files are
 the HF-derived names (``decoder.layers.N.self_attn.q_proj.weight``, ...).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -18,18 +20,21 @@ import torch
 from ..config import ModelConfig
 from ..errors import ModelError
 from ..format import AprReader
-from ..format.container import QUANT_F16, QUANT_F32, QUANT_INT8
-from ..ops.quant import QTensor, is_quantized, quantize_int8
+from ..format.container import (QUANT_F16, QUANT_F32, QUANT_INT8,
+                                QUANT_Q4K, QUANT_Q5K, QUANT_Q6K)
+from ..ops.quant import (QTensor, is_quantized, quantize_int4, quantize_int8,
+                         quantize_q4_block)
 
 Params = Dict[str, Any]
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf (QTensors map their q and scale)."""
+    """Apply ``fn`` to every tensor leaf (QTensors map q, scale and
+    zero)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if is_quantized(tree):
-        return QTensor(fn(tree.q), fn(tree.scale))
+        return tree.map(fn)
     return fn(tree)
 
 
@@ -38,11 +43,11 @@ def to_device(params: Params, device) -> Params:
 
 
 def layer_slice(tree, layer: int):
-    """One layer of a stacked tree (QTensor q and scale alike)."""
+    """One layer of a stacked tree (QTensor q, scale and zero alike)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, layer) for k, v in tree.items()}
     if is_quantized(tree):
-        return QTensor(tree.q[layer], tree.scale[layer])
+        return tree.map(lambda t: t[layer])
     return tree[layer]
 
 
@@ -134,10 +139,11 @@ def _leaf_tensor(a) -> torch.Tensor:
 
 
 def from_jax_params(tree):
-    """Turn the JAX package's param tree (numpy or JAX arrays; int8
-    ``QTensor``s as objects with ``q`` and ``scale``) into the port's.
-    Only int8 QTensors cross: int4, group-scale and k-quant weights come
-    with the port's slice 4. The kernel operands and decode state cross
+    """Turn the JAX package's param tree (numpy or JAX arrays;
+    ``QTensor``s as objects with ``q``, ``scale``, ``zero`` and the
+    packing metadata) into the port's, bit for bit: int8, int4, group
+    int4 and the planar k-quants (a q4k plane stays int8, its raw bytes
+    viewed as signed). The kernel operands and decode state cross
     the same way: a ``prepare_qdecode`` dict, and a ``KVCache`` or
     ``QKVCache`` (any batch) becomes the port's class of that name."""
     if tree is None:
@@ -152,12 +158,16 @@ def from_jax_params(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_jax_params(v) for v in tree)
     if hasattr(tree, "q") and hasattr(tree, "scale"):
-        if getattr(tree, "int4", False) or getattr(tree, "group", None) \
-                or getattr(tree, "zero", None) is not None \
-                or getattr(tree, "kpack", False):
-            raise NotImplementedError(
-                "int4 / group-scale / k-quant weights: the port's slice 4")
-        return QTensor(_leaf_tensor(tree.q), _leaf_tensor(tree.scale))
+        zero = getattr(tree, "zero", None)
+        group = getattr(tree, "group", None)
+        orig_last = getattr(tree, "orig_last", None)
+        return QTensor(_leaf_tensor(tree.q), _leaf_tensor(tree.scale),
+                       zero=None if zero is None else _leaf_tensor(zero),
+                       int4=bool(getattr(tree, "int4", False)),
+                       orig_last=None if orig_last is None
+                       else int(orig_last),
+                       group=None if group is None else int(group),
+                       kpack=bool(getattr(tree, "kpack", False)))
     return _leaf_tensor(tree)
 
 
@@ -172,18 +182,25 @@ def load_params_from_apr(reader: AprReader,
 
     ``keep_quantized=True`` on an int8 file keeps the matmul weights and
     the token embedding as int8 QTensors with the FILE's per-tensor scales
-    (no dequantize/requantize round trip); LN/bias/conv/pos tensors load
-    as float. f32, f16 and int8 files are supported; k-quant files come
-    with the port's slice 4 (and a per-tensor progress callback with
-    slice 6).
+    (no dequantize/requantize round trip); on a q4k, q5k or q6k file the
+    block linears whose d_in is a multiple of 256 load bit-exact from the
+    super-blocks as planar QTensors (``ops/q4k.planar_from_raw``,
+    ``ops/kquants.planar_from_raw_q5k``/``_q6k``), the others dequantized,
+    and the token embedding is requantized to per-channel int8 (params.py
+    :142-148, :200-217, :292-297). LN/bias/conv/pos tensors load as float.
+    f32, f16, int8 and the k-quant files are supported (int4 files have
+    no reader in either package; a per-tensor progress callback comes with
+    the port's slice 6).
     """
     cfg = reader.header.to_model_config()
     file_quant = reader.header.quantization
-    if file_quant not in (QUANT_F32, QUANT_F16, QUANT_INT8):
+    if file_quant not in (QUANT_F32, QUANT_F16, QUANT_INT8, QUANT_Q4K,
+                          QUANT_Q5K, QUANT_Q6K):
         raise NotImplementedError(
-            f"{reader.header.quantization_name} .apr files: the port's "
-            "slice 4 (quantized formats)")
+            f"{reader.header.quantization_name} .apr files have no loader")
     native_int8 = bool(keep_quantized) and file_quant == QUANT_INT8
+    native_kq = file_quant if keep_quantized and file_quant in (
+        QUANT_Q4K, QUANT_Q5K, QUANT_Q6K) else None
 
     def t(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype)
@@ -218,6 +235,18 @@ def load_params_from_apr(reader: AprReader,
             scale = torch.from_numpy(
                 np.array([p[1] for p in pairs], np.float32).reshape(L, 1, 1))
             return QTensor(q, scale)
+        if native_kq is not None and d_in % 256 == 0:
+            from ..ops import kquants, q4k
+            planar = {QUANT_Q4K: q4k.planar_from_raw,
+                      QUANT_Q5K: kquants.planar_from_raw_q5k,
+                      QUANT_Q6K: kquants.planar_from_raw_q6k}[native_kq]
+            qts = [planar(np.asarray(reader.load_raw(prefix_fn(i))), d_out,
+                          d_in) for i in range(L)]
+            return dataclasses.replace(
+                qts[0], q=torch.stack([t.q for t in qts]),
+                scale=torch.stack([t.scale for t in qts]),
+                zero=None if qts[0].zero is None
+                else torch.stack([t.zero for t in qts]))
         return t(np.stack([get(prefix_fn(i), d_out, d_in, transpose=True)
                            for i in range(L)]))
 
@@ -284,6 +313,11 @@ def load_params_from_apr(reader: AprReader,
                 torch.from_numpy(np.array(reader.load_raw(te_name))
                                  .reshape(cfg.n_vocab, d_t)),
                 torch.tensor(np.float32(reader.scale_for(te_name))))
+        elif native_kq is not None:
+            # gathered, not multiplied: per-channel int8 from the file's
+            # dequantized values
+            token_emb = quantize_int8(get(te_name).reshape(cfg.n_vocab, d_t),
+                                      per_channel=True)
         else:
             token_emb = t(get(te_name).reshape(cfg.n_vocab, d_t))
         decoder = {
@@ -309,24 +343,46 @@ def load_params_from_apr(reader: AprReader,
 
 
 # ---------------------------------------------------------------------------
-# Runtime weight quantization (int8)
+# Runtime weight quantization
 # ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "int4", "mixed", "q4", "q4k", "q5k", "q6k")
+
 
 def quantize_params(params: Params, mode: str = "int8",
                     per_channel: bool = True) -> Params:
-    """Quantize the matmul weights of a float tree: "int8" makes every
-    block linear weight int8 (per output channel, stacked) and the token
-    embedding int8 per channel; "none" passes through. Conv stem,
-    LayerNorms, biases and positional embeddings stay float."""
+    """Quantize the matmul weights of a float tree (params.py:379-440):
+    "int8" every block linear int8 (per output channel, stacked);
+    "int4"/"mixed" per-channel packed int4; "q4" group-scale int4 (32-wide
+    K groups); "q4k"/"q5k"/"q6k" the exact k-quants for block linears
+    whose K axis is a multiple of 256, group int4 ("q4") for the others;
+    "none" passes through. The token embedding is int8 per channel in
+    every mode; conv stem, LayerNorms, biases and positional embeddings
+    stay float."""
     if mode == "none":
         return params
-    if mode != "int8":
-        raise NotImplementedError(
-            f"quantization mode {mode!r}: the port's slice 4")
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantization mode: {mode}")
+    if mode in ("q4k", "q5k", "q6k"):
+        from ..ops import kquants, q4k
+        kq = {"q4k": q4k.quantize_q4k, "q5k": kquants.quantize_q5k,
+              "q6k": kquants.quantize_q6k}[mode]
 
-    def q(w, stacked=True):
-        return quantize_int8(w.detach().float().cpu().numpy(), per_channel,
-                             stacked=stacked)
+        def block_q(w, per_channel=True, stacked=False):
+            if w.shape[-2] % q4k.QK_K == 0:
+                return kq(w, stacked=stacked)
+            return quantize_q4_block(w)
+    elif mode == "q4":
+        def block_q(w, per_channel=True, stacked=False):
+            return quantize_q4_block(w)
+    elif mode in ("int4", "mixed"):
+        block_q = quantize_int4
+    else:
+        block_q = quantize_int8
+
+    def q(w):
+        return block_q(w.detach().float().cpu().numpy(), per_channel,
+                       stacked=True)
 
     def q_blocks(blocks: dict) -> dict:
         out = {}
@@ -364,7 +420,7 @@ def quantize_params(params: Params, mode: str = "int8",
 
 def params_to_apr_tensors(params: Params) -> Dict[str, np.ndarray]:
     """HF-named f32 arrays (linear weights back to ``[out, in]``) for
-    ``AprWriter.add_tensor``; int8 weights are dequantized first."""
+    ``AprWriter.add_tensor``; quantized weights are dequantized first."""
     from ..ops.quant import dequant
 
     def a(x) -> np.ndarray:

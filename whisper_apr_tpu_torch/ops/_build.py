@@ -39,7 +39,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
 _ARG_ERRORS = {-1: "unsupported dtype combination",
                -2: "unsupported shape (head dim must be 64, widths multiples "
-                   "of 32, positions inside the cache)"}
+                   "of 32, k-quant K a multiple of its group, positions "
+                   "inside the cache)"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
@@ -62,6 +63,12 @@ _SIGNATURES = {
                        _P, _P],
     "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P],
     "wa_ffn_fused": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "wa_kq_matvec": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "wa_self_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
+                         *[_P] * 13],
+    "wa_cross_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
+                          *[_P] * 9],
+    "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 13],
 }
 
 MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc

@@ -112,16 +112,14 @@ def _lengths(n, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(n), device=device)
 
 
-def self_block_plain(x, blk, kq, ks, vq, vs, pos, layer: int,
-                     n_heads: int):
-    """K1 and K5: ``pos`` is an int or a [B] tensor (rows < pos[b] are
-    slot b's history)."""
-    l, cdt = layer, x.dtype
-    B, D = x.shape
-    x32 = x.float()
-    h = layer_norm(x32, blk["ln1_w"][l, 0], blk["ln1_b"][l, 0]).to(cdt)
-    qkv = (h.float() @ blk["wqkv"][l].float()) * blk["sqkv"][l] \
-        + blk["bqkv"][l]
+def self_attention_plain(qkv: torch.Tensor, kq, ks, vq, vs, pos,
+                         layer: int, n_heads: int):
+    """The attention part of K1, K5 and K12: from the projected qkv
+    [B, 3D] (f32, bias added), the new k/v rows in the cache's form and
+    the attention of each slot over its rows < pos[b] plus that row.
+    Returns (out [B, D] f32, k_row, k_scale, v_row, v_scale)."""
+    l, device = layer, qkv.device
+    B, D = qkv.shape[0], qkv.shape[1] // 3
     q, k, v = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
     if ks is not None:
         k_row, k_scale = quantize_row(k)
@@ -131,32 +129,54 @@ def self_block_plain(x, blk, kq, ks, vq, vs, pos, layer: int,
     else:
         k_row, v_row = k.to(kq.dtype), v.to(vq.dtype)
         kc, vc = k_row.float(), v_row.float()
-        k_scale = torch.ones(B, dtype=torch.float32, device=x.device)
+        k_scale = torch.ones(B, dtype=torch.float32, device=device)
         v_scale = k_scale
     T = kq.shape[2]
-    valid = torch.arange(T, device=x.device)[None, :] \
-        < _lengths(pos, B, x.device)[:, None]
+    valid = torch.arange(T, device=device)[None, :] \
+        < _lengths(pos, B, device)[:, None]
     K = _rows_f32(kq[l], None if ks is None else ks[l])
     V = _rows_f32(vq[l], None if vs is None else vs[l])
     out = _attend(q * (D // n_heads) ** -0.5, K, V, valid, n_heads, (kc, vc))
+    return out, k_row, k_scale, v_row, v_scale
+
+
+def self_block_plain(x, blk, kq, ks, vq, vs, pos, layer: int,
+                     n_heads: int):
+    """K1 and K5: ``pos`` is an int or a [B] tensor (rows < pos[b] are
+    slot b's history)."""
+    l, cdt = layer, x.dtype
+    x32 = x.float()
+    h = layer_norm(x32, blk["ln1_w"][l, 0], blk["ln1_b"][l, 0]).to(cdt)
+    qkv = (h.float() @ blk["wqkv"][l].float()) * blk["sqkv"][l] \
+        + blk["bqkv"][l]
+    out, *rows = self_attention_plain(qkv, kq, ks, vq, vs, pos, l, n_heads)
     x_out = _out_proj(out, x32, blk["self_wo"][l], blk["self_wos"][l],
                       blk["self_wob"][l], cdt)
-    return x_out, k_row, k_scale, v_row, v_scale
+    return (x_out, *rows)
+
+
+def cross_attention_plain(q: torch.Tensor, kq, ks, vq, vs, enc_len: int,
+                          layer: int, n_heads: int) -> torch.Tensor:
+    """The attention part of K2, K6 and K13: the projected q [B, D] (f32,
+    bias added) of each slot over its cross rows < enc_len -> [B, D]
+    f32."""
+    l = layer
+    B, D = q.shape
+    T = kq.shape[2]
+    valid = (torch.arange(T, device=q.device) < enc_len).expand(B, T)
+    K = _rows_f32(kq[l], None if ks is None else ks[l])
+    V = _rows_f32(vq[l], None if vs is None else vs[l])
+    return _attend(q * (D // n_heads) ** -0.5, K, V, valid, n_heads)
 
 
 def cross_block_plain(x, blk, kq, ks, vq, vs, enc_len: int, layer: int,
                       n_heads: int):
     """K2 and K6: rows < enc_len of every slot take part."""
     l, cdt = layer, x.dtype
-    B, D = x.shape
     x32 = x.float()
     h = layer_norm(x32, blk["ln2_w"][l, 0], blk["ln2_b"][l, 0]).to(cdt)
     q = (h.float() @ blk["wcq"][l].float()) * blk["scq"][l] + blk["bcq"][l]
-    T = kq.shape[2]
-    valid = (torch.arange(T, device=x.device) < enc_len).expand(B, T)
-    K = _rows_f32(kq[l], None if ks is None else ks[l])
-    V = _rows_f32(vq[l], None if vs is None else vs[l])
-    out = _attend(q * (D // n_heads) ** -0.5, K, V, valid, n_heads)
+    out = cross_attention_plain(q, kq, ks, vq, vs, enc_len, l, n_heads)
     return _out_proj(out, x32, blk["cross_wo"][l], blk["cross_wos"][l],
                      blk["cross_wob"][l], cdt)
 

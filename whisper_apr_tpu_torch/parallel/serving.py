@@ -11,13 +11,15 @@ slots are refilled from the queue at the next tick. The engine picks the
 slot cache and the step, as in the JAX scheduler:
 
 - int8 weights and a fused-step cache mode: a ``QKVCache`` and
-  ``decode_step_qf`` (K5-K7 per layer, K8 for the vocab logits). A cache
+  ``decode_step_qf`` (K5-K7 per layer, K8 for the vocab logits); k-quant
+  weights take the same step over the engine's int8 transcode
+  (``engine._qd_for``), one slot the k-quant blocks K12-K14. A cache
   mode of "cross8" (the transcription default, whether from "auto" or
   explicit) is served as full int8 KV, kept from the JAX scheduler on
   purpose; every other non-int8 mode holds compute-dtype rows;
 - int8 weights with kv_mode "scan": a dense ``KVCache`` and the scan step
   ``decode_step_q`` (K8 four times and K9 once per layer, K8 for the
-  vocab logits);
+  vocab logits; over k-quant weights K10 or K11 six times a layer);
 - f32 weights: a dense ``KVCache`` and the plain ``decode_step_multi``.
 
 Not here yet: paged slots (the port's slice 5) and a device mesh (slice
@@ -39,8 +41,7 @@ from ..config import ModelConfig
 from ..inference.processors import WhisperTokenSuppressor
 from ..model.decoder import KVCache, init_cache, prefill
 from ..model.kv_variants import decode_steps_multi
-from ..model.qdecode import (CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache,
-                             qf_supported)
+from ..model.qdecode import CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache
 from ..ops.decode_attention import quantize_rows
 
 
@@ -160,10 +161,8 @@ class BatchScheduler:
         if self._qf == "cross8":
             # the reference serves cross8 as FULL int8 KV at B > 1
             self._qf = "int8"
+        # a k-quant engine serves B > 1 slots through its int8 transcode
         self._qd = engine._qd_for(n_slots) if self._qf else engine._qdecode
-        if self._qf and not qf_supported(self._qd, n_slots):
-            raise NotImplementedError(
-                "k-quant serving slots: the port's slice 4")
         D = self.config.n_text_state
         S = self.config.n_audio_ctx
         L = self.config.n_text_layer
