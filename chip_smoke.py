@@ -61,6 +61,29 @@ Phases, in order; any failure raises and the script exits non-zero:
               transcribe_batch of 4 and BatchScheduler(n_slots=4) on the
               int8 transcode (K5-K8), f32 tokens following per-clip
               decoding through the transcode (near-tie rule).
+3c. optin kernels (after 3b) - K15 (paged attention: 8 slots, lengths
+              1-460 over tables of 28 scattered pages, a table cut to 2
+              pages), K16 (flash attention over 1500 frames at B=1 and 4,
+              causal, kv_valid 1000), K17 and K18 (int8 / packed-int4
+              matmuls at M = 1, 8, 1500, odd widths for K18) against
+              their plain versions at the tiny and large-v3 shapes in
+              bf16 and f32; their bf16 times, bounds and library
+              yardsticks (SDPA for K16, torch._weight_int8pack_mm for
+              K17).
+5b. paged (after 5) - BatchScheduler(paged=True, n_slots=8) over the
+              e2e .apr: the serve phase's 12 clips in two bursts with
+              batched and with staged admission (K15 L times per tick,
+              nothing else; wall and device ms per tick), f32 tokens
+              through the kernels == plain versions and following
+              per-clip decoding; then again with use_flash_attention and
+              USE_PALLAS_INT8 on (admission K16 and K17, the tick K15 and
+              K17; counts held exactly).
+8b. opt-in at full width (after 7b and 8) - a whisper-tiny int4 engine
+              with USE_PALLAS_INT4 (K18 in every linear, B=1, 30 s noise;
+              f32 tokens == plain); large-v3 with flash and the int8
+              switch (K16, K17 in the encoder, cross K/V and prefill; f32
+              tokens == plain) and its encoder ms with and without K16 in
+              f32 and bf16.
 
 The last three lines of stdout are the kernel summary JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -860,9 +883,12 @@ def _kernel_modules():
     """The modules of the kernel wrappers, each with its LAUNCHES."""
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
-    from whisper_apr_tpu_torch.ops import kquants, q4k
+    from whisper_apr_tpu_torch.ops import (flash_attention, int4_matmul,
+                                           int8_matmul, kquants,
+                                           paged_attention, q4k)
     from whisper_apr_tpu_torch.ops import qmatvec as qm
-    return db, qm, q4k, kquants, dbk
+    return (db, qm, q4k, kquants, dbk, paged_attention, flash_attention,
+            int8_matmul, int4_matmul)
 
 
 @contextlib.contextmanager
@@ -2037,6 +2063,574 @@ def bench_rtf(eng, audio: np.ndarray, runs: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the paged and opt-in kernels K15-K18
+# ---------------------------------------------------------------------------
+
+# K15's check and timing: 8 slots of 28 pages (448 rows); the last slot
+# rests past its table (an inactive slot at its last position while the
+# width is bucketed to the active ones)
+PAGED_LENGTHS = (1, 16, 17, 100, 255, 256, 448, 460)
+P_MAX = 28
+# K17 / K18 shapes (K, N): the tiny and large-v3 encoder and decoder
+# linears (attention, fc1, fc2), at M = 1 (a decode row), 8 (a serving
+# tick) and 1500 (the encoder's frames); K18 also at an odd width
+MATMUL_SHAPES = {"tiny": ((384, 384), (384, 1536), (1536, 384)),
+                 "large-v3": ((1280, 1280), (1280, 5120), (5120, 1280))}
+MATMUL_ROWS = (1, 8, 1500)
+
+
+def optin_bound(name: str, *, M: int = 0, K: int = 0, N: int = 0,
+                B: int = 0, H: int = 0, Tq: int = 0, Tk: int = 0,
+                pairs: int = 0, rows: int = 0, D: int = 0, P: int = 0,
+                elem: int = 2, compute: str = "bfloat16"):
+    """(bound_ms, "bytes" or "operations") of one K15-K18 call, from the
+    work these inputs need: each input byte read once, each output byte
+    written once, over HBM_BPS, against the operations over the peak for
+    the compute type.
+
+    paged_attention_stacked: ``rows`` K and V rows read (each slot's
+    valid rows, at most 16 * P), q and out [B, D], tables [B, P] and
+    lengths; 4 * rows * D operations. flash_attention: q, k, v, out;
+    4 * 64 * ``pairs`` operations (pairs: (query, key) pairs the mask
+    keeps, default B * H * Tq * Tk). int8_matmul: the weight bytes K * N,
+    x [M, K], y [M, N], the f32 scale [N]; 2 M N K operations.
+    int4_matmul: the same with K * N / 2 weight bytes."""
+    if name == "paged_attention_stacked":
+        nbytes = 2 * rows * D * elem + 2 * B * D * elem + 4 * B * (P + 1)
+        flops = 4 * rows * D
+    elif name == "flash_attention":
+        pairs = pairs or B * H * Tq * Tk
+        nbytes = B * H * 64 * elem * (2 * Tq + 2 * Tk)
+        flops = 4 * 64 * pairs
+    elif name in ("int8_matmul", "int4_matmul"):
+        w = K * N if name == "int8_matmul" else K * N // 2
+        nbytes = w + elem * (M * K + M * N) + 4 * N
+        flops = 2 * M * N * K
+    else:
+        raise ValueError(name)
+    t_bytes = nbytes / HBM_BPS
+    t_ops = flops / PEAK_FLOPS[compute]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def paged_case(D: int, L: int, cdt, gen, device, lengths=PAGED_LENGTHS):
+    """Pools [L, n_pages, 16, D] of one serving pool (n_slots * P_MAX + 1
+    pages), each slot's P_MAX pages scattered over it (a random
+    permutation), a query per slot and the slots' lengths."""
+    import torch
+    B = len(lengths)
+    n_pages = B * P_MAX + 1
+    kp = torch.randn((L, n_pages, 16, D), generator=gen, device=device)
+    vp = torch.randn((L, n_pages, 16, D), generator=gen, device=device)
+    perm = torch.randperm(n_pages, generator=gen, device=device)
+    tables = perm[: B * P_MAX].reshape(B, P_MAX).to(torch.int32)
+    q = torch.randn((B, D), generator=gen, device=device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q.to(cdt), kp.to(cdt), vp.to(cdt), tables, lens
+
+
+def paged_rows(lengths, P: int = P_MAX) -> int:
+    """Rows K15 reads: each slot's valid rows, at most 16 * P (all of its
+    pages' rows when none is valid)."""
+    return sum(min(max(n, 0), 16 * P) or 16 * P for n in lengths)
+
+
+def matmul_case(K: int, N: int, M: int, cdt, gen, device, bits: int = 8,
+                per_channel: bool = True):
+    """x [M, K], random int8 weights (or packed int4 bytes, N // 2 + N % 2
+    columns) and a scale of N values (or one)."""
+    import torch
+    x = torch.randn((M, K), generator=gen, device=device).to(cdt)
+    cols = N if bits == 8 else (N + 1) // 2
+    wq = torch.randint(-128, 128, (K, cols), generator=gen, device=device,
+                       dtype=torch.int8)
+    n_s = N if per_channel else 1
+    s = 0.001 + 0.01 * torch.rand((n_s,), generator=gen, device=device)
+    return x, wq, s
+
+
+def _kernel_and_plain(mod, name):
+    return getattr(mod, name), getattr(mod, name + "_plain")
+
+
+def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
+    """K15-K18 against their plain versions on the card at one model's
+    shapes in ``cdt``. Returns each kernel's largest abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    from whisper_apr_tpu_torch.ops import paged_attention as pa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = {}
+
+    def agree(name, got, ref, what):
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, what
+        err = rel_err(got, ref)
+        assert err <= tol, f"[kernels] {label} {name} {what}: rel err " \
+            f"{err:.3g} > {tol:.3g}"
+        worst[name] = max(worst.get(name, 0.0), abs_err(got, ref))
+
+    q, kp, vp, tables, lens = paged_case(D, 2, cdt, gen, dev)
+    for layer in (0, 1):
+        args = (q, kp, vp, tables, lens, layer, H)
+        agree("paged_attention_stacked", pa.paged_attention_stacked(*args),
+              pa.paged_attention_stacked_plain(*args), f"layer {layer}")
+    narrow = tables[:, :2].contiguous()   # rows past 32 out of the table
+    args = (q, kp, vp, narrow, lens, 1, H)
+    agree("paged_attention_stacked", pa.paged_attention_stacked(*args),
+          pa.paged_attention_stacked_plain(*args), "width 2")
+
+    T = 1500
+    for B, kw in ((1, {}), (4, {}), (1, dict(causal=True)),
+                  (1, dict(kv_valid=1000))):
+        qkv = [torch.randn((B, H, T, 64), generator=gen, device=dev).to(cdt)
+               for _ in range(3)]
+        agree("flash_attention", fa.flash_attention(*qkv, **kw),
+              fa.flash_attention_plain(*qkv, **kw), f"B={B} {kw}")
+
+    for K, N in MATMUL_SHAPES[label]:
+        for M in MATMUL_ROWS:
+            for pc in (True, False):
+                x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 8, pc)
+                agree("int8_matmul", i8.int8_matmul(x, wq, s),
+                      i8.int8_matmul_plain(x, wq, s), f"M={M} K={K} N={N}")
+            for n in (N, N - 1):          # an odd width: orig_last N - 1
+                x, wq, s = matmul_case(K, n, M, cdt, gen, dev, 4)
+                agree("int4_matmul", i4.int4_matmul(x, wq, s),
+                      i4.int4_matmul_plain(x, wq, s), f"M={M} K={K} N={n}")
+    torch.cuda.synchronize()
+    log(f"[kernels] {label} {str(cdt).split('.')[-1]}: K15-K18 agree with "
+        f"the plain versions; max abs err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def library_sdpa(q, k, v) -> "float | None":
+    """Time of torch's scaled_dot_product_attention on K16's tensors: a
+    yardstick only, the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    try:
+        return graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    except RuntimeError as e:
+        log(f"[time] scaled_dot_product_attention: "
+            f"{str(e).splitlines()[0][:120]}")
+        torch.cuda.synchronize()
+        return None
+
+
+def time_optin(label: str, D: int, H: int, seed: int) -> dict:
+    """Device times (CUDA-graph replay) of K15-K18 and their plain
+    versions in bf16 at one model's main-path shapes: K15 at 8 slots of
+    PAGED_LENGTHS, K16 over the encoder's 1500 frames at B = 1 (and 4),
+    K17 and K18 at fc1's shape for a serving tick (M = 8) and for the
+    encoder (M = 1500). Each with its bound and its library yardstick."""
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    from whisper_apr_tpu_torch.ops import paged_attention as pa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cdt = torch.bfloat16
+    out = {}
+
+    def entry(key, kern, plain, bnd, library=None, **shape):
+        ms, by = bnd
+        out[key] = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+                    "bound_ms": ms, "bound_by": by, "library_ms": library,
+                    **shape}
+
+    q, kp, vp, tables, lens = paged_case(D, 1, cdt, gen, dev)
+    args = (q, kp, vp, tables, lens, 0, H)
+    entry("paged_attention_stacked",
+          lambda: pa.paged_attention_stacked(*args),
+          lambda: pa.paged_attention_stacked_plain(*args),
+          optin_bound("paged_attention_stacked", B=len(PAGED_LENGTHS), D=D,
+                      P=P_MAX, rows=paged_rows(PAGED_LENGTHS)),
+          B=len(PAGED_LENGTHS), lengths=list(PAGED_LENGTHS))
+    for B in (1, 4):
+        qkv = [torch.randn((B, H, 1500, 64), generator=gen,
+                           device=dev).to(cdt) for _ in range(3)]
+        entry("flash_attention" + ("" if B == 1 else f"_b{B}"),
+              lambda: fa.flash_attention(*qkv),
+              lambda: fa.flash_attention_plain(*qkv),
+              optin_bound("flash_attention", B=B, H=H, Tq=1500, Tk=1500),
+              library_sdpa(*qkv), B=B, H=H, T=1500)
+    K, N = MATMUL_SHAPES[label][1]
+    for M in (8, 1500):
+        sfx = "" if M == 8 else f"_m{M}"
+        x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 8)
+        w_nk = wq.t().contiguous()
+        ones = torch.ones(N, dtype=cdt, device=dev)
+        try:
+            lib = graph_ms(lambda: torch._weight_int8pack_mm(x, w_nk, ones))
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            log(f"[time] torch._weight_int8pack_mm: "
+                f"{str(e).splitlines()[0][:120]}")
+            torch.cuda.synchronize()
+            lib = None
+        entry("int8_matmul" + sfx, lambda: i8.int8_matmul(x, wq, s),
+              lambda: i8.int8_matmul_plain(x, wq, s),
+              optin_bound("int8_matmul", M=M, K=K, N=N), lib, M=M, K=K, N=N)
+        x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 4)
+        entry("int4_matmul" + sfx, lambda: i4.int4_matmul(x, wq, s),
+              lambda: i4.int4_matmul_plain(x, wq, s),
+              optin_bound("int4_matmul", M=M, K=K, N=N), M=M, K=K, N=N)
+    log(f"[time] {label} K15-K18 bf16, device ms (plain; bound; library): "
+        + "; ".join(f"{k} {v['ms']:.4f} ({v['plain_ms']:.4f}; "
+                    f"{v['bound_ms']:.4f} {v['bound_by']}; "
+                    f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 4)})"
+                    for k, v in out.items()))
+    return out
+
+
+def phase_optin_kernels() -> tuple:
+    """K15-K18 against their plain versions at the whisper-tiny and
+    large-v3 shapes in bf16 and f32, then their bf16 times. Returns
+    (max abs errors, {shape label: times})."""
+    import torch
+    errs = {}
+    for label, D, H, seed in (("tiny", 384, 6, 41), ("large-v3", 1280, 20,
+                                                      43)):
+        for cdt in (torch.bfloat16, torch.float32):
+            for k, v in check_optin(label, D, H, cdt, seed).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            seed += 1
+    times = {"tiny_optin": time_optin("tiny", 384, 6, seed=45),
+             "large_v3_optin": time_optin("large-v3", 1280, 20, seed=46)}
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: paged serving (K15; K16 and K17 with the opt-in switches)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def optin_switches(int8: bool = False, int4: bool = False):
+    """Turn the opt-in linear switches on for the block, then restore."""
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    old = i8.USE_PALLAS_INT8, i4.USE_PALLAS_INT4
+    i8.USE_PALLAS_INT8, i4.USE_PALLAS_INT4 = int8, int4
+    try:
+        yield
+    finally:
+        i8.USE_PALLAS_INT8, i4.USE_PALLAS_INT4 = old
+
+
+def paged_want(cfg, ticks: int, encodes: int, optin: bool) -> dict:
+    """The launches of a paged scheduler run: K15 once per decoder layer
+    per tick; with flash and the int8 switch also K16 once per encoder
+    layer per admission encode and K17 for every int8 linear: 8 per
+    decoder layer per tick, and per encode 6 per encoder layer for the
+    encoder and 2 + 8 per decoder layer for the cross K/V and the prompt
+    prefill."""
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    if not optin:
+        return want_counts(paged_attention_stacked=L * ticks)
+    return want_counts(paged_attention_stacked=L * ticks,
+                       flash_attention=La * encodes,
+                       int8_matmul=8 * L * ticks
+                       + encodes * (6 * La + 10 * L))
+
+
+def phase_paged(apr: Path, device="cuda", specials=None,
+                n_slots: int = 8) -> dict:
+    """BatchScheduler(paged=True) over the e2e phase's int8 .apr: the
+    serve phase's 12 clips in two bursts with batched admission, then
+    with staged admission, each in bf16 (launch counts held exactly; wall
+    and device ms per tick) and in f32 (tokens through the kernels ==
+    plain versions; following per-clip decoding on an f32-KV engine,
+    near-tie rule). A second pass turns use_flash_attention and
+    USE_PALLAS_INT8 on (admission runs K16 and K17, the tick K15 and
+    K17) and holds its f32 tokens to the plain versions' again."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+    from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
+    on_card = torch.device(device).type == "cuda"
+
+    def engine(dtype, flash=False, kv_mode="auto"):
+        return WhisperApr.load_from_apr(
+            str(apr), ComputeConfig(quantization="int8", compute_dtype=dtype,
+                                    kv_mode=kv_mode,
+                                    use_flash_attention=flash),
+            specials=specials, device=device)
+    clips = make_clips(SERVE_SECONDS, seed=1)
+    short, max_tokens = clips[:4], 48
+    out = {"runs": {}, "launch_checks": []}
+    per_clip = None
+    for optin in (False, True):
+        eng = engine("bfloat16", flash=optin)
+        eng32 = engine("float32", flash=optin)
+        cfg = eng.config
+        for staged in (False, True):
+            name = ("staged" if staged else "batched") + (
+                " + flash + int8" if optin else "")
+            with optin_switches(int8=optin):
+                sched = BatchScheduler(eng, n_slots=n_slots, paged=True,
+                                       batched_admission=not staged)
+                encodes = count_calls(sched, "_admit_one" if staged
+                                      else "_admit_batch")
+                ticks = []
+
+                def tick() -> int:
+                    sync(device)
+                    t0 = time.perf_counter()
+                    n = sched.step()
+                    sync(device)
+                    ticks.append(time.perf_counter() - t0)
+                    return n
+                reset_launches()
+                ids = [sched.submit(c, "en") for c in clips[:8]]
+                for _ in range(16):
+                    tick()
+                ids += [sched.submit(c, "en") for c in clips[8:]]
+                while tick() or sched.pending():
+                    pass
+                counts = launches()
+                st = sched.stats()
+                assert st["completed_ok"] == len(clips), st
+                assert sched._paged_kv.free_pages == \
+                    sched._paged_kv.n_pages - 1
+                for i in ids:
+                    t = np.asarray(sched.result(i).tokens)
+                    assert t.min() >= 0 and t.max() < cfg.n_vocab
+                want = paged_want(cfg, st["ticks"], encodes[0], optin)
+                out["launch_checks"].append((name, counts, want))
+                device_ms = (paged_device_ms(eng, clips[:n_slots], n_slots)
+                             if on_card else float("nan"))
+                wall = sum(ticks)
+                run = {"ticks": st["ticks"], "launches": counts,
+                       "wall_s": wall, "ms_per_tick_mean":
+                       1e3 * wall / st["ticks"],
+                       "ms_per_tick_median": 1e3 * float(np.median(ticks)),
+                       "device_ms_per_tick": device_ms,
+                       "pool_pages": sched._paged_kv.n_pages}
+                out["runs"][name] = run
+                log(f"[paged] {name}: {len(clips)} clips, {st['ticks']} "
+                    f"ticks in {wall:.3f} s; wall ms per tick "
+                    f"{run['ms_per_tick_mean']:.4f} (median "
+                    f"{run['ms_per_tick_median']:.4f}); device ms per tick "
+                    f"{device_ms:.4f}; launches "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+
+                def served():
+                    s = BatchScheduler(eng32, n_slots=n_slots, paged=True,
+                                       batched_admission=not staged)
+                    rid = [s.submit(c, "en", max_tokens=max_tokens)
+                           for c in short]
+                    s.run_until_drained()
+                    return [s.result(i).tokens for i in rid]
+                kern = served()
+                with plain_kernels():
+                    plain = served()
+            assert kern == plain, (f"[paged] {name} f32 tokens differ: "
+                                   f"kernels {[k[:12] for k in kern]}, plain "
+                                   f"{[p[:12] for p in plain]}")
+            if per_clip is None:
+                ref = engine("float32", kv_mode="scan")
+                P = len(ref.get_initial_tokens("en"))
+                opts = TranscribeOptions(language="en",
+                                         max_tokens=P + max_tokens)
+                per_clip = [ref.transcribe(c, opts).tokens for c in short]
+            gaps = [check_follows(eng32, c, k, w, "paged")
+                    for c, k, w in zip(short, kern, per_clip)]
+            run["f32_gaps"] = gaps
+            log(f"[paged] {name} f32: tokens through the kernels == plain "
+                f"versions ({sum(map(len, kern))} tokens); against per-clip "
+                f"decoding {sum(g is None for g in gaps)} of {len(gaps)} "
+                f"identical, near-tie gaps "
+                f"{[g for g in gaps if g is not None]}")
+        del eng, eng32
+    return out
+
+
+def count_calls(obj, name: str) -> list:
+    """Count the calls of ``obj``'s method ``name`` from now on, in the
+    returned one-item list."""
+    n = [0]
+    real = getattr(obj, name)
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return real(*a, **kw)
+    setattr(obj, name, counted)
+    return n
+
+
+def paged_device_ms(eng, clips: list, n_slots: int, n: int = 20) -> float:
+    """Kernel time on the card per pure decode tick of a paged scheduler
+    (torch.profiler over ``n`` ticks after its admission)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
+    sched = BatchScheduler(eng, n_slots=n_slots, paged=True)
+    for c in clips:
+        sched.submit(c, "en")
+    for _ in range(2):
+        sched.step()
+    sync(eng.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            sched.step()
+        sync(eng.device)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy / n
+
+
+def check_paged_launches(paged: dict) -> None:
+    for name, counts, want in paged["launch_checks"]:
+        assert counts == want, f"[paged] {name}: launches {counts}, want " \
+            f"{want}"
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the opt-in kernels at full width (K18 on tiny int4, K16 and
+# K17 on large-v3)
+# ---------------------------------------------------------------------------
+
+def phase_int4(apr: Path, device="cuda", specials=None,
+               max_tokens: int = 48) -> dict:
+    """A whisper-tiny int4 engine (the e2e .apr quantized to per-channel
+    int4 at load) with USE_PALLAS_INT4 on: 30 s of noise at B=1, every
+    int4 linear of the encoder, the prefill, the cross K/V and each plain
+    decode step through K18 (bf16; launch count held: 6 per encoder
+    layer, 10 per decoder layer at admission, 8 per decoder layer and
+    step); then f32 tokens through K18 == the plain versions'."""
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+
+    def engine(dtype):
+        return WhisperApr.load_from_apr(
+            str(apr), ComputeConfig(quantization="int4", compute_dtype=dtype),
+            specials=specials, device=device)
+    audio = np.random.default_rng(0).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    eng = engine("bfloat16")
+    cfg = eng.config
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    P = len(eng.get_initial_tokens("en"))
+    opts = TranscribeOptions(language="en", max_tokens=P + max_tokens)
+    with optin_switches(int4=True):
+        eng.transcribe(audio, opts)                       # warm-up
+        reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        res = eng.transcribe(audio, opts)
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = launches()
+        steps = len(res.tokens) - P - 1
+        want = want_counts(int4_matmul=6 * La + 10 * L + 8 * L * steps)
+        e32 = engine("float32")
+        kern = e32.transcribe(audio, opts).tokens
+        with plain_kernels():
+            plain = e32.transcribe(audio, opts).tokens
+    assert kern == plain, "[int4] f32 tokens: K18 vs plain"
+    log(f"[int4] tiny int4, USE_PALLAS_INT4: 30 s noise, {len(res.tokens)} "
+        f"tokens ({steps} decode steps) in {dt * 1e3:.1f} ms "
+        f"({1e3 * dt / max(steps, 1):.4f} ms per step); launches "
+        f"{ {k: v for k, v in counts.items() if v} }; f32 tokens through "
+        f"K18 == plain ({len(kern)} tokens)")
+    return {"seconds": dt, "decode_steps": steps, "launches": counts,
+            "want_launches": want}
+
+
+def encoder_ms(eng, mel, n: int = 3) -> float:
+    """Wall ms of one encode on the card (best of ``n`` after a warm-up,
+    synchronised)."""
+    eng.encode(mel)
+    best = float("inf")
+    for _ in range(n):
+        sync(eng.device)
+        t0 = time.perf_counter()
+        eng.encode(mel)
+        sync(eng.device)
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
+                         cfg=None, specials=None) -> dict:
+    """The large-v3 model of phase 8 once more with use_flash_attention
+    and USE_PALLAS_INT8 on: 30 s of noise in f32, K16 once per encoder
+    layer and K17 for every int8 linear of the encoder, the cross K/V and
+    the prefill (the decode steps stay on K1-K4); tokens through the
+    kernels == the plain versions' (near-tie rule). Then encoder ms with
+    and without K16 (K17 off), in f32 and bf16, beside the selector's
+    TPU-measured threshold. ``cfg`` and ``specials`` (default large-v3's)
+    let a CPU rehearsal run it at a small width, where nothing launches
+    and the counts are not held."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
+                                       TranscribeOptions, WhisperApr)
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    quantize_params,
+                                                    to_device)
+    cfg = cfg or ModelConfig.large_v3()
+    params = to_device(quantize_params(init_params(cfg, seed=0), "int8"),
+                       device)
+
+    def engine(dtype, flash):
+        return WhisperApr(cfg, params, compute=ComputeConfig(
+            quantization="int8", compute_dtype=dtype,
+            use_flash_attention=flash), specials=specials, device=device)
+    audio = np.random.default_rng(7).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    opts = TranscribeOptions(language="en", max_tokens=max_tokens)
+    eng = engine("float32", True)
+    P = len(eng.get_initial_tokens("en"))
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    with optin_switches(int8=True):
+        eng.transcribe(audio, opts)                          # warm-up
+        reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        kern = eng.transcribe(audio, opts)
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = launches()
+        n = len(kern.tokens) - P - 1
+        want = want_counts(self_block=L * n, cross_block=L * n,
+                           ffn_block=L * n, qmatvec_greedy_head=n,
+                           flash_attention=La,
+                           int8_matmul=6 * La + 10 * L)
+        assert counts == want or torch.device(device).type == "cpu", \
+            f"[large-v3 opt-in] launches {counts}, want {want}"
+        with plain_kernels():
+            plain = eng.transcribe(audio, opts)
+    gap = check_same(eng, audio, kern.tokens, plain.tokens,
+                     "large-v3 opt-in")
+    mel = eng.compute_mel(audio)
+    enc = {}
+    for dtype in ("float32", "bfloat16"):
+        for flash in (False, True):
+            enc[f"{dtype} {'K16' if flash else 'plain attention'}"] = \
+                encoder_ms(engine(dtype, flash), mel)
+    log(f"[large-v3 opt-in] flash + int8 switch, f32: {len(kern.tokens)} "
+        f"tokens in {dt * 1e3:.1f} ms; tokens "
+        f"{'identical' if gap is None else f'near tie {gap:.3g}'} to the "
+        f"plain versions; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; encoder ms (one "
+        f"30 s clip, B=1): " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in enc.items()))
+    del eng, params
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"seconds": dt, "launches": counts, "want_launches": want,
+            "near_tie_gap": gap, "encoder_ms": enc}
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel it replaces, the times it is reported at)
 KERNELS = [
@@ -2071,6 +2665,15 @@ KERNELS = [
      "whisper_apr_tpu/ops/decode_blocks_kq.py:549", "base_q4k"),
     ("ffn_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:672", "base_q4k"),
+    ("paged_attention_stacked",
+     "whisper_apr_tpu_torch/csrc/paged_attention.cu",
+     "whisper_apr_tpu/ops/paged_attention.py:115", "tiny_optin"),
+    ("flash_attention", "whisper_apr_tpu_torch/csrc/flash_attention.cu",
+     "whisper_apr_tpu/ops/flash_attention.py:135", "tiny_optin"),
+    ("int8_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
+     "whisper_apr_tpu/ops/int8_matmul.py:72", "tiny_optin"),
+    ("int4_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
+     "whisper_apr_tpu/ops/int4_matmul.py:115", "tiny_optin"),
 ]
 
 
@@ -2088,6 +2691,9 @@ def main() -> int:
     kq_errs, kq_times = phase_kquant_kernels()
     errs.update(kq_errs)
     times.update(kq_times)
+    op_errs, op_times = phase_optin_kernels()
+    errs.update(op_errs)
+    times.update(op_times)
     out_dir = ROOT / "build" / "smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -2101,16 +2707,25 @@ def main() -> int:
         assert serve["launches"] == serve["want_launches"], (
             f"[serve] launches over {serve['ticks']} ticks "
             f"{serve['launches']}, want {serve['want_launches']}")
+        paged = phase_paged(e2e["apr"])
+        check_paged_launches(paged)
         batch = phase_batch(e2e["engine"], e2e["engine_f32"])
         decoders = phase_decoders(e2e["apr"])
         kq = phase_kquant(Path(work))
         check_kq_launches(kq)
+        int4 = phase_int4(e2e["apr"])
+        assert int4["launches"] == int4["want_launches"], (
+            f"[int4] launches {int4['launches']}, want "
+            f"{int4['want_launches']}")
     large = phase_large_v3()
+    large_optin = phase_large_v3_optin()
     # each path's counts, taken from 0 just before it ran
     runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
             batch["launches"], large["launches"],
             *(p["launches"] for p in decoders["paths"].values()),
-            *(p["launches"] for p in kq["paths"].values())]
+            *(p["launches"] for p in kq["paths"].values()),
+            *(r["launches"] for r in paged["runs"].values()),
+            int4["launches"], large_optin["launches"]]
     total = {k: sum(r[k] for r in runs) for k in e2e["total"]}
     assert all(total[name] > 0 for name, *_ in KERNELS), total
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2130,7 +2745,12 @@ def main() -> int:
                             if k != "want_launches"},
                   "decoders": decoders, "large_v3": large,
                   "kquant": {k: v for k, v in kq.items()
-                             if k != "launch_checks"}}
+                             if k != "launch_checks"},
+                  "paged": paged["runs"],
+                  "int4": {k: v for k, v in int4.items()
+                           if k != "want_launches"},
+                  "large_v3_optin": {k: v for k, v in large_optin.items()
+                                     if k != "want_launches"}}
         detail_path.parent.mkdir(parents=True, exist_ok=True)
         detail_path.write_text(json.dumps(detail, indent=1))
     log(json.dumps(summary))

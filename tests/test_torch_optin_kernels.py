@@ -1,0 +1,360 @@
+"""The port's opt-in kernels against the JAX package's, at a small width on
+the CPU: the plain versions of K16 (flash attention), K17 (int8 matmul)
+and K18 (int4 matmul) against the JAX Pallas kernels in interpret mode,
+the flash encoder and engine, the kernel selector, and the routing of
+``basic.linear`` with the opt-in switches.
+
+Inputs are made with numpy from fixed seeds and handed to both packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from whisper_apr_tpu.config import ComputeConfig as JCompute
+from whisper_apr_tpu.config import ModelConfig
+from whisper_apr_tpu.engine import WhisperApr as JWhisperApr
+from whisper_apr_tpu.model.encoder import encode as jencode
+from whisper_apr_tpu.model.params import init_params
+from whisper_apr_tpu.ops import dispatch as jdispatch
+from whisper_apr_tpu.ops import flash_attention as jfa
+from whisper_apr_tpu.ops import int4_matmul as ji4
+from whisper_apr_tpu.ops import int8_matmul as ji8
+from whisper_apr_tpu.ops import kquants as jkq
+from whisper_apr_tpu.ops import q4k as jq4k
+from whisper_apr_tpu.ops import quant as jquant
+from whisper_apr_tpu.tokenizer import SpecialTokens
+from whisper_apr_tpu_torch import ComputeConfig as TCompute
+from whisper_apr_tpu_torch import TranscribeOptions, WhisperApr
+from whisper_apr_tpu_torch.model.encoder import encode as tencode
+from whisper_apr_tpu_torch.model.params import from_jax_params
+from whisper_apr_tpu_torch.ops import basic as tbasic
+from whisper_apr_tpu_torch.ops import dispatch as tdispatch
+from whisper_apr_tpu_torch.ops import flash_attention as tfa
+from whisper_apr_tpu_torch.ops import int4_matmul as ti4
+from whisper_apr_tpu_torch.ops import int8_matmul as ti8
+from whisper_apr_tpu_torch.ops.quant import dequant, quantize_int8
+from whisper_apr_tpu_torch.tokenizer import SpecialTokens as TSpecials
+
+SHAPES = [(4, 64, 96), (130, 256, 250), (1, 384, 512)]
+TOL_BF16 = 2.0 ** -6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+def _qkv(seed, B, H, T, d=64, Tk=None):
+    rng = np.random.default_rng(seed)
+    Tk = Tk or T
+    return (rng.normal(size=(B, H, T, d)).astype(np.float32),
+            rng.normal(size=(B, H, Tk, d)).astype(np.float32),
+            rng.normal(size=(B, H, Tk, d)).astype(np.float32))
+
+
+class TestFlashPlain:
+    """K16's plain version against the JAX flash kernel (interpret)."""
+
+    @pytest.mark.parametrize("case", ["plain", "causal_128_edge",
+                                      "kv_valid"])
+    def test_f32_matches_jax(self, case):
+        kw = {"plain": {}, "causal_128_edge": dict(causal=True),
+              "kv_valid": dict(kv_valid=150)}[case]
+        T = 130 if case == "causal_128_edge" else 200
+        q, k, v = _qkv(0, 2, 2, T)
+        want = np.asarray(jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+            **kw))
+        got = tfa.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+        assert np.abs(got - want).max() < 1e-4
+
+    def test_bf16_matches_jax(self):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkv(1, 1, 2, 160))
+        j = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+             for t in (q, k, v)]
+        want = np.asarray(jfa.flash_attention(*j, causal=True,
+                                              interpret=True)
+                          .astype(jnp.float32))
+        got = tfa.flash_attention(q, k, v, causal=True)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= TOL_BF16 * np.abs(want).max(), err
+
+    def test_mha_flash_matches_jax(self):
+        """Combined heads [B, T, H * 64], the encoder's layout, with a
+        scale other than 1."""
+        rng = np.random.default_rng(2)
+        q, k, v = (rng.normal(size=(2, 70, 128)).astype(np.float32)
+                   for _ in range(3))
+        want = np.asarray(jfa.mha_flash(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), 2, interpret=True))
+        got = tfa.mha_flash(_t(q), _t(k), _t(v), 2).numpy()
+        assert np.abs(got - want).max() < 1e-4
+        q4, k4, v4 = (_t(a.reshape(2, 70, 2, 64).transpose(0, 2, 1, 3))
+                      for a in (q, k, v))
+        out = tfa.flash_attention(q4, k4, v4, sm_scale=0.3)
+        want = np.asarray(jfa.flash_attention(
+            jnp.asarray(q4.numpy()), jnp.asarray(k4.numpy()),
+            jnp.asarray(v4.numpy()), sm_scale=0.3, interpret=True))
+        assert np.abs(out.numpy() - want).max() < 1e-4
+
+    def test_kv_valid_bounds(self):
+        q, k, v = (_t(a) for a in _qkv(3, 1, 1, 8))
+        for bad in (0, 9):
+            with pytest.raises(ValueError, match="kv_valid"):
+                tfa.flash_attention(q, k, v, kv_valid=bad)
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return ModelConfig(
+        model_type="tiny", n_vocab=700, n_audio_ctx=64, n_audio_state=128,
+        n_audio_head=2, n_audio_layer=2, n_text_ctx=24, n_text_state=128,
+        n_text_head=2, n_text_layer=2, n_mels=80)
+
+
+@pytest.fixture(scope="module")
+def params(cfg):
+    jp = init_params(cfg, seed=4)
+    return jp, from_jax_params(jp)
+
+
+def _specials(cfg, cls):
+    V = cfg.n_vocab
+    return cls(eot=V - 1, sot=V - 2, lang_base=V - 110, transcribe=V - 3,
+               no_timestamps=V - 4, timestamp_base=V + 1000,
+               is_multilingual=False, translate=V - 5, no_speech=V - 6,
+               speaker_turn=V - 7, prev=V - 8)
+
+
+class TestFlashEncoderAndEngine:
+    def test_encode_matches_jax(self, cfg, params):
+        jp, tp = params
+        mel = np.random.default_rng(5).normal(
+            size=(1, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jencode(jp, jnp.asarray(mel), cfg,
+                                      use_flash=True))
+        got = tencode(tp, _t(mel), cfg, use_flash=True).numpy()
+        assert np.abs(got - want).max() < 1e-4
+        plain = tencode(tp, _t(mel), cfg).numpy()
+        assert np.abs(got - plain).max() < 1e-4
+
+    def test_engine_tokens_match_jax(self, cfg, params):
+        """``use_flash_attention=True`` in both engines: the same tokens,
+        through transcribe (greedy pipeline) and beam search (the
+        engine's encode)."""
+        jp, tp = params
+        jeng = JWhisperApr(cfg, jp, specials=_specials(cfg, SpecialTokens),
+                           compute=JCompute(use_flash_attention=True))
+        teng = WhisperApr(cfg, tp, specials=_specials(cfg, TSpecials),
+                          compute=TCompute(use_flash_attention=True),
+                          device="cpu")
+        assert jeng._use_flash and teng._use_flash
+        audio = np.random.default_rng(6).normal(0, 0.1, 12_000).astype(
+            np.float32)
+        from whisper_apr_tpu import TranscribeOptions as JOptions
+        for opts in (dict(language="en", max_tokens=12),
+                     dict(language="en", max_tokens=8, strategy="beam",
+                          beam_size=2)):
+            with pltpu.force_tpu_interpret_mode():
+                want = jeng.transcribe(audio, JOptions(**opts)).tokens
+            got = teng.transcribe(audio, TranscribeOptions(**opts)).tokens
+            assert got == want
+
+    def test_selector_keeps_whisper_on_the_plain_path(self, cfg, params):
+        """``use_flash_attention=None`` resolves through KernelSelector:
+        the CPU never picks flash, and neither does a card at Whisper's
+        1500 x 1500 (under the 4 << 20 threshold)."""
+        _, tp = params
+        eng = WhisperApr(cfg, tp, specials=_specials(cfg, TSpecials),
+                         device="cpu")
+        assert eng._use_flash is False
+        card = tdispatch.DeviceCapabilities("cuda", "card", 1, 80 << 30)
+        sel = tdispatch.KernelSelector(caps=card)
+        assert sel.attention(1500, 1500) == tdispatch.KernelBackend.XLA
+        assert tdispatch.DeviceCapabilities.detect("cpu").platform == "cpu"
+
+
+class TestSelectorMatchesJax:
+    @pytest.mark.parametrize("platform", ["cpu", "accelerator"])
+    def test_choices(self, platform):
+        jcaps = jdispatch.DeviceCapabilities(
+            "cpu" if platform == "cpu" else "tpu", 1, 16 << 30, True,
+            platform != "cpu", (128, 128))
+        tcaps = tdispatch.DeviceCapabilities(
+            "cpu" if platform == "cpu" else "cuda", "x", 1, 16 << 30)
+        for prefer in (True, False):
+            js = jdispatch.KernelSelector(
+                jdispatch.SelectorConfig(prefer_pallas=prefer), jcaps)
+            ts = tdispatch.KernelSelector(
+                tdispatch.SelectorConfig(prefer_pallas=prefer), tcaps)
+            for q, k in ((1500, 1500), (2048, 2048), (4096, 1500), (1, 1)):
+                assert ts.attention(q, k).name == js.attention(q, k).name
+            assert ts.attention(1, 1, tdispatch.KernelBackend.PALLAS) == \
+                tdispatch.KernelBackend.PALLAS
+            for bits in (4, 8):
+                assert ts.dequant_matmul(bits).name == \
+                    js.dequant_matmul(bits).name
+            assert ts.matmul(8, 8, 8).name == js.matmul(8, 8, 8).name
+        assert tdispatch.SelectorConfig().flash_attention_score_elements \
+            == jdispatch.SelectorConfig().flash_attention_score_elements
+
+
+def _mats(seed, M, K, N):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(M, K)).astype(np.float32),
+            rng.normal(size=(K, N)).astype(np.float32),
+            rng.normal(size=(N,)).astype(np.float32))
+
+
+class TestInt8Plain:
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("per_channel", [True, False])
+    def test_matches_jax(self, shape, per_channel):
+        x, w, b = _mats(0, *shape)
+        jq = jquant.quantize_int8(w, per_channel=per_channel)
+        tq = from_jax_params(jq)
+        want = np.asarray(ji8.int8_matmul(jnp.asarray(x), jq.q, jq.scale,
+                                          interpret=True))
+        got = ti8.int8_matmul(_t(x), tq.q, tq.scale)
+        assert _rel(got.numpy(), want) < 1e-5
+        want = np.asarray(ji8.linear_int8(jnp.asarray(x[None]), jq,
+                                          jnp.asarray(b), interpret=True))
+        got = ti8.linear_int8(_t(x[None]), tq, _t(b))
+        assert got.shape == want.shape and _rel(got.numpy(), want) < 1e-5
+
+    def test_scale_shapes(self):
+        """A layer slice's [1, N] scale, an int8 .apr's per-tensor [1, 1]
+        and 0-d scales all reach the matmul as the dequantized weight."""
+        x, w, _ = _mats(1, 5, 64, 40)
+        stacked = quantize_int8(np.stack([w, 2 * w]), per_channel=True,
+                                stacked=True)
+        layer = stacked.map(lambda t: t[1])
+        assert tuple(layer.scale.shape) == (1, 40)
+        q = _t(np.clip(np.round(w * 20), -127, 127).astype(np.int8))
+        for scale in (layer.scale, torch.tensor([[0.05]]),
+                      torch.tensor(0.05)):
+            qw = layer.q if scale is layer.scale else q
+            got = ti8.int8_matmul(_t(x), qw, scale)
+            ref = _t(x) @ dequant(type(layer)(qw, scale))
+            assert _rel(got.numpy(), ref.numpy()) < 1e-5
+        with pytest.raises(ValueError, match="scale"):
+            ti8.int8_matmul(_t(x), q, torch.ones(3))
+
+
+class TestInt4Plain:
+    @pytest.mark.parametrize("shape", SHAPES + [(3, 64, 101)])
+    def test_matches_dequant_and_jax(self, shape):
+        """Per-channel int4, odd N included (the padded last column is
+        cut by ``linear_int4``): the JAX kernel's values and
+        x @ dequant(qt)."""
+        M, K, N = shape
+        x, w, b = _mats(2, M, K, N)
+        jq = jquant.quantize_int4(w, per_channel=True)
+        tq = from_jax_params(jq)
+        ref = x @ np.asarray(jquant.dequant(jq))
+        got = ti4.int4_matmul(_t(x), tq.q, tq.scale)[:, :N]
+        assert _rel(got.numpy(), ref) < 1e-5
+        lin = ti4.linear_int4(_t(x[None]), tq, _t(b))
+        assert lin.shape == (1, M, N) and _rel(lin.numpy(), ref + b) < 1e-5
+        want = np.asarray(ji4.int4_matmul(jnp.asarray(x), jq.q, jq.scale,
+                                          interpret=True))[:, :N]
+        assert _rel(got.numpy(), want) < 1e-5
+        want = np.asarray(ji4.linear_int4(jnp.asarray(x[None]), jq,
+                                          jnp.asarray(b), interpret=True))
+        assert _rel(lin.numpy(), want) < 1e-5
+
+    def test_nibble_layout(self):
+        """Byte 0xF7 holds 7 (low nibble, even column) and -1 (high, odd);
+        0x08 holds -8 and 0."""
+        wq = torch.tensor([[-9, 8]], dtype=torch.int8)    # 0xF7, 0x08
+        assert ti4.unpack_plain(wq).tolist() == [[7.0, -1.0, -8.0, 0.0]]
+
+
+def _odd_qtensors(seed):
+    """QTensors outside the kernels' contracts: group-scaled int4,
+    asymmetric Q5_K planes, planar Q4_K."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(256, 64)).astype(np.float32)
+    return {"q4 group": jquant.quantize_q4_block(w, 32),
+            "q5k zero": jkq.quantize_q5k(w),
+            "q4k kpack": jq4k.quantize_q4k(w)}
+
+
+class TestLinearRouting:
+    @pytest.mark.parametrize("kind", ["q4 group", "q5k zero", "q4k kpack"])
+    def test_reference_fault_and_port_routing(self, kind):
+        """JAX ``linear`` routes by ``w.int4`` alone: the kernels ignore
+        group scales, zeros and packing, so their answer is not
+        x @ dequant(qt). The port sends none of these QTensors to a kernel
+        and its ``linear`` equals x @ dequant(qt)."""
+        jq = _odd_qtensors(3)[kind]
+        x = np.random.default_rng(4).normal(size=(4, 256)).astype(
+            np.float32)
+        ref = x @ np.asarray(jquant.dequant(jq))
+        jlin = ji4.linear_int4 if jq.int4 else ji8.linear_int8
+        try:
+            bad = np.asarray(jlin(jnp.asarray(x), jq, interpret=True))
+            assert bad.shape != ref.shape or _rel(bad, ref) > 1e-2
+        except (TypeError, ValueError):
+            pass          # the kernel cannot even take this QTensor
+        tq = from_jax_params(jq)
+        assert not ti8.takes(tq) and not ti4.takes(tq)
+        cuda = torch.device("cuda")
+        assert tbasic.kernel_route(tq, cuda, True, True) is None
+        got = tbasic.linear(_t(x), tq).numpy()
+        assert _rel(got, ref) < 1e-5
+
+    def test_plain_qtensors_route_to_their_kernel(self):
+        """With a switch on, a CUDA input sends plain int8 (per-channel,
+        per-tensor, a layer slice) to K17 and per-channel int4 to K18; a
+        CPU input, or the switch off, dequantizes."""
+        w = np.random.default_rng(5).normal(size=(64, 33)).astype(
+            np.float32)
+        cuda, cpu = torch.device("cuda"), torch.device("cpu")
+        i8c = from_jax_params(jquant.quantize_int8(w, per_channel=True))
+        i8t = from_jax_params(jquant.quantize_int8(w, per_channel=False))
+        i4c = from_jax_params(jquant.quantize_int4(w, per_channel=True))
+        i4t = from_jax_params(jquant.quantize_int4(w, per_channel=False))
+        stacked = quantize_int8(np.stack([w, w]), per_channel=True,
+                                stacked=True).map(lambda t: t[0])
+        for qt in (i8c, i8t, stacked):
+            assert tbasic.kernel_route(qt, cuda, True, False) == "int8"
+            assert tbasic.kernel_route(qt, cuda, False, True) is None
+            assert tbasic.kernel_route(qt, cpu, True, True) is None
+        assert tbasic.kernel_route(i4c, cuda, False, True) == "int4"
+        assert tbasic.kernel_route(i4c, cuda, True, False) is None
+        assert tbasic.kernel_route(i4t, cuda, True, True) is None
+        # the switches on, CPU tensors: every QTensor dequantizes
+        x = _t(np.random.default_rng(6).normal(size=(2, 64)).astype(
+            np.float32))
+        old = ti8.USE_PALLAS_INT8, ti4.USE_PALLAS_INT4
+        ti8.USE_PALLAS_INT8 = ti4.USE_PALLAS_INT4 = True
+        try:
+            for qt in (i8c, i4c):
+                want = x @ dequant(qt)
+                assert torch.allclose(tbasic.linear(x, qt), want,
+                                      rtol=1e-6, atol=1e-6)
+        finally:
+            ti8.USE_PALLAS_INT8, ti4.USE_PALLAS_INT4 = old
+        assert ti8.USE_PALLAS_INT8 is False and ti4.USE_PALLAS_INT4 is False

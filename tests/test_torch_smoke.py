@@ -85,7 +85,8 @@ def test_end_to_end_phase_on_cpu(smoke, e2e_small):
         "self_block_batched", "cross_block_batched", "ffn_block_batched",
         "qmatvec_stacked", "ffn_fused", "q4k_matvec_stacked",
         "kq_matvec_stacked", "self_block_kq", "cross_block_kq",
-        "ffn_block_kq"}
+        "ffn_block_kq", "paged_attention_stacked", "flash_attention",
+        "int8_matmul", "int4_matmul"}
     assert not any(out["total"].values())
     steps = requests[0]["decode_steps"]
     assert requests[0]["want_launches"]["self_block"] == \
@@ -290,3 +291,115 @@ def test_kquant_bounds(smoke):
                                         scales=True)}.get(name, {})
         ms, by = smoke.kq_bound(name, fmt, 1280, **shape)
         assert by == "bytes" and abs(1e3 * ms - us) < 0.1, (name, fmt, ms)
+
+
+def test_paged_phase_on_cpu(smoke, e2e_small):
+    """The paged phase at a small width through the plain versions: the
+    dozen clips drain over the page pool with batched and staged
+    admission, without and with flash + the int8 switch; the f32
+    kernels-vs-plain and per-clip checks find no difference; the launch
+    counts it holds the card to are L per tick for K15 and, with the
+    switches, La per admission encode for K16 and 8 L per tick plus
+    6 La + 10 L per encode for K17 (none launch on the CPU, so the check
+    refuses the counts)."""
+    out, sp = e2e_small
+    cfg = out["engine"].config
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    paged = smoke.phase_paged(out["apr"], device="cpu", specials=sp)
+    assert set(paged["runs"]) == {"batched", "staged",
+                                  "batched + flash + int8",
+                                  "staged + flash + int8"}
+    for name, run in paged["runs"].items():
+        assert run["ticks"] > 0 and not any(run["launches"].values())
+        assert all(g is None for g in run["f32_gaps"]), name
+        assert run["pool_pages"] == 8 * -(-cfg.n_text_ctx // 16) + 1
+    want = {name: w for name, _, w in paged["launch_checks"]}
+    ticks = paged["runs"]["staged + flash + int8"]["ticks"]
+    w = want["staged + flash + int8"]
+    assert w["paged_attention_stacked"] == L * ticks
+    assert w["flash_attention"] == La * 12       # one encode per request
+    assert w["int8_matmul"] == 8 * L * ticks + 12 * (6 * La + 10 * L)
+    assert want["batched"] == smoke.want_counts(
+        paged_attention_stacked=L * paged["runs"]["batched"]["ticks"])
+    with pytest.raises(AssertionError, match="launches"):
+        smoke.check_paged_launches(paged)
+
+
+def test_optin_full_width_phases_on_cpu(smoke, e2e_small):
+    """The int4 phase (an int4 engine with USE_PALLAS_INT4: K18 held to
+    6 La + 10 L + 8 L per step) and the large-v3 opt-in phase at a small
+    width through the plain versions: both run, their f32 token checks
+    pass, nothing launches, and the switches are off again after."""
+    from whisper_apr_tpu_torch.ops import int4_matmul, int8_matmul
+    out, sp = e2e_small
+    cfg = out["engine"].config
+    L, La = cfg.n_text_layer, cfg.n_audio_layer
+    int4 = smoke.phase_int4(out["apr"], device="cpu", specials=sp,
+                            max_tokens=8)
+    n = int4["decode_steps"]
+    assert n > 0 and int4["want_launches"]["int4_matmul"] == \
+        6 * La + 10 * L + 8 * L * n
+    assert not any(int4["launches"].values())
+    large = smoke.phase_large_v3_optin(device="cpu", max_tokens=8, cfg=cfg,
+                                       specials=sp)
+    assert large["near_tie_gap"] is None
+    assert large["want_launches"]["int8_matmul"] == 6 * La + 10 * L
+    assert large["want_launches"]["flash_attention"] == La
+    assert len(large["encoder_ms"]) == 4
+    assert not int8_matmul.USE_PALLAS_INT8 and not int4_matmul.USE_PALLAS_INT4
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
+def test_optin_kernel_operands_on_cpu(smoke, cdt):
+    """The K15-K18 check operands: 8 slots of 28 scattered, distinct pages
+    over an n_slots * 28 + 1 page pool, the slot past its table; they
+    drive the plain K15 (the full and a 2-page table), K16 (causal and
+    kv_valid) and K17 / K18 (an odd int4 width) to finite outputs of
+    the kernels' shapes."""
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    from whisper_apr_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator().manual_seed(0)
+    q, kp, vp, tables, lens = smoke.paged_case(128, 2, cdt, gen, "cpu")
+    assert tables.shape == (8, smoke.P_MAX) and kp.shape[1] == 8 * 28 + 1
+    assert len(set(tables.flatten().tolist())) == 8 * 28
+    assert int(lens.max()) > 16 * smoke.P_MAX
+    for t in (tables, tables[:, :2].contiguous()):
+        y = pa.paged_attention_stacked(q, kp, vp, t, lens, 1, 2)
+        assert y.dtype == cdt and bool(torch.isfinite(y).all())
+    qkv = [torch.randn((1, 2, 70, 64), generator=gen).to(cdt)
+           for _ in range(3)]
+    for kw in ({}, dict(causal=True), dict(kv_valid=40)):
+        y = fa.flash_attention(*qkv, **kw)
+        assert y.shape == (1, 2, 70, 64) and bool(torch.isfinite(y).all())
+    x, wq, s = smoke.matmul_case(96, 101, 3, cdt, gen, "cpu", bits=4)
+    assert wq.shape == (96, 51) and s.shape == (101,)
+    y = i4.int4_matmul(x, wq, s)
+    assert y.shape == (3, 102) and float(y[:, 101].abs().max()) == 0.0
+    x, wq, s = smoke.matmul_case(96, 40, 3, cdt, gen, "cpu",
+                                 per_channel=False)
+    assert s.shape == (1,) and i8.int8_matmul(x, wq, s).shape == (3, 40)
+
+
+def test_optin_bounds(smoke):
+    """K15: the bytes of the K and V rows read (1541 rows of 8 slots at
+    tiny, about 0.71 us); K16: 4 B H T^2 64 operations at 989 TFLOP/s
+    (about 3.49 us at tiny, 11.65 at large-v3), compute-bound; K17: the
+    int8 weights at a tick's 8 rows (0.19 us at tiny fc1), 2 M N K
+    operations at the encoder's 1500 rows (19.9 us at large-v3 fc1); K18
+    half K17's weight bytes."""
+    assert smoke.paged_rows(smoke.PAGED_LENGTHS) == 1541
+    ms, by = smoke.optin_bound("paged_attention_stacked", B=8, D=384,
+                               P=28, rows=1541)
+    assert by == "bytes" and abs(1e3 * ms - 0.7105) < 1e-3
+    for H, us in ((6, 3.494), (20, 11.648)):
+        ms, by = smoke.optin_bound("flash_attention", B=1, H=H, Tq=1500,
+                                   Tk=1500)
+        assert by == "operations" and abs(1e3 * ms - us) < 1e-2
+    ms, by = smoke.optin_bound("int8_matmul", M=8, K=384, N=1536)
+    assert by == "bytes" and abs(1e3 * ms - 0.1871) < 1e-3
+    ms, by = smoke.optin_bound("int8_matmul", M=1500, K=1280, N=5120)
+    assert by == "operations" and abs(1e3 * ms - 19.88) < 0.01
+    ms4, _ = smoke.optin_bound("int4_matmul", M=8, K=384, N=1536)
+    assert abs(1e3 * ms4 - (0.1871 - 384 * 768 / 3.35e12 * 1e6)) < 1e-3

@@ -15,9 +15,15 @@ row, K5-K7 for several) with the fused greedy head K4 or the logits tail
 K8; kv_mode "scan" runs ``decode_step_q`` (K8 and K9); k-quant weights
 (Q4_K, Q5_K, Q6_K) run K12-K14 for one row and, for several, K5-K7 over
 their int8 transcode, and in kv_mode "scan" K10 (Q4_K) or K11; f32, int4
-and group-int4 weights the plain step. The engine lives on one ``device`` ("cuda" by default; "cpu"
-runs the kernels' plain PyTorch versions). Continuous-batching serving
-over an engine is ``parallel/serving.BatchScheduler``. Hotwords,
+and group-int4 weights the plain step. ``ComputeConfig.
+use_flash_attention`` (resolved once per engine, ``KernelSelector`` when
+None) runs every encode's self-attention through the flash kernel K16;
+the switches ``ops.int8_matmul.USE_PALLAS_INT8`` and ``ops.int4_matmul.
+USE_PALLAS_INT4`` send the quantized linears (encoder, prefill, cross
+K/V) through K17 and K18. The engine lives on one ``device`` ("cuda" by
+default; "cpu" runs the kernels' plain PyTorch versions).
+Continuous-batching serving over an engine, dense or paged, is
+``parallel/serving.BatchScheduler``. Hotwords,
 speculative decoding and audio longer than one window are the port's
 slice 3b; word timestamps need the traced decoder of slice 6.
 """
@@ -144,9 +150,6 @@ class WhisperApr:
                 f"`specials` fitted to this vocabulary")
         if self.compute.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
-        if self.compute.use_flash_attention:
-            raise NotImplementedError(
-                "flash attention in the encoder: kernel K16, not ported yet")
 
     # -- constructors --------------------------------------------------------
     @staticmethod
@@ -199,6 +202,24 @@ class WhisperApr:
     @property
     def _compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.compute.compute_dtype]
+
+    @property
+    def _use_flash(self) -> bool:
+        """The encoder's attention choice, resolved once: the explicit
+        ``use_flash_attention``, else ``KernelSelector`` on the engine's
+        device at the encoder's shape (JAX ``engine.py:263-277``)."""
+        if not hasattr(self, "_use_flash_cache"):
+            opt = self.compute.use_flash_attention
+            if opt is None:
+                from .ops.dispatch import (DeviceCapabilities, KernelBackend,
+                                           KernelSelector)
+                choice = KernelSelector(
+                    caps=DeviceCapabilities.detect(self.device)).attention(
+                    q_len=self.config.n_audio_ctx,
+                    k_len=self.config.n_audio_ctx)
+                opt = choice == KernelBackend.PALLAS
+            self._use_flash_cache = bool(opt)
+        return self._use_flash_cache
 
     @property
     def _qdecode(self):
@@ -271,7 +292,8 @@ class WhisperApr:
         mel = torch.as_tensor(mel, device=self.device)
         if mel.ndim == 2:
             mel = mel[None]
-        return encode_fn(self.params, mel, self.config, self._compute_dtype)
+        return encode_fn(self.params, mel, self.config, self._compute_dtype,
+                         self._use_flash)
 
     def get_initial_tokens(self, language: str, task: str = "transcribe",
                            timestamps: bool = False) -> List[int]:
@@ -492,7 +514,8 @@ class WhisperApr:
                 prompt, bias, eot, self.config,
                 timestamp_base=(ts_base if options.timestamps
                                 and ts_base < self.config.n_vocab else -1),
-                qd=self._qd_for(len(audios)), **common)
+                qd=self._qd_for(len(audios)), use_flash=self._use_flash,
+                **common)
             tokens, lengths = res.tokens, res.lengths
             sum_lp, ns_prob = res.sum_logprob, res.no_speech_prob
 

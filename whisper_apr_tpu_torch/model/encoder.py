@@ -2,8 +2,9 @@
 
 Conv stem as two GEMMs (the k=3 taps stitched with slices into a
 ``[B, T_out, 3*C_in]`` operand), then pre-norm transformer blocks over the
-stacked layer params, then LayerNorm. Plain PyTorch: the JAX package
-leaves this work to XLA, and no hand kernel is owed for it.
+stacked layer params, then LayerNorm. Plain PyTorch, as the JAX package
+leaves this work to XLA, except for the self-attention with ``use_flash``:
+the flash kernel K16 (``ops/flash_attention.mha_flash``), once per layer.
 
 Input is frame-major mel ``[B, n_frames, n_mels]``; output
 ``[B, n_frames // 2, d_model]``.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
+from ..ops import flash_attention as fa
 from ..ops.basic import gelu, layer_norm, linear, mha
 from .params import layer_slice
 
@@ -41,15 +43,19 @@ def conv_stem(mel: torch.Tensor, conv1: dict, conv2: dict) -> torch.Tensor:
 
 
 def encoder_block(x: torch.Tensor, blk: dict, layer: int,
-                  n_heads: int) -> torch.Tensor:
-    """One pre-norm encoder block; ``blk`` is the stacked block tree."""
+                  n_heads: int, use_flash: bool = False) -> torch.Tensor:
+    """One pre-norm encoder block; ``blk`` is the stacked block tree.
+    ``use_flash`` takes the self-attention through K16 (the flash
+    kernel's arithmetic, not ``mha``'s: see ``ops/flash_attention``)."""
     b = layer_slice(blk, layer)
     h = layer_norm(x, b["ln1"]["w"], b["ln1"]["b"])
     a = b["attn"]
     q = linear(h, a["q_w"], a["q_b"])
     k = linear(h, a["k_w"], a["k_b"])
     v = linear(h, a["v_w"], a["v_b"])
-    x = x + linear(mha(q, k, v, n_heads), a["o_w"], a["o_b"])
+    attn = fa.mha_flash(q, k, v, n_heads) if use_flash \
+        else mha(q, k, v, n_heads)
+    x = x + linear(attn, a["o_w"], a["o_b"])
     h = layer_norm(x, b["ln2"]["w"], b["ln2"]["b"])
     h = linear(gelu(linear(h, b["fc1"]["w"], b["fc1"]["b"])),
                b["fc2"]["w"], b["fc2"]["b"])
@@ -57,7 +63,8 @@ def encoder_block(x: torch.Tensor, blk: dict, layer: int,
 
 
 def encode(params: dict, mel: torch.Tensor, config: ModelConfig,
-           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           compute_dtype: torch.dtype = torch.float32,
+           use_flash: bool = False) -> torch.Tensor:
     """Full encoder forward: conv stem -> +sinusoidal pos emb -> blocks ->
     LN. mel [B, n_frames, n_mels] -> [B, n_frames//2, d_model]."""
     enc = params["encoder"]
@@ -65,5 +72,6 @@ def encode(params: dict, mel: torch.Tensor, config: ModelConfig,
     x = conv_stem(mel, enc["conv1"], enc["conv2"])
     x = x + enc["pos_emb"][None, : x.shape[1], :].to(compute_dtype)
     for layer in range(config.n_audio_layer):
-        x = encoder_block(x, enc["blocks"], layer, config.n_audio_head)
+        x = encoder_block(x, enc["blocks"], layer, config.n_audio_head,
+                          use_flash)
     return layer_norm(x, enc["ln_post"]["w"], enc["ln_post"]["b"])

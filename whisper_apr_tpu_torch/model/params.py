@@ -145,11 +145,26 @@ def from_jax_params(tree):
     int4 and the planar k-quants (a q4k plane stays int8, its raw bytes
     viewed as signed). The kernel operands and decode state cross
     the same way: a ``prepare_qdecode`` dict, and a ``KVCache`` or
-    ``QKVCache`` (any batch) becomes the port's class of that name."""
+    ``QKVCache`` (any batch) becomes the port's class of that name; a
+    ``PagedKVCache`` becomes the port's with its pools as tensors and its
+    free list, page tables and lengths copied (on the CPU)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
+    if type(tree).__name__ == "PagedKVCache":
+        from ..config import ModelConfig
+        from .kv_variants import PagedKVCache
+        out = PagedKVCache.__new__(PagedKVCache)
+        out.config = ModelConfig(**dataclasses.asdict(tree.config))
+        out.n_pages = int(tree.n_pages)
+        out.k_pool = _leaf_tensor(tree.k_pool)
+        out.v_pool = _leaf_tensor(tree.v_pool)
+        out._free = [int(i) for i in tree._free]
+        out._tables = {int(k): [int(i) for i in v]
+                       for k, v in tree._tables.items()}
+        out._lengths = {int(k): int(v) for k, v in tree._lengths.items()}
+        return out
     if type(tree).__name__ in ("KVCache", "QKVCache"):
         from .decoder import KVCache
         from .qdecode import QKVCache

@@ -40,9 +40,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _ARG_ERRORS = {-1: "unsupported dtype combination",
                -2: "unsupported shape (head dim must be 64, widths multiples "
                    "of 32, k-quant K a multiple of its group, positions "
-                   "inside the cache)"}
+                   "inside the cache, kv_valid in [1, Tk])"}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
     "wa_self_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -69,6 +69,12 @@ _SIGNATURES = {
     "wa_cross_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
                           *[_P] * 9],
     "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 13],
+    "wa_paged_attention": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+                           _P],
+    "wa_flash_attention": [*[_P, _LL, _LL, _LL] * 4, _I, _I, _I, _I, _I, _I,
+                           ctypes.c_float, _I, _P],
+    "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+    "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
 }
 
 MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from . import int4_matmul as i4
+from . import int8_matmul as i8
 from .quant import dequant, is_quantized
 
 LN_EPS = 1e-5  # reference: src/model/encoder.rs:219
@@ -35,9 +37,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
            ) -> torch.Tensor:
-    """y = x @ w (+ b) with w input-major ``[d_in, d_out]``; an int8
-    QTensor is dequantized to x's dtype first."""
+    """y = x @ w (+ b) with w input-major ``[d_in, d_out]``.
+
+    A QTensor is dequantized to x's dtype first, except for a CUDA x with
+    an opt-in switch on (JAX ``basic.py:61-76``): ``int8_matmul.
+    USE_PALLAS_INT8`` sends a plain int8 QTensor to K17 and ``int4_matmul.
+    USE_PALLAS_INT4`` a per-channel int4 one to K18 (the kernel runs or
+    the call raises). The JAX ``linear`` routes by ``w.int4`` alone and
+    so hands group-scaled, asymmetric and k-quant QTensors to kernels
+    that ignore their groups, zeros and packing; here only the QTensors a
+    kernel's contract covers (``i8.takes``, ``i4.takes``) reach it, and
+    the others dequantize as with the switches off."""
     if is_quantized(w):
+        route = kernel_route(w, x.device, i8.USE_PALLAS_INT8,
+                             i4.USE_PALLAS_INT4)
+        if route == "int8":
+            return i8.linear_int8(x, w, b)
+        if route == "int4":
+            return i4.linear_int4(x, w, b)
         w = dequant(w, x.dtype)
     elif w.dtype != x.dtype:
         w = w.to(x.dtype)
@@ -45,6 +62,20 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def kernel_route(w, device: torch.device, int8_on: bool,
+                 int4_on: bool) -> Optional[str]:
+    """The kernel ``linear`` sends a QTensor to: "int8" (K17) or "int4"
+    (K18) for an input on a CUDA device with that switch on and a QTensor
+    of the kernel's contract, else None (dequantize)."""
+    if device.type != "cuda":
+        return None
+    if int8_on and i8.takes(w):
+        return "int8"
+    if int4_on and i4.takes(w):
+        return "int4"
+    return None
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,0 +1,127 @@
+"""Matmul over int8 weights (K17): port of
+``whisper_apr_tpu/ops/int8_matmul.py``.
+
+``int8_matmul`` computes y = (x @ wq) * scale with an f32 sum and the
+result cast to x's dtype (per-column or one scale). Its output is rounded
+to x's dtype BEFORE the bias add of ``linear_int8``, while the default
+path (``basic.linear``) dequantizes ``q * s`` to x's dtype and multiplies
+then: in bf16 the two round differently, in f32 they agree to the order
+of the sums.
+
+``USE_PALLAS_INT8`` (off by default, the JAX package's name) routes the
+plain int8 linears of ``basic.linear`` through this kernel for CUDA
+tensors. ``int8_matmul`` runs the hand-written CUDA kernel
+(``csrc/dequant_matmul.cu``) for CUDA tensors and the plain PyTorch
+version below for CPU tensors. The JAX signature's block sizes are the
+TPU kernel's tiling and are not taken.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .quant import QTensor
+
+# opt-in switch (see ops/basic.linear)
+USE_PALLAS_INT8 = False
+
+# launches of the kernel in this process (reset by the caller)
+LAUNCHES = {"int8_matmul": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _scale_vector(scale: torch.Tensor, N: int) -> torch.Tensor:
+    """The scale as f32 [1] (one for every column) or [N]."""
+    s = torch.as_tensor(scale).reshape(-1)
+    if s.numel() not in (1, N):
+        raise ValueError(f"scale of {s.numel()} values for {N} columns: "
+                         "want 1 or one per column")
+    return s.float().contiguous()
+
+
+def int8_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    s = _scale_vector(scale, wq.shape[1]).to(x.device)
+    return ((x.float() @ wq.float()) * s).to(x.dtype)
+
+
+def _check_operands(x, wq, s, N):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
+    if wq.dtype != torch.int8:
+        raise TypeError(f"weights must be int8, got {wq.dtype}")
+    if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0] \
+            or x.shape[0] < 1:
+        raise ValueError(f"shapes x {tuple(x.shape)}, wq {tuple(wq.shape)}:"
+                         " want [M >= 1, K], [K, N]")
+    for name, t in dict(x=x, wq=wq, scale=s).items():
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on "
+                             f"{x.device}")
+
+
+def split_k_partials(x: torch.Tensor, M: int, K: int, N: int) -> int:
+    """Address of the f32 scratch for the partial [M, N] sums of the
+    kernels' split-K pass over at most 16 rows: as many as
+    ``csrc/dequant_matmul.cu`` splits K into at most (32-row units, two
+    blocks for each of 132 multiprocessors). 0 for more rows."""
+    if M > 16:
+        return 0
+    splits = min(-(-K // 32), -(-264 // -(-N // 64)))
+    return _build.workspace(_build.stream(), x.device, "dequant_mv_part",
+                            splits * M * N)
+
+
+def _int8_cuda(x, wq, scale):
+    M, K = x.shape
+    N = wq.shape[1]
+    s = _scale_vector(scale, N)
+    _check_operands(x, wq, s, N)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    P = _build.ptr
+    rc = _build.library().wa_int8_matmul(
+        P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(s), s.numel(),
+        P(y), split_k_partials(x, M, K, N), _build.stream())
+    _build.check(rc, "int8_matmul")
+    LAUNCHES["int8_matmul"] += 1
+    return y
+
+
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """K17: x [M, K] (f32 or bf16) @ int8 wq [K, N], times scale (one
+    value, or one per column: any shape of 1 or N values); f32 sum; [M, N]
+    in x's dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, wq, scale)
+    if x.device.type == "cuda":
+        return _int8_cuda(x, wq, scale)
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def takes(w: QTensor) -> bool:
+    """Whether a QTensor is one K17 computes: plain int8 [K, N] with one
+    scale or one per column. Group-scaled, asymmetric, k-quant and int4
+    QTensors are not (``basic.linear`` dequantizes them)."""
+    return (not w.int4 and w.group is None and w.zero is None
+            and not w.kpack and w.q.dim() == 2
+            and w.scale.numel() in (1, w.q.shape[1]))
+
+
+def linear_int8(x: torch.Tensor, qt: QTensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Linear layer over an int8 QTensor through K17: x [..., K] ->
+    [..., N]; the bias, cast to the output's dtype, is added after the
+    kernel's cast."""
+    lead = x.shape[:-1]
+    y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qt.q, qt.scale)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.reshape(lead + (y.shape[-1],))

@@ -1,5 +1,5 @@
 """Multi-stream batched serving with continuous batching: port of
-``whisper_apr_tpu/parallel/serving.py`` over dense slots.
+``whisper_apr_tpu/parallel/serving.py``.
 
 A fixed number of SLOTS share one decode step. Each slot holds one
 request's cache rows, token buffer and position. Every scheduler tick
@@ -22,8 +22,24 @@ slot cache and the step, as in the JAX scheduler:
   vocab logits; over k-quant weights K10 or K11 six times a layer);
 - f32 weights: a dense ``KVCache`` and the plain ``decode_step_multi``.
 
-Not here yet: paged slots (the port's slice 5) and a device mesh (slice
-7).
+With ``paged=True`` the slots share one pool of 16-token pages
+(``kv_variants.PagedKVCache``, ``n_pages`` defaulting to
+``n_slots * ceil(max_len / 16) + 1``) instead of dense [n_slots,
+max_len] rows, and only the cross K/V stay dense per slot. A sentinel
+sequence owns the pool's first page handed out, the garbage page that
+inactive slots write into and that pads every table. Admission reserves
+the prompt and the first token; batched admission pads a burst by
+repeating the last real slot (identical writes); a finished slot's pages
+go back to the pool. Each tick extends every active slot's table by one
+token, fills the rest with the garbage page, cuts the tables to the next
+power of two of the widest (at most ``ceil(max_len / 16)`` pages) and
+runs ``paged_decode.paged_decode_steps`` over the engine's params: K15
+once per layer, and K17 for every int8 linear when
+``int8_matmul.USE_PALLAS_INT8`` is on.
+
+The tick advances one token, as the dense one; the JAX scheduler's
+``steps_per_tick`` and ``admit_buckets`` are not taken. A device mesh is
+the port's slice 7.
 """
 
 from __future__ import annotations
@@ -40,7 +56,7 @@ import torch
 from ..config import ModelConfig
 from ..inference.processors import WhisperTokenSuppressor
 from ..model.decoder import KVCache, init_cache, prefill
-from ..model.kv_variants import decode_steps_multi
+from ..model.kv_variants import PAGE_SIZE, PagedKVCache, decode_steps_multi
 from ..model.qdecode import CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache
 from ..ops.decode_attention import quantize_rows
 
@@ -87,6 +103,17 @@ def _scatter_qf_slots(cache: QKVCache, slots: torch.Tensor, new: KVCache,
     return cache
 
 
+def _scatter_cross_slots(cache: KVCache, slots: torch.Tensor,
+                         new: KVCache) -> KVCache:
+    """Write only the cross K/V [L, n, S, D] of admitted sequences into
+    their slots, in place (paged slots keep their self K/V in the
+    pool)."""
+    dt = cache.cross_k.dtype
+    cache.cross_k[:, slots] = new.cross_k.to(dt)
+    cache.cross_v[:, slots] = new.cross_v.to(dt)
+    return cache
+
+
 @dataclasses.dataclass
 class Request:
     """One transcription request submitted to the scheduler."""
@@ -126,9 +153,6 @@ class BatchScheduler:
                  n_pages: Optional[int] = None,
                  mesh=None,
                  batched_admission: bool = True) -> None:
-        if paged or n_pages is not None:
-            raise NotImplementedError(
-                "paged serving slots (kernel K15): the port's slice 5")
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a device mesh: the port's slice 7")
@@ -136,6 +160,7 @@ class BatchScheduler:
         self.config: ModelConfig = engine.config
         self.n_slots = n_slots
         self.max_len = max_len or self.config.n_text_ctx
+        self.paged = paged
         # bursts of queued requests admit through ONE fused admission plus
         # one slot scatter; buckets bound the batch sizes, a burst pads up
         # to the next bucket using spare free slots as write targets
@@ -156,29 +181,41 @@ class BatchScheduler:
             "tokens_generated": 0, "queue_seconds_sum": 0.0,
             "decode_seconds_sum": 0.0, "admitted": 0, "ticks": 0}
 
-        # dense slots: the JAX scheduler's cache forms (module docstring)
-        self._qf = engine._qf_mode
-        if self._qf == "cross8":
-            # the reference serves cross8 as FULL int8 KV at B > 1
-            self._qf = "int8"
-        # a k-quant engine serves B > 1 slots through its int8 transcode
-        self._qd = engine._qd_for(n_slots) if self._qf else engine._qdecode
         D = self.config.n_text_state
         S = self.config.n_audio_ctx
         L = self.config.n_text_layer
         dt = engine._compute_dtype
         B = n_slots
         dev = engine.device
-        Tp = -(-self.max_len // SELF_BLOCK_T) * SELF_BLOCK_T
-        Sp = -(-S // CROSS_BLOCK_T) * CROSS_BLOCK_T
-        kv8 = self._qf == "int8"
-        rdt = torch.int8 if kv8 else dt
 
         def z(shape, d):
             return torch.zeros(shape, dtype=d, device=dev)
 
+        # dense slots: the JAX scheduler's cache forms (module docstring);
+        # paged slots: the page pool, and dense cross K/V only
+        self._qf = None if paged else engine._qf_mode
+        if self._qf == "cross8":
+            # the reference serves cross8 as FULL int8 KV at B > 1
+            self._qf = "int8"
+        # a k-quant engine serves B > 1 slots through its int8 transcode
+        self._qd = None if paged else (
+            engine._qd_for(n_slots) if self._qf else engine._qdecode)
+        Tp = -(-self.max_len // SELF_BLOCK_T) * SELF_BLOCK_T
+        Sp = -(-S // CROSS_BLOCK_T) * CROSS_BLOCK_T
+        kv8 = self._qf == "int8"
+        rdt = torch.int8 if kv8 else dt
         f32 = torch.float32
-        if self._qf:
+        if paged:
+            self._p_max = -(-self.max_len // PAGE_SIZE)
+            self._paged_kv = PagedKVCache(
+                self.config, n_pages or (B * self._p_max + 1),
+                compute_dtype=dt, device=dev)
+            self._paged_kv.alloc(-1, 1)   # sentinel: the garbage page
+            self._garbage_page = self._paged_kv._tables[-1][0]
+            self._cache = KVCache(
+                z((L, 1, 1, D), dt), z((L, 1, 1, D), dt),   # unused (paged)
+                z((L, B, S, D), dt), z((L, B, S, D), dt))
+        elif self._qf:
             self._cache = QKVCache(
                 z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
                 z((L, B, Tp, D), rdt), z((L, B, Tp, 1), f32) if kv8 else None,
@@ -303,11 +340,14 @@ class BatchScheduler:
         n = len(reqs)
         b = n
         for cand in self.admit_buckets:
-            if cand >= n and (cand - n) <= len(spare):
+            if cand >= n and (self.paged or (cand - n) <= len(spare)):
                 b = cand
                 break
         pad = b - n
-        targets = slots + spare[:pad]
+        # paged pads repeat the last real slot (identical duplicate
+        # writes: spare slots own no pages)
+        targets = (slots + [slots[-1]] * pad if self.paged
+                   else slots + spare[:pad])
         eng = self.engine
         dev = eng.device
         n_samples = 2 * self.config.n_audio_ctx * 160
@@ -318,9 +358,28 @@ class BatchScheduler:
         first, new = fused_admit_step(
             self._params, torch.from_numpy(audio).to(dev),
             *eng.mel_filters.constants(dev), torch.from_numpy(prompt).to(dev),
-            self._bias, self.config, compute_dtype=eng._compute_dtype)
-        self._scatter(torch.tensor(targets, dtype=torch.long, device=dev),
-                      new)
+            self._bias, self.config, compute_dtype=eng._compute_dtype,
+            use_flash=eng._use_flash)
+        slots_t = torch.tensor(targets, dtype=torch.long, device=dev)
+        if self.paged:
+            from ..model.paged_decode import write_prefills_to_pool
+            pk = self._paged_kv
+            Pn = prompt.shape[1]
+            for slot in slots:
+                pk.free(slot)               # clear any previous occupant
+                pk.alloc(slot, Pn + 1)      # prompt + first generated token
+                pk._lengths[slot] = Pn
+            positions = np.arange(Pn)
+            pages = np.stack([np.asarray(pk._tables[s], np.int64)[
+                positions // PAGE_SIZE] for s in targets])       # [b, Pn]
+            offs = np.tile(positions % PAGE_SIZE, (b, 1))
+            write_prefills_to_pool(
+                pk.k_pool, pk.v_pool, new.self_k, new.self_v,
+                torch.from_numpy(pages).to(dev),
+                torch.from_numpy(offs).to(dev))
+            self._cache = _scatter_cross_slots(self._cache, slots_t, new)
+        else:
+            self._scatter(slots_t, new)
         first = first.cpu().numpy()
         now = time.time()
         eot = eng.specials.eot
@@ -350,8 +409,19 @@ class BatchScheduler:
                               compute_dtype=eng._compute_dtype)
         first = int(torch.argmax(logits[0] + self._bias))
         P = len(req.prompt)
-        self._scatter(torch.tensor([slot], dtype=torch.long,
-                                   device=eng.device), one)
+        slot_t = torch.tensor([slot], dtype=torch.long, device=eng.device)
+        if self.paged:
+            from ..model.paged_decode import write_prefill_to_pool
+            pk = self._paged_kv
+            pk.free(slot)                   # clear any previous occupant
+            pk.alloc(slot, P + 1)           # prompt + first generated token
+            write_prefill_to_pool(pk.k_pool, pk.v_pool, one.self_k,
+                                  one.self_v,
+                                  np.asarray(pk._tables[slot], np.int64), P)
+            pk._lengths[slot] = P
+            self._cache = _scatter_cross_slots(self._cache, slot_t, one)
+        else:
+            self._scatter(slot_t, one)
         self._tokens[slot] = eng.specials.eot
         self._tokens[slot, :P] = req.prompt
         self._tokens[slot, P] = first
@@ -408,6 +478,8 @@ class BatchScheduler:
             c["decode_seconds_sum"] += decode_s
         self._active[slot] = False
         self._req[slot] = None
+        if self.paged:
+            self._paged_kv.free(slot)
 
     def step(self) -> int:
         """One scheduler tick: admit, then advance every slot by one token
@@ -432,10 +504,13 @@ class BatchScheduler:
         dev = self.engine.device
         token = torch.from_numpy(
             self._tokens[np.arange(self.n_slots), self._pos]).to(dev)
-        toks, self._cache = decode_steps_multi(
-            self._params, token, self._pos, self._bias, self._cache,
-            self.config, n_steps=1, compute_dtype=self.engine._compute_dtype,
-            qd=self._qd)
+        if self.paged:
+            toks = self._paged_tick(token)
+        else:
+            toks, self._cache = decode_steps_multi(
+                self._params, token, self._pos, self._bias, self._cache,
+                self.config, n_steps=1,
+                compute_dtype=self.engine._compute_dtype, qd=self._qd)
         toks = toks[:, 0].cpu().numpy()
 
         eot = self.engine.specials.eot
@@ -454,6 +529,35 @@ class BatchScheduler:
             if toks[slot] == eot or p + 1 >= limit:
                 self._finish(slot)
         return int(self._active.sum())
+
+    def _paged_tick(self, token: torch.Tensor) -> torch.Tensor:
+        """Advance every slot one token over the shared page pool."""
+        from ..model.paged_decode import paged_decode_steps
+        pk = self._paged_kv
+        # host: extend each active slot's table to cover the new token
+        tables = np.full((self.n_slots, self._p_max), self._garbage_page,
+                         dtype=np.int32)
+        used = 1
+        for slot in range(self.n_slots):
+            if not self._active[slot]:
+                continue
+            pk.extend(slot, 1)
+            t = pk._tables[slot]
+            tables[slot, : len(t)] = t[: self._p_max]
+            used = max(used, min(len(t), self._p_max))
+        # the kernel reads exactly the pages in use; a power-of-two width
+        # keeps the table shapes few
+        width = 1
+        while width < used:
+            width *= 2
+        width = min(width, self._p_max)
+        dev = self.engine.device
+        toks, pk.k_pool, pk.v_pool = paged_decode_steps(
+            self._params, token, torch.from_numpy(self._pos).to(dev),
+            self._bias, torch.from_numpy(tables[:, :width].copy()).to(dev),
+            pk.k_pool, pk.v_pool, self._cache.cross_k, self._cache.cross_v,
+            self.config, n_steps=1, compute_dtype=self.engine._compute_dtype)
+        return toks
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):

@@ -47,7 +47,8 @@ def fused_transcribe_step(params: dict, audio: torch.Tensor,
                           timestamp_base: int = -1,
                           no_speech: int = -1,
                           qd: Optional[dict] = None,
-                          qf_mode: Optional[str] = None) -> DecodeResult:
+                          qf_mode: Optional[str] = None,
+                          use_flash: bool = False) -> DecodeResult:
     """audio [B, n_samples] (pre-padded to a full window) -> DecodeResult.
 
     Log-mel per item (per-item normalization), frames padded to
@@ -58,9 +59,10 @@ def fused_transcribe_step(params: dict, audio: torch.Tensor,
     None) or the plain step (no ``qd``). The JAX
     step's ``fidelity`` (HIGHEST matmul precision) has no argument here:
     f32 matmuls are full f32 while TF32 is off, PyTorch's default.
+    ``use_flash`` runs the encoder's self-attention through K16.
     """
     enc = encode(params, _batch_mel(audio, window, basis, filters_t, config),
-                 config, compute_dtype)
+                 config, compute_dtype, use_flash)
     return greedy_generate_body(
         params, enc, prompt, suppress_bias, eot, config, max_len=max_len,
         prompt_len=prompt_len, compute_dtype=compute_dtype,
@@ -82,7 +84,8 @@ def fused_admit_step(params: dict, audio: torch.Tensor, window: torch.Tensor,
                      basis: torch.Tensor, filters_t: torch.Tensor,
                      prompt: torch.Tensor, suppress_bias: torch.Tensor,
                      config: ModelConfig,
-                     compute_dtype: torch.dtype = torch.float32
+                     compute_dtype: torch.dtype = torch.float32,
+                     use_flash: bool = False
                      ) -> Tuple[torch.Tensor, KVCache]:
     """Batched serving admission: log-mel -> encoder -> cross K/V ->
     prompt prefill -> suppressed first-token argmax, in plain torch.
@@ -90,9 +93,10 @@ def fused_admit_step(params: dict, audio: torch.Tensor, window: torch.Tensor,
     audio [n, n_samples] pre-padded; prompt [n, P] (equal lengths).
     Returns (first_token [n] int32, KVCache with self K/V [L, n, P, D]
     holding exactly the prompt rows and cross K/V [L, n, S, D]).
+    ``use_flash`` runs the encoder's self-attention through K16.
     """
     enc = encode(params, _batch_mel(audio, window, basis, filters_t, config),
-                 config, compute_dtype)
+                 config, compute_dtype, use_flash)
     cache = init_cache(params, enc, config, max_len=prompt.shape[1],
                        compute_dtype=compute_dtype)
     logits, cache = prefill(params, prompt, enc, cache, config,
