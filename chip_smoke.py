@@ -85,6 +85,30 @@ Phases, in order; any failure raises and the script exits non-zero:
               tokens == plain) and its encoder ms with and without K16 in
               f32 and bf16.
 
+3d. probes (after 3c) - P1-P3, the lowering probes of the JAX kernel
+              tool (csrc/probe_mma.cu), on the tool's inputs: P1 (int8 .
+              int8 -> int32) exact, P2 (int8 . bf16) and P3's contractions
+              within 2e-5, its transposes exact, against their plain
+              versions; their times, bounds and yardsticks
+              (torch._int_mm for P1, an f32 torch.matmul for P3 (a),
+              .t().contiguous() for P3 (d)).
+3e. probe_tool (after 3d) - the port's probe tool, the slice's entry
+              point, as a user runs it: python -m whisper_apr_tpu_torch.
+              tools.probe_layer_kernel --int8dot --tricks --large (a
+              subprocess; it must exit 0 and print every case); its
+              launch counts are the P1-P3 launches of the kernels line,
+              and its large-v3 slope ms/step is printed beside the
+              CUDA-graph step time of phase 3.
+7c. formats (after 8b) - the tiny seed-0 weights written by the port as
+              v1 and v2 .apr files in f32 and int8, each loaded on the card
+              with a progress callback (monotone, ending at 1.0) and
+              validated (AprValidator passes); f32 greedy tokens over 30 s
+              of noise through K1-K4 from each v2 file equal its v1 twin's.
+9. utils    - device_memory_stats on the card, the large-v3 H100 roofline
+              floors beside the measured steps, run_pipeline_benchmark's
+              mel / encode / decode split, and the trace_span events of
+              phases 3d-9.
+
 The last three lines of stdout are the kernel summary JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
 ``{"ok": true, "device": {...}}``. Imports torch and the port only.
@@ -94,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -124,7 +149,7 @@ NEAR_TIE = 1e-4
 # H100 SXM peaks for the bounds: HBM bytes/s and
 # dense bf16 / f32 (CUDA cores) flop/s
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -909,13 +934,20 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+def _counted_modules():
+    """Every module with kernel launch counts: the model's and the
+    probes'."""
+    from whisper_apr_tpu_torch.ops import probe_mma
+    return (*_kernel_modules(), probe_mma)
+
+
 def launches():
-    return {k: v for mod in _kernel_modules()
+    return {k: v for mod in _counted_modules()
             for k, v in mod.LAUNCHES.items()}
 
 
 def reset_launches():
-    for mod in _kernel_modules():
+    for mod in _counted_modules():
         mod.reset_launches()
 
 
@@ -2631,6 +2663,265 @@ def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the probes P1-P3; 3e: the probe tool
+# ---------------------------------------------------------------------------
+
+# the kernels line's entry of each probe ("tricks" sums P3's cases)
+PROBE_KERNEL = {"P1": "int8_dot", "P2": "mixed_dot"}
+PROBE_COMPUTE = {"P1": "int8", "P2": "bfloat16", "P3 (b)": "bfloat16",
+                 "P3 (i)": "bfloat16"}
+
+
+def probe_bound(case, out) -> tuple:
+    """(ms of bytes, ms of operations) of one probe call: its inputs and
+    output, each once, over HBM_BPS; 2 M N K operations of a contraction
+    (none for a transpose) over the peak of its compute type (int8 P1,
+    bf16 tensor cores P2, P3 (b), (i); f32 CUDA cores the rest)."""
+    nbytes = sum(t.numel() * t.element_size() for t in case.inputs) \
+        + out.numel() * out.element_size()
+    flops = 0
+    if len(case.inputs) == 2:
+        a = case.inputs[0]
+        k = a.shape[-2] * a.shape[-1] // out.shape[-2]
+        flops = 2 * out.numel() * k
+    peak = PEAK_FLOPS[PROBE_COMPUTE.get(case.probe, "float32")]
+    return 1e3 * nbytes / HBM_BPS, 1e3 * flops / peak
+
+
+def probe_yardstick(case) -> "float | None":
+    """Device ms of one PyTorch call computing the same function, where
+    there is one (the port never calls it): torch._int_mm for P1, an f32
+    torch.matmul (TF32 off) for P3 (a), .t().contiguous() for P3 (d)."""
+    import torch
+    if case.probe == "P1":
+        a, b = case.inputs
+        try:
+            return graph_ms(lambda: torch._int_mm(a, b))
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            log(f"[probes] torch._int_mm: {str(e).splitlines()[0][:120]}")
+            torch.cuda.synchronize()
+            return None
+    if case.probe == "P3 (a)":
+        a, b = case.inputs
+        assert not torch.backends.cuda.matmul.allow_tf32
+        return graph_ms(lambda: torch.matmul(a.t(), b))
+    if case.probe == "P3 (d)":
+        (a,) = case.inputs
+        return graph_ms(lambda: a.t().contiguous())
+    return None
+
+
+def phase_probes() -> tuple:
+    """P1-P3 against their plain versions on the card at the probes'
+    shapes (P1 and the transposes exact, the rest within TOL_F32 of the
+    plain version's largest magnitude), then each case's device time,
+    plain time, bound and yardstick. Returns (max abs errors, {"cases":
+    [...], and one entry per kernel of the summary line: P1, P2, and P3's
+    eleven calls summed})."""
+    import torch
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    cases = tool.int8dot_cases("cuda") + tool.tricks_cases("cuda")
+    rows, errs, per_kernel = [], {}, {}
+    for case in cases:
+        got, ref = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, case.name
+        exact = torch.equal(got, ref)
+        err = tool.rel_err(got, ref)
+        assert exact if case.exact else err <= TOL_F32, (
+            f"[probes] {case.probe} {case.name}: exact {exact}, rel err "
+            f"{err:.3g} (tolerance {'exact' if case.exact else TOL_F32})")
+        t_bytes, t_ops = probe_bound(case, ref)
+        row = {"probe": case.probe, "name": case.name, "exact": exact,
+               "rel_err": err, "max_abs_err": abs_err(got, ref),
+               "ms": graph_ms(case.kernel), "plain_ms": graph_ms(case.plain),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "library_ms": probe_yardstick(case)}
+        rows.append(row)
+        key = PROBE_KERNEL.get(case.probe, "tricks")
+        errs[key] = max(errs.get(key, 0.0), row["max_abs_err"])
+        agg = per_kernel.setdefault(key, {
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+            "ops_ms": 0.0, "library_ms": None, "cases": 0})
+        for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            agg[k] += row[k]
+        agg["cases"] += 1
+        if key != "tricks":
+            agg["library_ms"] = row["library_ms"]
+        log(f"[probes] {case.probe:<7} {case.name}: exact {exact}, rel err "
+            f"{err:.3g}; {row['ms'] * 1e3:.2f} us (plain "
+            f"{row['plain_ms'] * 1e3:.2f}; bound {row['bound_ms'] * 1e3:.3f}"
+            f" {row['bound_by']}; library "
+            f"{'none' if row['library_ms'] is None else '%.2f' % (row['library_ms'] * 1e3)})")
+    for agg in per_kernel.values():
+        agg["bound_by"] = ("bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms")
+                           else "operations")
+    torch.cuda.empty_cache()
+    return errs, {"probes": per_kernel, "probe_cases": rows}
+
+
+PROBE_TOOL = ["-m", "whisper_apr_tpu_torch.tools.probe_layer_kernel",
+              "--int8dot", "--tricks", "--large", "--lo", "16", "--hi", "48"]
+
+
+def phase_probe_tool(out_dir: Path, times: dict) -> dict:
+    """The slice's entry point as a user runs it, in a process of its own:
+    it must exit 0 and print every probe case. Returns its results: its
+    launch counts (counted from 0 in that process) and its large-v3
+    slope."""
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    res_path = out_dir / "probe_tool.json"
+    cmd = [sys.executable, *PROBE_TOOL, "--json", str(res_path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    dt = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"[probe_tool] {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"[probe_tool] {' '.join(PROBE_TOOL)} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    names = [c.name for c in tool.int8dot_cases("cpu")
+             + tool.tricks_cases("cpu")]
+    missing = [n for n in names if n not in proc.stdout]
+    assert not missing, f"[probe_tool] cases not printed: {missing}"
+    res = json.loads(res_path.read_text())
+    assert len(res["probes"]) == len(names) \
+        and all(p["passed"] for p in res["probes"]), res["probes"]
+    slope = res["steps_ms"]["qf"]
+    graph = times["large_v3_steps"]["fused_b1"]["ms"]
+    log(f"[probe_tool] exit 0 in {dt:.1f} s; large-v3 B=1 fused step: "
+        f"{slope:.4f} ms/step host-loop slope (bf16 rows, pos 0-47), "
+        f"{graph:.4f} ms CUDA-graph device time (phase 3: cross8, pos 128)"
+        f"; launches {({k: v for k, v in res['launches'].items() if v})}")
+    return {"seconds": dt, **res}
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: v1 and v2 .apr files, load progress, validation
+# ---------------------------------------------------------------------------
+
+def write_apr_files(workdir: Path, cfg) -> dict:
+    """{(version, quant): path} of the seed-0 weights written by the
+    port's v1 and v2 writers in f32 and int8."""
+    from whisper_apr_tpu_torch.format import (QUANT_F32, QUANT_INT8,
+                                              AprWriter, AprWriterV2)
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    params_to_apr_tensors)
+    tensors = params_to_apr_tensors(init_params(cfg, seed=0))
+    out = {}
+    for version, cls in (("v1", AprWriter), ("v2", AprWriterV2)):
+        for quant, code in (("f32", QUANT_F32), ("int8", QUANT_INT8)):
+            w = cls.from_config(cfg, quantization=code)
+            for name, arr in tensors.items():
+                w.add_tensor(name, arr)
+            path = workdir / f"tiny-{version}-{quant}.apr"
+            w.write_file(str(path))
+            out[(version, quant)] = path
+    return out
+
+
+def phase_formats(workdir: Path, cfg=None, device="cuda",
+                  specials=None) -> dict:
+    """Each file loaded through load_from_apr with a progress callback
+    (int8 weights, f32 compute: the kernels' path), its updates monotone
+    and ending at 1.0; AprValidator passes on each; greedy tokens over 30
+    s of noise from each v2 file equal its v1 twin's, K1-K4 launched.
+    ``cfg``/``specials`` let a CPU rehearsal run it at a small width."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
+                                       TranscribeOptions, WhisperApr)
+    from whisper_apr_tpu_torch.format import (AprReader, AprReaderV2,
+                                              AprValidator)
+    cfg = cfg or ModelConfig.tiny()
+    t0 = time.perf_counter()
+    files = write_apr_files(workdir, cfg)
+    audio = np.random.default_rng(11).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    opts = TranscribeOptions(language="en", max_tokens=48)
+    out = {}
+    for (version, quant), path in files.items():
+        data = path.read_bytes()
+        reader = (AprReaderV2 if version == "v2" else AprReader)(data)
+        report = AprValidator(reader).validate_all()
+        assert report.passed, f"[formats] {path.name}: {report}"
+        updates = []
+        t1 = time.perf_counter()
+        eng = WhisperApr.load_from_apr(
+            str(path), ComputeConfig(quantization="int8",
+                                     compute_dtype="float32"),
+            specials=specials, progress=updates.append, device=device)
+        load_s = time.perf_counter() - t1
+        frac = [u.overall for u in updates]
+        assert frac == sorted(frac) and frac[-1] == 1.0 \
+            and updates[-1].phase == "finalize", \
+            f"[formats] {path.name}: progress {frac}"
+        reset_launches()
+        tokens = eng.transcribe(audio, opts).tokens
+        sync(device)
+        counts = launches()
+        assert torch.device(device).type == "cpu" or all(
+            counts[k] > 0 for k in ("self_block", "cross_block",
+                                    "ffn_block", "qmatvec_greedy_head")), \
+            f"[formats] {path.name}: launches {counts}"
+        out[f"{version}_{quant}"] = {
+            "bytes": len(data), "load_s": load_s, "updates": len(updates),
+            "checks_passed": sum(c.passed for c in report.checks),
+            "tokens": tokens, "launches": counts}
+        log(f"[formats] {path.name}: {len(data) / 1e6:.1f} MB, "
+            f"{len(report.checks)} checks passed, loaded in {load_s:.2f} s "
+            f"({len(updates)} progress updates, monotone, last 1.0), "
+            f"{len(tokens)} tokens, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        del eng
+    for quant in ("f32", "int8"):
+        a, b = out[f"v1_{quant}"]["tokens"], out[f"v2_{quant}"]["tokens"]
+        assert a == b, f"[formats] {quant}: v2 tokens {b[:16]}... != v1 " \
+            f"{a[:16]}..."
+    log(f"[formats] v2 tokens == v1 twin's (f32 compute, K1-K4) in f32 and "
+        f"int8; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the measuring utils on the card
+# ---------------------------------------------------------------------------
+
+def phase_utils(times: dict, tool_res: dict) -> dict:
+    """device_memory_stats, the large-v3 roofline floors on H100 beside
+    the measured steps, and run_pipeline_benchmark's split."""
+    from whisper_apr_tpu_torch import ModelConfig
+    from whisper_apr_tpu_torch.utils import roofline
+    from whisper_apr_tpu_torch.utils.benchmark import run_pipeline_benchmark
+    from whisper_apr_tpu_torch.utils.memory import device_memory_stats
+    mem = device_memory_stats()
+    assert mem is not None and mem.bytes_limit > 0, mem
+    log(f"[utils] device_memory_stats: {mem.bytes_in_use / 2**20:.1f} MiB "
+        f"in use, peak {mem.peak_bytes / 2**30:.2f} GiB, limit "
+        f"{mem.bytes_limit / 2**30:.2f} GiB")
+    cfg = ModelConfig.large_v3()
+    floors = {kv: roofline.decode_step_floor_ms(cfg, "int8", pos=128, kv=kv)
+              for kv in ("bf16", "int8")}
+    steps = times["large_v3_steps"]
+    log(f"[utils] large-v3 int8 B=1 decode-step floor on H100, pos 128: "
+        f"bf16 rows {floors['bf16']:.4f} ms, int8 rows {floors['int8']:.4f}"
+        f" ms; measured: fused step {steps['fused_b1']['ms']:.4f} ms "
+        f"(CUDA graph, cross8), scan {steps['scan_b1']['ms']:.4f} ms, tool "
+        f"slope {tool_res['steps_ms']['qf']:.4f} ms/step; encoder floor "
+        f"{roofline.encoder_floor_ms(cfg):.4f} ms; RTF floor "
+        f"{roofline.rtf_floor(cfg):.6f}")
+    bench = json.loads(run_pipeline_benchmark(emit="json"))
+    log(f"[utils] run_pipeline_benchmark (tiny, bf16, 224 tokens): RTF "
+        f"{bench['rtf']} on {bench['device']}; " + ", ".join(
+            f"{c['name']} {c['seconds'] * 1e3:.2f} ms"
+            for c in bench["components"]))
+    return {"memory": dataclasses.asdict(mem), "floors_ms": floors,
+            "pipeline_benchmark": bench}
+
+
+# ---------------------------------------------------------------------------
 
 # (name, source, TPU kernel it replaces, the times it is reported at)
 KERNELS = [
@@ -2674,6 +2965,12 @@ KERNELS = [
      "whisper_apr_tpu/ops/int8_matmul.py:72", "tiny_optin"),
     ("int4_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
      "whisper_apr_tpu/ops/int4_matmul.py:115", "tiny_optin"),
+    ("int8_dot", "whisper_apr_tpu_torch/csrc/probe_mma.cu",
+     "tools/probe_layer_kernel.py:427", "probes"),
+    ("mixed_dot", "whisper_apr_tpu_torch/csrc/probe_mma.cu",
+     "tools/probe_layer_kernel.py:447", "probes"),
+    ("tricks", "whisper_apr_tpu_torch/csrc/probe_mma.cu",
+     "tools/probe_layer_kernel.py:479", "probes"),
 ]
 
 
@@ -2694,8 +2991,17 @@ def main() -> int:
     op_errs, op_times = phase_optin_kernels()
     errs.update(op_errs)
     times.update(op_times)
+    from whisper_apr_tpu_torch.utils import trace
+    trace.enable_tracing(True)
+    trace.drain_events()
+    with trace.trace_span("probes"):
+        pr_errs, pr_times = phase_probes()
+    errs.update(pr_errs)
+    times.update(pr_times)
     out_dir = ROOT / "build" / "smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    with trace.trace_span("probe_tool"):
+        tool_res = phase_probe_tool(out_dir, times)
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
         e2e = phase_e2e(Path(work))
         check_launches(e2e["total"], e2e["requests"])
@@ -2719,14 +3025,27 @@ def main() -> int:
             f"{int4['want_launches']}")
     large = phase_large_v3()
     large_optin = phase_large_v3_optin()
-    # each path's counts, taken from 0 just before it ran
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        with trace.trace_span("formats"):
+            formats = phase_formats(Path(work))
+    with trace.trace_span("utils"):
+        utils = phase_utils(times, tool_res)
+    events = trace.drain_events()
+    trace.enable_tracing(False)
+    log("[utils] trace_span events: " + ", ".join(
+        f"{name} {dur:.2f} s" for name, _, dur in events))
+    # each path's counts, taken from 0 just before it ran (the probe
+    # tool's in its own process)
     runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
             batch["launches"], large["launches"],
             *(p["launches"] for p in decoders["paths"].values()),
             *(p["launches"] for p in kq["paths"].values()),
             *(r["launches"] for r in paged["runs"].values()),
-            int4["launches"], large_optin["launches"]]
-    total = {k: sum(r[k] for r in runs) for k in e2e["total"]}
+            int4["launches"], large_optin["launches"], tool_res["launches"],
+            *(f["launches"] for f in formats.values())]
+    total = {k: sum(r.get(k, 0) for r in runs) for k in e2e["total"]}
+    for name in ("int8_dot", "mixed_dot", "tricks"):
+        assert tool_res["launches"][name] > 0, tool_res["launches"]
     assert all(total[name] > 0 for name, *_ in KERNELS), total
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = {"kernels": [
@@ -2750,7 +3069,9 @@ def main() -> int:
                   "int4": {k: v for k, v in int4.items()
                            if k != "want_launches"},
                   "large_v3_optin": {k: v for k, v in large_optin.items()
-                                     if k != "want_launches"}}
+                                     if k != "want_launches"},
+                  "probe_tool": tool_res, "formats": formats,
+                  "utils": utils, "trace_events": events}
         detail_path.parent.mkdir(parents=True, exist_ok=True)
         detail_path.write_text(json.dumps(detail, indent=1))
     log(json.dumps(summary))

@@ -390,7 +390,7 @@ class TestWholeSlice:
     @pytest.mark.parametrize("opts,slice_", [
         (dict(hotwords=["a"]), "slice 3b"),
         (dict(speculative=True), "slice 3b"),
-        (dict(word_timestamps=True), "slice 6"),
+        (dict(word_timestamps=True), "queue 1, item 5"),
     ])
     def test_later_slices_raise(self, cfg, params, opts, slice_):
         _, tp = params

@@ -167,9 +167,20 @@ class TestPagedKVCache:
                        pk.page_table(4, 3).tolist(), pk.page_table(1, 3)
                        .tolist())
 
+    def test_default_device_is_the_card(self, cfg, monkeypatch):
+        """Like every entry point of the port, the cache defaults to
+        "cuda" and raises the engine's message where there is no card."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="needs a CUDA device; pass "
+                           "device='cpu'"):
+            tkv.PagedKVCache(cfg, n_pages=2)
+        with pytest.raises(RuntimeError, match="needs a CUDA device; pass "
+                           "device='cpu'"):
+            WhisperApr(cfg, {}, device="cuda")
+
     def test_page_ids_match_jax(self, cfg):
         jpk = jkv.PagedKVCache(cfg, n_pages=9)
-        tpk = tkv.PagedKVCache(cfg, n_pages=9)
+        tpk = tkv.PagedKVCache(cfg, n_pages=9, device="cpu")
         assert self._stream(tpk, InferenceError) == \
             self._stream(jpk, JInferenceError)
         assert tpk.free_pages == jpk.free_pages
@@ -179,7 +190,7 @@ class TestPagedKVCache:
         rng = np.random.default_rng(3)
         L, D = cfg.n_text_layer, cfg.n_text_state
         jpk = jkv.PagedKVCache(cfg, n_pages=6)
-        tpk = tkv.PagedKVCache(cfg, n_pages=6)
+        tpk = tkv.PagedKVCache(cfg, n_pages=6, device="cpu")
         for pk in (jpk, tpk):
             pk.alloc(0, 0)
             pk.alloc(1, 0)
@@ -255,7 +266,7 @@ class TestPagedDecodeStep:
         _, tp = params
         rng = np.random.default_rng(9)
         L, D, S = cfg.n_text_layer, cfg.n_text_state, cfg.n_audio_ctx
-        pk = tkv.PagedKVCache(cfg, n_pages=6)
+        pk = tkv.PagedKVCache(cfg, n_pages=6, device="cpu")
         pk.alloc(0, 4)
         pk.alloc(1, 4)
         sk = _t(rng.normal(size=(L, 3, 3, D)).astype(np.float32))
@@ -429,7 +440,7 @@ class TestSlidingAndPerSequence:
         bias = np.zeros(cfg.n_vocab, np.float32)
         bias[eot] = -np.inf           # decode to the cap across pages
         jpk = jkv.PagedKVCache(cfg, n_pages=4)
-        tpk = tkv.PagedKVCache(cfg, n_pages=4)
+        tpk = tkv.PagedKVCache(cfg, n_pages=4, device="cpu")
         want = jkv.generate_paged(jp, jnp.asarray(enc), [1, 2, 3], jpk, 0,
                                   eot, cfg, max_tokens=22,
                                   suppress_bias=jnp.asarray(bias))

@@ -1,0 +1,251 @@
+"""The port's probes P1-P3 and its probe tool, on the CPU: the plain
+versions of ``ops/probe_mma.py`` against ``jax.lax.dot`` /
+``dot_general`` with the Pallas bodies' dimension numbers and
+``preferred_element_type`` (the JAX tool's ``tools/probe_layer_kernel.py``
+:406-631) on the same ``np.random.default_rng(0)`` inputs at the probes'
+shapes; the wrappers' argument checks; and the port's tool, whose probes
+and step timings run here on the plain versions.
+
+The JAX tool itself is not imported: it sets JAX's global compilation
+cache at import. P1 and the transposes are exact; every other case holds
+2e-5 of the reference's largest magnitude (the same products summed in
+another order).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_apr_tpu_torch.ops import probe_mma as pm
+from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+from whisper_apr_tpu_torch.tools.profile_decode import P, stepped, timeit
+
+TOL = 2e-5
+DN_T = (((0,), (0,)), ((), ()))          # transposed LHS (contract dim 0)
+DN_B = (((2,), (1,)), ((0,), (0,)))      # batched [B, bt, D] . [B, D, H]
+DN_BT = (((1,), (1,)), ((0,), (0,)))     # batched, contracting bt
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes, and torch's spinning thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return np.asarray(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16))
+    return t.numpy()
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _f32(preferred=jnp.float32):
+    return dict(preferred_element_type=preferred)
+
+
+# the Pallas body of each case (the JAX tool's kernels), on its inputs
+JAX_BODIES = {
+    "P1": lambda a, b: jax.lax.dot(a, b, **_f32(jnp.int32)),
+    "P2": lambda a, b: jax.lax.dot(a, b, **_f32()),
+    "P3 (a)": lambda a, b: jax.lax.dot_general(a, b, DN_T, **_f32()),
+    "P3 (b)": lambda a, b: jax.lax.dot_general(a, b, DN_T, **_f32()),
+    "P3 (c)": lambda a, b: jax.lax.dot(a, b, **_f32()),
+    "P3 (d)": lambda a: jnp.transpose(a),
+    "P3 (e)": lambda a, b: jax.lax.dot_general(a, b, DN_T, **_f32()),
+    "P3 (f)": lambda a, b: jax.lax.dot(a, b, **_f32()),
+    "P3 (g)": lambda a, b: jax.lax.dot_general(a, b, DN_B, **_f32()),
+    "P3 (h)": lambda a, b: jax.lax.dot_general(a, b, DN_BT, **_f32()),
+    "P3 (i)": lambda a, b: jax.lax.dot(a.astype(jnp.bfloat16), b,
+                                       **_f32()),
+    "P3 (j)": lambda a, b: jax.lax.dot_general(a, b, DN_T, **_f32()),
+}
+
+CASES = tool.int8dot_cases("cpu") + tool.tricks_cases("cpu")
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f"{c.probe} {c.name}"
+                                             for c in CASES])
+def test_plain_matches_jax(case):
+    want = np.asarray(JAX_BODIES[case.probe](
+        *(jnp.asarray(_np(t)) for t in case.inputs)))
+    got = case.plain()
+    assert got.dtype == (torch.int32 if case.probe == "P1"
+                         else torch.float32)
+    assert tuple(got.shape) == want.shape
+    if case.exact:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert _rel(got.numpy(), want) <= TOL
+
+
+def test_inputs_are_the_jax_tools():
+    """The draws of ``np.random.default_rng(0)`` in the JAX tool's
+    order (tricks_probe: p_f, v8, qe, q_row, k8b, qeb, pb, v8b)."""
+    rng = np.random.default_rng(0)
+    p_f = rng.normal(0, 1, (128, 32)).astype(np.float32)
+    v8 = rng.integers(-127, 128, (128, 1280), dtype=np.int8)
+    qe = rng.normal(0, 1, (1280, 32)).astype(np.float32)
+    q_row = rng.normal(0, 1, (8, 1280)).astype(np.float32)
+    k8b = rng.integers(-127, 128, (8, 128, 1280), dtype=np.int8)
+    by = {c.probe: c for c in tool.tricks_cases("cpu")}
+    np.testing.assert_array_equal(by["P3 (e)"].inputs[0].numpy(), p_f)
+    np.testing.assert_array_equal(by["P3 (e)"].inputs[1].numpy(), v8)
+    np.testing.assert_array_equal(by["P3 (c)"].inputs[1].numpy(), qe)
+    np.testing.assert_array_equal(
+        tool.tricks_cases("cpu")[3].inputs[0].numpy(), q_row)
+    np.testing.assert_array_equal(by["P3 (g)"].inputs[0].numpy(), k8b)
+
+
+def test_int8_plain_is_exact_at_the_extremes():
+    """All -127 against all 127 over K = 256: -4 129 024, exact in
+    float64 and in int32."""
+    a = torch.full((16, 256), -127, dtype=torch.int8)
+    b = torch.full((256, 8), 127, dtype=torch.int8)
+    out = pm.int8_dot(a, b)
+    assert out.dtype == torch.int32
+    assert int(out.min()) == int(out.max()) == -127 * 127 * 256
+
+
+def test_cast_a_rounds_to_bf16_first():
+    """Sub-probe (i): an f32 value between two bf16 neighbours contracts
+    as its bf16 rounding."""
+    a = torch.full((1, 1), 1.0 + 2.0 ** -9, dtype=torch.float32)
+    b = torch.ones((1, 1), dtype=torch.int8)
+    assert float(pm.tricks_dot(a, b, cast_a_bf16=True)) == 1.0
+    assert float(pm.tricks_dot(a, b)) == 1.0 + 2.0 ** -9
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: pm.int8_dot(torch.zeros(2, 3), torch.zeros(3, 2)), TypeError),
+    (lambda: pm.mixed_dot(torch.zeros(2, 3, dtype=torch.int8),
+                          torch.zeros(3, 2)), TypeError),
+    (lambda: pm.tricks_dot(torch.zeros(2, 3, dtype=torch.bfloat16),
+                           torch.zeros(3, 2)), TypeError),
+    (lambda: pm.tricks_dot(torch.zeros(2, 3, dtype=torch.int8),
+                           torch.zeros(3, 2, dtype=torch.int8),
+                           cast_a_bf16=True), TypeError),
+    (lambda: pm.tricks_transpose(torch.zeros(2, 3, dtype=torch.int8)),
+     ValueError),
+], ids=["int8_dot f32", "mixed_dot f32 rhs", "bf16 . f32", "cast int8",
+        "transpose int8"])
+def test_wrappers_refuse_other_dtypes(call, err):
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.parametrize("a_shape,b_shape,trans_a", [
+    ((2, 3), (4, 5), False), ((3, 2), (4, 5), True),
+    ((2, 2, 3), (3, 3, 4), False), ((2, 3), (1, 3, 4), False)])
+def test_wrappers_refuse_mismatched_shapes(a_shape, b_shape, trans_a):
+    with pytest.raises(ValueError):
+        pm.tricks_dot(torch.zeros(a_shape), torch.zeros(b_shape), trans_a)
+
+
+def test_launch_counts_only_on_the_card():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch."""
+    pm.reset_launches()
+    for c in CASES:
+        c.kernel()
+    assert pm.LAUNCHES == {"int8_dot": 0, "mixed_dot": 0, "tricks": 0}
+
+
+class TestTool:
+    """The port's probe tool on the CPU (plain versions, host times)."""
+
+    def test_probes_pass(self, tmp_path, capsys):
+        out = tool.main(["--int8dot", "--tricks", "--device", "cpu",
+                         "--json", str(tmp_path / "r.json")])
+        names = [p["name"] for p in out["probes"]]
+        assert names == [c.name for c in CASES]
+        assert all(p["runs"] and p["passed"] for p in out["probes"])
+        assert all(p["us"] is None for p in out["probes"])
+        assert json.loads((tmp_path / "r.json").read_text()) == out
+        text = capsys.readouterr().out
+        assert all(n in text for n in names)
+        assert json.loads(text.strip().splitlines()[-1]) == {
+            "launches": out["launches"]}
+
+    def test_steps_run_at_small_width(self):
+        out = tool.main(["--large", "--anatomy", "--anatomy-layers", "1,2",
+                         "--batched", "--b", "2", "--model", "tiny",
+                         "--lo", "1", "--hi", "2", "--device", "cpu"])
+        assert set(out["steps_ms"]) >= {"qf", "L1", "L2", "per_layer",
+                                        "fixed", "b2_int8"}
+        assert all(np.isfinite(v) for v in out["steps_ms"].values())
+
+    @pytest.mark.parametrize("flags,key", [
+        (["--q4k", "--fused"], "q4k_fused"), (["--q5k"], "q5k_scan"),
+        (["--batched", "--b", "2", "--quant", "q6k"], "b2_q6k")])
+    def test_kquant_steps(self, flags, key):
+        cfg = tool.ModelConfig.base()
+        small = tool.dataclasses.replace(cfg, n_text_layer=1, n_vocab=600)
+        assert small.n_text_state % 256 == 0
+        fn = {"q4k_fused": lambda: tool.kq_measure(1, 2, "cpu", small, "q4k",
+                                                   True),
+              "q5k_scan": lambda: tool.kq_measure(1, 2, "cpu", small, "q5k"),
+              "b2_q6k": lambda: tool.batched_measure(1, 2, "cpu", small, 2,
+                                                     "q6k")}[key]
+        assert np.isfinite(fn()[key])
+
+    def test_which_takes_qf_only(self):
+        with pytest.raises(ValueError, match="only qf"):
+            tool.large_measure(1, 2, "cpu", tool.ModelConfig.tiny(),
+                               which=("qf_defer",))
+
+    def test_needs_a_stage(self):
+        with pytest.raises(SystemExit):
+            tool.main(["--device", "cpu"])
+
+    def test_cuda_without_a_card_raises(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            tool.main(["--int8dot"])
+
+
+class TestProfileDecode:
+    """The slope timer and its helpers."""
+
+    def test_stepped_runs_the_body_in_order(self):
+        seen = []
+        out = stepped(lambda i, env, s: seen.append(i) or s + env)(4, 2, 1)
+        assert out == 9 and seen == [0, 1, 2, 3]
+
+    def test_per_step_is_the_slope(self, monkeypatch):
+        """A fake clock that advances 5 per step and 7 per run: the slope
+        is 5."""
+        import whisper_apr_tpu_torch.tools.profile_decode as pd
+        now = [0.0]
+
+        def body(i, env, s):
+            now[0] += 5.0
+            return s
+
+        def clock():
+            now[0] += 3.5      # two reads a timed run: 7 of fixed cost
+            return now[0]
+        monkeypatch.setattr(pd.time, "perf_counter", clock)
+        assert P(2, 6, "cpu").per_step(body, None, None) == pytest.approx(5.0)
+
+    def test_timeit_is_the_best_run(self):
+        calls = []
+        assert timeit(lambda: calls.append(1), reps=3, device="cpu") >= 0
+        assert len(calls) == 4       # one warm-up and three timed
+
+    def test_lo_below_hi(self):
+        with pytest.raises(ValueError):
+            P(4, 4)

@@ -86,7 +86,7 @@ def test_end_to_end_phase_on_cpu(smoke, e2e_small):
         "qmatvec_stacked", "ffn_fused", "q4k_matvec_stacked",
         "kq_matvec_stacked", "self_block_kq", "cross_block_kq",
         "ffn_block_kq", "paged_attention_stacked", "flash_attention",
-        "int8_matmul", "int4_matmul"}
+        "int8_matmul", "int4_matmul", "int8_dot", "mixed_dot", "tricks"}
     assert not any(out["total"].values())
     steps = requests[0]["decode_steps"]
     assert requests[0]["want_launches"]["self_block"] == \
@@ -403,3 +403,51 @@ def test_optin_bounds(smoke):
     assert by == "operations" and abs(1e3 * ms - 19.88) < 0.01
     ms4, _ = smoke.optin_bound("int4_matmul", M=8, K=384, N=1536)
     assert abs(1e3 * ms4 - (0.1871 - 384 * 768 / 3.35e12 * 1e6)) < 1e-3
+
+
+def test_formats_phase_on_cpu(smoke, tmp_path):
+    """The formats phase at a small width: the port's v1 and v2 files in
+    f32 and int8, each validated and loaded with monotone progress; the
+    v2 tokens equal the v1 twins'."""
+    cfg, sp = _small()
+    out = smoke.phase_formats(tmp_path, cfg=cfg, device="cpu", specials=sp)
+    assert set(out) == {"v1_f32", "v1_int8", "v2_f32", "v2_int8"}
+    for q in ("f32", "int8"):
+        assert out[f"v1_{q}"]["tokens"] == out[f"v2_{q}"]["tokens"]
+    assert all(r["checks_passed"] > 0 and r["updates"] > 5
+               for r in out.values())
+
+
+def test_probe_bounds(smoke):
+    """P1: 393 216 bytes at 3.35 TB/s (0.117 us) over 2 * 256^3 int8
+    operations at 1979 TOP/s; P2: 458 752 bytes (0.137 us), bf16; P3 (g):
+    f32 on the CUDA cores, 2 * 8 * 128 * 32 * 1280 operations at 67
+    TFLOP/s (1.25 us) above its 2.75 MB (0.82 us); a transpose has no
+    operations."""
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    cases = {c.probe: c for c in tool.int8dot_cases("cpu")}
+    p1 = cases["P1"]
+    b, o = smoke.probe_bound(p1, p1.plain())
+    assert abs(1e3 * b - 0.1174) < 1e-3 and abs(1e3 * o - 0.01696) < 1e-4
+    p2 = cases["P2"]
+    b, o = smoke.probe_bound(p2, p2.plain())
+    assert abs(1e3 * b - 0.1369) < 1e-3 and abs(1e3 * o - 0.0339) < 1e-3
+    tricks = {c.probe: c for c in tool.tricks_cases("cpu")}
+    g = tricks["P3 (g)"]
+    b, o = smoke.probe_bound(g, g.plain())
+    want_bytes = 8 * 128 * 1280 + 4 * 8 * 1280 * 32 + 4 * 8 * 128 * 32
+    assert abs(b - 1e3 * want_bytes / 3.35e12) < 1e-9
+    assert abs(o - 1e3 * 2 * 8 * 128 * 32 * 1280 / 67e12) < 1e-9
+    d = tricks["P3 (d)"]
+    assert smoke.probe_bound(d, d.plain())[1] == 0.0
+
+
+def test_probe_tool_command(smoke):
+    """The smoke runs the tool as a user would, with the flags the slice
+    names."""
+    assert smoke.PROBE_TOOL[:2] == [
+        "-m", "whisper_apr_tpu_torch.tools.probe_layer_kernel"]
+    assert {"--int8dot", "--tricks", "--large"} <= set(smoke.PROBE_TOOL)
+    names = [n for n, *_ in smoke.KERNELS]
+    assert len(names) == 21 and names[-3:] == ["int8_dot", "mixed_dot",
+                                               "tricks"]

@@ -25,7 +25,7 @@ default; "cpu" runs the kernels' plain PyTorch versions).
 Continuous-batching serving over an engine, dense or paged, is
 ``parallel/serving.BatchScheduler``. Hotwords,
 speculative decoding and audio longer than one window are the port's
-slice 3b; word timestamps need the traced decoder of slice 6.
+slice 3b; word timestamps need the traced decoder (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -43,17 +43,20 @@ from .audio.wav import parse_wav
 from .config import ComputeConfig, ModelConfig, SAMPLE_RATE
 from .detection import LanguageProbs
 from .errors import ModelError
-from .format import AprReader
+from .format import AprReader, AprReaderV2, is_v2
 from .inference.beam import beam_generate
 from .inference.processors import WhisperTokenSuppressor
 from .inference.sampling import (DEFAULT_TEMPERATURES, compression_ratio,
                                  is_silence, needs_fallback, sample_generate)
 from .model.decoder import init_cache, prefill
+from .ops.dispatch import resolve_device
 from .model.encoder import encode as encode_fn
-from .model.params import Params, load_params_from_apr, to_device
+from .model.params import (Params, load_params_from_apr,
+                           params_from_hf_model, to_device)
 from .timestamps import Segment, extract_segments, has_timestamps
 from .tokenizer import BpeTokenizer, SpecialTokens, Vocabulary
 from .tokenizer import special_tokens as st
+from .utils.progress import ProgressTracker
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -113,14 +116,6 @@ class BatchTranscriptionResult:
         return len(self.results)
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("WhisperApr(device='cuda') needs a CUDA device; "
-                           "pass device='cpu' to run the plain versions")
-    return device
-
-
 class WhisperApr:
     """The transcription engine (reference: src/lib.rs:270)."""
 
@@ -130,7 +125,7 @@ class WhisperApr:
                  compute: Optional[ComputeConfig] = None,
                  specials: Optional[SpecialTokens] = None,
                  device: Union[str, torch.device] = "cuda") -> None:
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "WhisperApr")
         self.config = config
         self.params = to_device(params, self.device)
         if tokenizer is None:
@@ -160,19 +155,35 @@ class WhisperApr:
                       progress: Optional[Callable] = None,
                       device: Union[str, torch.device] = "cuda"
                       ) -> "WhisperApr":
-        """Load a model from an .apr (v1) container. Quantized files stay
-        quantized on the device: int8 with the file's scales, q4k/q5k/q6k
-        bit-exact from the super-blocks (block linears whose d_in is a
-        multiple of 256; the others load dequantized), when
-        ``compute.quantization`` is "none" or the file's own mode; other
-        files are quantized at load to ``compute.quantization``."""
-        if progress is not None:
-            raise NotImplementedError(
-                "load progress reporting: the port's slice 6 (utils)")
-        device = _resolve_device(device)
-        reader = (AprReader.from_file(path_or_bytes)
-                  if isinstance(path_or_bytes, str)
-                  else AprReader(path_or_bytes))
+        """Load a model from an .apr container, v1 or v2 (``is_v2``).
+        Quantized files stay quantized on the device: int8 with the file's
+        scales, q4k/q5k/q6k bit-exact from the super-blocks (block linears
+        whose d_in is a multiple of 256; the others load dequantized),
+        when ``compute.quantization`` is "none" or the file's own mode;
+        other files are quantized at load to ``compute.quantization``.
+
+        ``progress`` receives :class:`~.utils.progress.Progress` updates
+        through the weighted read / parse / encoder / decoder / finalize
+        phases, the same sequence as the JAX engine's."""
+        device = resolve_device(device, "WhisperApr")
+        tracker = ProgressTracker.model_loading() if progress else None
+
+        def emit(msg: str = "") -> None:
+            if tracker is not None:
+                progress(tracker.to_progress(msg))
+
+        if tracker is not None:
+            tracker.start_phase("read")
+            emit("opening container")
+        if isinstance(path_or_bytes, str):
+            with open(path_or_bytes, "rb") as f:
+                data = f.read()
+        else:
+            data = path_or_bytes
+        reader = AprReaderV2(data) if is_v2(data) else AprReader(data)
+        if tracker is not None:
+            tracker.advance()  # -> parse
+            emit("header + checksum")
         if verify_crc and not reader.verify_crc():
             raise ModelError("corrupt .apr file: CRC32 mismatch")
         config = reader.header.to_model_config()
@@ -182,11 +193,30 @@ class WhisperApr:
             reader.header.quantization)
         keep = file_mode is not None \
             and compute.quantization in ("none", file_mode)
-        params = load_params_from_apr(reader, dtype=dtype, keep_quantized=keep)
+        on_tensor = None
+        if tracker is not None:
+            # tensor reads per section (attention 8, LayerNorm 2, fc 2 each)
+            totals = {"encoder": 7 + 16 * config.n_audio_layer,
+                      "decoder": 4 + 26 * config.n_text_layer}
+            counts = {"encoder": 0, "decoder": 0}
+
+            def on_tensor(name: str, _i: int) -> None:
+                ph = "encoder" if name.startswith("encoder.") else "decoder"
+                counts[ph] += 1
+                tracker.start_phase(ph)
+                tracker.update_phase_progress(
+                    min(counts[ph] / totals[ph], 1.0))
+                emit(name)
+
+        params = load_params_from_apr(reader, dtype=dtype, keep_quantized=keep,
+                                      on_tensor=on_tensor)
         if compute.quantization != "none" and not keep:
             from .model.params import quantize_params
             params = quantize_params(params, compute.quantization)
 
+        if tracker is not None:
+            tracker.start_phase("finalize")
+            emit("vocabulary + filterbank")
         tokenizer = None
         vb = reader.read_vocabulary_bytes()
         if vb is not None:
@@ -195,8 +225,31 @@ class WhisperApr:
         fb = reader.read_mel_filterbank()
         if fb is not None:
             mel_filters = MelFilterbank.from_apr_data(fb)
-        return WhisperApr(config, params, tokenizer, mel_filters, compute,
-                          specials, device=device)
+        eng = WhisperApr(config, params, tokenizer, mel_filters, compute,
+                         specials, device=device)
+        if tracker is not None:
+            tracker.update_phase_progress(1.0)
+            emit("done")
+        return eng
+
+    @staticmethod
+    def from_hf_model(hf_model, config: ModelConfig,
+                      tokenizer: Optional[BpeTokenizer] = None,
+                      compute: Optional[ComputeConfig] = None,
+                      specials: Optional[SpecialTokens] = None,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> "WhisperApr":
+        """Build from a transformers Whisper model (the test oracle; the
+        JAX ``from_hf_model``)."""
+        compute = compute or ComputeConfig()
+        params = params_from_hf_model(
+            hf_model, config,
+            dtype=_DTYPES.get(compute.param_dtype, torch.float32))
+        if compute.quantization != "none":
+            from .model.params import quantize_params
+            params = quantize_params(params, compute.quantization)
+        return WhisperApr(config, params, tokenizer, None, compute, specials,
+                          device=device)
 
     # -- pipeline stages ------------------------------------------------------
     @property
@@ -458,7 +511,8 @@ class WhisperApr:
                 "speculative decoding: the port's slice 3b")
         if options.word_timestamps:
             raise NotImplementedError(
-                "word timestamps need the traced decoder: the port's slice 6")
+                "word timestamps need the traced decoder: not ported yet "
+                "(ROADMAP.md queue 1, item 5)")
 
         lang = self._language(audios[0], options.language)
         prompt_list = self.get_initial_tokens(lang, options.task,

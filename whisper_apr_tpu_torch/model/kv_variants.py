@@ -31,6 +31,7 @@ import torch
 from ..config import ModelConfig
 from ..errors import InferenceError
 from ..ops.basic import gelu, layer_norm, linear, mha
+from ..ops.dispatch import resolve_device
 from .decoder import (KVCache, block_step, embed, init_cache,
                       precompute_cross_kv, project_to_vocab)
 from .params import layer_slice
@@ -233,7 +234,8 @@ class PagedKVCache:
 
     def __init__(self, config: ModelConfig, n_pages: int,
                  compute_dtype: torch.dtype = torch.float32,
-                 device: "torch.device | str" = "cpu") -> None:
+                 device: "torch.device | str" = "cuda") -> None:
+        device = resolve_device(device, "PagedKVCache")
         L, D = config.n_text_layer, config.n_text_state
         self.config = config
         self.n_pages = n_pages

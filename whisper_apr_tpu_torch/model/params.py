@@ -12,7 +12,7 @@ the HF-derived names (``decoder.layers.N.self_attn.q_proj.weight``, ...).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -192,7 +192,9 @@ def from_jax_params(tree):
 
 def load_params_from_apr(reader: AprReader,
                          dtype: torch.dtype = torch.float32,
-                         keep_quantized: bool = False) -> Params:
+                         keep_quantized: bool = False,
+                         on_tensor: Optional[Callable[[str, int], None]] = None
+                         ) -> Params:
     """Build the stacked parameter tree from an .apr file (host tensors).
 
     ``keep_quantized=True`` on an int8 file keeps the matmul weights and
@@ -204,9 +206,20 @@ def load_params_from_apr(reader: AprReader,
     and the token embedding is requantized to per-channel int8 (params.py
     :142-148, :200-217, :292-297). LN/bias/conv/pos tensors load as float.
     f32, f16, int8 and the k-quant files are supported (int4 files have
-    no reader in either package; a per-tensor progress callback comes with
-    the port's slice 6).
+    no reader in either package). ``reader`` is a v1 ``AprReader`` or an
+    ``AprReaderV2``.
+
+    ``on_tensor(name, i)`` fires after each tensor read, ``i`` counting
+    from 1, in the JAX loader's order and for the same names (an absent
+    optional bias is not read) — the hook of the engine's load progress.
     """
+    n_read = [0]
+
+    def count(name: str) -> None:
+        n_read[0] += 1
+        if on_tensor is not None:
+            on_tensor(name, n_read[0])
+
     cfg = reader.header.to_model_config()
     file_quant = reader.header.quantization
     if file_quant not in (QUANT_F32, QUANT_F16, QUANT_INT8, QUANT_Q4K,
@@ -225,6 +238,12 @@ def load_params_from_apr(reader: AprReader,
         arr = arr.reshape(shape) if shape else arr
         if transpose:
             arr = np.ascontiguousarray(arr.T)
+        count(name)
+        return arr
+
+    def raw(name: str) -> np.ndarray:
+        arr = np.asarray(reader.load_raw(name))
+        count(name)
         return arr
 
     def get_or(name: str, fallback: str) -> np.ndarray:
@@ -237,10 +256,8 @@ def load_params_from_apr(reader: AprReader,
 
     def q_linear(name: str, d_in: int, d_out: int):
         """int8 weight straight from the file: transpose + file scale."""
-        raw = np.asarray(reader.load_raw(name)).reshape(d_out, d_in)
-        q = np.ascontiguousarray(raw.T)
-        scale = np.float32(reader.scale_for(name))
-        return q, scale
+        q = np.ascontiguousarray(raw(name).reshape(d_out, d_in).T)
+        return q, np.float32(reader.scale_for(name))
 
     def stack_w(prefix_fn: Callable[[int], str], L: int, d_in: int,
                 d_out: int):
@@ -255,8 +272,7 @@ def load_params_from_apr(reader: AprReader,
             planar = {QUANT_Q4K: q4k.planar_from_raw,
                       QUANT_Q5K: kquants.planar_from_raw_q5k,
                       QUANT_Q6K: kquants.planar_from_raw_q6k}[native_kq]
-            qts = [planar(np.asarray(reader.load_raw(prefix_fn(i))), d_out,
-                          d_in) for i in range(L)]
+            qts = [planar(raw(prefix_fn(i)), d_out, d_in) for i in range(L)]
             return dataclasses.replace(
                 qts[0], q=torch.stack([t.q for t in qts]),
                 scale=torch.stack([t.scale for t in qts]),
@@ -325,7 +341,7 @@ def load_params_from_apr(reader: AprReader,
                    else "decoder.token_embedding")
         if native_int8:
             token_emb = QTensor(
-                torch.from_numpy(np.array(reader.load_raw(te_name))
+                torch.from_numpy(np.array(raw(te_name))
                                  .reshape(cfg.n_vocab, d_t)),
                 torch.tensor(np.float32(reader.scale_for(te_name))))
         elif native_kq is not None:
@@ -355,6 +371,81 @@ def load_params_from_apr(reader: AprReader,
     except Exception as e:  # noqa: BLE001 - surface as ModelError with tensor context
         raise ModelError(f"failed to load model weights: {e}") from e
     return {"encoder": encoder, "decoder": decoder}
+
+
+# ---------------------------------------------------------------------------
+# Loading from a transformers state dict (offline test oracle)
+# ---------------------------------------------------------------------------
+
+def hf_state_dict_to_apr_tensors(state_dict: Dict[str, Any]
+                                 ) -> Dict[str, np.ndarray]:
+    """HF ``WhisperForConditionalGeneration`` tensor names -> .apr names
+    (the JAX ``hf_state_dict_to_apr_tensors``): the ``model.`` prefix is
+    stripped and ``proj_out.weight`` (tied to the token embedding)
+    dropped; values as f32 numpy."""
+    out: Dict[str, np.ndarray] = {}
+    for name, tensor in state_dict.items():
+        if isinstance(tensor, torch.Tensor):
+            tensor = tensor.detach().float().cpu().numpy()
+        arr = np.asarray(tensor, dtype=np.float32)
+        if name.startswith("model."):
+            name = name[len("model."):]
+        if name == "proj_out.weight":
+            continue
+        out[name] = arr
+    return out
+
+
+class _DictHeader:
+    quantization = QUANT_F32
+
+    def __init__(self, cfg: ModelConfig):
+        self._cfg = cfg
+
+    def to_model_config(self) -> ModelConfig:
+        return self._cfg
+
+
+class _DictReader:
+    """The reader surface ``load_params_from_apr`` takes, over a dict of
+    f32 arrays named as in an .apr file."""
+
+    def __init__(self, tensors: Dict[str, np.ndarray], cfg: ModelConfig):
+        self._t = tensors
+        self.header = _DictHeader(cfg)
+
+    def find_tensor(self, name: str):
+        return name if name in self._t else None
+
+    def load_tensor(self, name: str) -> np.ndarray:
+        if name not in self._t:
+            raise ModelError(f"tensor not found: {name}")
+        return self._t[name]
+
+
+def params_from_hf_model(hf_model, config: ModelConfig,
+                         dtype: torch.dtype = torch.float32) -> Params:
+    """Params from a transformers ``WhisperModel`` /
+    ``WhisperForConditionalGeneration`` (the JAX ``params_from_hf_model``:
+    the offline numerics oracle). Reads only ``state_dict()``, so
+    transformers is never imported here."""
+    tensors = hf_state_dict_to_apr_tensors(hf_model.state_dict())
+    return load_params_from_apr(_DictReader(tensors, config), dtype=dtype)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor of a param tree in order; a QTensor gives q, scale and
+    its zero when it has one (the JAX pytree's leaves)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if is_quantized(tree):
+        return [t for t in (tree.q, tree.scale, tree.zero) if t is not None]
+    return [tree]
+
+
+def count_params(params: Params) -> int:
+    """Elements of every leaf, scales included (the JAX ``count_params``)."""
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -486,3 +577,9 @@ def params_to_apr_tensors(params: Params) -> Dict[str, np.ndarray]:
         fc(f"{p}.fc2", db["fc2"], i)
     ln("decoder.layer_norm", dec["ln_post"])
     return out
+
+
+def quantized_size_bytes(params: Params) -> int:
+    """Device-resident weight bytes, int8 and packed int4 leaves at their
+    stored width (the JAX ``quantized_size_bytes``)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))

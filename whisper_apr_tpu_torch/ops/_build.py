@@ -75,6 +75,10 @@ _SIGNATURES = {
                            ctypes.c_float, _I, _P],
     "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
     "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+    "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _P],
+    "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    "wa_probe_dot_f32": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    "wa_probe_transpose": [_P, _P, _I, _I, _P],
 }
 
 MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc

@@ -49,6 +49,17 @@ class DeviceCapabilities:
             torch.cuda.device_count(), int(props.total_memory))
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """``device`` as a torch.device; raise when it is a CUDA device and
+    there is none (the port's entry points default to "cuda" and never
+    fall back to the CPU on their own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device='cuda') needs a CUDA device; "
+                           "pass device='cpu' to run the plain versions")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class SelectorConfig:
     # at and above this q * k sequence product the flash kernel is chosen

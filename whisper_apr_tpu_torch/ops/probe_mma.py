@@ -1,0 +1,221 @@
+"""The lowering probes P1-P3: port of the Pallas kernels of the JAX
+package's ``tools/probe_layer_kernel.py`` (``int8dot_probe``,
+``pallas_call`` at :427 and :447; ``tricks_probe``, at :479).
+
+They ask which contractions run on the card and whether they are exact:
+the question behind keeping int8 K/V rows int8 up to the tensor-core
+fragments of the batched attention kernels (K5/K6) instead of casting
+them in a separate pass.
+
+- P1 ``int8_dot``: int8 [M, K] . int8 [K, N] -> int32, exact
+  (``mma.sync`` m16n8k32 s8).
+- P2 ``mixed_dot``: int8 [M, K] . bf16 [K, N] -> f32 (int8 converted to
+  bf16 in registers, then ``mma.sync`` m16n8k16 bf16).
+- P3 ``tricks_dot`` / ``tricks_transpose``: ``dot`` / ``dot_general``
+  with an f32 result over f32, bf16 and int8 operands, the left operand
+  given transposed (contracting its dim 0) and a leading batch axis;
+  ``cast_a_bf16`` rounds an f32 left operand to bf16 in the kernel, as
+  sub-probe (i)'s ``astype``. Any f32 operand keeps the contraction on
+  the CUDA cores in f32 (tensor cores would round it to TF32); bf16 and
+  int8 operands go to the tensor cores in bf16. The transpose is a 2-D
+  f32 transpose.
+
+Bound (``csrc/probe_mma.cu``): at the probes' shapes each call moves at
+most a few MB and does at most 42 MFLOP: bounds of 0.1-3 us, under a
+launch's latency. A CUDA tensor runs the kernel (or raises); a CPU tensor
+runs the plain PyTorch version beside it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# launches of each probe's kernels in this process (reset by the caller);
+# P3's contraction and transpose count together
+LAUNCHES = {"int8_dot": 0, "mixed_dot": 0, "tricks": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _dims(a: torch.Tensor, b: torch.Tensor, trans_a: bool):
+    """(batch, M, K, N) of ``a`` [(B,) M, K] (or [(B,) K, M]) . ``b``
+    [(B,) K, N]; raises on a mismatch."""
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"operands [M, K] . [K, N] or [B, M, K] . "
+                         f"[B, K, N]: got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    if a.dim() == 3 and b.shape[0] != batch:
+        raise ValueError(f"batch {batch} != {b.shape[0]}")
+    K, M = a.shape[-2:] if trans_a else a.shape[-2:][::-1]
+    if b.shape[-2] != K:
+        raise ValueError(f"contracted dims differ: {tuple(a.shape)} "
+                         f"(trans_a={trans_a}) . {tuple(b.shape)}")
+    return batch, M, K, b.shape[-1]
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda" or not t.is_contiguous() \
+                or t.device != ts[0].device:
+            raise ValueError("operands must be contiguous, on one CUDA "
+                             "device")
+
+
+def _check_device(a: torch.Tensor) -> None:
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {a.device}")
+
+
+# ---------------------------------------------------------------------------
+# P1
+# ---------------------------------------------------------------------------
+
+def int8_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 . int8 -> int32, in float64 (exact: |sum| <= K * 127^2 stays
+    under 2^53; PyTorch has no int32 matmul on the card)."""
+    _dims(a, b, False)
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P1: a [M, K] int8 . b [K, N] int8 -> [M, N] int32."""
+    _check_device(a)
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_dot takes int8 operands: {a.dtype}, "
+                        f"{b.dtype}")
+    if a.device.type == "cpu":
+        return int8_dot_plain(a, b)
+    _, M, K, N = _dims(a, b, False)
+    if a.dim() != 2:
+        raise ValueError("int8_dot takes 2-D operands")
+    _check_cuda(a, b)
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    rc = _build.library().wa_probe_int8_mma(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+        _build.stream())
+    _build.check(rc, "int8_dot")
+    LAUNCHES["int8_dot"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P2 and P3: contractions with an f32 result
+# ---------------------------------------------------------------------------
+
+def _mma(a, b, trans_a, dims) -> torch.Tensor:
+    """The tensor-core kernel (bf16 products, f32 sums)."""
+    batch, M, K, N = dims
+    _check_cuda(a, b)
+    out = torch.empty(((batch,) if a.dim() == 3 else ()) + (M, N),
+                      dtype=torch.float32, device=a.device)
+    rc = _build.library().wa_probe_mma_bf16(
+        a.data_ptr(), _build.DTYPE_CODES[a.dtype], int(trans_a),
+        b.data_ptr(), _build.DTYPE_CODES[b.dtype], out.data_ptr(), batch,
+        M, K, N, _build.stream())
+    _build.check(rc, "probe mma")
+    return out
+
+
+def _plain_contract(a, b, trans_a, cast_a_bf16=False) -> torch.Tensor:
+    if cast_a_bf16:
+        a = a.to(torch.bfloat16)
+    a = a.float()
+    if trans_a:
+        a = a.transpose(-1, -2)
+    return torch.matmul(a, b.float())
+
+
+def mixed_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 . bf16 -> f32: both promoted to f32 (exact products), an f32
+    matmul."""
+    _dims(a, b, False)
+    return _plain_contract(a, b, False)
+
+
+def mixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P2: a [M, K] int8 . b [K, N] bf16 -> [M, N] f32."""
+    _check_device(a)
+    if a.dtype != torch.int8 or b.dtype != torch.bfloat16:
+        raise TypeError(f"mixed_dot takes int8 . bf16: {a.dtype}, "
+                        f"{b.dtype}")
+    if a.device.type == "cpu":
+        return mixed_dot_plain(a, b)
+    out = _mma(a, b, False, _dims(a, b, False))
+    LAUNCHES["mixed_dot"] += 1
+    return out
+
+
+_CUDA_CORES = {(torch.float32, torch.float32), (torch.float32, torch.int8),
+               (torch.int8, torch.float32)}
+_TENSOR_CORES = {torch.bfloat16, torch.int8}
+
+
+def tricks_dot_plain(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
+                     cast_a_bf16: bool = False) -> torch.Tensor:
+    """The contraction in f32 (a rounded to bf16 first if
+    ``cast_a_bf16``)."""
+    _dims(a, b, trans_a)
+    return _plain_contract(a, b, trans_a, cast_a_bf16)
+
+
+def tricks_dot(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
+               cast_a_bf16: bool = False) -> torch.Tensor:
+    """P3's contractions: a [(B,) M, K] (``trans_a``: [(B,) K, M]) . b
+    [(B,) K, N] -> [(B,) M, N] f32. a and b f32 or int8 (CUDA cores, f32),
+    or both bf16 / int8 (tensor cores); ``cast_a_bf16`` takes an f32 a,
+    rounds it to bf16 in the kernel and runs on the tensor cores."""
+    _check_device(a)
+    dims = _dims(a, b, trans_a)
+    if cast_a_bf16 and a.dtype != torch.float32:
+        raise TypeError("cast_a_bf16 takes an f32 left operand")
+    mma = cast_a_bf16 or (a.dtype in _TENSOR_CORES
+                          and b.dtype in _TENSOR_CORES)
+    if not mma and (a.dtype, b.dtype) not in _CUDA_CORES:
+        raise TypeError(f"no probe contraction for {a.dtype} . {b.dtype}")
+    if mma and b.dtype not in _TENSOR_CORES:
+        raise TypeError(f"the tensor-core contraction takes a bf16 or int8 "
+                        f"right operand: {b.dtype}")
+    if a.device.type == "cpu":
+        return tricks_dot_plain(a, b, trans_a, cast_a_bf16)
+    if mma:
+        out = _mma(a, b, trans_a, dims)
+    else:
+        batch, M, K, N = dims
+        _check_cuda(a, b)
+        out = torch.empty(((batch,) if a.dim() == 3 else ()) + (M, N),
+                          dtype=torch.float32, device=a.device)
+        rc = _build.library().wa_probe_dot_f32(
+            a.data_ptr(), _build.DTYPE_CODES[a.dtype], int(trans_a),
+            b.data_ptr(), _build.DTYPE_CODES[b.dtype], out.data_ptr(),
+            batch, M, K, N, _build.stream())
+        _build.check(rc, "probe f32 dot")
+    LAUNCHES["tricks"] += 1
+    return out
+
+
+def tricks_transpose_plain(a: torch.Tensor) -> torch.Tensor:
+    return a.t().contiguous()
+
+
+def tricks_transpose(a: torch.Tensor) -> torch.Tensor:
+    """P3 (d): a [R, C] f32 -> [C, R]."""
+    if a.dim() != 2 or a.dtype != torch.float32:
+        raise ValueError(f"tricks_transpose takes a 2-D f32 tensor: "
+                         f"{a.dtype} {tuple(a.shape)}")
+    _check_device(a)
+    if a.device.type == "cpu":
+        return tricks_transpose_plain(a)
+    _check_cuda(a)
+    R, C = a.shape
+    out = torch.empty((C, R), dtype=torch.float32, device=a.device)
+    rc = _build.library().wa_probe_transpose(a.data_ptr(), out.data_ptr(),
+                                             R, C, _build.stream())
+    _build.check(rc, "tricks_transpose")
+    LAUNCHES["tricks"] += 1
+    return out

@@ -51,6 +51,11 @@ class QTensor:
     def dtype(self):
         return self.q.dtype
 
+    @property
+    def size(self) -> int:
+        """Elements of ``q`` (the JAX ``QTensor.size``)."""
+        return self.q.numel()
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "QTensor":
         """``fn`` applied to q, scale and zero; metadata kept."""
         return dataclasses.replace(
@@ -196,3 +201,28 @@ def dequant(w, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         qg = q.reshape(q.shape[:-2] + (K // g, g, N)).to(dtype)
         return (qg * scale[..., :, None, :]).reshape(q.shape[:-2] + (K, N))
     return q.to(dtype) * scale
+
+
+# ---------------------------------------------------------------------------
+# error metrics (quant.py:257-272), in float64 on the host
+# ---------------------------------------------------------------------------
+
+def _f64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().double().numpy()
+    return np.asarray(a, np.float64)
+
+
+def quantization_error(original, dequantized) -> float:
+    """Mean absolute error."""
+    return float(np.mean(np.abs(_f64(original) - _f64(dequantized))))
+
+
+def compute_sqnr(original, dequantized) -> float:
+    """Signal-to-quantization-noise ratio in dB (inf for no noise)."""
+    a, b = _f64(original), _f64(dequantized)
+    signal = np.mean(a * a)
+    noise = np.mean((a - b) ** 2)
+    if noise == 0:
+        return float("inf")
+    return float(10.0 * np.log10(signal / max(noise, 1e-30)))
