@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py DIR [DIR ...]
+    python3 chip_ab.py [--optin] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -16,7 +16,11 @@ clock of the whisper-tiny end-to-end path: bench.py's protocol through
 5) and a ``BatchScheduler`` of 8 slots draining 8 clips (ms per tick). It
 prints one line per run, ``AB <dir> <json>``, with the device
 microseconds of each kernel and stack and the host milliseconds of the
-end-to-end runs, and a table of them all at the end. Needs one CUDA GPU.
+end-to-end runs, and a table of them all at the end. With ``--optin``
+each process times the opt-in kernels and the probes instead:
+``chip_smoke.time_optin`` (K15-K18 and their library yardsticks at the
+whisper-tiny and large-v3 shapes, bf16) and ``chip_smoke.phase_probes``
+(P1-P3 per case, device microseconds). Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -34,13 +38,15 @@ SHAPES = {
 }
 
 
-def time_tree(root: Path) -> dict:
+def time_tree(root: Path, optin: bool = False) -> dict:
     """Times of one checkout, in this process (run from its root)."""
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as c
     c.phase_device()
     c.phase_build()
+    if optin:
+        return time_optin_tree(c)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -56,6 +62,24 @@ def time_tree(root: Path) -> dict:
         del blk
         torch.cuda.empty_cache()
     out["e2e_tiny"] = time_e2e(c, root)
+    return out
+
+
+def time_optin_tree(c) -> dict:
+    """Device microseconds of one checkout's K15-K18 (and their library
+    yardsticks) at the whisper-tiny and large-v3 shapes, and of each
+    probe case."""
+    out = {}
+    for label, D, H, seed in (("tiny", 384, 6, 45),
+                              ("large-v3", 1280, 20, 46)):
+        t = c.time_optin(label, D, H, seed)
+        out[label] = {k: round(v["ms"] * 1e3, 2) for k, v in t.items()}
+        out[label + "_library"] = {
+            k: round(v["library_ms"] * 1e3, 2) for k, v in t.items()
+            if v["library_ms"] is not None}
+    _, pr = c.phase_probes()
+    out["probes"] = {f"{r['probe']} {r['name']}": round(r["ms"] * 1e3, 2)
+                     for r in pr["probe_cases"]}
     return out
 
 
@@ -90,22 +114,26 @@ def time_e2e(c, root: Path) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        root = Path(sys.argv[2])
-        print("AB", root.name, json.dumps(time_tree(root)), flush=True)
+    args = sys.argv[1:]
+    optin = "--optin" in args
+    args = [a for a in args if a != "--optin"]
+    if len(args) == 2 and args[0] == "--one":
+        root = Path(args[1])
+        print("AB", root.name, json.dumps(time_tree(root, optin)),
+              flush=True)
         return 0
-    if len(sys.argv) < 2:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
-    for d in sys.argv[1:]:
+    for d in args:
         root = Path(d).resolve()
         if not (root / "chip_smoke.py").is_file():
             print(f"chip_ab: {d} holds no chip_smoke.py", file=sys.stderr)
             return 2
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--one",
-             str(root)],
+             str(root)] + (["--optin"] if optin else []),
             cwd=root, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode != 0 or not lines:

@@ -64,12 +64,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 3c. optin kernels (after 3b) - K15 (paged attention: 8 slots, lengths
               1-460 over tables of 28 scattered pages, a table cut to 2
               pages), K16 (flash attention over 1500 frames at B=1 and 4,
-              causal, kv_valid 1000), K17 and K18 (int8 / packed-int4
-              matmuls at M = 1, 8, 1500, odd widths for K18) against
-              their plain versions at the tiny and large-v3 shapes in
-              bf16 and f32; their bf16 times, bounds and library
-              yardsticks (SDPA for K16, torch._weight_int8pack_mm for
-              K17).
+              causal, kv_valid 1000; the ragged edges of its key ring,
+              split and combine: Tk 1, 63, 65, 448, Tq 1 and 100 over
+              1500 keys, kv_valid 1024 and 1025, causal at 448, an
+              uneven split over 1300 keys, mha_flash's strided heads),
+              K17 and K18 (int8 / packed-int4 matmuls at M = 1, 8, 1500,
+              odd widths for K18) against their plain versions at the
+              tiny and large-v3 shapes in bf16 and f32; their bf16
+              times, bounds and library yardsticks (SDPA for K16,
+              torch._weight_int8pack_mm for K17,
+              torch._weight_int4pack_mm for K18), K16's time / SDPA.
 5b. paged (after 5) - BatchScheduler(paged=True, n_slots=8) over the
               e2e .apr: the serve phase's 12 clips in two bursts with
               batched and with staged admission (K15 L times per tick,
@@ -91,7 +95,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               within 2e-5, its transposes exact, against their plain
               versions; their times, bounds and yardsticks
               (torch._int_mm for P1, an f32 torch.matmul for P3 (a),
-              .t().contiguous() for P3 (d)).
+              .t().contiguous() for P3 (d)) and time / yardstick; then
+              P3's contraction at shapes the tool does not reach (K =
+              1281, M and N of 33 and 65, a batch of 3 with split K, a
+              transposed int8 A, the 2-stage ring) within 2e-5.
 3e. probe_tool (after 3d) - the port's probe tool, the slice's entry
               point, as a user runs it: python -m whisper_apr_tpu_torch.
               tools.probe_layer_kernel --int8dot --tricks --large (a
@@ -2109,6 +2116,20 @@ P_MAX = 28
 MATMUL_SHAPES = {"tiny": ((384, 384), (384, 1536), (1536, 384)),
                  "large-v3": ((1280, 1280), (1280, 5120), (5120, 1280))}
 MATMUL_ROWS = (1, 8, 1500)
+# K16 checks (B, Tq, Tk, kwargs): the encoder's 1500 frames at B=1 and 4,
+# causal, kv_valid; then the ragged edges of the key ring, the split and
+# its combine: one key, a tile's edge either side, 7 tiles (an uneven
+# split of 2-tile ranges), Tq != Tk (one row, a part tile), kv_valid at a
+# tile edge and one past it, causal over 448, and 21 key tiles (a split
+# whose last range holds fewer tiles)
+FLASH_CASES = ((1, 1500, 1500, {}), (4, 1500, 1500, {}),
+               (1, 1500, 1500, dict(causal=True)),
+               (1, 1500, 1500, dict(kv_valid=1000)),
+               (1, 64, 1, {}), (1, 64, 63, {}), (1, 64, 65, {}),
+               (1, 448, 448, {}), (1, 1, 1500, {}), (1, 100, 1500, {}),
+               (1, 1500, 1500, dict(kv_valid=1024)),
+               (1, 1500, 1500, dict(kv_valid=1025)),
+               (1, 448, 448, dict(causal=True)), (1, 64, 1300, {}))
 
 
 def optin_bound(name: str, *, M: int = 0, K: int = 0, N: int = 0,
@@ -2217,13 +2238,21 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
     agree("paged_attention_stacked", pa.paged_attention_stacked(*args),
           pa.paged_attention_stacked_plain(*args), "width 2")
 
-    T = 1500
-    for B, kw in ((1, {}), (4, {}), (1, dict(causal=True)),
-                  (1, dict(kv_valid=1000))):
+    for B, Tq, Tk, kw in FLASH_CASES:
         qkv = [torch.randn((B, H, T, 64), generator=gen, device=dev).to(cdt)
-               for _ in range(3)]
+               for T in (Tq, Tk, Tk)]
         agree("flash_attention", fa.flash_attention(*qkv, **kw),
-              fa.flash_attention_plain(*qkv, **kw), f"B={B} {kw}")
+              fa.flash_attention_plain(*qkv, **kw),
+              f"B={B} Tq={Tq} Tk={Tk} {kw} {fa.flash_split(B, H, Tq, Tk)}")
+    for T, causal in ((1500, False), (448, True)):
+        # the encoder's combined heads [B, T, H * 64]: strided operands
+        q, k_, v = (torch.randn((1, T, D), generator=gen, device=dev)
+                    .to(cdt) for _ in range(3))
+        ref = fa.flash_attention_plain(
+            *(x.reshape(1, T, H, 64).transpose(1, 2) for x in (q, k_, v)),
+            causal=causal).transpose(1, 2).reshape(1, T, D)
+        agree("flash_attention", fa.mha_flash(q, k_, v, H, causal=causal),
+              ref, f"mha_flash T={T} causal={causal}")
 
     for K, N in MATMUL_SHAPES[label]:
         for M in MATMUL_ROWS:
@@ -2256,12 +2285,47 @@ def library_sdpa(q, k, v) -> "float | None":
         return None
 
 
+def library_int4_mm(x, wq, s) -> "float | None":
+    """Time of torch._weight_int4pack_mm on K18's operands: a yardstick
+    only, the port never calls it. The weight is packed once, outside the
+    timed call, as the call's own format asks: unsigned nibbles q + 8 of
+    the transposed [N, K] weight (even k in the high nibble) through
+    torch._convert_weight_to_int4pack, and the per-channel scale repeated
+    over groups of 128 rows of K with zeros 0, so (q + 8 - 8) * scale is
+    K18's dequantized weight."""
+    import torch
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    K, N = x.shape[1], 2 * wq.shape[1]
+    try:
+        u = (i4.unpack_plain(wq).t().to(torch.int32) + 8).to(torch.uint8)
+        packed = torch._convert_weight_to_int4pack(
+            (u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+        sz = torch.stack([s.to(x.dtype).expand(K // 128, N),
+                          torch.zeros((K // 128, N), dtype=x.dtype,
+                                      device=x.device)], -1).contiguous()
+        err = rel_err(torch._weight_int4pack_mm(x, packed, 128, sz),
+                      i4.int4_matmul_plain(x, wq, s))
+        ms = graph_ms(lambda: torch._weight_int4pack_mm(x, packed, 128, sz))
+        log(f"[time] torch._weight_int4pack_mm at M={x.shape[0]} K={K} "
+            f"N={N}: {ms:.4f} ms, rel err {err:.3g} against K18's plain "
+            f"version")
+        return ms
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"[time] torch._weight_int4pack_mm refused: "
+            f"{str(e).splitlines()[0][:120]}")
+        torch.cuda.synchronize()
+        return None
+
+
 def time_optin(label: str, D: int, H: int, seed: int) -> dict:
     """Device times (CUDA-graph replay) of K15-K18 and their plain
     versions in bf16 at one model's main-path shapes: K15 at 8 slots of
     PAGED_LENGTHS, K16 over the encoder's 1500 frames at B = 1 (and 4),
     K17 and K18 at fc1's shape for a serving tick (M = 8) and for the
-    encoder (M = 1500). Each with its bound and its library yardstick."""
+    encoder (M = 1500). Each with its bound and its library yardstick
+    (SDPA for K16, torch._weight_int8pack_mm for K17,
+    torch._weight_int4pack_mm for K18); K16's time over SDPA's is
+    printed beside them."""
     import torch
     from whisper_apr_tpu_torch.ops import flash_attention as fa
     from whisper_apr_tpu_torch.ops import int4_matmul as i4
@@ -2313,12 +2377,16 @@ def time_optin(label: str, D: int, H: int, seed: int) -> dict:
         x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 4)
         entry("int4_matmul" + sfx, lambda: i4.int4_matmul(x, wq, s),
               lambda: i4.int4_matmul_plain(x, wq, s),
-              optin_bound("int4_matmul", M=M, K=K, N=N), M=M, K=K, N=N)
+              optin_bound("int4_matmul", M=M, K=K, N=N),
+              library_int4_mm(x, wq, s), M=M, K=K, N=N)
     log(f"[time] {label} K15-K18 bf16, device ms (plain; bound; library): "
         + "; ".join(f"{k} {v['ms']:.4f} ({v['plain_ms']:.4f}; "
                     f"{v['bound_ms']:.4f} {v['bound_by']}; "
                     f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 4)})"
                     for k, v in out.items()))
+    log(f"[time] {label} K16 / SDPA: " + ", ".join(
+        f"{k} {v['ms'] / v['library_ms']:.2f}x" for k, v in out.items()
+        if k.startswith("flash_attention") and v["library_ms"]))
     return out
 
 
@@ -2711,13 +2779,62 @@ def probe_yardstick(case) -> "float | None":
     return None
 
 
+def probe_edge_cases(device) -> list:
+    """P3's f32 contraction at shapes the probe tool does not reach (this
+    smoke's own list; the tool keeps the JAX tool's cases): K = 1281 (no
+    chunk divides it; rows not 16-byte aligned, staged an element a
+    thread; split over 21 blocks), ragged M and N of 33 and 65, a batch
+    of 3 whose K splits, a transposed int8 A, aligned (split) and not,
+    and two grids of over 132 tiles whose K panels stream through the
+    2-stage ring, with aligned and unaligned rows. Inputs from
+    np.random.default_rng(7). Returns (case, the kernel's launch plan)
+    pairs."""
+    import torch
+    from whisper_apr_tpu_torch.ops import probe_mma as pm
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    rng = np.random.default_rng(7)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(device)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(device)
+
+    def dot(name, a, b, trans_a=False):
+        K, M = a.shape[-2:] if trans_a else a.shape[-2:][::-1]
+        plan = pm.dot_plan(a.shape[0] if a.dim() == 3 else 1, M, K,
+                           b.shape[-1], trans_a, a.element_size(),
+                           b.element_size())
+        return tool.ProbeCase(
+            name, "P3 edge", lambda: pm.tricks_dot(a, b, trans_a),
+            lambda: pm.tricks_dot_plain(a, b, trans_a), False,
+            (a, b)), plan
+
+    return [dot("dot f32xf32 K=1281", f32(40, 1281), f32(1281, 48)),
+            dot("dot int8xf32 K=1281 M=33 N=65", i8(33, 1281),
+                f32(1281, 65)),
+            dot("dot f32xint8 M=33 N=65", f32(33, 200), i8(200, 65)),
+            dot("bdot int8xf32 batch 3 split-K", i8(3, 96, 1280),
+                f32(3, 1280, 32)),
+            dot("bdotT int8xf32 batch 3 split-K", i8(3, 640, 64),
+                f32(3, 640, 32), trans_a=True),
+            dot("dotT int8xf32 M=65 N=33", i8(300, 65), f32(300, 33),
+                trans_a=True),
+            dot("dot f32xint8 2-stage ring", f32(264, 640), i8(640, 1056)),
+            dot("dot f32xf32 2-stage ring K=601", f32(256, 601),
+                f32(601, 1088))]
+
+
 def phase_probes() -> tuple:
     """P1-P3 against their plain versions on the card at the probes'
     shapes (P1 and the transposes exact, the rest within TOL_F32 of the
     plain version's largest magnitude), then each case's device time,
-    plain time, bound and yardstick. Returns (max abs errors, {"cases":
-    [...], and one entry per kernel of the summary line: P1, P2, and P3's
-    eleven calls summed})."""
+    plain time, bound and yardstick (and time / yardstick); then P3's
+    edge cases (``probe_edge_cases``) within TOL_F32. Returns (max abs
+    errors, {"cases": [...], and one entry per kernel of the summary
+    line: P1, P2, and P3's eleven calls summed})."""
     import torch
     from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
     cases = tool.int8dot_cases("cuda") + tool.tricks_cases("cuda")
@@ -2750,14 +2867,29 @@ def phase_probes() -> tuple:
         agg["cases"] += 1
         if key != "tricks":
             agg["library_ms"] = row["library_ms"]
+        lib = row["library_ms"]
         log(f"[probes] {case.probe:<7} {case.name}: exact {exact}, rel err "
             f"{err:.3g}; {row['ms'] * 1e3:.2f} us (plain "
             f"{row['plain_ms'] * 1e3:.2f}; bound {row['bound_ms'] * 1e3:.3f}"
             f" {row['bound_by']}; library "
-            f"{'none' if row['library_ms'] is None else '%.2f' % (row['library_ms'] * 1e3)})")
+            f"{'none' if lib is None else '%.2f' % (lib * 1e3)}"
+            f"{'' if lib is None else '; %.2fx the library' % (row['ms'] / lib)})")
     for agg in per_kernel.values():
         agg["bound_by"] = ("bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms")
                            else "operations")
+    for case, plan in probe_edge_cases("cuda"):
+        got, ref = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        err = tool.rel_err(got, ref)
+        assert got.shape == ref.shape and err <= TOL_F32, (
+            f"[probes] {case.name}: rel err {err:.3g} > {TOL_F32}")
+        errs["tricks"] = max(errs["tricks"], abs_err(got, ref))
+        rows.append({"probe": case.probe, "name": case.name, "rel_err": err,
+                     "plan": plan._asdict(), "ms": graph_ms(case.kernel),
+                     "plain_ms": graph_ms(case.plain)})
+        log(f"[probes] {case.probe} {case.name}: rel err {err:.3g}; "
+            f"{rows[-1]['ms'] * 1e3:.2f} us (plain "
+            f"{rows[-1]['plain_ms'] * 1e3:.2f}); {plan}")
     torch.cuda.empty_cache()
     return errs, {"probes": per_kernel, "probe_cases": rows}
 

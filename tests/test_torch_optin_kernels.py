@@ -123,6 +123,65 @@ class TestFlashPlain:
             with pytest.raises(ValueError, match="kv_valid"):
                 tfa.flash_attention(q, k, v, kv_valid=bad)
 
+    @pytest.mark.parametrize("Tq,Tk,kw", [
+        (64, 1, {}), (64, 63, {}), (64, 65, {}), (1, 130, {}),
+        (100, 200, {}), (130, 200, dict(kv_valid=128)),
+        (130, 200, dict(kv_valid=129)), (70, 200, dict(causal=True))],
+        ids=["Tk=1", "Tk=63", "Tk=65", "Tq=1", "Tq=100 Tk=200",
+             "kv_valid=128", "kv_valid=129", "causal Tq<Tk"])
+    def test_ragged_edges_match_jax(self, Tq, Tk, kw):
+        """The edges the CUDA kernel's key ring, split and combine mask:
+        one key, a 64-key tile's edge either side, Tq != Tk, kv_valid at a
+        tile edge and one past it, causal over fewer rows than keys."""
+        q, k, v = _qkv(4, 1, 2, Tq, Tk=Tk)
+        want = np.asarray(jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+            **kw))
+        got = tfa.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+        assert got.shape == (1, 2, Tq, 64)
+        assert np.abs(got - want).max() < 1e-4
+
+
+class TestFlashSplit:
+    """``flash_split``: how the bf16 kernel spreads a (query tile, head)'s
+    key tiles over blocks."""
+
+    @pytest.mark.parametrize("B,H,Tq,Tk", [
+        (1, 6, 1500, 1500), (4, 6, 1500, 1500), (1, 20, 1500, 1500),
+        (4, 20, 1500, 1500), (1, 6, 1, 1500), (1, 6, 100, 1500),
+        (1, 6, 448, 448), (1, 20, 448, 448), (1, 6, 64, 1300),
+        (1, 1, 64, 1), (1, 1, 64, 63), (1, 1, 64, 65), (2, 2, 70, 200)])
+    def test_keys_covered_once_in_whole_tiles(self, B, H, Tq, Tk):
+        plan = tfa.flash_split(B, H, Tq, Tk)
+        assert 1 <= plan.n_split <= tfa.MAX_SPLITS
+        ranges = plan.key_ranges(Tk)
+        assert len(ranges) == plan.n_split
+        assert ranges[0][0] == 0 and ranges[-1][1] == Tk
+        for (_, end), (start, _) in zip(ranges, ranges[1:]):
+            assert end == start and start % tfa.BLOCK_K == 0
+        assert all(s < e for s, e in ranges)           # none empty
+        blocks = B * H * -(-Tq // tfa.BLOCK_Q)
+        if 2 * blocks > tfa.WAVE:
+            assert plan.n_split == 1
+        else:                                 # the split grid, one wave
+            assert blocks * plan.n_split <= tfa.WAVE
+
+    @pytest.mark.parametrize("B,H,n", [(1, 6, 3), (4, 6, 1), (1, 20, 1),
+                                       (4, 20, 1)],
+                             ids=["tiny B=1", "tiny B=4", "large-v3 B=1",
+                                  "large-v3 B=4"])
+    def test_encoder_shapes(self, B, H, n):
+        """At 1500 frames only whisper-tiny at B=1 (72 blocks of 128 rows,
+        where an H100 holds 264) splits, in three; large-v3 at B=4 (960
+        blocks) does not."""
+        assert tfa.flash_split(B, H, 1500, 1500).n_split == n
+
+    def test_uneven_split(self):
+        """21 key tiles in ranges of 6: the last holds 3."""
+        plan = tfa.flash_split(1, 6, 64, 1300)
+        assert plan == tfa.FlashSplit(4, 6)
+        assert plan.key_ranges(1300)[-1] == (1152, 1300)
+
 
 @pytest.fixture(scope="module")
 def cfg():

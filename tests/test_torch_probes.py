@@ -155,6 +155,96 @@ def test_wrappers_refuse_mismatched_shapes(a_shape, b_shape, trans_a):
         pm.tricks_dot(torch.zeros(a_shape), torch.zeros(b_shape), trans_a)
 
 
+# ragged shapes of the f32 contraction: (batch, M, K, N, trans_a, a dtype,
+# b dtype)
+RAGGED = [(1, 33, 1281, 33, False, "f32", "f32"),
+          (1, 33, 1281, 33, True, "int8", "f32"),
+          (1, 33, 1281, 65, False, "f32", "int8"),
+          (3, 65, 1281, 33, True, "f32", "int8"),
+          (3, 33, 200, 65, False, "int8", "f32")]
+
+
+def _operands(batch, M, K, N, trans_a, at, bt, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, kind):
+        if kind == "int8":
+            return torch.from_numpy(rng.integers(-127, 128, shape,
+                                                 dtype=np.int8))
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    lead = (batch,) if batch > 1 else ()
+    return (draw(lead + ((K, M) if trans_a else (M, K)), at),
+            draw(lead + (K, N), bt))
+
+
+@pytest.mark.parametrize("shape", RAGGED, ids=[
+    "K=1281 f32", "K=1281 int8T", "K=1281 N=65", "batch 3 T", "M=33 N=65"])
+def test_ragged_plain_matches_jax(shape):
+    """``tricks_dot_plain`` against ``jax.lax.dot_general`` where no
+    chunk divides K and M, N are 33 or 65."""
+    batch, M, K, N, trans_a = shape[:5]
+    a, b = _operands(*shape)
+    lead = int(batch > 1)                  # a leading batch axis
+    dn = ((((0 if trans_a else 1) + lead,), (lead,)),
+          ((0,), (0,)) if lead else ((), ()))
+    want = np.asarray(jax.lax.dot_general(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), dn, **_f32()))
+    got = pm.tricks_dot(a, b, trans_a)
+    assert tuple(got.shape) == want.shape == (
+        ((batch,) if batch > 1 else ()) + (M, N))
+    assert _rel(got.numpy(), want) <= TOL
+
+
+# shapes whose plans cover each path of the kernel: the probes' (a), (c),
+# (g), (h), (j), the ragged ones, a grid of over 132 tiles whose K
+# streams through the ring, and large outputs
+PLAN_SHAPES = [(1, 32, 128, 1280, True, 4, 4), (1, 128, 1280, 32, False, 1, 4),
+               (8, 128, 1280, 32, False, 1, 4), (8, 32, 128, 1280, True, 4, 1),
+               (1, 1280, 128, 32, True, 1, 4), (1, 33, 1281, 65, False, 4, 4),
+               (3, 65, 1281, 33, True, 1, 4), (1, 264, 640, 1056, False, 4, 1),
+               (1, 256, 601, 1088, False, 4, 4), (1, 1, 1, 1, False, 4, 4),
+               (1, 4096, 4096, 4096, False, 4, 4), (2, 7, 100000, 5, True, 1, 4)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=[str(s[:4]) for s in PLAN_SHAPES])
+def test_dot_plan_covers_k_once(shape):
+    """Every K index in exactly one split; splits a multiple of 64 (16-byte
+    aligned panels), between 1 and the cap, none empty; the tile one the
+    kernel has; the stages within the kernel's shared memory."""
+    batch, M, K, N, trans_a, a_size, b_size = shape
+    plan = pm.dot_plan(*shape)
+    assert (plan.bm, plan.bn, plan.k_groups) in {
+        (32, 64, 1), (64, 32, 1), (32, 32, 1), (32, 32, 2)}
+    assert 1 <= plan.n_split <= pm.DOT_MAX_SPLITS
+    ranges = plan.k_ranges(K)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(s < e for s, e in ranges)
+    for (_, end), (start, _) in zip(ranges, ranges[1:]):
+        assert end == start
+    if plan.n_split > 1:
+        assert plan.k_split % pm.DOT_SPLIT_ALIGN == 0
+    assert plan.k_chunk % 16 == 0
+    assert plan.k_chunk // plan.k_groups % 4 == 0   # a group's k steps
+    stages = 1 if plan.k_chunk >= min(K, plan.k_split) else 2
+    assert stages * pm.dot_stage_bytes(plan.bm, plan.bn, plan.k_chunk,
+                                       trans_a, a_size, b_size) \
+        <= pm.DOT_SMEM
+
+
+def test_dot_plan_at_the_probes():
+    """(a): 40 tiles of 32 x 32, K = 128 whole in one stage, two thread
+    groups a block; (c) and (g): K = 1280 split over blocks in 20 ranges
+    of 64 (on 4 and 32 tiles); (h): 160 tiles of 32 x 64, no split."""
+    assert pm.dot_plan(1, 32, 128, 1280, True) == pm.DotPlan(32, 32, 2, 1,
+                                                             128, 128)
+    for batch in (1, 8):
+        assert pm.dot_plan(batch, 128, 1280, 32, False, 1, 4) == pm.DotPlan(
+            32, 32, 1, 20, 64, 64)
+    assert pm.dot_plan(8, 32, 128, 1280, True, 4, 1) == pm.DotPlan(
+        32, 64, 1, 1, 128, 128)
+
+
 def test_launch_counts_only_on_the_card():
     """On CPU tensors the wrappers run the plain versions and count no
     launch."""

@@ -451,3 +451,39 @@ def test_probe_tool_command(smoke):
     names = [n for n, *_ in smoke.KERNELS]
     assert len(names) == 21 and names[-3:] == ["int8_dot", "mixed_dot",
                                                "tricks"]
+
+
+@pytest.mark.parametrize("H", [6, 20], ids=["tiny", "large-v3"])
+def test_flash_cases_reach_the_split_edges(smoke, H):
+    """The K16 checks run at each width through the unsplit kernel and
+    through splits, among them one whose last key range is short of the
+    others and a query count that is not the key count."""
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    plans = [(fa.flash_split(B, H, Tq, Tk), Tq, Tk)
+             for B, Tq, Tk, _ in smoke.FLASH_CASES]
+    assert any(p.n_split == 1 for p, _, _ in plans)
+    split = [(p, Tq, Tk) for p, Tq, Tk in plans if p.n_split > 1]
+    assert any(Tq != Tk for _, Tq, Tk in split)
+    assert any(Tk - p.key_ranges(Tk)[-1][0] < p.split_tiles * fa.BLOCK_K
+               for p, _, Tk in split)
+    assert {1, 63, 65} <= {Tk for _, _, Tk in plans}
+
+
+def test_probe_edge_cases_cover_each_path(smoke):
+    """P3's smoke-only cases run on the CPU (plain versions) to the
+    kernel's output shapes, and their plans take every path of the f32
+    contraction: split K, the 2-stage ring, a batch, rows not 16-byte
+    aligned, a transposed int8 A."""
+    import torch
+    cases = smoke.probe_edge_cases("cpu")
+    for case, plan in cases:
+        got, ref = case.kernel(), case.plain()
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    plans = [plan for _, plan in cases]
+    assert any(p.n_split > 1 for p in plans)
+    assert any(p.k_chunk < p.k_split for p in plans)      # the ring
+    assert any(c.inputs[0].dim() == 3 for c, _ in cases)
+    assert any(c.inputs[0].shape[-1] * c.inputs[0].element_size() % 16
+               for c, _ in cases)
+    assert any(c.inputs[0].dtype == torch.int8 and "dotT" in c.name
+               for c, _ in cases)

@@ -35,12 +35,35 @@
 //     while staged), B [N][K]; then mma.sync m16n8k16 bf16 with f32 sums.
 //     Products of bf16 and int8 values are exact in f32.
 //   f32_dot_kernel (P3 (a), (c), (e)-(h), (j)): any f32 operand stays on
-//     the CUDA cores in f32 (int8 converted in registers): the tensor
-//     cores would round f32 inputs to TF32 (about 3 digits), and the
-//     contract is an f32 dot. 256 threads, 4 x 4 outputs each.
+//     the CUDA cores in f32 (int8 widened exactly in registers): the
+//     tensor cores would round f32 inputs to TF32 (about 3 digits), and
+//     the contract is an f32 dot. At the probes' shapes the bound is
+//     under 1.3 us and latency is the limit, so the design shortens each
+//     block's serial path:
+//     - the output tile fits the narrow side: 32 x 64, 64 x 32, or 32 x
+//       32 where the grid is small (ops/probe_mma.dot_plan chooses), 128
+//       threads of 4 x 4 (2 x 4 at 32 x 32) outputs; no thread computes
+//       a row past the edge of a 32-wide operand. A 32 x 32 block that
+//       contracts its whole K runs a second group of 128 threads on the
+//       other half of each chunk, the two sums added in shared memory;
+//     - both panels are staged with 16-byte cp.async copies in their own
+//       dtype (int8 as bytes, widened exactly when read into registers by
+//       a byte permute and an f32 subtraction, not the quarter-rate
+//       int-to-float conversion), along each operand's contiguous dim,
+//       zero-filled past the edges by the copy's src-size; operands
+//       whose rows are not 16-byte aligned are
+//       staged an element a thread. A split's whole K panel is staged
+//       once behind one barrier where it fits in 48 KB (all the probes'
+//       shapes), else it streams through a 2-stage ring of 32-deep
+//       chunks, one barrier a chunk;
+//     - long contractions on few tiles split K over blocks (the plan's
+//       n_split ranges of k_split, multiples of 64): each writes an f32
+//       partial to scratch and dot_split_sum_kernel adds them in split
+//       order, without atomics, so every run gives the same sums.
 //   transpose_kernel (P3 (d)): a 32 x 33 shared-memory tile (the pad
 //     column keeps the transposed reads off one bank); exact.
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace wa {
 namespace {
@@ -48,8 +71,10 @@ namespace {
 constexpr int PT = 64;               // output tile rows and columns
 constexpr int MMA_K = 32;            // K chunk of the tensor-core kernels
 constexpr int MMA_THREADS = 128;     // 4 warps x 16 rows
-constexpr int F_K = 16;              // K chunk of the CUDA-core kernel
-constexpr int F_THREADS = 256;       // 16 x 16 threads, 4 x 4 outputs each
+constexpr int DOT_THREADS = 128;     // f32_dot_kernel
+constexpr int DOT_TN = 4;            // its columns per thread
+constexpr int DOT_SMEM = 48 * 1024;  // its staged panels, all stages
+constexpr int SUM_THREADS = 256;     // dot_split_sum_kernel
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -217,55 +242,208 @@ __global__ void __launch_bounds__(MMA_THREADS) mixed_mma_kernel(
 }
 
 // P3 (a), (c), (e)-(h), (j): the same contraction on the CUDA cores in f32
-template <typename TA, typename TB, bool TA_T>
-__global__ void __launch_bounds__(F_THREADS) f32_dot_kernel(
-        const TA* __restrict__ a, const TB* __restrict__ b,
-        float* __restrict__ c, int M, int K, int N) {
-    __shared__ float as[F_K][PT + 4];    // [k][m]
-    __shared__ float bs[F_K][PT + 4];    // [k][n]
-    a += (size_t)blockIdx.z * M * K;
-    b += (size_t)blockIdx.z * K * N;
-    c += (size_t)blockIdx.z * M * N;
-    const int m0 = blockIdx.y * PT, n0 = blockIdx.x * PT;
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-    float acc[4][4];
+
+// NV (4 or 2) consecutive shared-memory elements widened to f32, in one
+// load (the caller keeps them aligned)
+template <int NV>
+__device__ __forceinline__ void lds(const float* p, float (&o)[NV]) {
+    static_assert(NV == 4 || NV == 2, "4 or 2 elements");
+    if constexpr (NV == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+    } else {
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        o[0] = v.x; o[1] = v.y;
+    }
+}
+// int8 bytes widened exactly without int-to-float conversions (a quarter
+// of the FMA rate): the xor biases each byte b to b + 128, a byte permute
+// sets it as the low byte of the f32 2^23 + (b + 128), and one f32
+// subtraction takes the bias off
+template <int NV>
+__device__ __forceinline__ void lds(const int8_t* p, float (&o)[NV]) {
+    static_assert(NV == 4 || NV == 2, "4 or 2 elements");
+    uint32_t u;
+    if constexpr (NV == 4) u = *reinterpret_cast<const uint32_t*>(p);
+    else u = *reinterpret_cast<const uint16_t*>(p);
+    u ^= 0x80808080u;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += F_K) {
-        __syncthreads();
-        for (int e = tid; e < PT * F_K; e += F_THREADS) {
-            int r, k;
-            tile_pos<TA_T, F_K>(e, r, k);
-            as[k][r] = to_f32(a_at<TA, TA_T>(a, m0 + r, k0 + k, M, K));
-            tile_pos<true, F_K>(e, r, k);
-            bs[k][r] = to_f32(b_at(b, k0 + k, n0 + r, K, N));
+    for (int i = 0; i < NV; ++i)
+        o[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i))
+            - 8388736.f;
+}
+
+// dst[r * dst_ld + c] = src[r * src_ld + c] for r < rows, c < cols, 0
+// where r >= r_valid or c >= c_valid. vec: 16-byte cp.async copies (src,
+// src_ld and the column edges 16-byte aligned); else an element a thread.
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_panel(T* dst, int dst_ld,
+                                            const T* src, long long src_ld,
+                                            int rows, int cols, int r_valid,
+                                            int c_valid, bool vec) {
+    if (vec) {
+        constexpr int V = 16 / sizeof(T);
+        const int per_row = cols / V;
+        for (int e = threadIdx.x; e < rows * per_row; e += THREADS) {
+            const int r = e / per_row, c = (e % per_row) * V;
+            const bool in = r < r_valid && c < c_valid;
+            cp_async16(dst + r * dst_ld + c, in ? src + r * src_ld + c : src,
+                       in ? 16 : 0);
         }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < F_K; ++k) {
-            float av[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                av[i] = as[k][ty * 4 + i];
-                bv[i] = bs[k][tx * 4 + i];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    } else {
+        for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
+            const int r = e / cols, c = e % cols;
+            dst[r * dst_ld + c] = r < r_valid && c < c_valid
+                ? src[r * src_ld + c] : T(0);
         }
     }
+}
+
+// Row stride (elements) of a staged A panel: [BM][k_chunk + 16 bytes]
+// for a row-major A (the pad turns rows 4 banks apart), [k_chunk][BM]
+// for a transposed one; and one stage's bytes (A panel, then B [k_chunk]
+// [BN]). Mirrors ops/probe_mma.dot_stage_bytes.
+template <typename TA, bool TA_T, int BM>
+__host__ __device__ __forceinline__ int a_ld(int k_chunk) {
+    return TA_T ? BM : k_chunk + 16 / (int)sizeof(TA);
+}
+template <typename TA, typename TB, bool TA_T, int BM, int BN>
+__host__ __device__ __forceinline__ int stage_bytes(int k_chunk) {
+    return (TA_T ? k_chunk : BM) * a_ld<TA, TA_T, BM>(k_chunk) * sizeof(TA)
+        + k_chunk * BN * sizeof(TB);
+}
+
+// C [batch, M, N] (or, n_split > 1, part [n_split, batch, M, N]) = A . B
+// over this block's (BM x BN) tile and K range. blockIdx.z = batch index *
+// n_split + split; split s contracts k in [s k_split, (s + 1) k_split).
+// KG (1 or 2) groups of DOT_THREADS threads each take a KG-th of every
+// staged chunk's k; with two, group 0 adds group 1's sums (through shared
+// memory) and stores.
+template <typename TA, typename TB, bool TA_T, int BM, int BN, int KG>
+__global__ void __launch_bounds__(DOT_THREADS * KG) f32_dot_kernel(
+        const TA* __restrict__ a, const TB* __restrict__ b,
+        float* __restrict__ c, int M, int K, int N, int n_split,
+        int k_split, int k_chunk, int a_vec, int b_vec,
+        float* __restrict__ part) {
+    static_assert(KG == 1 || KG == 2, "one or two k groups");
+    constexpr int THREADS = DOT_THREADS * KG;
+    constexpr int TM = BM * BN / (DOT_THREADS * DOT_TN);   // 4, or 2
+    constexpr int NX = BN / DOT_TN;                        // threads along n
+    extern __shared__ __align__(16) unsigned char dot_smem[];
+    const int bi = blockIdx.z / n_split, split = blockIdx.z % n_split;
+    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    const int kb = split * k_split, ke = min(K, kb + k_split);
+    a += (size_t)bi * M * K;
+    b += (size_t)bi * K * N;
+    const int ald = a_ld<TA, TA_T, BM>(k_chunk);
+    const int sbytes = stage_bytes<TA, TB, TA_T, BM, BN>(k_chunk);
+    const int a_bytes = sbytes - k_chunk * BN * (int)sizeof(TB);
+    const int n_chunks = (ke - kb + k_chunk - 1) / k_chunk;
+
+    auto stage = [&](int ci) {   // chunk ci into stage ci % 2
+        TA* as = reinterpret_cast<TA*>(dot_smem + (ci & 1) * sbytes);
+        TB* bs = reinterpret_cast<TB*>(dot_smem + (ci & 1) * sbytes
+                                       + a_bytes);
+        const int k0 = kb + ci * k_chunk;
+        if constexpr (TA_T)   // A [K, M]: rows k, contiguous along m
+            stage_panel<THREADS>(as, ald, a + (size_t)k0 * M + m0, M,
+                                 k_chunk, BM, ke - k0, M - m0, a_vec);
+        else                  // A [M, K]: rows m, contiguous along k
+            stage_panel<THREADS>(as, ald, a + (size_t)m0 * K + k0, K, BM,
+                                 k_chunk, M - m0, ke - k0, a_vec);
+        stage_panel<THREADS>(bs, BN, b + (size_t)k0 * N + n0, N, k_chunk,
+                             BN, ke - k0, N - n0, b_vec);
+    };
+
+    const int tid = threadIdx.x % DOT_THREADS;
+    const int kg = KG > 1 ? threadIdx.x / DOT_THREADS : 0;
+    const int tx = tid % NX, ty = tid / NX;
+    const int kh = k_chunk / KG;
+    float acc[TM][DOT_TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty * 4 + i;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = n0 + tx * 4 + j;
-            if (row < M && col < N) c[(size_t)row * N + col] = acc[i][j];
+        for (int j = 0; j < DOT_TN; ++j) acc[i][j] = 0.f;
+    stage(0);
+    cp_async_commit();
+    for (int ci = 0; ci < n_chunks; ++ci) {
+        cp_async_wait<0>();
+        __syncthreads();   // chunk ci has landed; chunk ci - 1 is done with
+        if (ci + 1 < n_chunks) stage(ci + 1);
+        cp_async_commit();
+        const TA* as = reinterpret_cast<const TA*>(dot_smem + (ci & 1)
+                                                   * sbytes);
+        const TB* bs = reinterpret_cast<const TB*>(dot_smem + (ci & 1)
+                                                   * sbytes + a_bytes);
+#pragma unroll 2
+        for (int k = kg * kh; k < (kg + 1) * kh; k += 4) {
+            float av[TM][4];          // av[i][kk] = A(ty TM + i, k + kk)
+            if constexpr (TA_T) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    float col[TM];
+                    lds<TM>(as + (k + kk) * ald + ty * TM, col);
+#pragma unroll
+                    for (int i = 0; i < TM; ++i) av[i][kk] = col[i];
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+                    lds<4>(as + (ty * TM + i) * ald + k, av[i]);
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                float bv[DOT_TN];
+                lds<DOT_TN>(bs + (k + kk) * BN + tx * DOT_TN, bv);
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < DOT_TN; ++j)
+                        acc[i][j] = fmaf(av[i][kk], bv[j], acc[i][j]);
+            }
         }
+    }
+    cp_async_wait<0>();
+    if constexpr (KG > 1) {
+        float* red = reinterpret_cast<float*>(dot_smem);
+        __syncthreads();
+        if (kg == 1)
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < DOT_TN; ++j)
+                    red[(i * DOT_TN + j) * DOT_THREADS + tid] = acc[i][j];
+        __syncthreads();
+        if (kg == 1) return;
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < DOT_TN; ++j)
+                acc[i][j] += red[(i * DOT_TN + j) * DOT_THREADS + tid];
+    }
+    float* out = n_split == 1 ? c + (size_t)bi * M * N
+        : part + ((size_t)split * (gridDim.z / n_split) + bi) * M * N;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int row = m0 + ty * TM + i;
+#pragma unroll
+        for (int j = 0; j < DOT_TN; ++j) {
+            const int col = n0 + tx * DOT_TN + j;
+            if (row < M && col < N) out[(size_t)row * N + col] = acc[i][j];
+        }
+    }
+}
+
+// c[i] = part[0][i] + part[1][i] + ... + part[n_split - 1][i], in that
+// order, for the `total` elements of C
+__global__ void __launch_bounds__(SUM_THREADS) dot_split_sum_kernel(
+        const float* __restrict__ part, float* __restrict__ c,
+        long long total, int n_split) {
+    for (long long i = blockIdx.x * (long long)SUM_THREADS + threadIdx.x;
+         i < total; i += (long long)gridDim.x * SUM_THREADS) {
+        float s = 0.f;
+        for (int sp = 0; sp < n_split; ++sp) s += part[sp * total + i];
+        c[i] = s;
     }
 }
 
@@ -317,16 +495,59 @@ struct MixedLaunch {
     }
 };
 
-template <typename TA, typename TB, bool TA_T>
-struct F32Launch {
-    static void run(const void* a, const void* b, void* c, int batch, int M,
-                    int K, int N, cudaStream_t st) {
-        f32_dot_kernel<TA, TB, TA_T><<<tiles(M, N, batch), F_THREADS, 0,
-                                       st>>>(
-            static_cast<const TA*>(a), static_cast<const TB*>(b),
-            static_cast<float*>(c), M, K, N);
-    }
+// the launch plan of P3's f32 contraction (ops/probe_mma.DotPlan)
+struct DotPlan {
+    int bm, bn, k_groups, n_split, k_split, k_chunk;
 };
+
+// P3's f32 contraction at one plan: the tile kernel, then (n_split > 1)
+// the split sum; cudaGetLastError after each launch
+template <typename TA, typename TB, bool TA_T, int BM, int BN, int KG>
+int f32_dot(const void* a, const void* b, void* c, int batch, int M, int K,
+            int N, DotPlan p, float* part, cudaStream_t st) {
+    const int n_chunks = (min(K, p.k_split) + p.k_chunk - 1) / p.k_chunk;
+    const int smem = max((n_chunks > 1 ? 2 : 1)
+                         * stage_bytes<TA, TB, TA_T, BM, BN>(p.k_chunk),
+                         KG > 1 ? BM * BN * 4 : 0);
+    if (smem > DOT_SMEM) return ERR_SHAPE;
+    const bool a_vec = reinterpret_cast<uintptr_t>(a) % 16 == 0
+        && (size_t)(TA_T ? M : K) * sizeof(TA) % 16 == 0;
+    const bool b_vec = reinterpret_cast<uintptr_t>(b) % 16 == 0
+        && (size_t)N * sizeof(TB) % 16 == 0;
+    f32_dot_kernel<TA, TB, TA_T, BM, BN, KG>
+        <<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM, batch * p.n_split),
+           DOT_THREADS * KG, smem, st>>>(
+            static_cast<const TA*>(a), static_cast<const TB*>(b),
+            static_cast<float*>(c), M, K, N, p.n_split, p.k_split,
+            p.k_chunk, a_vec, b_vec, part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || p.n_split == 1) return (int)err;
+    const long long total = (long long)batch * M * N;
+    dot_split_sum_kernel<<<(int)min((total + SUM_THREADS - 1) / SUM_THREADS,
+                                    (long long)4 * 132), SUM_THREADS, 0,
+                           st>>>(part, static_cast<float*>(c), total,
+                                 p.n_split);
+    return (int)cudaGetLastError();
+}
+
+template <typename TA, typename TB>
+int f32_dot_by_plan(int trans_a, const void* a, const void* b, void* c,
+                    int batch, int M, int K, int N, DotPlan p, float* part,
+                    cudaStream_t st) {
+#define WA_TILE(BM, BN, KG)                                                 \
+    if (p.bm == BM && p.bn == BN && p.k_groups == KG)                       \
+        return trans_a                                                      \
+            ? f32_dot<TA, TB, true, BM, BN, KG>(a, b, c, batch, M, K, N, p, \
+                                                part, st)                   \
+            : f32_dot<TA, TB, false, BM, BN, KG>(a, b, c, batch, M, K, N,   \
+                                                 p, part, st);
+    WA_TILE(32, 64, 1)
+    WA_TILE(64, 32, 1)
+    WA_TILE(32, 32, 1)
+    WA_TILE(32, 32, 2)
+#undef WA_TILE
+    return ERR_SHAPE;
+}
 
 }  // namespace
 }  // namespace wa
@@ -367,22 +588,35 @@ extern "C" int wa_probe_mma_bf16(const void* a, int ta, int trans_a,
 }
 
 // P3 (a), (c), (e)-(h), (j): the same contraction on the CUDA cores in
-// f32; ta and tb each f32 or int8.
+// f32; ta and tb each f32 or int8, all contiguous. The plan (ops/
+// probe_mma.dot_plan): a bm x bn tile (32 x 64, 64 x 32, or 32 x 32 with
+// k_groups 1 or 2), n_split ranges of k_split (a multiple of 64 when
+// n_split > 1; part, f32 [n_split * batch * M * N], takes the partials),
+// staged k_chunk (a multiple of 16) at a time.
 extern "C" int wa_probe_dot_f32(const void* a, int ta, int trans_a,
                                 const void* b, int tb, void* c, int batch,
-                                int M, int K, int N, void* stream) {
+                                int M, int K, int N, int bm, int bn,
+                                int k_groups, int n_split, int k_split,
+                                int k_chunk, float* part, void* stream) {
     using namespace wa;
-    if (bad_shape(batch, M, K, N)) return ERR_SHAPE;
+    if (bad_shape(batch, M, K, N) || (M + 31) / 32 > 65535 || n_split < 1
+            || (long long)batch * n_split > 65535 || k_split < 1
+            || (long long)n_split * k_split < K
+            || (long long)(n_split - 1) * k_split >= K
+            || (n_split > 1 && (k_split % 64 != 0 || part == nullptr))
+            || k_chunk < 16 || k_chunk % 16 != 0)
+        return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
+    const DotPlan p{bm, bn, k_groups, n_split, k_split, k_chunk};
     if (ta == F32 && tb == F32)
-        return by_trans<F32Launch, float, float>(trans_a, a, b, c, batch, M,
-                                                 K, N, st);
+        return f32_dot_by_plan<float, float>(trans_a, a, b, c, batch, M, K,
+                                             N, p, part, st);
     if (ta == F32 && tb == I8)
-        return by_trans<F32Launch, float, int8_t>(trans_a, a, b, c, batch,
-                                                  M, K, N, st);
+        return f32_dot_by_plan<float, int8_t>(trans_a, a, b, c, batch, M, K,
+                                              N, p, part, st);
     if (ta == I8 && tb == F32)
-        return by_trans<F32Launch, int8_t, float>(trans_a, a, b, c, batch,
-                                                  M, K, N, st);
+        return f32_dot_by_plan<int8_t, float>(trans_a, a, b, c, batch, M, K,
+                                              N, p, part, st);
     return ERR_DTYPE;
 }
 

@@ -17,12 +17,15 @@ and are not taken here: the CUDA kernel picks its own tiles.
 ``flash_attention`` runs the hand-written CUDA kernel
 (``csrc/flash_attention.cu``, head dim 64) for CUDA tensors, addressed by
 strides so ``mha_flash`` transposes nothing, and the plain PyTorch
-version below for CPU tensors.
+version below for CPU tensors. In bf16 the kernel may split the key tiles
+of a (query tile, head) over several blocks and combine their partial
+sums in a second launch; ``flash_split`` decides how many.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,39 @@ LAUNCHES = {"flash_attention": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# the bf16 kernel's tiles (csrc FM_BQ, FA_BK), and the blocks of it an
+# H100 holds at once (csrc FM_BLOCKS_PER_SM on each of 132 SMs)
+BLOCK_Q, BLOCK_K = 128, 64
+WAVE = 2 * 132
+MAX_SPLITS = 4
+
+
+class FlashSplit(NamedTuple):
+    """``n_split`` blocks per (query tile, head), split ``s`` taking key
+    tiles [s * split_tiles, (s + 1) * split_tiles)."""
+    n_split: int
+    split_tiles: int
+
+    def key_ranges(self, Tk: int) -> List[Tuple[int, int]]:
+        """The [start, end) keys of each split."""
+        w = self.split_tiles * BLOCK_K
+        return [(s * w, min(Tk, (s + 1) * w)) for s in range(self.n_split)]
+
+
+def flash_split(B: int, H: int, Tq: int, Tk: int) -> FlashSplit:
+    """How the bf16 kernel splits the keys: where B * H * ceil(Tq / 128)
+    blocks fill at most half of one wave (the ``WAVE`` blocks the card
+    holds at once), each (query tile, head) takes as many blocks as still
+    fit in that wave, at most ``MAX_SPLITS``, in whole key tiles, none
+    empty; else one. At 1500 frames whisper-tiny's 6 heads at B=1 (72
+    blocks) split in three; large-v3's 20 at B=1 (240) do not."""
+    blocks = B * H * math.ceil(Tq / BLOCK_Q)
+    tiles = math.ceil(Tk / BLOCK_K)
+    n = 1 if 2 * blocks > WAVE else min(MAX_SPLITS, tiles, WAVE // blocks)
+    per = math.ceil(tiles / n)
+    return FlashSplit(math.ceil(tiles / per), per)
 
 
 def _resolve(q, k, sm_scale, kv_valid):
@@ -90,11 +126,23 @@ def _flash_cuda(q, k, v, sm_scale, causal, kv_valid, out):
         if t.device != q.device or t.stride(-1) != 1:
             raise ValueError(f"{name} must be on {q.device} with its last "
                              "dim contiguous")
+    plan = FlashSplit(1, math.ceil(Tk / BLOCK_K))
+    part_acc = part_ml = None
+    if q.dtype == torch.bfloat16 and all(     # the tensor-core kernel's rows
+            t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
+            for t in (q, k, v, out)):
+        plan = flash_split(B, H, Tq, Tk)
+        if plan.n_split > 1:
+            rows = plan.n_split * B * H * Tq
+            part_acc = torch.empty(rows * d, dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty(rows * 2, dtype=torch.float32,
+                                  device=q.device)
     P_ = _build.ptr
     rc = _build.library().wa_flash_attention(
         *(x for t in (q, k, v, out) for x in (P_(t), *t.stride()[:3])),
         _build.DTYPE_CODES[q.dtype], B, H, Tq, Tk, kv_valid, sm_scale,
-        int(causal), _build.stream())
+        int(causal), *plan, P_(part_acc), P_(part_ml), _build.stream())
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -23,10 +23,14 @@ them in a separate pass.
 Bound (``csrc/probe_mma.cu``): at the probes' shapes each call moves at
 most a few MB and does at most 42 MFLOP: bounds of 0.1-3 us, under a
 launch's latency. A CUDA tensor runs the kernel (or raises); a CPU tensor
-runs the plain PyTorch version beside it.
+runs the plain PyTorch version beside it. ``dot_plan`` sizes the f32
+contraction's launch: its output tile and how K is split over blocks.
 """
 
 from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -153,6 +157,74 @@ def mixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 _CUDA_CORES = {(torch.float32, torch.float32), (torch.float32, torch.int8),
                (torch.int8, torch.float32)}
+
+# the f32 contraction's launch plan (csrc f32_dot_kernel)
+H100_SMS = 132
+DOT_SMEM = 48 * 1024      # staged panels of a block, all stages
+DOT_MAX_SPLITS = 32
+DOT_SPLIT_MIN_K = 512     # shorter contractions run whole in one block
+DOT_SPLIT_ALIGN = 64      # K of a split is a multiple of this
+DOT_RING_CHUNK = 32       # K a stage holds where a split's panel won't fit
+
+
+class DotPlan(NamedTuple):
+    """A ``bm`` x ``bn`` output tile per block of ``k_groups`` x 128
+    threads (each group takes a share of every staged chunk's K); K cut
+    into ``n_split`` ranges of ``k_split``, one block each, staged
+    ``k_chunk`` at a time."""
+    bm: int
+    bn: int
+    k_groups: int
+    n_split: int
+    k_split: int
+    k_chunk: int
+
+    def k_ranges(self, K: int) -> List[Tuple[int, int]]:
+        """The [start, end) of K each split contracts."""
+        return [(s * self.k_split, min(K, (s + 1) * self.k_split))
+                for s in range(self.n_split)]
+
+
+def dot_stage_bytes(bm: int, bn: int, k_chunk: int, trans_a: bool,
+                    a_size: int, b_size: int) -> int:
+    """Shared bytes of one stage: A [bm][k_chunk + 16 bytes of pad]
+    (``trans_a``: [k_chunk][bm]) and B [k_chunk][bn], in the operands'
+    own element sizes (csrc ``stage_bytes``)."""
+    a_ld = bm if trans_a else k_chunk + 16 // a_size
+    a_rows = k_chunk if trans_a else bm
+    return a_rows * a_ld * a_size + k_chunk * bn * b_size
+
+
+def dot_plan(batch: int, M: int, K: int, N: int, trans_a: bool = False,
+             a_size: int = 4, b_size: int = 4) -> DotPlan:
+    """The launch of ``tricks_dot``'s f32 contraction for [batch, M, K] .
+    [batch, K, N] with elements of ``a_size`` and ``b_size`` bytes.
+
+    Tile: 32 x 64 where M <= N, else 64 x 32, so a 32-wide side fills
+    it; 32 x 32 where that still gives fewer blocks than SMs. Split: a
+    contraction of at least ``DOT_SPLIT_MIN_K`` on fewer tiles than SMs
+    is cut into the shortest ranges that are a multiple of
+    ``DOT_SPLIT_ALIGN`` and number at most ``DOT_MAX_SPLITS``, none
+    empty (K = 1280: 20 ranges of 64). A 32 x 32 block that contracts its
+    K whole runs two thread groups, each on half of every chunk.
+    Staging: a split's whole K in one stage where it fits in
+    ``DOT_SMEM``, else two stages of ``DOT_RING_CHUNK``."""
+    bm, bn = (32, 64) if M <= N else (64, 32)
+    tiles = batch * math.ceil(M / bm) * math.ceil(N / bn)
+    if tiles < H100_SMS:
+        bm = bn = 32
+        tiles = batch * math.ceil(M / bm) * math.ceil(N / bn)
+    n_split, k_split = 1, K
+    if tiles < H100_SMS and K >= DOT_SPLIT_MIN_K:
+        k_split = DOT_SPLIT_ALIGN * math.ceil(
+            K / DOT_MAX_SPLITS / DOT_SPLIT_ALIGN)
+        n_split = math.ceil(K / k_split)
+    k_groups = 2 if bm == bn == 32 and n_split == 1 else 1
+    k_chunk = 16 * math.ceil(k_split / 16)
+    if dot_stage_bytes(bm, bn, k_chunk, trans_a, a_size,
+                       b_size) > DOT_SMEM:
+        k_chunk = DOT_RING_CHUNK
+    return DotPlan(bm, bn, k_groups, n_split, k_split, k_chunk)
 _TENSOR_CORES = {torch.bfloat16, torch.int8}
 
 
@@ -190,10 +262,15 @@ def tricks_dot(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
         _check_cuda(a, b)
         out = torch.empty(((batch,) if a.dim() == 3 else ()) + (M, N),
                           dtype=torch.float32, device=a.device)
+        plan = dot_plan(batch, M, K, N, trans_a, a.element_size(),
+                        b.element_size())
+        part = None if plan.n_split == 1 else torch.empty(
+            plan.n_split * batch * M * N, dtype=torch.float32,
+            device=a.device)
         rc = _build.library().wa_probe_dot_f32(
             a.data_ptr(), _build.DTYPE_CODES[a.dtype], int(trans_a),
             b.data_ptr(), _build.DTYPE_CODES[b.dtype], out.data_ptr(),
-            batch, M, K, N, _build.stream())
+            batch, M, K, N, *plan, _build.ptr(part), _build.stream())
         _build.check(rc, "probe f32 dot")
     LAUNCHES["tricks"] += 1
     return out
