@@ -19,8 +19,11 @@ microseconds of each kernel and stack and the host milliseconds of the
 end-to-end runs, and a table of them all at the end. With ``--optin``
 each process times the opt-in kernels and the probes instead:
 ``chip_smoke.time_optin`` (K15-K18 and their library yardsticks at the
-whisper-tiny and large-v3 shapes, bf16) and ``chip_smoke.phase_probes``
-(P1-P3 per case, device microseconds). Needs one CUDA GPU.
+whisper-tiny and large-v3 shapes, bf16), K18 at one decode row
+(``time_int4_m1``, timed alike in every checkout), the whisper-tiny int4
+engine's host ms per decode step (``time_int4_engine``) and
+``chip_smoke.phase_probes`` (P1-P3 per case, device microseconds). Needs
+one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def time_tree(root: Path, optin: bool = False) -> dict:
     c.phase_device()
     c.phase_build()
     if optin:
-        return time_optin_tree(c)
+        return time_optin_tree(c, root)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -65,7 +68,7 @@ def time_tree(root: Path, optin: bool = False) -> dict:
     return out
 
 
-def time_optin_tree(c) -> dict:
+def time_optin_tree(c, root: Path) -> dict:
     """Device microseconds of one checkout's K15-K18 (and their library
     yardsticks) at the whisper-tiny and large-v3 shapes, and of each
     probe case."""
@@ -77,10 +80,43 @@ def time_optin_tree(c) -> dict:
         out[label + "_library"] = {
             k: round(v["library_ms"] * 1e3, 2) for k, v in t.items()
             if v["library_ms"] is not None}
+    out["int4_m1"] = time_int4_m1(c)
+    out["int4_engine"] = time_int4_engine(c, root)
     _, pr = c.phase_probes()
     out["probes"] = {f"{r['probe']} {r['name']}": round(r["ms"] * 1e3, 2)
                      for r in pr["probe_cases"]}
     return out
+
+
+def time_int4_m1(c) -> dict:
+    """Device microseconds of one checkout's K18 at a decode row (M = 1,
+    bf16) at the whisper-tiny and large-v3 fc1 shapes, timed here the
+    same way for every checkout (a ``time_optin`` before K18's M = 1 row
+    does not time it)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    dev = torch.device("cuda")
+    out = {}
+    for label, (K, N) in (("tiny", (384, 1536)), ("large-v3", (1280, 5120))):
+        gen = torch.Generator(device=dev).manual_seed(47)
+        x, wq, s = c.matmul_case(K, N, 1, torch.bfloat16, gen, dev, 4)
+        out[label] = round(
+            c.graph_ms(lambda: i4.int4_matmul(x, wq, s)) * 1e3, 2)
+    return out
+
+
+def time_int4_engine(c, root: Path) -> dict:
+    """Host milliseconds per decode step of one checkout's whisper-tiny
+    int4 engine through K18 (``chip_smoke.phase_int4``: 30 s of noise,
+    bf16, B=1; its f32 token check included)."""
+    import tempfile
+    from whisper_apr_tpu_torch import ModelConfig
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as work:
+        apr = Path(work) / "tiny.apr"
+        c.write_random_apr(apr, ModelConfig.tiny())
+        r = c.phase_int4(apr)
+    return {"ms_per_step": round(1e3 * r["seconds"] / r["decode_steps"], 3)}
 
 
 def time_e2e(c, root: Path) -> dict:

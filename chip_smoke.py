@@ -2116,6 +2116,14 @@ P_MAX = 28
 MATMUL_SHAPES = {"tiny": ((384, 384), (384, 1536), (1536, 384)),
                  "large-v3": ((1280, 1280), (1280, 5120), (5120, 1280))}
 MATMUL_ROWS = (1, 8, 1500)
+# K18's edges (M, K, N), checked in bf16 and f32 beside MATMUL_SHAPES: the
+# decode kernel's one and two 8-row tiles (1, 8; 15, 16), the tile
+# kernel's first rows (17) and either side of its 128-row tile (127,
+# 129); K = 200, not a multiple of a 16-row step or a 64-deep slice;
+# N = 1000 and 999 (500 packed bytes a row: rows not 16-byte aligned, the
+# kernels' byte-wise path); and K = 16, one step: the decode kernel unsplit
+INT4_EDGES = tuple((M, 200, N) for M in (1, 8, 15, 16, 17, 127, 129)
+                   for N in (1000, 999)) + ((4, 16, 64),)
 # K16 checks (B, Tq, Tk, kwargs): the encoder's 1500 frames at B=1 and 4,
 # causal, kv_valid; then the ragged edges of the key ring, the split and
 # its combine: one key, a tile's edge either side, 7 tiles (an uneven
@@ -2209,7 +2217,8 @@ def _kernel_and_plain(mod, name):
 
 def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
     """K15-K18 against their plain versions on the card at one model's
-    shapes in ``cdt``. Returns each kernel's largest abs error."""
+    shapes in ``cdt`` (K18 also at INT4_EDGES, and bit-identical over two
+    runs). Returns each kernel's largest abs error."""
     import torch
     from whisper_apr_tpu_torch.ops import flash_attention as fa
     from whisper_apr_tpu_torch.ops import int4_matmul as i4
@@ -2260,10 +2269,16 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
                 x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 8, pc)
                 agree("int8_matmul", i8.int8_matmul(x, wq, s),
                       i8.int8_matmul_plain(x, wq, s), f"M={M} K={K} N={N}")
-            for n in (N, N - 1):          # an odd width: orig_last N - 1
-                x, wq, s = matmul_case(K, n, M, cdt, gen, dev, 4)
-                agree("int4_matmul", i4.int4_matmul(x, wq, s),
-                      i4.int4_matmul_plain(x, wq, s), f"M={M} K={K} N={n}")
+    int4_cases = [(M, K, n) for K, N in MATMUL_SHAPES[label]
+                  for M in MATMUL_ROWS
+                  for n in (N, N - 1)]    # an odd width: orig_last N - 1
+    for M, K, N in int4_cases + list(INT4_EDGES):
+        x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 4)
+        got = i4.int4_matmul(x, wq, s)
+        what = f"M={M} K={K} N={N} {i4.int4_plan(M, K, 2 * wq.shape[1])}"
+        agree("int4_matmul", got, i4.int4_matmul_plain(x, wq, s), what)
+        assert torch.equal(got, i4.int4_matmul(x, wq, s)), \
+            f"[kernels] {label} int4_matmul {what}: two runs differ"
     torch.cuda.synchronize()
     log(f"[kernels] {label} {str(cdt).split('.')[-1]}: K15-K18 agree with "
         f"the plain versions; max abs err " + ", ".join(
@@ -2317,12 +2332,38 @@ def library_int4_mm(x, wq, s) -> "float | None":
         return None
 
 
+def time_int4(K: int, N: int, gen) -> dict:
+    """Device times (CUDA-graph replay) of K18 and its plain version in
+    bf16 at [M, K] x [K, N] for M = 1 (a decode step), 8 (a serving tick)
+    and 1500 (the encoder), each with its bound and
+    torch._weight_int4pack_mm; at 1500 rows also a bf16 torch.matmul over
+    the weight dequantized ahead of time (``dense_ms``: the dense figure
+    an int4 kernel nears there; the port never calls it)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    out = {}
+    for M in (1, 8, 1500):
+        x, wq, s = matmul_case(K, N, M, torch.bfloat16, gen, gen.device, 4)
+        bnd, by = optin_bound("int4_matmul", M=M, K=K, N=N)
+        t = {"ms": graph_ms(lambda: i4.int4_matmul(x, wq, s)),
+             "plain_ms": graph_ms(lambda: i4.int4_matmul_plain(x, wq, s)),
+             "bound_ms": bnd, "bound_by": by,
+             "library_ms": library_int4_mm(x, wq, s), "M": M, "K": K,
+             "N": N, "plan": list(i4.int4_plan(M, K, N))}
+        if M == 1500:
+            w = (i4.unpack_plain(wq) * s).to(torch.bfloat16)
+            t["dense_ms"] = graph_ms(lambda: x @ w)
+        out["int4_matmul" + {1: "_m1", 8: "", 1500: "_m1500"}[M]] = t
+    return out
+
+
 def time_optin(label: str, D: int, H: int, seed: int) -> dict:
     """Device times (CUDA-graph replay) of K15-K18 and their plain
     versions in bf16 at one model's main-path shapes: K15 at 8 slots of
     PAGED_LENGTHS, K16 over the encoder's 1500 frames at B = 1 (and 4),
-    K17 and K18 at fc1's shape for a serving tick (M = 8) and for the
-    encoder (M = 1500). Each with its bound and its library yardstick
+    K17 at fc1's shape for a serving tick (M = 8) and for the encoder
+    (M = 1500), K18 there and at a decode step (M = 1; ``time_int4``).
+    Each with its bound and its library yardstick
     (SDPA for K16, torch._weight_int8pack_mm for K17,
     torch._weight_int4pack_mm for K18); K16's time over SDPA's is
     printed beside them."""
@@ -2374,16 +2415,17 @@ def time_optin(label: str, D: int, H: int, seed: int) -> dict:
         entry("int8_matmul" + sfx, lambda: i8.int8_matmul(x, wq, s),
               lambda: i8.int8_matmul_plain(x, wq, s),
               optin_bound("int8_matmul", M=M, K=K, N=N), lib, M=M, K=K, N=N)
-        x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 4)
-        entry("int4_matmul" + sfx, lambda: i4.int4_matmul(x, wq, s),
-              lambda: i4.int4_matmul_plain(x, wq, s),
-              optin_bound("int4_matmul", M=M, K=K, N=N),
-              library_int4_mm(x, wq, s), M=M, K=K, N=N)
+    out.update(time_int4(K, N, gen))
     log(f"[time] {label} K15-K18 bf16, device ms (plain; bound; library): "
         + "; ".join(f"{k} {v['ms']:.4f} ({v['plain_ms']:.4f}; "
                     f"{v['bound_ms']:.4f} {v['bound_by']}; "
                     f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 4)})"
                     for k, v in out.items()))
+    log(f"[time] {label} K18 / _weight_int4pack_mm: " + ", ".join(
+        f"{k} {v['ms'] / v['library_ms']:.2f}x" for k, v in out.items()
+        if k.startswith("int4_matmul") and v["library_ms"])
+        + "; at 1500 rows over the dense bf16 matmul: "
+        f"{out['int4_matmul_m1500']['ms'] / out['int4_matmul_m1500']['dense_ms']:.2f}x")
     log(f"[time] {label} K16 / SDPA: " + ", ".join(
         f"{k} {v['ms'] / v['library_ms']:.2f}x" for k, v in out.items()
         if k.startswith("flash_attention") and v["library_ms"]))

@@ -321,8 +321,15 @@ class TestInt8Plain:
             ti8.int8_matmul(_t(x), q, torch.ones(3))
 
 
+# K18's edges: rows either side of the decode kernel's 16 and of a
+# 128-row tile, K not a multiple of a 32-deep slice, packed rows of 500
+# bytes (not 16-byte aligned) at an even and an odd width
+INT4_EDGES = [(17, 200, 1000), (17, 200, 999), (129, 200, 1000),
+              (129, 200, 999)]
+
+
 class TestInt4Plain:
-    @pytest.mark.parametrize("shape", SHAPES + [(3, 64, 101)])
+    @pytest.mark.parametrize("shape", SHAPES + [(3, 64, 101)] + INT4_EDGES)
     def test_matches_dequant_and_jax(self, shape):
         """Per-channel int4, odd N included (the padded last column is
         cut by ``linear_int4``): the JAX kernel's values and
@@ -348,6 +355,128 @@ class TestInt4Plain:
         0x08 holds -8 and 0."""
         wq = torch.tensor([[-9, 8]], dtype=torch.int8)    # 0xF7, 0x08
         assert ti4.unpack_plain(wq).tolist() == [[7.0, -1.0, -8.0, 0.0]]
+
+
+class TestInt4Plan:
+    """``int4_plan``: how the CUDA kernel spreads K over blocks at most 16
+    rows (one launch: a strip's splits are one cluster and are summed
+    inside it, so the launch needs no scratch)."""
+
+    @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 15, 16, 17, 1500])
+    @pytest.mark.parametrize("K,N", [(384, 1536), (1536, 384), (1280, 5120),
+                                     (5120, 1280), (200, 1000), (64, 2),
+                                     (16, 2), (20000, 256)])
+    def test_k_rows_covered_once(self, M, K, N):
+        plan = ti4.int4_plan(M, K, N)
+        ranges = plan.k_ranges(K)
+        assert len(ranges) == plan.n_split
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        for (_, end), (start, _) in zip(ranges, ranges[1:]):
+            assert end == start
+        assert all(s < e for s, e in ranges)           # none empty
+        if M > ti4.DECODE_ROWS:
+            assert plan == ti4.Int4Plan(1, K)
+        else:
+            assert 1 <= plan.n_split <= ti4.MAX_SPLIT
+            assert plan.split_rows % ti4.STEP == 0
+
+    @pytest.mark.parametrize("M,K,N,n", [(8, 384, 1536, 12),
+                                         (1, 1280, 5120, 4),
+                                         (8, 1280, 5120, 4),
+                                         (1, 5120, 1280, 16),
+                                         (17, 1280, 5120, 1)],
+                             ids=["tiny fc1 M=8", "large-v3 fc1 M=1",
+                                  "large-v3 fc1 M=8", "large-v3 fc2 M=1",
+                                  "17 rows: the tile"])
+    def test_main_path_splits(self, M, K, N, n):
+        """fc1 and fc2 at the decode rows: about ``BLOCKS`` blocks (6, 20
+        and 5 strips of 256 columns), at most a cluster's 16 splits."""
+        assert ti4.int4_plan(M, K, N).n_split == n
+
+    @pytest.mark.parametrize("M,K,N", [(8, 384, 1536), (1, 64, 2),
+                                       (1500, 1280, 5120), (3, 200, 1000)])
+    def test_one_launch_without_scratch(self, monkeypatch, M, K, N):
+        """``_int4_cuda`` makes one call of the C entry point with the
+        plan's split and the stream, and asks for no scratch."""
+        calls = []
+
+        class Lib:
+            def wa_int4_matmul(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(*args, **kwargs):
+            raise AssertionError("K18 needs no scratch")
+
+        monkeypatch.setattr(ti4._build, "library", Lib)
+        monkeypatch.setattr(ti4._build, "stream", lambda: 7)
+        monkeypatch.setattr(ti4._build, "workspace", workspace)
+        rng = np.random.default_rng(8)
+        x = _t(rng.normal(size=(M, K)).astype(np.float32))
+        wq = _t(rng.integers(-128, 128, (K, N // 2)).astype(np.int8))
+        before = ti4.LAUNCHES["int4_matmul"]
+        y = ti4._int4_cuda(x, wq, torch.ones(N))
+        assert y.shape == (M, N) and ti4.LAUNCHES["int4_matmul"] == before + 1
+        assert len(calls) == 1
+        args = calls[0]
+        assert args[1:4] == (0, M, K) and args[5] == N and args[7] == N
+        assert tuple(args[9:11]) == tuple(ti4.int4_plan(M, K, N))
+        assert args[11] == 7 and len(args) == 12
+
+
+def _magic_bf16(byte: int) -> list:
+    """The bf16 pair widening, in numpy: byte B of a word w and of w >> 4
+    moved to the low and high halves (``__byte_perm(w, w >> 4, B | (4 +
+    B) << 8)``), & 0x000F000F, ^ 0x43084308 (0x4300 | nibble ^ 8 in each
+    half), each half read as bf16 minus 136."""
+    out = []
+    for B in range(4):
+        w = byte << (8 * B)
+        w4 = w >> 4
+        v = ((w >> 8 * B) & 0xFF) | (((w4 >> 8 * B) & 0xFF) << 16)
+        t = (v & 0x000F000F) ^ 0x43084308
+        halves = np.array([(t & 0xFFFF) << 16, (t >> 16) << 16],
+                          np.uint32).view(np.float32)
+        d = halves - np.float32(136)
+        # the f32 difference is a bf16 value (its low 16 bits 0), so the
+        # kernel's bf16 subtraction gives it exactly
+        assert np.all(d.view(np.uint32) & 0xFFFF == 0)
+        out.append((float(d[0]), float(d[1])))
+    return out
+
+
+def _bf16_terms(v: np.ndarray) -> list:
+    """The decode kernel's f32 x as three bf16 terms, in numpy: each the
+    bf16 rounding (to nearest even) of what the terms before it left."""
+    out, r = [], v.astype(np.float32)
+    for _ in range(3):
+        t = torch.from_numpy(r).to(torch.bfloat16).float().numpy()
+        out.append(t)
+        r = (r - t).astype(np.float32)
+    return out
+
+
+class TestWideningMagic:
+    """The kernels' nibble widening (no int -> float convert) against
+    ``unpack_plain`` over all 256 byte values, at every byte position of
+    a word; and the f32 x split the decode kernel feeds the tensor cores."""
+
+    def test_all_bytes(self):
+        wq = torch.arange(-128, 128, dtype=torch.int8).reshape(256, 1)
+        want = ti4.unpack_plain(wq).tolist()
+        for b in range(256):
+            got = _magic_bf16((b - 128) & 0xFF)
+            assert got == [tuple(want[b])] * 4, b
+
+    @pytest.mark.parametrize("scale", [1.0, 1e-3, 3e4])
+    def test_f32_as_three_bf16_terms(self, scale):
+        """hi + mid + lo == x exactly, so the products with the exact
+        int4 weights sum to f32's x @ w."""
+        v = (np.random.default_rng(9).normal(size=4096) * scale).astype(
+            np.float32)
+        hi, mid, lo = _bf16_terms(v)
+        assert np.array_equal((hi + mid) + lo, v)
+        assert np.array_equal(hi + (mid + lo), v)
 
 
 def _odd_qtensors(seed):

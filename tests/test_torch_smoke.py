@@ -487,3 +487,30 @@ def test_probe_edge_cases_cover_each_path(smoke):
                for c, _ in cases)
     assert any(c.inputs[0].dtype == torch.int8 and "dotT" in c.name
                for c, _ in cases)
+
+
+def test_int4_cases_reach_each_path(smoke):
+    """K18's smoke cases take every path of the kernels: one and two
+    8-row tiles of the decode kernel, split and unsplit K, the tile kernel
+    either side of a 128-row tile, K not a multiple of a 16-row
+    step, packed rows that are not 16-byte aligned (even and odd widths),
+    and the plain version takes them all on the CPU."""
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    cases = [(M, K, N) for shapes in smoke.MATMUL_SHAPES.values()
+             for K, N in shapes for M in smoke.MATMUL_ROWS] + list(
+                 smoke.INT4_EDGES)
+    rows = {M for M, _, _ in cases}
+    assert {1, 8} <= rows and {15, 16} <= rows and 17 in rows
+    assert {127, 129, 1500} <= rows
+    plans = [i4.int4_plan(M, K, N + N % 2) for M, K, N in cases]
+    decode = [p for p, (M, _, _) in zip(plans, cases)
+              if M <= i4.DECODE_ROWS]
+    assert {p.n_split > 1 for p in decode} == {True, False}
+    assert any(K % i4.STEP for _, K, _ in cases)
+    assert any((N + N % 2) // 2 % 16 and N % 2 for _, _, N in cases)
+    assert any((N + N % 2) // 2 % 16 and not N % 2 for _, _, N in cases)
+    gen = torch.Generator().manual_seed(0)
+    for M, K, N in smoke.INT4_EDGES:
+        x, wq, s = smoke.matmul_case(K, N, M, torch.float32, gen, "cpu", 4)
+        y = i4.int4_matmul(x, wq, s)
+        assert y.shape == (M, N + N % 2) and bool(torch.isfinite(y).all())

@@ -14,17 +14,20 @@ per-channel int4 linears of ``basic.linear`` through this kernel for CUDA
 tensors. ``int4_matmul`` runs the hand-written CUDA kernel
 (``csrc/dequant_matmul.cu``) for CUDA tensors and the plain PyTorch
 version below for CPU tensors. The JAX signature's block sizes are the
-TPU kernel's tiling and are not taken.
+TPU kernel's tiling and are not taken. At most 16 rows the kernel splits
+K over the blocks of a thread block cluster and sums the splits inside
+it, in the same launch and with no scratch; ``int4_plan`` says how.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
-from .int8_matmul import _check_operands, split_k_partials
+from .int8_matmul import _check_operands
 from .quant import QTensor
 
 # opt-in switch (see ops/basic.linear)
@@ -66,6 +69,44 @@ def int4_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
     return ((x.float() @ unpack_plain(wq)) * s).to(x.dtype)
 
 
+# the decode-row kernel (csrc/dequant_matmul.cu int4_mv_mma_kernel): a
+# block owns STRIP output columns and a range of K rows, in 16-row steps;
+# the splits of a strip form one cluster (at most MAX_SPLIT blocks)
+DECODE_ROWS = 16       # at most this many rows of x take it
+STRIP = 256
+STEP = 16
+MAX_SPLIT = 16
+BLOCKS = 96            # blocks a launch aims at: on an H100 (132 SMs)
+                       # split grids past about 100 blocks measured slower
+                       # (PERF.md section 6)
+
+
+class Int4Plan(NamedTuple):
+    """``n_split`` blocks per column strip, split ``s`` taking K rows
+    [s * split_rows, (s + 1) * split_rows)."""
+    n_split: int
+    split_rows: int
+
+    def k_ranges(self, K: int) -> List[Tuple[int, int]]:
+        """The [start, end) K rows of each split."""
+        r = self.split_rows
+        return [(s * r, min(K, (s + 1) * r)) for s in range(self.n_split)]
+
+
+def int4_plan(M: int, K: int, N: int) -> Int4Plan:
+    """How K18 spreads K over blocks. Above ``DECODE_ROWS`` rows: one
+    block per output tile, K whole. Else each strip of ``STRIP`` columns
+    takes enough splits for about ``BLOCKS`` blocks, at most
+    ``MAX_SPLIT`` (the splits are summed inside their cluster, in the same
+    launch: no scratch), in whole 16-row steps spread evenly, none
+    empty."""
+    if M > DECODE_ROWS:
+        return Int4Plan(1, K)
+    want = max(1, min(MAX_SPLIT, BLOCKS // math.ceil(N / STRIP)))
+    rows = STEP * math.ceil(K / want / STEP)
+    return Int4Plan(math.ceil(K / rows), rows)
+
+
 def _int4_cuda(x, wq, scale):
     M, K = x.shape
     N = 2 * wq.shape[1]
@@ -75,7 +116,7 @@ def _int4_cuda(x, wq, scale):
     P = _build.ptr
     rc = _build.library().wa_int4_matmul(
         P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(s), s.numel(),
-        P(y), split_k_partials(x, M, K, N), _build.stream())
+        P(y), *int4_plan(M, K, N), _build.stream())
     _build.check(rc, "int4_matmul")
     LAUNCHES["int4_matmul"] += 1
     return y
