@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py [--optin] DIR [DIR ...]
+    python3 chip_ab.py [--optin | --split] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -13,8 +13,9 @@ pos 128) and, where the checkout has it, ``chip_smoke.time_batched`` (B=8,
 pos 128), at the whisper-tiny and large-v3 decoder shapes; then the host
 clock of the whisper-tiny end-to-end path: bench.py's protocol through
 ``chip_smoke.bench_rtf`` (30 s of noise, 224 forced tokens, B=1; best of
-5) and a ``BatchScheduler`` of 8 slots draining 8 clips (ms per tick). It
-prints one line per run, ``AB <dir> <json>``, with the device
+5) and a ``BatchScheduler`` of 8 slots draining 8 clips (ms per tick).
+It prints the card's line and one line per run, ``AB <dir> <json>``,
+with the device
 microseconds of each kernel and stack and the host milliseconds of the
 end-to-end runs, and a table of them all at the end. With ``--optin``
 each process times the opt-in kernels and the probes instead:
@@ -22,8 +23,11 @@ each process times the opt-in kernels and the probes instead:
 whisper-tiny and large-v3 shapes, bf16), K18 at one decode row
 (``time_int4_m1``, timed alike in every checkout), the whisper-tiny int4
 engine's host ms per decode step (``time_int4_engine``) and
-``chip_smoke.phase_probes`` (P1-P3 per case, device microseconds). Needs
-one CUDA GPU.
+``chip_smoke.phase_probes`` (P1-P3 per case, device microseconds). With
+``--split`` each process splits the device time of each B=1 decode block
+(K1 ``self_block``, K2 ``cross_block``, K3 ``ffn_block``, at
+``time_kernels``' operands and both shapes) by kernel instead
+(``kernel_split``). Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -41,15 +45,17 @@ SHAPES = {
 }
 
 
-def time_tree(root: Path, optin: bool = False) -> dict:
+def time_tree(root: Path, mode: str = "") -> dict:
     """Times of one checkout, in this process (run from its root)."""
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as c
     c.phase_device()
     c.phase_build()
-    if optin:
+    if mode == "--optin":
         return time_optin_tree(c, root)
+    if mode == "--split":
+        return time_split_tree(c)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -65,6 +71,80 @@ def time_tree(root: Path, optin: bool = False) -> dict:
         del blk
         torch.cuda.empty_cache()
     out["e2e_tiny"] = time_e2e(c, root)
+    return out
+
+
+def time_split_tree(c) -> dict:
+    """Device microseconds per call of each B=1 decode block, split by
+    kernel (``kernel_split``), at ``time_kernels``' operands: bf16 x,
+    compute-dtype self rows at pos 128, int8 cross rows, the last
+    layer."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    dev = torch.device("cuda")
+    out = {}
+    for i, (name, shape) in enumerate(SHAPES.items()):
+        gen = torch.Generator(device=dev).manual_seed(104 + i)
+        D, H, L = shape["D"], shape["H"], shape["L"]
+        blk = c.make_blk(D, L, gen, dev)
+        gen = torch.Generator(device=dev).manual_seed(4 + i)
+        cdt = torch.bfloat16
+        sk, _, sv, _ = c.make_cache("rows", L, shape["T_self"], D, gen, dev,
+                                    cdt)
+        ck, cks, cv, cvs = c.make_cache("int8", L, shape["T_cross"], D, gen,
+                                        dev, cdt)
+        x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+        calls = {
+            "self_block": lambda: db.self_block(x, blk, sk, None, sv, None,
+                                                128, L - 1, H),
+            "cross_block": lambda: db.cross_block(
+                x, blk, ck, cks, cv, cvs, shape["enc_len"], L - 1, H),
+            "ffn_block": lambda: db.ffn_block(x, blk, L - 1)}
+        for k, call in calls.items():
+            out[f"{name}_{k}"] = kernel_split(c, call)
+        del blk
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_split(c, call) -> dict:
+    """``call``'s device microseconds per call, split by kernel:
+    ``torch.profiler`` over CUDA-graph replays. Keys are the kernels'
+    names with their template arguments, ``kernels`` their sum, ``total``
+    ``graph_ms`` of the call and ``gaps`` the difference: the launch gaps
+    between the call's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    reps, replays = 20, 10
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or "Memcpy" in ev.key or "Memset" in ev.key:
+            continue
+        name = ev.key.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").replace("wa::", "").split("(")[0]
+        out[name.strip()] = round(us / (reps * replays), 2)
+    out["kernels"] = round(sum(out.values()), 2)
+    out["total"] = round(c.graph_ms(call) * 1e3, 2)
+    out["gaps"] = round(out["total"] - out["kernels"], 2)
     return out
 
 
@@ -151,14 +231,14 @@ def time_e2e(c, root: Path) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    optin = "--optin" in args
-    args = [a for a in args if a != "--optin"]
+    modes = [a for a in args if a in ("--optin", "--split")]
+    args = [a for a in args if a not in modes]
     if len(args) == 2 and args[0] == "--one":
         root = Path(args[1])
-        print("AB", root.name, json.dumps(time_tree(root, optin)),
+        print("AB", root.name, json.dumps(time_tree(root, *modes)),
               flush=True)
         return 0
-    if not args:
+    if not args or len(modes) > 1:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
@@ -169,13 +249,16 @@ def main() -> int:
             return 2
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--one",
-             str(root)] + (["--optin"] if optin else []),
+             str(root)] + modes,
             cwd=root, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             print(f"chip_ab: {d} failed ({proc.returncode})", file=sys.stderr)
             return 1
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("[device]"):
+                print(ln, flush=True)
         print(lines[-1], flush=True)
         runs.append((d, json.loads(lines[-1].split(" ", 2)[2])))
     rows = sorted({(s, k) for _, t in runs for s in t for k in t[s]})

@@ -13,7 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               on the card, in bf16 at the whisper-tiny and large-v3 decoder
               shapes (and in f32 at tiny), over bf16 / int8 / fp8 cache
               rows, single and per-slot mixed positions (0 ... 447),
-              planted argmax ties and suppressed columns; then CUDA-graph
+              planted argmax ties and suppressed columns; K2 (one launch,
+              a cluster per head) also at every cache dtype it takes (int8,
+              bf16, f32, fp8) and enc_len 0, 1, 63, 64, 65, 1499, 1500, in
+              bf16 and f32 at both widths, each call twice and
+              bit-identical (check_cross); then CUDA-graph
               times of kernel and plain version at B=1 and B=8, of the
               large-v3 B=8 serving tick, and of the large-v3 scan step
               (decode_step_q) beside the fused step (decode_step_qf).
@@ -96,6 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               versions; their times, bounds and yardsticks
               (torch._int_mm for P1, an f32 torch.matmul for P3 (a),
               .t().contiguous() for P3 (d)) and time / yardstick; then
+              P1 at ragged shapes, K staged whole and through its
+              ring, unaligned rows (INT8_EDGES; exact, two runs
+              identical); then
               P3's contraction at shapes the tool does not reach (K =
               1281, M and N of 33 and 65, a batch of 3 with split K, a
               transposed int8 A, the 2-stage ring) within 2e-5.
@@ -430,6 +437,52 @@ def check_kernels(D: int, H: int, L: int, n_vocab: int, T_self: int,
     log(f"[kernels] {label}: K1-K4 agree with the plain versions; max abs "
         f"err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return worst, blk
+
+
+# K2's edges: no valid row (every padded row at NEG), one row, either side
+# of 64 (a row group's span), and the last rows of 1500 frames; each cache
+# dtype K2 takes, in its own name: int8 (+ f32 row scales), bf16, f32, fp8
+CROSS_EDGES = (0, 1, 63, 64, 65, 1499, 1500)
+CROSS_CACHES = (("int8", "int8", None), ("bf16", "rows", "bfloat16"),
+                ("f32", "rows", "float32"), ("fp8", "fp8", None))
+
+
+def check_cross(D: int, H: int, cdt, label: str, seed: int, L: int = 2,
+                T: int = 1536) -> float:
+    """K2 against its plain version at every cache dtype and every
+    ``CROSS_EDGES`` length over a [L, 1, T, D] cache, each call twice: the
+    two runs must give the same bits. Returns the max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = make_blk(D, L, gen, dev)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = 0.0
+    for name, mode, rows_dt in CROSS_CACHES:
+        dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+        kq, ks, vq, vs = make_cache(mode, L, T, D, gen, dev, dt)
+        for enc_len in CROSS_EDGES:
+            layer = enc_len % L
+            x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+            got = db.cross_block(x, blk, kq, ks, vq, vs, enc_len, layer, H)
+            again = db.cross_block(x, blk, kq, ks, vq, vs, enc_len, layer,
+                                   H)
+            ref = db.cross_block_plain(x, blk, kq, ks, vq, vs, enc_len,
+                                       layer, H)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (
+                f"[{label}] cross_block {name} enc_len {enc_len}: two runs "
+                f"differ")
+            e = rel_err(got, ref)
+            assert e <= tol, (f"[{label}] cross_block {name} enc_len "
+                              f"{enc_len}: rel err {e:.3g} > {tol:.3g}")
+            worst = max(worst, abs_err(got, ref))
+        del kq, ks, vq, vs
+    log(f"[kernels] {label}: K2 at enc_len {list(CROSS_EDGES)} over "
+        f"{', '.join(n for n, *_ in CROSS_CACHES)} rows agrees with the "
+        f"plain version, two runs bit-identical; max abs err {worst:.3g}")
+    return worst
 
 
 def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
@@ -869,6 +922,11 @@ def phase_kernels():
                  T_cross=1536, enc_len=1500)
     errs, blk_tiny = check_kernels(**tiny, cdt=torch.bfloat16,
                                    label="tiny bf16", seed=1)
+    for D, H, lbl in ((384, 6, "tiny"), (1280, 20, "large-v3")):
+        for seed, cdt in ((31, torch.bfloat16), (32, torch.float32)):
+            e = check_cross(D, H, cdt, f"{lbl} {str(cdt)[6:]}", seed + D)
+            if lbl == "tiny" and cdt == torch.bfloat16:
+                errs["cross_block"] = max(errs["cross_block"], e)
     # B=1: K8 with f32 out is the logits tail of beam, sampling and
     # timestamps; B=40: two 32-row chunks per launch
     errs_b = check_batched(blk_tiny, **tiny, cdt=torch.bfloat16,
@@ -2869,12 +2927,39 @@ def probe_edge_cases(device) -> list:
                 f32(601, 1088))]
 
 
+# P1 off the probe's 256^3: one row, ragged M, K and N, rows that are not
+# 16-byte aligned (A: K % 16, B: N % 16), K past one staged panel (the
+# 2-stage ring) and output rows not 16-byte aligned
+INT8_EDGES = ((1, 32, 8), (1, 1, 1), (100, 200, 300), (33, 1281, 65),
+              (129, 257, 130), (64, 4096, 48), (256, 512, 256))
+
+
+def int8_edge_cases(device) -> list:
+    """P1 at ``INT8_EDGES``, inputs from np.random.default_rng(8); each
+    case exact. Returns (case, the K the kernel stages at a time) pairs."""
+    from whisper_apr_tpu_torch.ops import probe_mma as pm
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    import torch
+    rng = np.random.default_rng(8)
+    out = []
+    for M, K, N in INT8_EDGES:
+        a, b = (torch.from_numpy(rng.integers(-127, 128, s).astype(
+            np.int8)).to(device) for s in ((M, K), (K, N)))
+        out.append((tool.ProbeCase(
+            f"int8xint8 {M}x{K}x{N}", "P1 edge",
+            lambda a=a, b=b: pm.int8_dot(a, b),
+            lambda a=a, b=b: pm.int8_dot_plain(a, b), True, (a, b)),
+            pm.int8_plan(K)))
+    return out
+
+
 def phase_probes() -> tuple:
     """P1-P3 against their plain versions on the card at the probes'
     shapes (P1 and the transposes exact, the rest within TOL_F32 of the
     plain version's largest magnitude), then each case's device time,
-    plain time, bound and yardstick (and time / yardstick); then P3's
-    edge cases (``probe_edge_cases``) within TOL_F32. Returns (max abs
+    plain time, bound and yardstick (and time / yardstick); then P1's
+    edge cases (``int8_edge_cases``) exact and the same over two runs,
+    and P3's (``probe_edge_cases``) within TOL_F32. Returns (max abs
     errors, {"cases": [...], and one entry per kernel of the summary
     line: P1, P2, and P3's eleven calls summed})."""
     import torch
@@ -2919,6 +3004,20 @@ def phase_probes() -> tuple:
     for agg in per_kernel.values():
         agg["bound_by"] = ("bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms")
                            else "operations")
+    for case, k_chunk in int8_edge_cases("cuda"):
+        got, ref = case.kernel(), case.plain()
+        again = case.kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(got, again), (
+            f"[probes] {case.name}: not exact (K staged {k_chunk} at a "
+            f"time)")
+        rows.append({"probe": case.probe, "name": case.name, "exact": True,
+                     "k_chunk": k_chunk, "ms": graph_ms(case.kernel),
+                     "plain_ms": graph_ms(case.plain)})
+        log(f"[probes] {case.probe} {case.name}: exact; "
+            f"{rows[-1]['ms'] * 1e3:.2f} us (plain "
+            f"{rows[-1]['plain_ms'] * 1e3:.2f}); K staged {k_chunk} at a "
+            f"time")
     for case, plan in probe_edge_cases("cuda"):
         got, ref = case.kernel(), case.plain()
         torch.cuda.synchronize()

@@ -340,3 +340,112 @@ class TestDispatch:
         x = torch.empty((1, cfg.n_text_state), device="meta")
         with pytest.raises(ValueError, match="no kernel"):
             tdb.ffn_block(x, tq["blk"], 0)
+
+
+# K2's one-launch kernel splits each head's rows over a cluster of blocks:
+# the plain version against JAX at the edges of that split (no valid row,
+# one row, either side of a 64-row group, every row) and every cache dtype
+CROSS_EDGES = (0, 1, 63, 64, 65, CROSS_T)
+
+
+class TestCrossBlockEdges:
+    @pytest.mark.parametrize("mode", ROW_MODES)
+    @pytest.mark.parametrize("enc_len", CROSS_EDGES)
+    def test_plain_matches_jax(self, cfg, qd, mode, enc_len):
+        jq, tq = qd
+        D, L, H = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+        jc, tc = _cache(mode, CROSS_T, D, L, seed=100 + enc_len)
+        x = _x(D, seed=200 + enc_len)
+        layer = (enc_len + 1) % L
+        a = jdb.cross_block(jnp.asarray(x), jq["blk"], *jc, enc_len, layer,
+                            H, block_t=256, interpret=True)
+        b = tdb.cross_block_plain(torch.from_numpy(x), tq["blk"], *tc,
+                                  enc_len, layer, H)
+        assert torch.isfinite(b).all()
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
+
+
+# (heads, width) of whisper-tiny and large-v3, and ragged head counts
+PLAN_WIDTHS = [(6, 384), (20, 1280), (1, 64), (3, 192), (7, 448), (8, 512),
+               (16, 1024), (32, 2048)]
+PLAN_ROWS = (1, 63, 64, 65, 255, 256, 257, 1499, 1500, 1536, 4096)
+
+
+class TestCrossPlan:
+    """``cross_plan``: how K2's launch spreads a head's work over the
+    blocks of its cluster (the grid is one cluster a head)."""
+
+    @pytest.mark.parametrize("cache_size", [1, 2, 4],
+                             ids=["int8/fp8", "bf16", "f32"])
+    @pytest.mark.parametrize("H,D", PLAN_WIDTHS,
+                             ids=[f"H{h}" for h, _ in PLAN_WIDTHS])
+    def test_rows_covered_once(self, H, D, cache_size):
+        """Every cache row below n_loop in exactly one block of a cluster
+        (block r: rows [r rows, (r + 1) rows)); chunks of whole 64-row
+        groups that fit the stage and hold no more than a block's rows
+        need."""
+        from collections import Counter
+        for n_loop in PLAN_ROWS:
+            plan = tdb.cross_plan(H, D, n_loop, cache_size)
+            assert 1 <= plan.cluster <= tdb.CROSS_MAX_CLUSTER
+            assert plan.cluster * H <= max(tdb.CROSS_BLOCKS, H)
+            assert plan.chunk % tdb.CROSS_GROUPS == 0
+            assert tdb.CROSS_GROUPS <= plan.chunk <= tdb.CROSS_MAX_CHUNK
+            assert plan.chunk * 2 * (tdb.HEAD_DIM * cache_size + 4) \
+                <= tdb.CROSS_STAGE_BYTES
+            assert plan.chunk < plan.rows + tdb.CROSS_GROUPS
+            rows = Counter()
+            for r in range(plan.cluster):
+                rows.update(range(min(n_loop, r * plan.rows),
+                                  min(n_loop, (r + 1) * plan.rows)))
+            assert rows == Counter(range(n_loop))
+
+    @pytest.mark.parametrize("H,D,n", [(6, 384, 16), (20, 1280, 8)],
+                             ids=["tiny", "large-v3"])
+    def test_main_path_clusters(self, H, D, n):
+        """1500 int8 rows: 96 blocks at tiny, 160 at large-v3, one chunk
+        a block."""
+        plan = tdb.cross_plan(H, D, 1500, 1)
+        assert plan.cluster == n
+        assert plan.chunk >= plan.rows
+
+    @pytest.mark.parametrize("enc_len,dtype", [(1500, torch.int8),
+                                               (0, torch.int8),
+                                               (63, torch.bfloat16),
+                                               (1, torch.float32)])
+    def test_one_launch(self, cfg, qd, monkeypatch, enc_len, dtype):
+        """``_cross_block_cuda`` makes one call of the C entry point with
+        the plan for its rows (all T of them when enc_len is 0), an f32
+        [H, D] scratch and zeroed tickets, and counts one launch."""
+        _, tq = qd
+        D, L, H = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+        T = 1536
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_cross_block(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tdb._build, "library", Lib)
+        monkeypatch.setattr(tdb._build, "stream", lambda: 7)
+        monkeypatch.setattr(tdb._build, "workspace", workspace)
+        kq = torch.zeros((L, 1, T, D), dtype=dtype)
+        ks = torch.ones((L, 1, T, 1)) if dtype == torch.int8 else None
+        x = torch.from_numpy(_x(D, seed=3))
+        before = tdb.LAUNCHES["cross_block"]
+        y = tdb._cross_block_cuda(x, tq["blk"], kq, ks, kq, ks, enc_len, 1, H)
+        assert y.shape == x.shape
+        assert tdb.LAUNCHES["cross_block"] == before + 1 and len(calls) == 1
+        args = calls[0]
+        assert args[14:16] == (T, enc_len)
+        plan = tdb.cross_plan(H, D, enc_len or T, kq.element_size())
+        assert tuple(args[20:23]) == tuple(plan)
+        assert args[-1] == 7 and len(args) == 26
+        assert ("cross_y", H * D, torch.float32, False) in spaces
+        assert ("cross_tickets", tdb.CROSS_MAX_CLUSTER, torch.int32,
+                True) in spaces

@@ -13,6 +13,7 @@ another order).
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -339,3 +340,140 @@ class TestProfileDecode:
     def test_lo_below_hi(self):
         with pytest.raises(ValueError):
             P(4, 4)
+
+
+# P1 off the probe's 256^3 (the kernel's tiles and K chunks are ragged at
+# these): the plain version against jax.lax.dot with an int32 result
+INT8_RAGGED = [(1, 32, 8), (100, 200, 300), (33, 1281, 65), (1, 1, 1),
+               (129, 257, 130), (7, 4096, 9)]
+
+
+@pytest.mark.parametrize("shape", INT8_RAGGED,
+                         ids=["x".join(map(str, s)) for s in INT8_RAGGED])
+def test_int8_plain_matches_jax_at_ragged_shapes(shape):
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    a = rng.integers(-127, 128, (M, K), dtype=np.int8)
+    b = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    want = np.asarray(jax.lax.dot(jnp.asarray(a), jnp.asarray(b),
+                                  **_f32(jnp.int32)))
+    got = pm.int8_dot(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+INT8_PLAN_K = [256, 32, 1, 200, 1281, 257, 64, 1024, 4096, 33, 16, 255]
+
+
+@pytest.mark.parametrize("K", INT8_PLAN_K)
+def test_int8_plan_covers_k_once(K):
+    """The K that P1 stages at a time: a multiple of 32 (one m16n8k32
+    step); whole up to 256, else 128-deep chunks; the chunks cover every
+    K index once, the last not empty."""
+    k_chunk = pm.int8_plan(K)
+    assert k_chunk % 32 == 0
+    assert k_chunk == (32 * math.ceil(K / 32) if K <= pm.I8_PANEL_K
+                       else pm.I8_RING_K)
+    n_chunks = math.ceil(K / k_chunk)
+    ranges = [(k, min(K, k + k_chunk)) for k in range(0, K, k_chunk)]
+    assert len(ranges) == n_chunks and ranges[-1][0] < K
+    assert sorted(i for s, e in ranges for i in range(s, e)) \
+        == list(range(K))
+
+
+def test_int8_plan_at_the_probe():
+    """256^3: the 256-deep panel staged whole, behind one barrier."""
+    assert pm.int8_plan(256) == 256
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), (100, 200, 300)])
+def test_int8_dot_one_launch(monkeypatch, shape):
+    """``int8_dot``'s CUDA path makes one call of the C entry point with
+    the K chunk and the stream, and counts one launch."""
+    calls = []
+
+    class Lib:
+        def wa_probe_int8_mma(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pm._build, "library", Lib)
+    monkeypatch.setattr(pm._build, "stream", lambda: 9)
+    monkeypatch.setattr(pm, "_check_cuda", lambda *ts: None)
+    M, K, N = shape
+    a = torch.zeros((M, K), dtype=torch.int8)
+    b = torch.zeros((K, N), dtype=torch.int8)
+    before = pm.LAUNCHES["int8_dot"]
+    out = pm._int8_cuda(a, b)
+    assert pm.LAUNCHES["int8_dot"] == before + 1 and len(calls) == 1
+    assert calls[0][3:6] == (M, K, N)
+    assert calls[0][6] == pm.int8_plan(K)
+    assert calls[0][7] == 9 and len(calls[0]) == 8 and out.shape == (M, N)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """``__byte_perm(x, y, s)``: byte i of the result is byte (s >> 4i) & 7
+    of the 8 bytes of y:x."""
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] \
+        + [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
+
+
+def _transpose4x4(w):
+    """csrc ``transpose4x4``: w[i] holds bytes (i, 0..3); o[j] (0..3, j)."""
+    t0, t1 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[2], w[3], 0x5140)
+    t2, t3 = _byte_perm(w[0], w[1], 0x7362), _byte_perm(w[2], w[3], 0x7362)
+    return [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+            _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+
+
+def test_int8_fragments_mirror():
+    """P1's fragment plumbing in numpy: for one warp tile (16 x 32, one
+    32-deep step) lane (g, t) loads A's words as the m16n8k32 layout asks
+    and one word of B [k][n] at column 4g from rows 4t .. 4t + 3 (and 16
+    + ...), transposed by ``transpose4x4`` into the B fragments of the
+    four n-tiles, whose mma column g stands for column 4g + nt; the
+    sums, stored at columns 8t .. 8t + 7 as the kernel stores them, are
+    A . B."""
+    rng = np.random.default_rng(5)
+    A = rng.integers(-127, 128, (16, 32)).astype(np.int8)
+    B = rng.integers(-127, 128, (32, 32)).astype(np.int8)
+    a_u, b_u = A.view(np.uint8).reshape(-1), B.view(np.uint8).reshape(-1)
+
+    def word(buf, off):
+        return int.from_bytes(bytes(buf[off:off + 4]), "little")
+
+    def signed(w):
+        return np.array([np.int8(np.uint8((w >> 8 * i) & 0xFF))
+                         for i in range(4)], np.int64)
+
+    out = np.zeros((16, 32), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        a = [word(a_u, g * 32 + 4 * t), word(a_u, (g + 8) * 32 + 4 * t),
+             word(a_u, g * 32 + 16 + 4 * t),
+             word(a_u, (g + 8) * 32 + 16 + 4 * t)]
+        assert [signed(w).tolist() for w in a] == [
+            A[g, 4 * t:4 * t + 4].tolist(), A[g + 8, 4 * t:4 * t + 4].tolist(),
+            A[g, 16 + 4 * t:20 + 4 * t].tolist(),
+            A[g + 8, 16 + 4 * t:20 + 4 * t].tolist()]
+        b0 = _transpose4x4([word(b_u, (4 * t + i) * 32 + 4 * g)
+                            for i in range(4)])
+        b1 = _transpose4x4([word(b_u, (16 + 4 * t + i) * 32 + 4 * g)
+                            for i in range(4)])
+        for nt in range(4):
+            assert signed(b0[nt]).tolist() == B[4 * t:4 * t + 4,
+                                                4 * g + nt].tolist()
+            assert signed(b1[nt]).tolist() == B[16 + 4 * t:20 + 4 * t,
+                                                4 * g + nt].tolist()
+    # mma: C[row, j] of n-tile nt sums A[row, :] . B[:, 4 j + nt]; lane
+    # (g, t) holds j = 2t, 2t + 1 of rows g and g + 8
+    A64, B64 = A.astype(np.int64), B.astype(np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for row in (g, g + 8):
+            acc = [[A64[row] @ B64[:, 4 * j + nt] for j in (2 * t, 2 * t + 1)]
+                   for nt in range(4)]
+            out[row, 8 * t:8 * t + 8] = [acc[nt][0] for nt in range(4)] \
+                + [acc[nt][1] for nt in range(4)]
+    np.testing.assert_array_equal(out, A64 @ B64)

@@ -514,3 +514,44 @@ def test_int4_cases_reach_each_path(smoke):
         x, wq, s = smoke.matmul_case(K, N, M, torch.float32, gen, "cpu", 4)
         y = i4.int4_matmul(x, wq, s)
         assert y.shape == (M, N + N % 2) and bool(torch.isfinite(y).all())
+
+
+def test_int8_edge_cases_reach_each_path(smoke):
+    """P1's smoke-only cases take K staged whole and through the ring,
+    rows of A and of B that are not 16-byte aligned and output rows that
+    are not; the plain version runs them all here, exact against an int64
+    product."""
+    from whisper_apr_tpu_torch.ops import probe_mma as pm
+    cases = smoke.int8_edge_cases("cpu")
+    shapes = smoke.INT8_EDGES
+    assert [k_chunk for _, k_chunk in cases] \
+        == [pm.int8_plan(K) for _, K, _ in shapes]
+    assert any(K > pm.I8_PANEL_K for _, K, _ in shapes)
+    assert any(K % 16 for _, K, _ in shapes)
+    assert any(N % 16 for _, _, N in shapes)
+    assert any(N % 4 for _, _, N in shapes)
+    assert (256, 256, 256) not in shapes      # the probe's own case
+    for case, _ in cases:
+        a, b = case.inputs
+        got = case.kernel()
+        assert case.exact and got.dtype == torch.int32
+        assert torch.equal(got.long(), a.long() @ b.long())
+
+
+def test_cross_edges_cover_the_split(smoke):
+    """K2's smoke checks take no valid row, one row, both sides of a
+    64-row group and the last rows of 1500 frames, over every cache dtype
+    the kernel takes, in 1536 padded rows: at the tiny and large-v3
+    widths some lengths leave all blocks but the first empty and others
+    end inside a block's rows."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    assert {0, 1, 63, 64, 65, 1499, 1500} <= set(smoke.CROSS_EDGES)
+    assert {name for name, *_ in smoke.CROSS_CACHES} == {"int8", "bf16",
+                                                         "f32", "fp8"}
+    for H in (6, 20):
+        for e in smoke.CROSS_EDGES:
+            plan = db.cross_plan(H, 64 * H, e or 1536, 1)
+            assert plan.rows * plan.cluster >= (e or 1536)
+        rows = db.cross_plan(H, 64 * H, 1500, 1).rows
+        assert any(0 < e < rows for e in smoke.CROSS_EDGES)
+        assert any(e > rows and e % rows for e in smoke.CROSS_EDGES)

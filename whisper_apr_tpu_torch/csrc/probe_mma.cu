@@ -17,17 +17,29 @@
 // the launch latency (a few us) is what the card shows. The probes ask
 // whether a form runs and is exact, not how fast it can be made.
 //
-// Design. Output tiles of 64 x 64 per block, K in chunks; tiles past the
-// edges are zero-filled when staged and masked when stored, so any shape
-// runs. Operands are read from device memory in their own dtype and
-// converted in registers on the way into shared memory: there is no
-// separate cast pass over memory, which is the question the probes ask
-// for the int8 K/V rows of the batched attention kernels.
-//   int8_mma_kernel (P1): mma.sync m16n8k32 s8.s8 -> s32. sm_90's ldmatrix
-//     transposes 16-bit elements only, so B [K, N] (row-major) is
-//     transposed while it is staged: shared memory holds it [N][K], and
-//     each B fragment register is four k-neighbouring bytes of one column,
-//     one 32-bit load. A fragments are 32-bit loads of its rows.
+// Design. Output tiles per block, K in chunks; tiles past the edges are
+// zero-filled when staged and masked when stored, so any shape runs.
+// Operands are read from device memory in their own dtype and converted
+// in registers on the way into shared memory: there is no separate cast
+// pass over memory, which is the question the probes ask for the int8
+// K/V rows of the batched attention kernels.
+//   int8_mma_kernel (P1): mma.sync m16n8k32 s8.s8 -> s32. At 256^3 the
+//     bound is 0.12 us and a launch's latency is the limit, so the design
+//     cuts each block's serial path and fills the card:
+//     - output tiles of 32 x 32 (256^3: 64 blocks); the two warps that
+//       share each 16-row half of a tile take alternate 32-deep steps of
+//       each staged chunk and add their int32 sums at the end (exact in
+//       any order);
+//     - both panels staged with 16-byte cp.async copies along each
+//       operand's contiguous dim (A [M, K] along k, B [K, N] along n),
+//       zero-filled past the edges; rows not 16-byte aligned are staged
+//       a byte a thread. K up to 256 is staged whole behind one barrier,
+//       deeper K through a 2-stage ring of 128-deep chunks;
+//     - sm_90's ldmatrix transposes 16-bit elements only, so B stays
+//       [K][N] in shared memory and is turned k-contiguous in registers:
+//       a warp's columns are permuted so that each lane's B fragments of
+//       all four n-tiles come from one 32-bit word of each of four rows,
+//       transposed by eight byte permutes (int8_mma_kernel below).
 //   mixed_mma_kernel (P2, P3 (b), (i)): Hopper has no mixed int8 x bf16
 //     MMA. int8 converts to bf16 exactly (|v| <= 127 needs 7 bits), f32
 //     rounds to nearest even (case (i)'s in-kernel cast), both in
@@ -136,52 +148,6 @@ __device__ __forceinline__ void tile_pos(int e, int& r, int& k) {
     } else {
         r = e / KC;
         k = e % KC;
-    }
-}
-
-// P1: C [M, N] int32 = A [M, K] int8 . B [K, N] int8
-__global__ void __launch_bounds__(MMA_THREADS) int8_mma_kernel(
-        const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-        int32_t* __restrict__ c, int M, int K, int N) {
-    constexpr int LD = MMA_K + 4;    // bytes; keeps 32-bit alignment
-    __shared__ __align__(16) int8_t as[PT][LD];    // [m][k]
-    __shared__ __align__(16) int8_t bs[PT][LD];    // [n][k]
-    const int m0 = blockIdx.y * PT, n0 = blockIdx.x * PT;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    int acc[PT / 8][4];
-#pragma unroll
-    for (int i = 0; i < PT / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] =
-        acc[i][3] = 0;
-    for (int k0 = 0; k0 < K; k0 += MMA_K) {
-        __syncthreads();
-        for (int e = tid; e < PT * MMA_K; e += MMA_THREADS) {
-            int r, k;
-            tile_pos<false, MMA_K>(e, r, k);
-            as[r][k] = a_at<int8_t, false>(a, m0 + r, k0 + k, M, K);
-            tile_pos<true, MMA_K>(e, r, k);
-            bs[r][k] = b_at(b, k0 + k, n0 + r, K, N);
-        }
-        __syncthreads();
-        const int r = warp * 16 + g;
-        const uint32_t af[4] = {ld32(&as[r][4 * t]), ld32(&as[r + 8][4 * t]),
-                                ld32(&as[r][16 + 4 * t]),
-                                ld32(&as[r + 8][16 + 4 * t])};
-#pragma unroll
-        for (int nt = 0; nt < PT / 8; ++nt) {
-            const int8_t* bp = bs[nt * 8 + g];
-            mma_s8(acc[nt], af, ld32(bp + 4 * t), ld32(bp + 16 + 4 * t));
-        }
-    }
-    const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int nt = 0; nt < PT / 8; ++nt) {
-        const int col = n0 + nt * 8 + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int row = e < 2 ? r0 : r1, cc = col + (e & 1);
-            if (row < M && cc < N) c[(size_t)row * N + cc] = acc[nt][e];
-        }
     }
 }
 
@@ -295,6 +261,141 @@ __device__ __forceinline__ void stage_panel(T* dst, int dst_ld,
             const int r = e / cols, c = e % cols;
             dst[r * dst_ld + c] = r < r_valid && c < c_valid
                 ? src[r * src_ld + c] : T(0);
+        }
+    }
+}
+
+// P1: C [M, N] int32 = A [M, K] int8 . B [K, N] int8 over a 32 x 32 tile,
+// K staged k_chunk (ops/probe_mma.int8_plan) at a time. Four warps: warp
+// w takes rows 16 (w & 1) .. + 16 of the tile by its 32 columns and every
+// other 32-deep step of each staged chunk, from 32 (w >> 1); the two
+// warps of a half add their sums at the end (int32: exact in any order).
+// In a warp's tile, mma column j of n-tile nt stands for column 4 j + nt:
+// lane (g, t)'s B fragment of every n-tile is then the same 4 bytes of
+// rows 4t .. 4t + 3 (and 16 + 4t ...), one 32-bit word each, turned
+// k-contiguous by byte permutes, and its sums land on 8 neighbouring
+// columns of a row.
+constexpr int I8_THREADS = 128;
+constexpr int I8_TILE = 32;          // output rows and columns of a block
+constexpr int I8_PAD = 16;           // bytes after each staged row
+
+// w[i] holds bytes (i, 0 .. 3) of a 4 x 4 block; o[j] gets (0 .. 3, j)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&o)[4]) {
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);   // 00 10 01 11
+    const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);   // 20 30 21 31
+    const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);   // 02 12 03 13
+    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);   // 22 32 23 33
+    o[0] = __byte_perm(t0, t1, 0x5410);
+    o[1] = __byte_perm(t0, t1, 0x7632);
+    o[2] = __byte_perm(t2, t3, 0x5410);
+    o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// shared bytes of a P1 block: the staged panels A [32][k_chunk + pad] and
+// B [k_chunk][32 + pad], two stages when K takes more than one chunk; at
+// least the second warps' sums (2 halves x 32 lanes x 16 int32)
+inline int int8_smem(int K, int k_chunk) {
+    const int stage = I8_TILE * (k_chunk + I8_PAD)
+        + k_chunk * (I8_TILE + I8_PAD);
+    return max((K > k_chunk ? 2 : 1) * stage, 2 * 32 * 16 * 4);
+}
+
+__global__ void __launch_bounds__(I8_THREADS) int8_mma_kernel(
+        const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+        int32_t* __restrict__ c, int M, int K, int N, int k_chunk,
+        int a_vec, int b_vec) {
+    extern __shared__ __align__(16) unsigned char i8_smem[];
+    const int ald = k_chunk + I8_PAD, bld = I8_TILE + I8_PAD;
+    const int sbytes = I8_TILE * ald + k_chunk * bld;
+    const int n_chunks = (K + k_chunk - 1) / k_chunk;
+    const int m0 = blockIdx.y * I8_TILE, n0 = blockIdx.x * I8_TILE;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int half = warp & 1, kw = warp >> 1;
+    const int wm0 = 16 * half;
+
+    auto stage = [&](int ci) {   // chunk ci: A [32][k_chunk], B [k_chunk][32]
+        int8_t* as = reinterpret_cast<int8_t*>(i8_smem + (ci & 1) * sbytes);
+        int8_t* bs = as + I8_TILE * ald;
+        const int k0 = ci * k_chunk;
+        stage_panel<I8_THREADS>(as, ald, a + (size_t)m0 * K + k0, K, I8_TILE,
+                                k_chunk, M - m0, K - k0, a_vec);
+        stage_panel<I8_THREADS>(bs, bld, b + (size_t)k0 * N + n0, N,
+                                k_chunk, I8_TILE, K - k0, N - n0, b_vec);
+    };
+
+    int acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
+    stage(0);
+    cp_async_commit();
+    for (int ci = 0; ci < n_chunks; ++ci) {
+        cp_async_wait<0>();
+        __syncthreads();     // chunk ci has landed; chunk ci - 1 is read
+        if (ci + 1 < n_chunks) stage(ci + 1);
+        cp_async_commit();
+        const int8_t* as = reinterpret_cast<const int8_t*>(
+            i8_smem + (ci & 1) * sbytes);
+        const int8_t* bs = as + I8_TILE * ald;
+        for (int ks = kw * 32; ks < k_chunk; ks += 64) {
+            const int8_t* ap = as + (wm0 + g) * ald + ks + 4 * t;
+            const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * ald),
+                                    ld32(ap + 16), ld32(ap + 8 * ald + 16)};
+            const int8_t* bp = bs + (ks + 4 * t) * bld + 4 * g;
+            uint32_t w0[4], w1[4], b0[4], b1[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                w0[i] = ld32(bp + i * bld);
+                w1[i] = ld32(bp + (16 + i) * bld);
+            }
+            transpose4x4(w0, b0);
+            transpose4x4(w1, b1);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+                mma_s8(acc[nt], af, b0[nt], b1[nt]);
+        }
+    }
+    // the second warp of each half hands its sums to the first through
+    // the panels' shared memory
+    cp_async_wait<0>();
+    __syncthreads();
+    int* red = reinterpret_cast<int*>(i8_smem) + (half * 32 + lane) * 16;
+    if (kw == 1) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) red[nt * 4 + e] = acc[nt][e];
+    }
+    __syncthreads();
+    if (kw == 1) return;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] += red[nt * 4 + e];
+    // row g (+ 8): columns 8t .. 8t + 7 of the tile's 32, acc[nt][0 or 2]
+    // at 8t + nt and [1 or 3] at 8t + 4 + nt
+    const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+    const int col = n0 + 8 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wm0 + g + 8 * hr;
+        if (row >= M) continue;
+        int v[8];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            v[nt] = acc[nt][2 * hr];
+            v[4 + nt] = acc[nt][2 * hr + 1];
+        }
+        int32_t* cp = c + (size_t)row * N + col;
+        if (vec && col + 8 <= N) {
+            reinterpret_cast<int4*>(cp)[0] = make_int4(v[0], v[1], v[2], v[3]);
+            reinterpret_cast<int4*>(cp)[1] = make_int4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (col + j < N) cp[j] = v[j];
         }
     }
 }
@@ -552,15 +653,26 @@ int f32_dot_by_plan(int trans_a, const void* a, const void* b, void* c,
 }  // namespace
 }  // namespace wa
 
-// P1: a [M, K] int8, b [K, N] int8, c [M, N] int32, all contiguous.
+// P1: a [M, K] int8, b [K, N] int8, c [M, N] int32, all contiguous; K
+// staged k_chunk (a multiple of 32, ops/probe_mma.int8_plan) at a time.
 extern "C" int wa_probe_int8_mma(const void* a, const void* b, void* c,
-                                 int M, int K, int N, void* stream) {
+                                 int M, int K, int N, int k_chunk,
+                                 void* stream) {
     using namespace wa;
-    if (bad_shape(1, M, K, N)) return ERR_SHAPE;
-    int8_mma_kernel<<<tiles(M, N, 1), MMA_THREADS, 0,
+    if (bad_shape(1, M, K, N) || (M + I8_TILE - 1) / I8_TILE > 65535
+            || k_chunk < 32 || k_chunk % 32 != 0
+            || int8_smem(K, k_chunk) > 48 * 1024)
+        return ERR_SHAPE;
+    const bool a_vec = reinterpret_cast<uintptr_t>(a) % 16 == 0
+        && K % 16 == 0;
+    const bool b_vec = reinterpret_cast<uintptr_t>(b) % 16 == 0
+        && N % 16 == 0;
+    int8_mma_kernel<<<dim3((N + I8_TILE - 1) / I8_TILE,
+                           (M + I8_TILE - 1) / I8_TILE),
+                      I8_THREADS, int8_smem(K, k_chunk),
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-        static_cast<int32_t*>(c), M, K, N);
+        static_cast<int32_t*>(c), M, K, N, k_chunk, a_vec, b_vec);
     return (int)cudaGetLastError();
 }
 

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "wa_self_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wa_cross_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "wa_ffn_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P],
     "wa_self_block_batched": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -75,7 +75,7 @@ _SIGNATURES = {
                            ctypes.c_float, _I, _I, _I, _P, _P, _P],
     "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
     "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
-    "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _P],
+    "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
     "wa_probe_dot_f32": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P, _P],
@@ -200,15 +200,17 @@ _workspaces: dict = {}
 
 
 def workspace(st: int, device: torch.device, name: str, n: int,
-              dtype: torch.dtype = torch.float32) -> int:
+              dtype: torch.dtype = torch.float32, zero: bool = False) -> int:
     """Device address of a scratch buffer of at least ``n`` elements,
     kept per (stream, name) and grown on demand. Launches on one stream
     run in order, so a kernel's scratch is free again when the next
     launch on that stream starts; the buffer is allocated on that stream
-    (the caller's current stream ``st``)."""
+    (the caller's current stream ``st``). ``zero``: a new buffer starts
+    zeroed (counters that each launch leaves at zero)."""
     key = (st, name, dtype)
     buf = _workspaces.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=dtype, device=device)
+        buf = (torch.zeros if zero else torch.empty)(n, dtype=dtype,
+                                                     device=device)
         _workspaces[key] = buf
     return buf.data_ptr()

@@ -40,7 +40,7 @@ scores and the probabilities.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -319,12 +319,49 @@ def _self_block_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
     return x_out, k_row, k_scale, v_row, v_scale
 
 
+# K2's launch (csrc cross_block_kernel): one thread block cluster per
+# head; the plan spreads the head's cache rows over the cluster's blocks
+# (the kernel cuts Wq's rows and Wo's columns over them itself)
+CROSS_BLOCKS = 160            # blocks aimed for over all heads
+CROSS_MAX_CLUSTER = 16        # blocks of one cluster (csrc CB_MAX_CLUSTER)
+CROSS_GROUPS = 64             # rows a chunk holds come in multiples of
+CROSS_MAX_CHUNK = 256         # this, up to this many (a row a thread)
+CROSS_STAGE_BYTES = 48 * 1024  # staged K/V rows (and row scales), a chunk
+
+
+class CrossPlan(NamedTuple):
+    """``cluster`` blocks per head; block r attends over the cache rows
+    [r rows, (r + 1) rows) below n_loop, staged ``chunk`` at a time."""
+    cluster: int
+    rows: int
+    chunk: int
+
+
+def cross_plan(n_heads: int, D: int, n_loop: int,
+               cache_size: int) -> CrossPlan:
+    """K2's launch for ``n_loop`` cache rows of ``cache_size`` bytes an
+    element: about ``CROSS_BLOCKS`` blocks, ``CROSS_MAX_CLUSTER`` at most
+    a head; the rows cut evenly over the cluster (the last blocks may hold
+    fewer, or none); each block stages its rows in chunks of a multiple of
+    ``CROSS_GROUPS`` rows whose K and V (and row scales) fit in
+    ``CROSS_STAGE_BYTES``."""
+    cluster = max(1, min(CROSS_MAX_CLUSTER, CROSS_BLOCKS // max(1, n_heads)))
+    rows = max(1, math.ceil(n_loop / cluster))
+    per_row = 2 * (HEAD_DIM * cache_size + 4)
+    fit = min(CROSS_MAX_CHUNK, CROSS_STAGE_BYTES // per_row
+              // CROSS_GROUPS * CROSS_GROUPS)
+    return CrossPlan(cluster, rows,
+                     min(fit, CROSS_GROUPS * math.ceil(rows / CROSS_GROUPS)))
+
+
 def _cross_block_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
                       n_heads: int):
     _check_call(x, blk["wcq"], l, kq)
     D, T = x.shape[1], kq.shape[2]
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
+    plan = cross_plan(n_heads, D, int(enc_len) if enc_len > 0 else T,
+                      kq.element_size())
     W = _build.workspace
     P = _build.ptr
     rc = _build.library().wa_cross_block(
@@ -334,9 +371,10 @@ def _cross_block_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
         P(kq, l * T * D), P(ks, l * T), P(vq, l * T * D), P(vs, l * T),
         _build.DTYPE_CODES[kq.dtype], T, int(enc_len),
         P(blk["cross_wo"], l * D * D), P(blk["cross_wos"], l * D),
-        P(blk["cross_wob"], l * D), P(x_out),
-        W(st, dev, "qkv", D), W(st, dev, "part", _n_part(n_heads, T)),
-        W(st, dev, "attn", D), st)
+        P(blk["cross_wob"], l * D), P(x_out), *plan,
+        W(st, dev, "cross_y", max(1, n_heads) * D),
+        W(st, dev, "cross_tickets", CROSS_MAX_CLUSTER, torch.int32,
+          zero=True), st)
     _build.check(rc, "cross_block")
     LAUNCHES["cross_block"] += 1
     return x_out

@@ -8,7 +8,8 @@ fragments of the batched attention kernels (K5/K6) instead of casting
 them in a separate pass.
 
 - P1 ``int8_dot``: int8 [M, K] . int8 [K, N] -> int32, exact
-  (``mma.sync`` m16n8k32 s8).
+  (``mma.sync`` m16n8k32 s8 over 32 x 32 tiles; ``int8_plan`` sizes its
+  K chunks).
 - P2 ``mixed_dot``: int8 [M, K] . bf16 [K, N] -> f32 (int8 converted to
   bf16 in registers, then ``mma.sync`` m16n8k16 bf16).
 - P3 ``tricks_dot`` / ``tricks_transpose``: ``dot`` / ``dot_general``
@@ -87,6 +88,19 @@ def int8_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).to(torch.int32)
 
 
+# P1's K staging (csrc int8_mma_kernel): whole up to this depth, else a
+# 2-stage ring of chunks this deep
+I8_PANEL_K = 256
+I8_RING_K = 128
+
+
+def int8_plan(K: int) -> int:
+    """The K that P1 stages at a time for a contraction of ``K``: K
+    rounded up to 32, whole up to ``I8_PANEL_K``, else ``I8_RING_K``."""
+    k = 32 * math.ceil(K / 32)
+    return k if k <= I8_PANEL_K else I8_RING_K
+
+
 def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """P1: a [M, K] int8 . b [K, N] int8 -> [M, N] int32."""
     _check_device(a)
@@ -95,6 +109,10 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         f"{b.dtype}")
     if a.device.type == "cpu":
         return int8_dot_plain(a, b)
+    return _int8_cuda(a, b)
+
+
+def _int8_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _, M, K, N = _dims(a, b, False)
     if a.dim() != 2:
         raise ValueError("int8_dot takes 2-D operands")
@@ -102,7 +120,7 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     rc = _build.library().wa_probe_int8_mma(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-        _build.stream())
+        int8_plan(K), _build.stream())
     _build.check(rc, "int8_dot")
     LAUNCHES["int8_dot"] += 1
     return out
