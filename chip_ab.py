@@ -27,7 +27,9 @@ engine's host ms per decode step (``time_int4_engine``) and
 ``--split`` each process splits the device time of each B=1 decode block
 (K1 ``self_block``, K2 ``cross_block``, K3 ``ffn_block``, at
 ``time_kernels``' operands and both shapes) by kernel instead
-(``kernel_split``). Needs one CUDA GPU.
+(``kernel_split``), and times each over all the layers in turn in one
+graph (``<block>_cold``: at large-v3 the weights then come from device
+memory, not the L2 cache). Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -78,7 +80,10 @@ def time_split_tree(c) -> dict:
     """Device microseconds per call of each B=1 decode block, split by
     kernel (``kernel_split``), at ``time_kernels``' operands: bf16 x,
     compute-dtype self rows at pos 128, int8 cross rows, the last
-    layer."""
+    layer. ``<block>_cold`` is the same call over every layer in turn,
+    in one graph, per call: at large-v3 its weights (and cache rows) come
+    from device memory, as in the decode step, where the one-layer split
+    reads them from the L2 cache."""
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     dev = torch.device("cuda")
@@ -95,13 +100,15 @@ def time_split_tree(c) -> dict:
                                         dev, cdt)
         x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
         calls = {
-            "self_block": lambda: db.self_block(x, blk, sk, None, sv, None,
-                                                128, L - 1, H),
-            "cross_block": lambda: db.cross_block(
-                x, blk, ck, cks, cv, cvs, shape["enc_len"], L - 1, H),
-            "ffn_block": lambda: db.ffn_block(x, blk, L - 1)}
+            "self_block": lambda l: db.self_block(x, blk, sk, None, sv, None,
+                                                  128, l, H),
+            "cross_block": lambda l: db.cross_block(
+                x, blk, ck, cks, cv, cvs, shape["enc_len"], l, H),
+            "ffn_block": lambda l: db.ffn_block(x, blk, l)}
         for k, call in calls.items():
-            out[f"{name}_{k}"] = kernel_split(c, call)
+            out[f"{name}_{k}"] = kernel_split(c, lambda: call(L - 1))
+            out[f"{name}_{k}_cold"] = {"per_call": round(c.graph_ms(
+                lambda: [call(l) for l in range(L)], reps=2) * 1e3 / L, 2)}
         del blk
         torch.cuda.empty_cache()
     return out

@@ -7,6 +7,8 @@ algorithmic difference is the JAX kernels' A&S erf (|err| < 1.5e-7)
 against the exact erf. Token outputs are exact.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -449,3 +451,156 @@ class TestCrossPlan:
         assert ("cross_y", H * D, torch.float32, False) in spaces
         assert ("cross_tickets", tdb.CROSS_MAX_CLUSTER, torch.int32,
                 True) in spaces
+
+
+# (width, hidden) of whisper-tiny, base, small, medium, large-v3, and the
+# narrow model of these tests
+FFN_WIDTHS = [(384, 1536), (512, 2048), (768, 3072), (1024, 4096),
+              (1280, 5120), (128, 512)]
+
+
+def _ffn_blk(D: int, H: int, L: int = 2) -> dict:
+    """A K3 operand set of zeros in the ``prepare_qdecode`` layout."""
+    f32, i8 = torch.float32, torch.int8
+    return {"ln3_w": torch.zeros((L, 1, D), dtype=f32),
+            "ln3_b": torch.zeros((L, 1, D), dtype=f32),
+            "w1": torch.zeros((L, D, H), dtype=i8),
+            "s1": torch.zeros((L, 1, H), dtype=f32),
+            "b1": torch.zeros((L, 1, H), dtype=f32),
+            "w2": torch.zeros((L, H, D), dtype=i8),
+            "fc2_s": torch.zeros((L, 1, D), dtype=f32),
+            "fc2_b": torch.zeros((L, 1, D), dtype=f32)}
+
+
+class TestFfnLaunch:
+    """K3's wrapper: the kernel cuts the hidden layer over clusters of
+    blocks itself (csrc ``ffn_units``); the wrapper passes the operands and
+    the scratch the kernel asks for."""
+
+    @pytest.mark.parametrize("D,H", FFN_WIDTHS,
+                             ids=[f"D{d}" for d, _ in FFN_WIDTHS])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_one_launch(self, monkeypatch, D, H, dtype):
+        """``_ffn_block_cuda`` makes one call of the C entry point with an
+        f32 scratch of the size ``wa_ffn_scratch`` gives for (D, H) and
+        zeroed tickets (K1's and K2's count), and counts one launch."""
+        calls, spaces, asked = [], [], []
+
+        class Lib:
+            def wa_ffn_block(self, *args):
+                calls.append(args)
+                return 0
+
+            def wa_ffn_scratch(self, *args):
+                asked.append(args)
+                return 3 * args[0]
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tdb._build, "library", Lib)
+        monkeypatch.setattr(tdb._build, "stream", lambda: 7)
+        monkeypatch.setattr(tdb._build, "workspace", workspace)
+        x = torch.zeros((1, D), dtype=dtype)
+        before = tdb.LAUNCHES["ffn_block"]
+        y = tdb._ffn_block_cuda(x, _ffn_blk(D, H), 1)
+        assert y.shape == x.shape and y.dtype == dtype
+        assert tdb.LAUNCHES["ffn_block"] == before + 1 and len(calls) == 1
+        assert asked == [(D, H)]
+        args = calls[0]
+        assert args[1:4] == (tdb._build.DTYPE_CODES[dtype], D, H)
+        assert args[13:15] == (1001, 1002)
+        assert args[-1] == 7 and len(args) == 16
+        assert spaces == [
+            ("ffn_y", 3 * D, torch.float32, False),
+            ("ffn_tickets", tdb.CROSS_MAX_CLUSTER, torch.int32, True)]
+
+    def test_signature_matches_the_call(self):
+        """The ctypes signature of the entry has one type per argument the
+        wrapper passes; the scratch query takes (D, H)."""
+        sig = tdb._build._SIGNATURES
+        assert len(sig["wa_ffn_block"]) == 16
+        assert sig["wa_ffn_scratch"] == [ctypes.c_int, ctypes.c_int]
+
+
+def _self_blk(D: int, L: int = 2) -> dict:
+    """A K1 operand set of zeros in the ``prepare_qdecode`` layout."""
+    f32, i8 = torch.float32, torch.int8
+    return {"ln1_w": torch.zeros((L, 1, D), dtype=f32),
+            "ln1_b": torch.zeros((L, 1, D), dtype=f32),
+            "wqkv": torch.zeros((L, D, 3 * D), dtype=i8),
+            "sqkv": torch.zeros((L, 1, 3 * D), dtype=f32),
+            "bqkv": torch.zeros((L, 1, 3 * D), dtype=f32),
+            "self_wo": torch.zeros((L, D, D), dtype=i8),
+            "self_wos": torch.zeros((L, 1, D), dtype=f32),
+            "self_wob": torch.zeros((L, 1, D), dtype=f32)}
+
+
+SELF_DTYPES = [torch.float32, torch.bfloat16, torch.int8,
+               torch.float8_e4m3fn]
+
+
+class TestSelfPlan:
+    """K1 launches the kernel K2 does, one thread block cluster a head,
+    with ``cross_plan`` over its ``pos`` history rows."""
+
+    @pytest.mark.parametrize("H,D", [(6, 384), (20, 1280)],
+                             ids=["tiny", "large-v3"])
+    def test_history_rows_covered_once(self, H, D):
+        """At every position of a 448-token window (no history at 0) each
+        history row lies in one block, in one staged chunk."""
+        from collections import Counter
+        for pos in range(448):
+            plan = tdb.cross_plan(H, D, pos, 2)
+            assert plan.rows * plan.cluster >= pos
+            assert plan.chunk >= min(plan.rows, pos)
+            rows = Counter()
+            for r in range(plan.cluster):
+                rows.update(range(min(pos, r * plan.rows),
+                                  min(pos, (r + 1) * plan.rows)))
+            assert rows == Counter(range(pos))
+
+    @pytest.mark.parametrize("H,D", [(6, 384), (20, 1280)],
+                             ids=["tiny", "large-v3"])
+    @pytest.mark.parametrize("dtype", SELF_DTYPES,
+                             ids=["f32", "bf16", "int8", "fp8"])
+    def test_one_launch(self, monkeypatch, H, D, dtype):
+        """``_self_block_cuda`` makes one call of the C entry point with the
+        plan for its pos rows, an f32 [H, D] scratch, zeroed tickets and,
+        for int8 rows only, an f32 [3D] scratch for the projection between
+        the kernel's two launches; it counts one launch."""
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_self_block(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tdb._build, "library", Lib)
+        monkeypatch.setattr(tdb._build, "stream", lambda: 7)
+        monkeypatch.setattr(tdb._build, "workspace", workspace)
+        L, T, pos = 2, 512, 129
+        kq = torch.zeros((L, 1, T, D), dtype=dtype)
+        ks = torch.ones((L, 1, T, 1)) if dtype == torch.int8 else None
+        x = torch.zeros((1, D), dtype=torch.bfloat16)
+        before = tdb.LAUNCHES["self_block"]
+        out = tdb._self_block_cuda(x, _self_blk(D, L), kq, ks, kq, ks, pos,
+                                   1, H)
+        assert out[0].shape == x.shape and out[1].dtype == dtype
+        assert tdb.LAUNCHES["self_block"] == before + 1 and len(calls) == 1
+        args = calls[0]
+        assert args[13:16] == (tdb._build.DTYPE_CODES[dtype], T, pos)
+        plan = tdb.cross_plan(H, D, pos, kq.element_size())
+        assert tuple(args[24:27]) == tuple(plan)
+        assert args[-1] == 7 and len(args) == 31
+        want = [("self_y", H * D, torch.float32, False),
+                ("self_tickets", tdb.CROSS_MAX_CLUSTER, torch.int32, True)]
+        if dtype == torch.int8:
+            want.append(("self_qkv", 3 * D, torch.float32, False))
+        assert spaces == want
+        assert (args[29] is None) == (dtype != torch.int8)

@@ -555,3 +555,110 @@ def test_cross_edges_cover_the_split(smoke):
         rows = db.cross_plan(H, 64 * H, 1500, 1).rows
         assert any(0 < e < rows for e in smoke.CROSS_EDGES)
         assert any(e > rows and e % rows for e in smoke.CROSS_EDGES)
+
+
+def test_self_edges_cover_the_split(smoke):
+    """K1's smoke checks take no history, one row, both sides of one and
+    two rows a block at the tiny (16 blocks a head) and large-v3 (8)
+    clusters, both sides of 128 and the last row of a 448-token window;
+    one chunk a block holds every block's rows."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    edges = set(smoke.SELF_EDGES)
+    assert {0, 1, 127, 128, 129, 447} <= edges
+    for H in (6, 20):
+        C = db.cross_plan(H, 64 * H, 1, 2).cluster
+        assert {C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1} <= edges
+        for pos in edges:
+            plan = db.cross_plan(H, 64 * H, pos, 2)
+            assert plan.cluster == C and plan.chunk >= plan.rows
+
+
+def _k1_case(smoke, D=128, H=2, L=2, pos=5, seed=3):
+    """K1's plain version on the CPU over int8 rows: (call, x, blk)."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    gen = torch.Generator().manual_seed(seed)
+    blk = smoke.make_blk(D, L, gen, "cpu")
+    kq, ks, vq, vs = smoke.make_cache("int8", L, 64, D, gen, "cpu",
+                                      torch.float32)
+    x = torch.randn((1, D), generator=gen)
+    return (lambda: db.self_block_plain(x, blk, kq, ks, vq, vs, pos, 1, H),
+            x, blk)
+
+
+def test_quantized_rows_records_and_sets_the_rows(smoke):
+    """``quantized_rows`` records the f32 k and v K1's plain version
+    rounds, and with given rows makes it attend to them at its own
+    scales: its own rows give its own output bit for bit, a row one step
+    off another output; the quantizer is restored after."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    call, _, _ = _k1_case(smoke)
+    quantize_row = db.quantize_row
+    with smoke.quantized_rows(db) as pre:
+        ref = call()
+    assert len(pre) == 2 and pre[0].dtype == torch.float32
+    assert torch.equal(quantize_row(pre[0])[0], ref[1])
+    assert torch.equal(quantize_row(pre[1])[0], ref[3])
+    with smoke.quantized_rows(db, (ref[1], ref[3])):
+        same = call()
+    assert all(torch.equal(a, b) for a, b in zip(same, ref))
+    v_row = ref[3].clone()
+    v_row[0, 7] += 1 if v_row[0, 7] < 127 else -1
+    with smoke.quantized_rows(db, (ref[1], v_row)):
+        off = call()
+    assert torch.equal(off[3], v_row) and torch.equal(off[4], ref[4])
+    assert not torch.equal(off[0], ref[0])
+    assert db.quantize_row is quantize_row
+
+
+def _k_rows(smoke):
+    """K1's plain k row at D = 128: (pre, exact k, steps, int8 row)."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    call, x, blk = _k1_case(smoke)
+    with smoke.quantized_rows(db) as pre:
+        ref = call()
+    exact = smoke.exact_qkv(db, x, blk, 1)[:, 128:256]
+    q = pre[0] / (pre[0].abs().amax(-1, keepdim=True) / 127)
+    return pre[0], exact, q, ref[1]
+
+
+def test_rounding_ties_takes_a_tie_only(smoke):
+    """A step off where the value before rounding sits on a half step is
+    a tie; a step off elsewhere is not, and stays the plain's."""
+    pre, exact, q, row = _k_rows(smoke)
+    half = (q.abs() - q.abs().floor() - 0.5).abs()
+    far = int(half.argmax())                   # farthest from a half step
+    j = int((half + (torch.arange(128) == far)).argmin())
+    # move element j onto its half step: what either order may round away
+    step = pre.abs().amax() / 127
+    pre = pre.clone()
+    pre[0, j] = (q[0, j].floor() + 0.5) * step
+    exact = exact.clone()
+    exact[0, j] = pre[0, j].double()
+    got = row.clone()
+    for i in (j, far):
+        got[0, i] += 1 if got[0, i] < 127 else -1
+    tie = smoke.rounding_ties(got, row, pre, exact, "k")
+    assert tie[0, j] and not tie[0, far] and int(tie.sum()) == 1
+
+
+def test_rounding_ties_refuses_a_truncated_row(smoke):
+    """A row truncated where it should round (half its elements a step
+    off) has no element at a tie: the output stays held to the plain
+    version's own rows."""
+    pre, exact, q, row = _k_rows(smoke)
+    got = torch.trunc(q).clamp(-127, 127).to(torch.int8)
+    assert int((got != row).sum()) > 20
+    assert not smoke.rounding_ties(got, row, pre, exact, "k").any()
+
+
+def test_rounding_ties_at_most_tie_max(smoke):
+    """More than TIE_MAX elements a step off at ties is refused."""
+    pre, exact, q, row = _k_rows(smoke)
+    step = pre.abs().amax() / 127
+    pre, got = pre.clone(), row.clone()
+    idx = (q.abs()[0] < 100).nonzero()[:smoke.TIE_MAX + 1, 0]
+    for j in idx.tolist():
+        pre[0, j] = (q[0, j].floor() + 0.5) * step
+        got[0, j] += 1
+    with pytest.raises(AssertionError, match="rounding ties"):
+        smoke.rounding_ties(got, row, pre, pre.double(), "k")

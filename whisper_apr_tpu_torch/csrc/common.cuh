@@ -1,6 +1,6 @@
 // Shared device helpers for the decode kernels (decode_blocks.cu,
-// qmatvec.cu): element conversions, warp/block reductions, and the
-// int8 weight matvec that every kernel of the decode step is built on.
+// qmatvec.cu, ...): element conversions, warp/block reductions and the
+// int8 matvec tiling of the batched kernels.
 //
 // Plain CUDA cores, no tensor cores: at batch 1 every decode matvec reads
 // each int8 weight byte once and does two flops with it, so the bound is
@@ -112,75 +112,6 @@ __device__ __forceinline__ float block_max(float v, float* scratch32) {
     const float r = scratch32[0];
     __syncthreads();
     return r;
-}
-
-// Stage the K-long input vector of a matvec into shared memory as f32,
-// optionally LayerNorm it (f32 statistics, as the JAX kernels' _ln) and
-// round it to bf16 (the compute dtype the JAX kernels cast h to before the
-// int8 dot). Ends with a barrier.
-template <typename IT>
-__device__ __forceinline__ void stage_input(
-        const IT* __restrict__ xin, int K, const float* __restrict__ ln_w,
-        const float* __restrict__ ln_b, int round_to_bf16, float* hs,
-        float* scratch32) {
-    for (int i = threadIdx.x; i < K; i += blockDim.x) hs[i] = to_f32(xin[i]);
-    __syncthreads();
-    if (ln_w != nullptr) {
-        float s = 0.f;
-        for (int i = threadIdx.x; i < K; i += blockDim.x) s += hs[i];
-        const float mean = block_sum(s, scratch32) / (float)K;
-        float v = 0.f;
-        for (int i = threadIdx.x; i < K; i += blockDim.x) {
-            const float d = hs[i] - mean;
-            v += d * d;
-        }
-        const float var = block_sum(v, scratch32) / (float)K;
-        const float rstd = rsqrtf(var + LN_EPS);
-        for (int i = threadIdx.x; i < K; i += blockDim.x)
-            hs[i] = (hs[i] - mean) * rstd * ln_w[i] + ln_b[i];
-        __syncthreads();
-    }
-    if (round_to_bf16) {
-        for (int i = threadIdx.x; i < K; i += blockDim.x)
-            hs[i] = round_bf16(hs[i]);
-        __syncthreads();
-    }
-}
-
-// acc = sum_k hs[k] * w[k, col] for the block's MV_COLS columns, f32
-// accumulation. w is [K, N] int8 row-major (input-major, the JAX layout),
-// N % MV_COLS == 0. Returns the column sum to threads 0..MV_COLS-1 (the
-// first warp); other threads get 0. Ends with a barrier.
-__device__ __forceinline__ float block_matvec_cols(
-        const float* hs, int K, const int8_t* __restrict__ w, int N,
-        float (*red)[MV_COLS + 1]) {
-    const int tid = threadIdx.x;
-    const int cg = tid % MV_CGROUPS;
-    const int kl = tid / MV_CGROUPS;
-    const int n0 = blockIdx.x * MV_COLS + cg * 4;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    const int8_t* wp = w + n0;
-#pragma unroll 4
-    for (int k = kl; k < K; k += MV_KLANES) {
-        const char4 q = __ldg(reinterpret_cast<const char4*>(wp + (size_t)k * N));
-        const float h = hs[k];
-        a0 += h * (float)q.x;
-        a1 += h * (float)q.y;
-        a2 += h * (float)q.z;
-        a3 += h * (float)q.w;
-    }
-    red[kl][cg * 4 + 0] = a0;
-    red[kl][cg * 4 + 1] = a1;
-    red[kl][cg * 4 + 2] = a2;
-    red[kl][cg * 4 + 3] = a3;
-    __syncthreads();
-    float acc = 0.f;
-    if (tid < MV_COLS) {
-#pragma unroll 8
-        for (int r = 0; r < MV_KLANES; ++r) acc += red[r][tid];
-    }
-    __syncthreads();
-    return acc;
 }
 
 }  // namespace wa

@@ -17,124 +17,48 @@
 //
 // What bounds them on the card: at batch 1 each call reads every int8
 // weight byte of its sub-block once (large-v3: 6.55 MB QKV [1280, 3840]
-// plus o-proj [1280, 1280], 3.3 MB q+o-proj, 13.1 MB fc1+fc2 per layer) and, for attention, every live
-// cache row once (cross8 large-v3: 1500 int8 rows of K and V, 3.8 MB per
-// layer). Arithmetic is two flops per byte, far under the card's
-// flop/byte ratio, so the only lever is moving fewer bytes and keeping
-// enough blocks in flight to pull the bandwidth.
+// plus o-proj [1280, 1280], 3.3 MB q+o-proj, 13.1 MB fc1+fc2 per layer)
+// and, for attention, every live cache row once (cross8 large-v3: 1500
+// int8 rows of K and V, 3.8 MB per layer). Arithmetic is two flops per
+// byte, far under the card's flop/byte ratio, so the only lever is moving
+// fewer bytes and keeping enough blocks in flight to pull the bandwidth.
 //
-// Design: one C entry per op. K1 and K3 make a few launches each, so that
-// every matvec spreads its columns over many SMs (MV_COLS columns per
-// block, the LN recomputed per block from the D-long input) and the
-// attention spreads its rows (attention.cuh, at one slot); the k/v row of
-// the current token is written out for the caller to scatter after the
-// layer loop. K2 is one launch: at batch 1 each of its four steps moves
-// well under a microsecond of bytes, so launches and the serial path
-// inside each block, not bandwidth, set its time (below).
+// Design: one C entry per op, each a single launch on the rows the decode
+// step uses (K1 on int8 self rows takes two, below). At batch 1 each step
+// of a block moves well under a microsecond of bytes, so launches and the
+// serial path inside each block set the time from the L2 cache; from
+// device memory (the decode step cycles through every layer's weights)
+// the bytes a block copies at its start do. K1 and K2 share one kernel: a
+// thread block cluster per head (below). K3 cuts the hidden layer over
+// clusters (further below).
 #include "attention.cuh"
 #include "cp_async.cuh"
 
 namespace wa {
 namespace {
 
-enum Epi { EPI_AFFINE = 0, EPI_GELU = 1, EPI_RESID = 2 };
-
-// out[n] = epilogue(sum_k h[k] * w[k, n]) with h = [LN](xin) [rounded to
-// bf16]; EPI_AFFINE: acc*s+b (f32 out), EPI_GELU: gelu(acc*s+b) [rounded
-// to bf16] (f32 out), EPI_RESID: acc*s+b+resid -> RT out.
-template <typename IT, typename RT, int EPI>
-__global__ void __launch_bounds__(MV_THREADS) qmv_kernel(
-        const IT* __restrict__ xin, int K, int N,
-        const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-        int round_to_bf16, const int8_t* __restrict__ w,
-        const float* __restrict__ scale, const float* __restrict__ bias,
-        const RT* __restrict__ resid, void* __restrict__ out) {
-    extern __shared__ float hs[];
-    __shared__ float red[MV_KLANES][MV_COLS + 1];
-    __shared__ float scratch[32];
-    stage_input(xin, K, ln_w, ln_b, round_to_bf16, hs, scratch);
-    const float acc = block_matvec_cols(hs, K, w, N, red);
-    if (threadIdx.x < MV_COLS) {
-        const int n = blockIdx.x * MV_COLS + threadIdx.x;
-        const float y = acc * scale[n] + bias[n];
-        if constexpr (EPI == EPI_AFFINE) {
-            static_cast<float*>(out)[n] = y;
-        } else if constexpr (EPI == EPI_GELU) {
-            float g = 0.5f * y * (1.0f + erff(y * 0.7071067811865475f));
-            if (round_to_bf16) g = round_bf16(g);
-            static_cast<float*>(out)[n] = g;
-        } else {
-            static_cast<RT*>(out)[n] = from_f32<RT>(y + to_f32(resid[n]));
-        }
-    }
-}
-
-template <typename IT, typename RT, int EPI>
-cudaError_t launch_qmv(const void* xin, int K, int N, const float* ln_w,
-                       const float* ln_b, int round_to_bf16, const int8_t* w,
-                       const float* scale, const float* bias,
-                       const void* resid, void* out, cudaStream_t st) {
-    const size_t smem = (size_t)K * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            qmv_kernel<IT, RT, EPI>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    qmv_kernel<IT, RT, EPI><<<N / MV_COLS, MV_THREADS, smem, st>>>(
-        static_cast<const IT*>(xin), K, N, ln_w, ln_b, round_to_bf16, w,
-        scale, bias, static_cast<const RT*>(resid), out);
-    return cudaGetLastError();
-}
-
-template <typename XT>
-cudaError_t self_block_t(const void* x, int D, int H, const float* ln_w,
-                         const float* ln_b, const int8_t* wqkv,
-                         const float* sqkv, const float* bqkv,
-                         const void* kq, const float* ks, const void* vq,
-                         const float* vs, int cache_dtype, int T, int pos,
-                         const int8_t* wo, const float* wos,
-                         const float* wob, void* x_out, void* k_row,
-                         float* k_scale, void* v_row, float* v_scale,
-                         float* qkv, float* part, float* attn,
-                         cudaStream_t st) {
-    const int bf = sizeof(XT) == 2;
-    cudaError_t e = launch_qmv<XT, XT, EPI_AFFINE>(
-        x, D, 3 * D, ln_w, ln_b, bf, wqkv, sqkv, bqkv, nullptr, qkv, st);
-    if (e != cudaSuccess) return e;
-    // rows < pos are the history; the current row rides in qkv[D:3D]
-    AttnArgs a{};
-    a.q = qkv; a.q_stride = 3 * D;
-    a.kc = kq; a.vc = vq; a.ks = ks; a.vs = vs;
-    a.kv_stride = (long long)T * D; a.T = T; a.D = D; a.H = H;
-    a.lens = nullptr; a.n_valid = pos; a.n_loop = pos;
-    a.n_splits = n_att_splits(pos); a.part = part;
-    a.kv_cur = qkv + D; a.cur_stride = 3 * D;
-    a.k_row = k_row; a.v_row = v_row; a.k_scale = k_scale;
-    a.v_scale = v_scale; a.attn_out = attn;
-    e = attention(cache_dtype, a, 1, st);
-    if (e != cudaSuccess) return e;
-    return launch_qmv<float, XT, EPI_RESID>(attn, D, D, nullptr, nullptr, bf,
-                                            wo, wos, wob, x, x_out, st);
-}
-
 // --------------------------------------------------------------------------
-// K2 cross_block: one launch, one thread block cluster per head
+// K1 self_block and K2 cross_block: one thread block cluster per head
 // --------------------------------------------------------------------------
 //
 // Grid (C, H) with clusters of (C, 1, 1): the C blocks of head h's cluster
 // split the head's work three ways (ops/decode_blocks.cross_plan chooses
 // C, the rows per block and the rows staged at a time):
-//   - q_h = LN2(x) . Wq[:, 64 h : 64 h + 64]: block r sums Wq rows
-//     [r D / C, (r + 1) D / C) and stores its share into every block of
-//     the cluster (st.async into distributed shared memory, counted by
-//     the receiver's transaction barrier); each adds them in rank order;
+//   - the head's projection, LN(x) . Wq[:, head's columns]: 64 columns
+//     (q_h) for K2, 192 for K1 (q_h, k_h and v_h of the fused QKV); block
+//     r sums Wq rows [r D / C, (r + 1) D / C) and stores its share into
+//     every block of the cluster (st.async into distributed shared memory,
+//     counted by the receiver's transaction barrier); each adds them in
+//     rank order;
+//   - K1: the current token's k/v row in the cache's form (block 0 writes
+//     the head's 64 elements out) and its score, the same in every block;
 //   - attention: block r takes cache rows [r rows, (r + 1) rows) below
 //     n_loop, staged a chunk at a time: scores by groups of 4 threads a
 //     row, the chunk's max through the warps, weights a row a thread, the
 //     weighted V rows a dim a thread (a running max and sum across
-//     chunks); its (m, l, acc[64]) goes to every block as q's shares did,
-//     and each merges them in rank order;
+//     chunks); its (m, l, acc[64]) goes to every block as the projection's
+//     shares did, and each merges them in rank order (K1: then the
+//     current row);
 //   - o-proj: y = sum_h attn_h . Wo[64 h : 64 h + 64, :]; block r takes
 //     the columns [16 (r U / C), 16 ((r + 1) U / C)), U = D / 16, writes
 //     its head's partial to scratch, and the last of the H blocks of that
@@ -143,10 +67,19 @@ cudaError_t self_block_t(const void* x, int D, int H, const float* ln_w,
 // Every sum runs in a fixed order: two runs give the same bits.
 // x, and the block's share of Wq, of Wo and its first chunk of K/V rows
 // (and their row scales) are loaded as the block starts (cp.async into
-// shared memory), so the LayerNorm, the q matvec and the first exchange
-// overlap those loads. Measured on an H100 (PERF.md): the time is the
-// serial path of one block, a few hundred cycles to a microsecond a
-// step, not the bytes.
+// shared memory), so the LayerNorm, the projection and the first exchange
+// overlap those loads. Measured on an H100 (PERF.md): from the L2 cache
+// the time is the serial path of one block, a few hundred cycles to a
+// microsecond a step, not the bytes.
+//
+// An int8 self cache quantizes the new k and v rows with one scale each
+// over all D columns, so head h's current row depends on every head's
+// projection: a dependency across clusters, which one launch could only
+// meet by a grid-wide wait (safe only if every block is resident at
+// once). K1 on int8 rows is two launches of this kernel instead:
+// HB_PROJECT writes the projection [3D] to scratch, HB_ATTEND reads it
+// back (the scales from all of k and v) and goes on from the current row.
+enum HeadKind { HB_CROSS = 0, HB_SELF = 1, HB_PROJECT = 2, HB_ATTEND = 3 };
 
 constexpr int CB_THREADS = 256;
 constexpr int CB_GROUPS = CB_THREADS / 4;          // scores: 4 threads a row
@@ -157,22 +90,22 @@ constexpr int CB_KLANES = CB_THREADS / 16;         // q matvec: 16 threads a row
 constexpr int CB_RED = 1024;                       // floats of reduction scratch
 constexpr unsigned FULL = 0xffffffffu;
 
-// shared-memory layout of a K2 block, in bytes (every offset a multiple
-// of 16)
-struct CrossLayout {
+// shared-memory layout of a K1 / K2 block, in bytes (every offset a
+// multiple of 16); W projected columns (64 or 192)
+struct HeadLayout {
     int wq_rows, wo_cols;                 // most rows / columns a block takes
-    int xs, wq, wo, k, v, ks, vs, s, p, red, qall, pall, q, att, flag,
+    int xs, wq, wo, k, v, ks, vs, s, p, red, qall, pall, q, att, cur, flag,
         bars, total;
 };
 
-__host__ __device__ inline CrossLayout cross_layout(int D, int C, int chunk,
-                                                    int cache_size) {
-    CrossLayout L;
+__host__ __device__ inline HeadLayout head_layout(int D, int C, int chunk,
+                                                  int cache_size, int W) {
+    HeadLayout L;
     L.wq_rows = (D + C - 1) / C;
     L.wo_cols = 16 * ((D / 16 + C - 1) / C);
     int o = 0;
     L.xs = o;   o += D * 4;
-    L.wq = o;   o += L.wq_rows * HD;
+    L.wq = o;   o += L.wq_rows * W;
     L.wo = o;   o += HD * L.wo_cols;
     L.k = o;    o += chunk * HD * cache_size;
     L.v = o;    o += chunk * HD * cache_size;
@@ -180,12 +113,14 @@ __host__ __device__ inline CrossLayout cross_layout(int D, int C, int chunk,
     L.vs = o;   o += chunk * 4;
     L.s = o;    o += chunk * 4;           // the chunk's scores
     L.p = o;    o += chunk * 4;           // and weights
-    L.red = o;  o += CB_RED * 4;
-    L.qall = o; o += C * HD * 4;          // each block's share of q_h
+    L.red = o;  o += (CB_RED > 8 * W ? CB_RED : 8 * W) * 4;
+    L.qall = o; o += C * W * 4;           // each block's projection share
     L.pall = o; o += C * (HD + 4) * 4;    // each block's m, l, acc[64]
     L.q = o;    o += HD * 4;
     L.att = o;  o += HD * 4;
-    L.flag = o; o += 16;
+    L.cur = o;                            // K1: q, k, v of the head [W],
+    if (W > HD) o += (W + 2 * HD + 20) * 4;  // its k, v rows, |k|, |v|
+    L.flag = o; o += 16;                  // maxima [16] and score
     L.bars = o; o += 16;                  // the two barriers of the exchanges
     L.total = o;
     return L;
@@ -232,6 +167,62 @@ __device__ __forceinline__ void st_async(uint32_t to, float v, uint32_t bar) {
                  :: "r"(to), "r"(__float_as_uint(v)), "r"(bar) : "memory");
 }
 
+// four floats into another block's shared memory at cluster address `to`
+// (16-byte aligned); counts 16 bytes against its barrier at `bar`
+__device__ __forceinline__ void st_async4(uint32_t to, const float (&v)[4],
+                                          uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes"
+                 ".v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+                 :: "r"(to), "r"(__float_as_uint(v[0])),
+                    "r"(__float_as_uint(v[1])), "r"(__float_as_uint(v[2])),
+                    "r"(__float_as_uint(v[3])), "r"(bar) : "memory");
+}
+
+// four int8 bytes (one 32-bit word) widened exactly at the FMA rate (the
+// int-to-float conversion runs at a quarter of it): biased to b + 128 by
+// the xor, set as the low byte of the f32 2^23 + (b + 128) by a byte
+// permute, the bias taken off by one subtraction
+__device__ __forceinline__ void widen4(uint32_t w, float (&v)[4]) {
+    w ^= 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+        v[b] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | b))
+            - 8388736.f;
+}
+
+// LayerNorm statistics of xs[0, D) (f32 in shared memory): every warp
+// takes them over all of x itself (the same sums in the same order), no
+// block reduction
+__device__ __forceinline__ void ln_stats(const float* xs, int D, float& mean,
+                                         float& rstd) {
+    const int lane = threadIdx.x & 31;
+    float sum = 0.f;
+    for (int i = lane; i < D; i += 32) sum += xs[i];
+    mean = warp_sum(sum) / (float)D;
+    float var = 0.f;
+    for (int i = lane; i < D; i += 32) {
+        const float d = xs[i] - mean;
+        var += d * d;
+    }
+    rstd = rsqrtf(warp_sum(var) / (float)D + LN_EPS);
+}
+
+// After the block's partials are written: true in the block that takes
+// the last of n tickets at *ticket, which then sees every block's
+// partials (release before the ticket, acquire after the last one)
+__device__ __forceinline__ bool last_ticket(int* ticket, int n, int* flag) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");    // release
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const int t = atomicAdd(ticket, 1);
+        *flag = t == n - 1;
+        if (t == n - 1)
+            asm volatile("fence.acq_rel.gpu;\n" ::: "memory");  // acquire
+    }
+    __syncthreads();
+    return *flag;
+}
+
 // 16 consecutive cache elements (a quarter of a head's row) in shared
 // memory, as f32
 __device__ __forceinline__ void row16(const float* p, float (&v)[16]) {
@@ -255,20 +246,17 @@ __device__ __forceinline__ void row16(const __nv_bfloat16* p,
         }
     }
 }
-// int8 bytes widened exactly at the FMA rate (the int-to-float
-// conversion runs at a quarter of it): biased to b + 128 by the xor, set
-// as the low byte of the f32 2^23 + (b + 128) by a byte permute, the bias
-// taken off by one subtraction
+// int8 widened by widen4
 __device__ __forceinline__ void row16(const int8_t* p, float (&v)[16]) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
-                           u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j) {
+        float f[4];
+        widen4(w[j], f);
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-            v[4 * j + b] = __uint_as_float(
-                __byte_perm(w[j], 0x4B000000u, 0x7540 | b)) - 8388736.f;
+        for (int b = 0; b < 4; ++b) v[4 * j + b] = f[b];
+    }
 }
 __device__ __forceinline__ void row16(const __nv_fp8_e4m3* p,
                                       float (&v)[16]) {
@@ -287,9 +275,90 @@ __device__ __forceinline__ float elem<int8_t>(const int8_t* p) {
     return __uint_as_float(0x4B000000u | u) - 8388736.f;
 }
 
-// grid (C, H), clusters (C, 1, 1); see above
-template <typename XT, typename CT>
-__global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
+// K1 on int8 rows, second launch: the head's projection [q, k, v] back
+// from the first launch's scratch qkv [3D], and every warp's max |k| and
+// |v| over all of D (the rows' scales) into amax[0, 8) and amax[8, 16)
+__device__ __forceinline__ void read_projection(const float* qkv, int D,
+                                                int h, float* proj,
+                                                float* amax) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < 3 * HD)
+        proj[tid] = qkv[(tid / HD) * D + h * HD + tid % HD];
+    float ka = 0.f, va = 0.f;
+    for (int i = tid; i < D; i += CB_THREADS) {
+        ka = fmaxf(ka, fabsf(qkv[D + i]));
+        va = fmaxf(va, fabsf(qkv[2 * D + i]));
+    }
+    ka = warp_max(ka);
+    va = warp_max(va);
+    if (lane == 0) {
+        amax[warp] = ka;
+        amax[8 + warp] = va;
+    }
+}
+
+// K1: from the head's projection proj [q, k, v] (int8 rows: and the warps'
+// maxima amax), the current token's k/v row in the cache's form (block 0
+// of each head writes the head's 64 elements out), the row as attention
+// reads it (kcur, vcur), the scaled query qf and the row's score s_cur
+template <typename CT>
+__device__ __forceinline__ void current_row(
+        const float* proj, const float* amax, float* kcur, float* vcur,
+        float* qf, float* s_cur, CT* __restrict__ k_row,
+        CT* __restrict__ v_row, float* __restrict__ k_scale,
+        float* __restrict__ v_scale, int h, int r) {
+    constexpr bool I8 = std::is_same<CT, int8_t>::value;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float ksc = 1.f, vsc = 1.f;        // int8: one scale over all D columns
+    if constexpr (I8) {
+        float ka = 0.f, va = 0.f;
+#pragma unroll
+        for (int w = 0; w < CB_THREADS / 32; ++w) {
+            ka = fmaxf(ka, amax[w]);
+            va = fmaxf(va, amax[8 + w]);
+        }
+        ksc = fmaxf(ka, 1e-12f) / 127.f;
+        vsc = fmaxf(va, 1e-12f) / 127.f;
+    }
+    if (tid < HD) {
+        const float k = proj[HD + tid], v = proj[2 * HD + tid];
+        CT kr, vr;
+        if constexpr (I8) {
+            const float k8 = fminf(fmaxf(rintf(k / ksc), -127.f), 127.f);
+            const float v8 = fminf(fmaxf(rintf(v / vsc), -127.f), 127.f);
+            kr = (int8_t)k8;
+            vr = (int8_t)v8;
+            kcur[tid] = k8 * ksc;
+            vcur[tid] = v8 * vsc;
+        } else {
+            kr = from_f32<CT>(k);
+            vr = from_f32<CT>(v);
+            kcur[tid] = to_f32(kr);
+            vcur[tid] = to_f32(vr);
+        }
+        if (r == 0) {
+            k_row[h * HD + tid] = kr;
+            v_row[h * HD + tid] = vr;
+        }
+        qf[tid] = proj[tid] * QSCALE;
+    }
+    if (h == 0 && r == 0 && tid == 0) {
+        *k_scale = ksc;
+        *v_scale = vsc;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        float sc = qf[2 * lane] * kcur[2 * lane]
+            + qf[2 * lane + 1] * kcur[2 * lane + 1];
+        sc = warp_sum(sc);
+        if (lane == 0) *s_cur = sc;
+    }
+}
+
+// grid (C, H), clusters (C, 1, 1); see above. K2: HB_CROSS; K1: HB_SELF
+// (f32, bf16 and fp8 rows), or HB_PROJECT then HB_ATTEND (int8 rows).
+template <typename XT, typename CT, int KIND>
+__global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
         const XT* __restrict__ x, int D, const float* __restrict__ ln_w,
         const float* __restrict__ ln_b, const int8_t* __restrict__ wq,
         const float* __restrict__ sq, const float* __restrict__ bq,
@@ -298,19 +367,27 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
         int n_valid, int n_loop, int rows, int chunk,
         const int8_t* __restrict__ wo, const float* __restrict__ wos,
         const float* __restrict__ wob, XT* __restrict__ x_out,
-        float* __restrict__ ypart, int* __restrict__ tickets) {
+        float* __restrict__ ypart, int* __restrict__ tickets,
+        CT* __restrict__ k_row, CT* __restrict__ v_row,
+        float* __restrict__ k_scale, float* __restrict__ v_scale,
+        float* __restrict__ qkv) {
+    constexpr bool SELF = KIND != HB_CROSS;
+    constexpr bool PROJ = KIND != HB_ATTEND;   // computes the projection
+    constexpr bool ATT = KIND != HB_PROJECT;   // attends and projects out
+    constexpr int NP = SELF ? 3 : 1;           // 64-column pieces: q (k, v)
+    constexpr int W = NP * HD;
     extern __shared__ __align__(16) unsigned char cb_smem[];
     const int C = gridDim.x, r = blockIdx.x, h = blockIdx.y, H = gridDim.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const CrossLayout lay = cross_layout(D, C, chunk, sizeof(CT));
-    // the exchanges' barriers expect every block's share of q_h and its
-    // (m, l, acc[64]); a block stores into the others only once all have
-    // set theirs up: arrive here, wait before the first remote store
+    const HeadLayout lay = head_layout(D, C, ATT ? chunk : 0, sizeof(CT), W);
+    // the exchanges' barriers expect every block's projection share and
+    // its (m, l, acc[64]); a block stores into the others only once all
+    // have set theirs up: arrive here, wait before the first remote store
     uint64_t* bar_q = reinterpret_cast<uint64_t*>(cb_smem + lay.bars);
     uint64_t* bar_p = bar_q + 1;
     if (tid == 0) {
-        mbar_init_expect(bar_q, C * HD * 4);
-        mbar_init_expect(bar_p, C * (HD + 2) * 4);
+        if (PROJ) mbar_init_expect(bar_q, C * W * 4);
+        if (ATT) mbar_init_expect(bar_p, C * (HD + 2) * 4);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncwarp();
@@ -325,10 +402,15 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
     float* s_sh = reinterpret_cast<float*>(cb_smem + lay.s);
     float* p_sh = reinterpret_cast<float*>(cb_smem + lay.p);
     float* red = reinterpret_cast<float*>(cb_smem + lay.red);
-    float* qall = reinterpret_cast<float*>(cb_smem + lay.qall);  // [C][64]
+    float* qall = reinterpret_cast<float*>(cb_smem + lay.qall);  // [C][W]
     float* pall = reinterpret_cast<float*>(cb_smem + lay.pall);  // [C][68]
     float* qf = reinterpret_cast<float*>(cb_smem + lay.q);
     float* att = reinterpret_cast<float*>(cb_smem + lay.att);
+    float* proj = reinterpret_cast<float*>(cb_smem + lay.cur);   // [W]
+    float* kcur = proj + W;           // the current row as the cache holds it
+    float* vcur = kcur + HD;
+    float* amax = vcur + HD;        // [16] the warps' max |k|, max |v|
+    float* s_cur = amax + 16;       // the current row's score
     int* flag = reinterpret_cast<int*>(cb_smem + lay.flag);
 
     // this block's shares of Wq's rows, Wo's columns and the cache rows
@@ -341,26 +423,27 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
     // 1. load x, and start the copies: Wq's rows, Wo's columns, the first
     //    chunk of K/V rows; three groups, in that order. Then the
     //    epilogue's operands of this block's columns (any block may finish
-    //    last)
+    //    last). HB_ATTEND reads the projection back instead (and, for the
+    //    int8 row scales, every warp's max |k| and |v| over all of D)
     float xr[CB_XMAX];
+    if constexpr (PROJ) {
 #pragma unroll
-    for (int j = 0; j < CB_XMAX; ++j) {
-        const int i = tid + j * CB_THREADS;
-        xr[j] = i < D ? to_f32(x[i]) : 0.f;
+        for (int j = 0; j < CB_XMAX; ++j) {
+            const int i = tid + j * CB_THREADS;
+            xr[j] = i < D ? to_f32(x[i]) : 0.f;
+        }
+        for (int e = tid; e < (k1 - k0) * 4 * NP; e += CB_THREADS) {
+            const int row = e / (4 * NP), pc = e % (4 * NP);
+            const int c = (pc >> 2) * HD + (pc & 3) * 16;  // piece, 16 bytes
+            cp_async16(wq_s + row * W + c, wq + (size_t)(k0 + row) * NP * D
+                       + (pc >> 2) * D + h * HD + (pc & 3) * 16, 16);
+        }
+        cp_async_commit();
+    } else {
+        read_projection(qkv, D, h, proj, amax);
     }
-    for (int e = tid; e < (k1 - k0) * 4; e += CB_THREADS) {
-        const int row = e >> 2, c = (e & 3) * 16;
-        cp_async16(wq_s + row * HD + c, wq + (size_t)(k0 + row) * D + h * HD
-                   + c, 16);
-    }
-    cp_async_commit();
-    const int wo_pieces = (c1 - c0) / 16;
-    for (int e = tid; e < HD * wo_pieces; e += CB_THREADS) {
-        const int d = e / wo_pieces, c = (e % wo_pieces) * 16;
-        cp_async16(wo_s + d * lay.wo_cols + c,
-                   wo + (size_t)(h * HD + d) * D + c0 + c, 16);
-    }
-    cp_async_commit();
+    float ep_s[CB_RED / CB_THREADS], ep_b[CB_RED / CB_THREADS],
+        ep_x[CB_RED / CB_THREADS];
     auto stage_rows = [&](int ta, int n) {    // rows [ta, ta + n), one group
         constexpr int PER_ROW = HD * (int)sizeof(CT) / 16;
         constexpr int EL = 16 / (int)sizeof(CT);
@@ -377,93 +460,115 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
             }
         cp_async_commit();
     };
-    stage_rows(t0, min(chunk, t1 - t0));
-    float ep_s[CB_RED / CB_THREADS], ep_b[CB_RED / CB_THREADS],
-        ep_x[CB_RED / CB_THREADS];
+    if constexpr (ATT) {
+        const int wo_pieces = (c1 - c0) / 16;
+        for (int e = tid; e < HD * wo_pieces; e += CB_THREADS) {
+            const int d = e / wo_pieces, c = (e % wo_pieces) * 16;
+            cp_async16(wo_s + d * lay.wo_cols + c,
+                       wo + (size_t)(h * HD + d) * D + c0 + c, 16);
+        }
+        cp_async_commit();
+        stage_rows(t0, min(chunk, t1 - t0));
 #pragma unroll
-    for (int j = 0; j < CB_RED / CB_THREADS; ++j) {
-        const int n = c0 + tid + j * CB_THREADS;
-        const bool in = n < c1;
-        ep_s[j] = in ? wos[n] : 0.f;
-        ep_b[j] = in ? wob[n] : 0.f;
-        ep_x[j] = in ? to_f32(x[n]) : 0.f;
+        for (int j = 0; j < CB_RED / CB_THREADS; ++j) {
+            const int n = c0 + tid + j * CB_THREADS;
+            const bool in = n < c1;
+            ep_s[j] = in ? wos[n] : 0.f;
+            ep_b[j] = in ? wob[n] : 0.f;
+            ep_x[j] = in ? to_f32(x[n]) : 0.f;
+        }
     }
+    if constexpr (PROJ) {
 #pragma unroll
-    for (int j = 0; j < CB_XMAX; ++j) {
-        const int i = tid + j * CB_THREADS;
-        if (i < D) xs[i] = xr[j];
+        for (int j = 0; j < CB_XMAX; ++j) {
+            const int i = tid + j * CB_THREADS;
+            if (i < D) xs[i] = xr[j];
+        }
     }
     __syncthreads();
 
-    // 2. LayerNorm: every warp takes the f32 statistics over all of x
-    //    itself (the same sums in the same order), no block reduction; the
-    //    block's Wq rows normalized and rounded to x's dtype
-    float sum = 0.f;
-    for (int i = lane; i < D; i += 32) sum += xs[i];
-    const float mean = warp_sum(sum) / (float)D;
-    float var = 0.f;
-    for (int i = lane; i < D; i += 32) {
-        const float d = xs[i] - mean;
-        var += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(var) / (float)D + LN_EPS);
-    __syncthreads();                // every warp has read x
-    for (int i = k0 + tid; i < k1; i += CB_THREADS) {
-        const float hv = (xs[i] - mean) * rstd * ln_w[i] + ln_b[i];
-        xs[i] = sizeof(XT) == 2 ? round_bf16(hv) : hv;
-    }
-    cp_async_wait<2>();             // Wq's rows have landed
-    __syncthreads();
+    if constexpr (PROJ) {
+        // 2. LayerNorm: the statistics over all of x (ln_stats); the
+        //    block's Wq rows normalized and rounded to x's dtype
+        float mean, rstd;
+        ln_stats(xs, D, mean, rstd);
+        __syncthreads();            // every warp has read x
+        for (int i = k0 + tid; i < k1; i += CB_THREADS) {
+            const float hv = (xs[i] - mean) * rstd * ln_w[i] + ln_b[i];
+            xs[i] = sizeof(XT) == 2 ? round_bf16(hv) : hv;
+        }
+        if constexpr (ATT) cp_async_wait<2>();  // Wq's rows have landed
+        else cp_async_wait<0>();
+        __syncthreads();
 
-    // 3. this block's share of q_h (16 threads of 4 columns a row, 16 rows
-    //    in flight), stored into every block of the cluster; each adds the
-    //    shares in rank order
-    {
+        // 3. this block's share of each 64-column piece (16 threads of 4
+        //    columns a row, 16 rows in flight), stored into every block of
+        //    the cluster; each adds the shares in rank order
         const int c4 = tid & 15, kl = tid >> 4;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        for (int k = k0 + kl; k < k1; k += CB_KLANES) {
-            const char4 w = *reinterpret_cast<const char4*>(
-                wq_s + (k - k0) * HD + 4 * c4);
-            const float hv = xs[k];
-            a0 += hv * (float)w.x;
-            a1 += hv * (float)w.y;
-            a2 += hv * (float)w.z;
-            a3 += hv * (float)w.w;
+#pragma unroll
+        for (int pc = 0; pc < NP; ++pc) {
+            float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+            for (int k = k0 + kl; k < k1; k += CB_KLANES) {
+                const char4 w = *reinterpret_cast<const char4*>(
+                    wq_s + (k - k0) * W + pc * HD + 4 * c4);
+                const float hv = xs[k];
+                a0 += hv * (float)w.x;
+                a1 += hv * (float)w.y;
+                a2 += hv * (float)w.z;
+                a3 += hv * (float)w.w;
+            }
+            a0 += __shfl_xor_sync(FULL, a0, 16);
+            a1 += __shfl_xor_sync(FULL, a1, 16);
+            a2 += __shfl_xor_sync(FULL, a2, 16);
+            a3 += __shfl_xor_sync(FULL, a3, 16);
+            if (lane < 16) {
+                float* o = red + warp * W + pc * HD + 4 * c4;
+                o[0] = a0; o[1] = a1; o[2] = a2; o[3] = a3;
+            }
         }
-        a0 += __shfl_xor_sync(FULL, a0, 16);
-        a1 += __shfl_xor_sync(FULL, a1, 16);
-        a2 += __shfl_xor_sync(FULL, a2, 16);
-        a3 += __shfl_xor_sync(FULL, a3, 16);
-        if (lane < 16) {
-            float* o = red + warp * HD + 4 * c4;
-            o[0] = a0; o[1] = a1; o[2] = a2; o[3] = a3;
+        __syncthreads();
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+        {   // the 4 groups of 64 threads each store to every 4th block
+            const int c = tid & (HD - 1);
+#pragma unroll
+            for (int pc = 0; pc < NP; ++pc) {
+                float q = 0.f;
+#pragma unroll
+                for (int w = 0; w < CB_THREADS / 32; ++w)
+                    q += red[w * W + pc * HD + c];
+                for (int rr = tid >> 6; rr < C; rr += CB_THREADS / HD)
+                    st_async(cluster_addr(qall + r * W + pc * HD + c, rr), q,
+                             cluster_addr(bar_q, rr));
+            }
         }
-    }
-    __syncthreads();
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    {   // the 4 groups of 64 threads each store to every 4th block
-        const int c = tid & (HD - 1);
-        float q = 0.f;
+        mbar_wait(bar_q);           // every block's share is in place
+        if (tid < W) {
+            float qs[CB_MAX_CLUSTER];
 #pragma unroll
-        for (int w = 0; w < CB_THREADS / 32; ++w) q += red[w * HD + c];
-        for (int rr = tid >> 6; rr < C; rr += CB_THREADS / HD)
-            st_async(cluster_addr(qall + r * HD + c, rr), q,
-                     cluster_addr(bar_q, rr));
-    }
-    mbar_wait(bar_q);               // every block's share of q_h is in place
-    if (tid < HD) {
-        float qs[CB_MAX_CLUSTER];
+            for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
+                qs[rr] = rr < C ? qall[rr * W + tid] : 0.f;
+            float q = 0.f;
 #pragma unroll
-        for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
-            qs[rr] = rr < C ? qall[rr * HD + tid] : 0.f;
-        float q = 0.f;
-#pragma unroll
-        for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
-            if (rr < C) q += qs[rr];
-        qf[tid] = (q * sq[h * HD + tid] + bq[h * HD + tid]) * QSCALE;
+            for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
+                if (rr < C) q += qs[rr];
+            const int col = (tid / HD) * D + h * HD + tid % HD;
+            if constexpr (!SELF) {
+                qf[tid] = (q * sq[col] + bq[col]) * QSCALE;
+            } else if constexpr (KIND == HB_PROJECT) {
+                if (r == 0) qkv[col] = q * sq[col] + bq[col];
+            } else {
+                proj[tid] = q * sq[col] + bq[col];
+            }
+        }
+        if constexpr (KIND == HB_PROJECT) return;
+    } else {
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     }
     cp_async_wait<0>();             // Wo's columns and the first rows too
     __syncthreads();
+    if constexpr (SELF)
+        current_row(proj, amax, kcur, vcur, qf, s_cur, k_row, v_row,
+                    k_scale, v_scale, h, r);
     float qv[16];                   // this thread's quarter of q_h
     const int quarter = tid & 3, rg = tid >> 2;
 #pragma unroll
@@ -536,7 +641,8 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
     __syncthreads();                // wmax, wsum and the chunk are read
     red[dg * HD + d] = acc;
     __syncthreads();
-    {   // as q's shares: each group of 64 threads to every 4th block
+    {   // as the projection's shares: each group of 64 threads to every
+        // 4th block
         const float A = red[d] + red[HD + d] + red[2 * HD + d]
             + red[3 * HD + d];
         for (int rr = dg; rr < C; rr += CB_THREADS / HD) {
@@ -550,15 +656,16 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
         }
     }
     // every block's (m, l, acc) is in place: each block's weight exp(m -
-    // M) once, then the sums in rank order
+    // M) once (K1: the current row's too), then the sums in rank order
     mbar_wait(bar_p);
     float* fac = red + 4 * HD;
     if (tid < C) {
-        float M = -INFINITY;
+        float M = SELF ? *s_cur : -INFINITY;
 #pragma unroll
         for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
             if (rr < C) M = fmaxf(M, pall[rr * (HD + 4)]);
         fac[tid] = expf(pall[tid * (HD + 4)] - M);  // an empty block: 0
+        if (SELF && tid == 0) fac[CB_MAX_CLUSTER] = expf(*s_cur - M);
     }
     __syncthreads();
     if (tid < HD) {
@@ -569,6 +676,10 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
                 L += pall[rr * (HD + 4) + 1] * fac[rr];
                 A += pall[rr * (HD + 4) + 2 + tid] * fac[rr];
             }
+        if constexpr (SELF) {
+            L += fac[CB_MAX_CLUSTER];
+            A += fac[CB_MAX_CLUSTER] * vcur[tid];
+        }
         att[tid] = to_f32(from_f32<XT>(A / fmaxf(L, 1e-30f)));
     }
     __syncthreads();
@@ -603,16 +714,7 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
     }
     // 6. the last of the H blocks on these columns adds the heads'
     //    partials in head order, then scale, bias and residual
-    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");    // release
-    __syncthreads();
-    if (tid == 0) {
-        const int ticket = atomicAdd(tickets + r, 1);
-        *flag = ticket == H - 1;
-        if (ticket == H - 1)
-            asm volatile("fence.acq_rel.gpu;\n" ::: "memory");  // acquire
-    }
-    __syncthreads();
-    if (!*flag) return;
+    if (!last_ticket(tickets + r, H, flag)) return;
 #pragma unroll
     for (int j = 0; j < CB_RED / CB_THREADS; ++j) {
         const int n = c0 + tid + j * CB_THREADS;
@@ -626,16 +728,19 @@ __global__ void __launch_bounds__(CB_THREADS) cross_block_kernel(
     if (tid == 0) tickets[r] = 0;   // ready for the next launch
 }
 
-template <typename XT, typename CT>
-int launch_cross(const void* x, int D, int H, const float* ln_w,
-                 const float* ln_b, const int8_t* wq, const float* sq,
-                 const float* bq, const void* kc, const float* ks,
-                 const void* vc, const float* vs, int n_valid, int n_loop,
-                 int C, int rows, int chunk, const int8_t* wo,
-                 const float* wos, const float* wob, void* x_out,
-                 float* ypart, int* tickets, cudaStream_t st) {
-    const auto kernel = cross_block_kernel<XT, CT>;
-    const int smem = cross_layout(D, C, chunk, sizeof(CT)).total;
+template <typename XT, typename CT, int KIND>
+int launch_head(const void* x, int D, int H, const float* ln_w,
+                const float* ln_b, const int8_t* wq, const float* sq,
+                const float* bq, const void* kc, const float* ks,
+                const void* vc, const float* vs, int n_valid, int n_loop,
+                int C, int rows, int chunk, const int8_t* wo,
+                const float* wos, const float* wob, void* x_out,
+                float* ypart, int* tickets, void* k_row, void* v_row,
+                float* k_scale, float* v_scale, float* qkv, cudaStream_t st) {
+    const auto kernel = head_block_kernel<XT, CT, KIND>;
+    const int smem = head_layout(D, C, KIND == HB_PROJECT ? 0 : chunk,
+                                 sizeof(CT), KIND == HB_CROSS ? HD : 3 * HD)
+        .total;
     static int opted_in = 0;                // the most asked of this kernel
     if (smem > opted_in) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -662,8 +767,21 @@ int launch_cross(const void* x, int D, int H, const float* ln_w,
         &cfg, kernel, static_cast<const XT*>(x), D, ln_w, ln_b, wq, sq, bq,
         static_cast<const CT*>(kc), static_cast<const CT*>(vc), ks, vs,
         n_valid, n_loop, rows, chunk, wo, wos, wob, static_cast<XT*>(x_out),
-        ypart, tickets);
+        ypart, tickets, static_cast<CT*>(k_row), static_cast<CT*>(v_row),
+        k_scale, v_scale, qkv);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// the cache's row type -> f(CT{}); ERR_DTYPE for another code
+template <typename F>
+int with_cache_type(int cache_dtype, F&& f) {
+    switch (cache_dtype) {
+        case F32: return f(float{});
+        case BF16: return f(__nv_bfloat16{});
+        case I8: return f(int8_t{});
+        case FP8: return f(__nv_fp8_e4m3{});
+        default: return ERR_DTYPE;
+    }
 }
 
 template <typename XT>
@@ -674,32 +792,306 @@ int cross_block_t(int cache_dtype, const void* x, int D, int H,
                   int n_valid, int n_loop, int C, int rows, int chunk,
                   const int8_t* wo, const float* wos, const float* wob,
                   void* x_out, float* ypart, int* tickets, cudaStream_t st) {
-#define WA_CROSS_CT(CT)                                                      \
-    launch_cross<XT, CT>(x, D, H, ln_w, ln_b, wq, sq, bq, kc, ks, vc, vs,    \
-                         n_valid, n_loop, C, rows, chunk, wo, wos, wob,      \
-                         x_out, ypart, tickets, st)
-    switch (cache_dtype) {
-        case F32: return WA_CROSS_CT(float);
-        case BF16: return WA_CROSS_CT(__nv_bfloat16);
-        case I8: return WA_CROSS_CT(int8_t);
-        case FP8: return WA_CROSS_CT(__nv_fp8_e4m3);
-        default: return ERR_DTYPE;
+    return with_cache_type(cache_dtype, [&](auto ct) {
+        using CT = decltype(ct);
+        return launch_head<XT, CT, HB_CROSS>(
+            x, D, H, ln_w, ln_b, wq, sq, bq, kc, ks, vc, vs, n_valid, n_loop,
+            C, rows, chunk, wo, wos, wob, x_out, ypart, tickets, nullptr,
+            nullptr, nullptr, nullptr, nullptr, st);
+    });
+}
+
+// K1: rows < pos are the history; int8 rows take two launches (above)
+template <typename XT>
+int self_block_t(int cache_dtype, const void* x, int D, int H,
+                 const float* ln_w, const float* ln_b, const int8_t* wqkv,
+                 const float* sqkv, const float* bqkv, const void* kc,
+                 const float* ks, const void* vc, const float* vs, int pos,
+                 int C, int rows, int chunk, const int8_t* wo,
+                 const float* wos, const float* wob, void* x_out,
+                 void* k_row, float* k_scale, void* v_row, float* v_scale,
+                 float* ypart, int* tickets, float* qkv, cudaStream_t st) {
+    return with_cache_type(cache_dtype, [&](auto ct) {
+        using CT = decltype(ct);
+        if constexpr (std::is_same<CT, int8_t>::value) {
+            const int e = launch_head<XT, CT, HB_PROJECT>(
+                x, D, H, ln_w, ln_b, wqkv, sqkv, bqkv, nullptr, nullptr,
+                nullptr, nullptr, 0, 0, C, rows, chunk, nullptr, nullptr,
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, nullptr, qkv, st);
+            if (e != 0) return e;
+            return launch_head<XT, CT, HB_ATTEND>(
+                x, D, H, nullptr, nullptr, nullptr, nullptr, nullptr, kc,
+                ks, vc, vs, pos, pos, C, rows, chunk, wo, wos, wob, x_out,
+                ypart, tickets, k_row, v_row, k_scale, v_scale, qkv, st);
+        } else {
+            return launch_head<XT, CT, HB_SELF>(
+                x, D, H, ln_w, ln_b, wqkv, sqkv, bqkv, kc, ks, vc, vs, pos,
+                pos, C, rows, chunk, wo, wos, wob, x_out, ypart, tickets,
+                k_row, v_row, k_scale, v_scale, nullptr, st);
+        }
+    });
+}
+
+// --------------------------------------------------------------------------
+// K3 ffn_block: one launch, the hidden layer cut over thread block clusters
+// --------------------------------------------------------------------------
+//
+// Grid (C, G) with clusters of (C, 1, 1), C = FB_CLUSTER; block r of
+// cluster g owns the U hidden units [U (g C + r), U (g C + r + 1)),
+// G C U = 4D (ffn_units chooses U from 4D):
+//   - h = LN3(x) over all of D, rounded to x's dtype (every warp takes the
+//     statistics itself, as K2);
+//   - fc1 on its units: t = h . W1[:, units] * s1 + b1, the D rows cut over
+//     the block's threads; g = gelu(t) (exact erf) rounded to x's dtype;
+//   - its share of fc2, y_b = g . W2[units, :], over all D columns; the
+//     cluster adds its blocks' shares: block r takes the columns
+//     [r D / C, (r + 1) D / C) of every block's y_b (st.async into its
+//     shared memory, counted by its transaction barrier), in rank order;
+//   - the last of the G blocks on a column range to finish (an atomic
+//     ticket) adds the clusters' sums in cluster order, then fc2's scale,
+//     its bias and the residual.
+// The hidden layer never leaves the chip, as in the TPU kernel's VMEM
+// accumulator. Each weight byte is read once, by 16-byte cp.async copies
+// started as the block starts (W1's slab of U bytes a row, then W2's U
+// contiguous rows), so the LayerNorm overlaps W1's copy and fc1 overlaps
+// W2's. Every sum runs in a fixed order: two runs give the same bits.
+
+constexpr int FB_THREADS = 256;
+constexpr int FB_WARPS = FB_THREADS / 32;
+constexpr int FB_CLUSTER = 8;            // blocks of a cluster
+constexpr int FB_MIN_BLOCKS = 96;        // blocks aimed for at least
+static_assert(FB_CLUSTER <= CB_MAX_CLUSTER, "K3 takes K1's and K2's tickets");
+
+// hidden units a block takes for a hidden layer of Hd: 32 where that still
+// gives FB_MIN_BLOCKS blocks (large-v3: 160), else 16 (whisper-tiny: 96)
+inline int ffn_units(int Hd) { return Hd / 32 >= FB_MIN_BLOCKS ? 32 : 16; }
+
+struct FfnLayout {
+    int xs, w1, w2, red, g, yall, flag, bars, total;
+};
+
+// shared-memory layout of a K3 block, in bytes (every offset a multiple
+// of 16 for D a multiple of 32)
+__host__ __device__ inline FfnLayout ffn_layout(int D, int U) {
+    FfnLayout L;
+    int o = 0;
+    L.xs = o;   o += D * 4;
+    L.w1 = o;   o += D * U;
+    L.w2 = o;   o += U * D;
+    L.red = o;  o += FB_WARPS * U * 4;    // the warps' fc1 sums
+    L.g = o;    o += U * 4;
+    L.yall = o; o += D * 4;               // C shares of D / C columns
+    L.flag = o; o += 16;
+    L.bars = o; o += 16;
+    L.total = o;
+    return L;
+}
+
+// grid (FB_CLUSTER, G), clusters (FB_CLUSTER, 1, 1); see above
+template <typename XT, int U>
+__global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
+        const XT* __restrict__ x, int D, int Hd,
+        const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+        const int8_t* __restrict__ w1, const float* __restrict__ s1,
+        const float* __restrict__ b1, const int8_t* __restrict__ w2,
+        const float* __restrict__ s2, const float* __restrict__ b2,
+        XT* __restrict__ x_out, float* __restrict__ ypart,
+        int* __restrict__ tickets) {
+    extern __shared__ __align__(16) unsigned char fb_smem[];
+    constexpr int C = FB_CLUSTER;
+    const int r = blockIdx.x, cl = blockIdx.y, G = gridDim.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const FfnLayout lay = ffn_layout(D, U);
+    const int cols = D / C;                 // the block's column range
+    const int j0 = (cl * C + r) * U;        // its first hidden unit
+    uint64_t* bar = reinterpret_cast<uint64_t*>(fb_smem + lay.bars);
+    if (tid == 0) {                 // every block's share of these columns
+        mbar_init_expect(bar, D * 4);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-#undef WA_CROSS_CT
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    float* xs = reinterpret_cast<float*>(fb_smem + lay.xs);
+    int8_t* w1_s = reinterpret_cast<int8_t*>(fb_smem + lay.w1);    // [D][U]
+    int8_t* w2_s = reinterpret_cast<int8_t*>(fb_smem + lay.w2);    // [U][D]
+    float* red = reinterpret_cast<float*>(fb_smem + lay.red);
+    float* g_s = reinterpret_cast<float*>(fb_smem + lay.g);
+    float* yall = reinterpret_cast<float*>(fb_smem + lay.yall);   // [C][cols]
+    int* flag = reinterpret_cast<int*>(fb_smem + lay.flag);
+
+    // 1. load x; copy W1's slab (U bytes of each of the D rows), then W2's
+    //    U rows: two groups. Then the epilogue's operands of this block's
+    //    columns (any block may finish last)
+    float xr[CB_XMAX];
+#pragma unroll
+    for (int j = 0; j < CB_XMAX; ++j) {
+        const int i = tid + j * FB_THREADS;
+        xr[j] = i < D ? to_f32(x[i]) : 0.f;
+    }
+    constexpr int PIECES = U / 16;          // 16-byte copies a row
+    for (int e = tid; e < D * PIECES; e += FB_THREADS) {
+        const int k = e / PIECES, c = (e % PIECES) * 16;
+        cp_async16(w1_s + k * U + c, w1 + (size_t)k * Hd + j0 + c, 16);
+    }
+    cp_async_commit();
+    const int8_t* w2_rows = w2 + (size_t)j0 * D;
+    for (int e = tid; e < U * D / 16; e += FB_THREADS)
+        cp_async16(w2_s + 16 * e, w2_rows + 16 * e, 16);
+    cp_async_commit();
+    const int n_ep = r * cols + tid;        // cols <= FB_THREADS
+    float ep_s = 0.f, ep_b = 0.f, ep_x = 0.f;
+    if (tid < cols) {
+        ep_s = s2[n_ep];
+        ep_b = b2[n_ep];
+        ep_x = to_f32(x[n_ep]);
+    }
+    float t_s = 0.f, t_b = 0.f;             // fc1's scale and bias
+    if (tid < U) {
+        t_s = s1[j0 + tid];
+        t_b = b1[j0 + tid];
+    }
+#pragma unroll
+    for (int j = 0; j < CB_XMAX; ++j) {
+        const int i = tid + j * FB_THREADS;
+        if (i < D) xs[i] = xr[j];
+    }
+    __syncthreads();
+
+    // 2. LayerNorm over all of x, rounded to x's dtype
+    float mean, rstd;
+    ln_stats(xs, D, mean, rstd);
+    __syncthreads();                // every warp has read x
+    for (int i = tid; i < D; i += FB_THREADS) {
+        const float hv = (xs[i] - mean) * rstd * ln_w[i] + ln_b[i];
+        xs[i] = sizeof(XT) == 2 ? round_bf16(hv) : hv;
+    }
+    cp_async_wait<1>();             // W1's slab has landed
+    __syncthreads();
+
+    // 3. fc1 on the block's U units: CG groups of 4 columns, the rows cut
+    //    over KL lanes; the lanes of a warp summed by shuffles, the warps
+    //    in order; then the GELU
+    {
+        constexpr int CG = U / 4, KL = FB_THREADS / CG;
+        const int cg = tid % CG, kl = tid / CG;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int k = kl; k < D; k += KL) {
+            float w[4];
+            widen4(*reinterpret_cast<const uint32_t*>(w1_s + k * U + 4 * cg),
+                   w);
+            const float hv = xs[k];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] += hv * w[i];
+        }
+#pragma unroll
+        for (int o = CG; o < 32; o <<= 1)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] += __shfl_xor_sync(FULL, a[i], o);
+        if (lane < CG)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) red[warp * U + 4 * cg + i] = a[i];
+    }
+    __syncthreads();
+    if (tid < U) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < FB_WARPS; ++w) t += red[w * U + tid];
+        t = t * t_s + t_b;
+        const float gv = 0.5f * t * (1.0f + erff(t * 0.7071067811865475f));
+        g_s[tid] = sizeof(XT) == 2 ? round_bf16(gv) : gv;
+    }
+    cp_async_wait<0>();             // W2's rows too
+    __syncthreads();
+
+    // 4. the block's share of fc2 over all D columns, 4 columns a thread;
+    //    each 4 stored into the block that owns them (st.async)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    for (int n4 = tid; n4 < D / 4; n4 += FB_THREADS) {
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+        for (int j = 0; j < U; ++j) {
+            float w[4];
+            widen4(*reinterpret_cast<const uint32_t*>(w2_s + j * D + 4 * n4),
+                   w);
+            const float gv = g_s[j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] += gv * w[i];
+        }
+        const int dst = 4 * n4 / cols;
+        st_async4(cluster_addr(yall + r * cols + 4 * n4 - dst * cols, dst), a,
+                  cluster_addr(bar, dst));
+    }
+
+    // 5. every block's share of this block's columns is in place: the
+    //    cluster's sum, in rank order, to scratch
+    mbar_wait(bar);
+    if (tid < cols) {
+        float y = 0.f;
+        for (int rr = 0; rr < C; ++rr) y += yall[rr * cols + tid];
+        ypart[(size_t)cl * D + n_ep] = y;
+    }
+
+    // 6. the last of the G blocks on these columns adds the clusters' sums
+    //    in cluster order, then scale, bias and residual
+    if (!last_ticket(tickets + r, G, flag)) return;
+    if (tid < cols) {
+        float y = 0.f;
+        for (int c = 0; c < G; ++c) y += __ldcg(ypart + (size_t)c * D + n_ep);
+        x_out[n_ep] = from_f32<XT>(y * ep_s + ep_b + ep_x);
+    }
+    if (tid == 0) tickets[r] = 0;   // ready for the next launch
+}
+
+template <typename XT, int U>
+int launch_ffn(const void* x, int D, int Hd, const float* ln_w,
+               const float* ln_b, const int8_t* w1, const float* s1,
+               const float* b1, const int8_t* w2, const float* s2,
+               const float* b2, void* x_out, float* ypart, int* tickets,
+               cudaStream_t st) {
+    const auto kernel = ffn_block_kernel<XT, U>;
+    const int smem = ffn_layout(D, U).total;
+    static int opted_in = 0;                // the most asked of this kernel
+    if (smem > opted_in) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        opted_in = smem;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(FB_CLUSTER, Hd / (FB_CLUSTER * U));
+    cfg.blockDim = dim3(FB_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = FB_CLUSTER;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const XT*>(x), D, Hd, ln_w, ln_b, w1, s1,
+        b1, w2, s2, b2, static_cast<XT*>(x_out), ypart, tickets);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename XT>
-cudaError_t ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
-                        const float* ln_b, const int8_t* w1, const float* s1,
-                        const float* b1, const int8_t* w2, const float* s2,
-                        const float* b2, void* x_out, float* g,
-                        cudaStream_t st) {
-    const int bf = sizeof(XT) == 2;
-    cudaError_t e = launch_qmv<XT, XT, EPI_GELU>(
-        x, D, Hd, ln_w, ln_b, bf, w1, s1, b1, nullptr, g, st);
-    if (e != cudaSuccess) return e;
-    return launch_qmv<float, XT, EPI_RESID>(g, Hd, D, nullptr, nullptr, bf,
-                                            w2, s2, b2, x, x_out, st);
+int ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
+                const float* ln_b, const int8_t* w1, const float* s1,
+                const float* b1, const int8_t* w2, const float* s2,
+                const float* b2, void* x_out, float* ypart, int* tickets,
+                cudaStream_t st) {
+#define WA_FFN_U(UU)                                                         \
+    launch_ffn<XT, UU>(x, D, Hd, ln_w, ln_b, w1, s1, b1, w2, s2, b2, x_out,  \
+                       ypart, tickets, st)
+    switch (ffn_units(Hd)) {
+        case 16: return WA_FFN_U(16);
+        case 32: return WA_FFN_U(32);
+        default: return ERR_SHAPE;
+    }
+#undef WA_FFN_U
 }
 
 }  // namespace
@@ -707,29 +1099,58 @@ cudaError_t ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
 
 using namespace wa;
 
+// K1's and K2's launch plan for n_loop rows of cache_size bytes an element
+// and W projected columns a head, and the 16-byte alignment of the
+// copied operands
+static bool head_plan_ok(int D, int cluster, int rows, int chunk, int n_loop,
+                         int cache_dtype, int W, const void* wq,
+                         const void* wo, const void* kq, const void* vq) {
+    const int cache_size = cache_dtype == F32 ? 4
+        : cache_dtype == BF16 ? 2 : 1;
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(wq)
+        | reinterpret_cast<uintptr_t>(wo) | reinterpret_cast<uintptr_t>(kq)
+        | reinterpret_cast<uintptr_t>(vq);
+    return D <= CB_THREADS * CB_XMAX && cluster >= 1
+        && cluster <= CB_MAX_CLUSTER && rows >= 1
+        && (long long)rows * cluster >= n_loop && chunk >= CB_GROUPS
+        && chunk <= CB_MAX_CHUNK && chunk % CB_GROUPS == 0
+        && head_layout(D, cluster, chunk, cache_size, W).total <= 227 * 1024
+        && 16 * ((D / 16 + cluster - 1) / cluster) <= CB_RED
+        && bases % 16 == 0;
+}
+
+// K1: the cluster size C, the rows per block and the rows staged at a time
+// come from ops/decode_blocks.cross_plan over the pos history rows; ypart
+// is f32 [H, D] scratch, tickets int32 [16], zero before the first launch
+// (each launch leaves them zero); qkv f32 [3D] scratch for int8 rows, else
+// null.
 extern "C" int wa_self_block(
         const void* x, int x_dtype, int D, int H, const void* ln_w,
         const void* ln_b, const void* wqkv, const void* sqkv,
         const void* bqkv, const void* kq, const void* ks, const void* vq,
         const void* vs, int cache_dtype, int T, int pos, const void* wo,
         const void* wos, const void* wob, void* x_out, void* k_row,
-        void* k_scale, void* v_row, void* v_scale, void* qkv, void* part,
-        void* attn, void* stream) {
-    if (!shape_ok(D, H) || pos < 0 || pos > T) return ERR_SHAPE;
-    if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr))
+        void* k_scale, void* v_row, void* v_scale, int cluster, int rows,
+        int chunk, void* ypart, void* tickets, void* qkv, void* stream) {
+    if (!shape_ok(D, H) || pos < 0 || pos > T
+            || !head_plan_ok(D, cluster, rows, chunk, pos, cache_dtype,
+                             3 * HD, wqkv, wo, kq, vq))
+        return ERR_SHAPE;
+    if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr)
+            || (cache_dtype == I8 && qkv == nullptr))
         return ERR_DTYPE;
     auto st = static_cast<cudaStream_t>(stream);
 #define WA_SELF(XT)                                                          \
-    self_block_t<XT>(x, D, H, (const float*)ln_w, (const float*)ln_b,        \
-                     (const int8_t*)wqkv, (const float*)sqkv,                \
-                     (const float*)bqkv, kq, (const float*)ks, vq,           \
-                     (const float*)vs, cache_dtype, T, pos,                 \
-                     (const int8_t*)wo,                                      \
-                     (const float*)wos, (const float*)wob, x_out, k_row,     \
-                     (float*)k_scale, v_row, (float*)v_scale, (float*)qkv,   \
-                     (float*)part, (float*)attn, st)
-    if (x_dtype == F32) return (int)WA_SELF(float);
-    if (x_dtype == BF16) return (int)WA_SELF(__nv_bfloat16);
+    self_block_t<XT>(cache_dtype, x, D, H, (const float*)ln_w,               \
+                     (const float*)ln_b, (const int8_t*)wqkv,                \
+                     (const float*)sqkv, (const float*)bqkv, kq,             \
+                     (const float*)ks, vq, (const float*)vs, pos, cluster,   \
+                     rows, chunk, (const int8_t*)wo, (const float*)wos,      \
+                     (const float*)wob, x_out, k_row, (float*)k_scale,       \
+                     v_row, (float*)v_scale, (float*)ypart, (int*)tickets,   \
+                     (float*)qkv, st)
+    if (x_dtype == F32) return WA_SELF(float);
+    if (x_dtype == BF16) return WA_SELF(__nv_bfloat16);
 #undef WA_SELF
     return ERR_DTYPE;
 }
@@ -745,23 +1166,13 @@ extern "C" int wa_cross_block(
         int cache_dtype, int T, int enc_len, const void* wo, const void* wos,
         const void* wob, void* x_out, int cluster, int rows, int chunk,
         void* ypart, void* tickets, void* stream) {
-    if (!shape_ok(D, H) || D > CB_THREADS * CB_XMAX || T < 1 || enc_len < 0
-            || enc_len > T)
+    if (!shape_ok(D, H) || T < 1 || enc_len < 0 || enc_len > T)
         return ERR_SHAPE;
     // no valid row at all: every padded row takes part at score NEG
     const int n_loop = enc_len > 0 ? enc_len : T;
-    if (cluster < 1 || cluster > CB_MAX_CLUSTER || rows < 1
-            || (long long)rows * cluster < n_loop || chunk < CB_GROUPS
-            || chunk > CB_MAX_CHUNK || chunk % CB_GROUPS != 0
-            || cross_layout(D, cluster, chunk, cache_dtype == F32 ? 4
-                            : cache_dtype == BF16 ? 2 : 1).total
-               > 227 * 1024
-            || 16 * ((D / 16 + cluster - 1) / cluster) > CB_RED)
+    if (!head_plan_ok(D, cluster, rows, chunk, n_loop, cache_dtype, HD, wq,
+                      wo, kq, vq))
         return ERR_SHAPE;
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(wq)      // 16-byte
-        | reinterpret_cast<uintptr_t>(wo) | reinterpret_cast<uintptr_t>(kq)
-        | reinterpret_cast<uintptr_t>(vq);                       // copies
-    if (bases % 16 != 0) return ERR_SHAPE;
     if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr))
         return ERR_DTYPE;
     auto st = static_cast<cudaStream_t>(stream);
@@ -779,20 +1190,35 @@ extern "C" int wa_cross_block(
     return ERR_DTYPE;
 }
 
+// K3's scratch: the f32 elements of ypart, a row of D for each cluster
+extern "C" int wa_ffn_scratch(int D, int Hd) {
+    return Hd / (FB_CLUSTER * ffn_units(Hd)) * D;
+}
+
+// K3: ypart is f32 scratch of wa_ffn_scratch(D, Hd) elements, tickets
+// int32 [CB_MAX_CLUSTER] as K1's and K2's, zero before the first launch
+// (each launch leaves them zero).
 extern "C" int wa_ffn_block(
         const void* x, int x_dtype, int D, int Hd, const void* ln_w,
         const void* ln_b, const void* w1, const void* s1, const void* b1,
-        const void* w2, const void* s2, const void* b2, void* x_out, void* g,
-        void* stream) {
-    if (D % MV_COLS != 0 || Hd % MV_COLS != 0) return ERR_SHAPE;
+        const void* w2, const void* s2, const void* b2, void* x_out,
+        void* ypart, void* tickets, void* stream) {
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(w1)      // 16-byte
+        | reinterpret_cast<uintptr_t>(w2);                       // copies
+    const int U = ffn_units(Hd);
+    if (D % (4 * FB_CLUSTER) != 0 || D % 32 != 0
+            || D / FB_CLUSTER > FB_THREADS || D > FB_THREADS * CB_XMAX
+            || Hd < FB_CLUSTER * U || Hd % (FB_CLUSTER * U) != 0
+            || ffn_layout(D, U).total > 227 * 1024 || bases % 16 != 0)
+        return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
 #define WA_FFN(XT)                                                           \
     ffn_block_t<XT>(x, D, Hd, (const float*)ln_w, (const float*)ln_b,        \
                     (const int8_t*)w1, (const float*)s1, (const float*)b1,   \
                     (const int8_t*)w2, (const float*)s2, (const float*)b2,   \
-                    x_out, (float*)g, st)
-    if (x_dtype == F32) return (int)WA_FFN(float);
-    if (x_dtype == BF16) return (int)WA_FFN(__nv_bfloat16);
+                    x_out, (float*)ypart, (int*)tickets, st)
+    if (x_dtype == F32) return WA_FFN(float);
+    if (x_dtype == BF16) return WA_FFN(__nv_bfloat16);
 #undef WA_FFN
     return ERR_DTYPE;
 }

@@ -25,8 +25,8 @@
 // 2.5 MB q + o-proj, 9.8 MB fc1 + fc2; Q5_K/Q6_K 5/3 of that) plus, for
 // attention, every live cache row once. Design: one launch per matvec,
 // the columns spread over N/32 blocks, each recomputing the LayerNorm from
-// the D-long input (as decode_blocks.cu's stage_input); attention is
-// attention.cuh unchanged, with K1's int8/fp8/bf16 self-row output.
+// the D-long input; attention is attention.cuh unchanged, with its
+// int8/fp8/bf16 self-row output.
 #include "attention.cuh"
 #include "kquant.cuh"
 

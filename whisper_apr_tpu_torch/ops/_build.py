@@ -46,11 +46,13 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
     "wa_self_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                      _P, _P, _P],
     "wa_cross_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "wa_ffn_block": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P],
+                     _P, _P],
+    "wa_ffn_scratch": [_I, _I],
     "wa_self_block_batched": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P],

@@ -300,6 +300,7 @@ def _self_block_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
     v_row = torch.empty((1, D), dtype=kq.dtype, device=dev)
     k_scale = torch.empty(1, dtype=torch.float32, device=dev)
     v_scale = torch.empty(1, dtype=torch.float32, device=dev)
+    plan = cross_plan(n_heads, D, int(pos), kq.element_size())
     W = _build.workspace
     P = _build.ptr
     rc = _build.library().wa_self_block(
@@ -311,17 +312,20 @@ def _self_block_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
         _build.DTYPE_CODES[kq.dtype], T, int(pos),
         P(blk["self_wo"], l * D * D), P(blk["self_wos"], l * D),
         P(blk["self_wob"], l * D),
-        P(x_out), P(k_row), P(k_scale), P(v_row), P(v_scale),
-        W(st, dev, "qkv", 3 * D), W(st, dev, "part", _n_part(n_heads, T)),
-        W(st, dev, "attn", D), st)
+        P(x_out), P(k_row), P(k_scale), P(v_row), P(v_scale), *plan,
+        W(st, dev, "self_y", max(1, n_heads) * D),
+        W(st, dev, "self_tickets", CROSS_MAX_CLUSTER, torch.int32,
+          zero=True),
+        # int8 rows: the projection between the kernel's two launches
+        W(st, dev, "self_qkv", 3 * D) if ks is not None else None, st)
     _build.check(rc, "self_block")
     LAUNCHES["self_block"] += 1
     return x_out, k_row, k_scale, v_row, v_scale
 
 
-# K2's launch (csrc cross_block_kernel): one thread block cluster per
-# head; the plan spreads the head's cache rows over the cluster's blocks
-# (the kernel cuts Wq's rows and Wo's columns over them itself)
+# K1's and K2's launch (csrc head_block_kernel): one thread block cluster
+# per head; the plan spreads the head's cache rows over the cluster's
+# blocks (the kernel cuts Wq's rows and Wo's columns over them itself)
 CROSS_BLOCKS = 160            # blocks aimed for over all heads
 CROSS_MAX_CLUSTER = 16        # blocks of one cluster (csrc CB_MAX_CLUSTER)
 CROSS_GROUPS = 64             # rows a chunk holds come in multiples of
@@ -339,10 +343,11 @@ class CrossPlan(NamedTuple):
 
 def cross_plan(n_heads: int, D: int, n_loop: int,
                cache_size: int) -> CrossPlan:
-    """K2's launch for ``n_loop`` cache rows of ``cache_size`` bytes an
-    element: about ``CROSS_BLOCKS`` blocks, ``CROSS_MAX_CLUSTER`` at most
-    a head; the rows cut evenly over the cluster (the last blocks may hold
-    fewer, or none); each block stages its rows in chunks of a multiple of
+    """K1's and K2's launch for ``n_loop`` cache rows of ``cache_size``
+    bytes an element (K1: the ``pos`` history rows): about
+    ``CROSS_BLOCKS`` blocks, ``CROSS_MAX_CLUSTER`` at most a head; the
+    rows cut evenly over the cluster (the last blocks may hold fewer, or
+    none); each block stages its rows in chunks of a multiple of
     ``CROSS_GROUPS`` rows whose K and V (and row scales) fit in
     ``CROSS_STAGE_BYTES``."""
     cluster = max(1, min(CROSS_MAX_CLUSTER, CROSS_BLOCKS // max(1, n_heads)))
@@ -385,13 +390,19 @@ def _ffn_block_cuda(x, blk, l: int):
     D, H = blk["w1"].shape[1], blk["w1"].shape[2]
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
+    lib = _build.library()
+    W = _build.workspace
     P = _build.ptr
-    rc = _build.library().wa_ffn_block(
+    # the kernel cuts the hidden layer over clusters of blocks itself and
+    # says how much scratch its cluster sums take
+    rc = lib.wa_ffn_block(
         P(x), _build.DTYPE_CODES[x.dtype], D, H,
         P(blk["ln3_w"], l * D), P(blk["ln3_b"], l * D),
         P(blk["w1"], l * D * H), P(blk["s1"], l * H), P(blk["b1"], l * H),
         P(blk["w2"], l * H * D), P(blk["fc2_s"], l * D),
-        P(blk["fc2_b"], l * D), P(x_out), _build.workspace(st, dev, "g", H),
+        P(blk["fc2_b"], l * D), P(x_out),
+        W(st, dev, "ffn_y", max(1, lib.wa_ffn_scratch(D, H))),
+        W(st, dev, "ffn_tickets", CROSS_MAX_CLUSTER, torch.int32, zero=True),
         st)
     _build.check(rc, "ffn_block")
     LAUNCHES["ffn_block"] += 1
