@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py [--optin | --split] DIR [DIR ...]
+    python3 chip_ab.py [--optin | --split | --int8] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -29,7 +29,12 @@ engine's host ms per decode step (``time_int4_engine``) and
 ``time_kernels``' operands and both shapes) by kernel instead
 (``kernel_split``), and times each over all the layers in turn in one
 graph (``<block>_cold``: at large-v3 the weights then come from device
-memory, not the L2 cache). Needs one CUDA GPU.
+memory, not the L2 cache). With ``--int8`` each process times the int8
+weight products instead (``time_int8_tree``): K8 over the vocab and at
+the scan step's projection shapes, K17 at ``MATMUL_SHAPES`` x
+``MATMUL_ROWS`` and more decode rows, the large-v3 B=8 scan tick, the
+whisper-tiny dense serving tick's device time and the large-v3 bf16
+encoder with the int8 switch on. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ def time_tree(root: Path, mode: str = "") -> dict:
         return time_optin_tree(c, root)
     if mode == "--split":
         return time_split_tree(c)
+    if mode == "--int8":
+        return time_int8_tree(c, root)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -155,6 +162,115 @@ def kernel_split(c, call) -> dict:
     return out
 
 
+def time_int8_tree(c, root: Path) -> dict:
+    """Device microseconds (CUDA-graph replay, bf16 x) of one checkout's
+    int8 weight products, timed here alike for every checkout: K8 over
+    the vocab (f32 logits, as the serving tick and the logits tail run
+    it) at 1, 8, 16 and 32 rows; K8 at the scan step's projections
+    (``qkv`` D x 3D and ``dd`` D x D, a layer > 0 of a stack of two, bf16
+    out) at 1 and 8 rows; K17 at ``MATMUL_SHAPES`` x (``MATMUL_ROWS``, 16,
+    32), per-column scale. Then the large-v3 B=8 scan tick and the
+    whisper-tiny dense serving tick (device ms), and the large-v3 bf16
+    encoder (host ms) with the int8 switch on."""
+    import torch
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    out = {}
+    for i, (name, shape) in enumerate(SHAPES.items()):
+        D, n_vocab = shape["D"], shape["n_vocab"]
+        v_pad = n_vocab + (-n_vocab) % 128
+        gen = torch.Generator(device=dev).manual_seed(48 + i)
+        t = {}
+
+        def us(fn):
+            return round(c.graph_ms(fn) * 1e3, 2)
+
+        def rows(M, K):
+            return torch.randn((M, K), generator=gen, device=dev).to(bf)
+        wq = torch.randint(-127, 128, (1, D, v_pad), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ones = torch.ones((1, 1, v_pad), device=dev)
+        for M in (1, 8, 16, 32):
+            x = rows(M, D)
+            t[f"k8_vocab_m{M}"] = us(lambda: qm.qmatvec_stacked(
+                x, wq, ones, 0, out_dtype=torch.float32))
+        del wq
+        for proj, N in (("qkv", 3 * D), ("dd", D)):
+            w = torch.randint(-127, 128, (2, D, N), generator=gen,
+                              device=dev, dtype=torch.int8)
+            s = 0.001 + 0.01 * torch.rand((2, 1, N), generator=gen,
+                                          device=dev)
+            for M in (1, 8):
+                x = rows(M, D)
+                t[f"k8_{proj}_m{M}"] = us(
+                    lambda: qm.qmatvec_stacked(x, w, s, 1))
+        label = "tiny" if name == "tiny" else "large-v3"
+        for K, N in c.MATMUL_SHAPES[label]:
+            for M in tuple(c.MATMUL_ROWS) + (16, 32):
+                x, w, s = c.matmul_case(K, N, M, bf, gen, dev, 8)
+                t[f"k17_{K}x{N}_m{M}"] = us(lambda: i8.int8_matmul(x, w, s))
+        out[name] = t
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(105)
+    blk = c.make_blk(1280, 32, gen, dev)
+    steps = c.time_scan_steps(blk, 1280, 20, 32, 51866, label="large-v3",
+                              seed=8)
+    out["large_v3_steps_ms"] = {k: round(v["ms"], 4)
+                                for k, v in steps.items()}
+    del blk
+    torch.cuda.empty_cache()
+    out["tiny_serve"] = {"device_ms": round(serve_tick_device_ms(c, root),
+                                            4)}
+    out["large_v3_encoder_ms"] = encoder_int8_ms(c)
+    return out
+
+
+def serve_tick_device_ms(c, root: Path) -> float:
+    """Device ms per pure decode tick of a whisper-tiny int8 bf16
+    ``BatchScheduler`` of 8 slots (``chip_smoke.serve_device_ms``)."""
+    import tempfile
+    from whisper_apr_tpu_torch import ComputeConfig, ModelConfig, WhisperApr
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as work:
+        apr = Path(work) / "tiny.apr"
+        c.write_random_apr(apr, ModelConfig.tiny())
+        eng = WhisperApr.load_from_apr(str(apr), ComputeConfig(
+            quantization="int8", compute_dtype="bfloat16"))
+    return c.serve_device_ms(eng, c.make_clips(c.SERVE_SECONDS[:8], seed=1),
+                             8)
+
+
+def encoder_int8_ms(c) -> dict:
+    """Host ms of one bf16 encode of 30 s of noise (best of 3,
+    ``chip_smoke.encoder_ms``) by the large-v3 encoder (large-v3-turbo's
+    config: the same encoder, 4 decoder layers), int8 weights, with the
+    int8 switch on (every linear through K17), attention plain and
+    through K16, and with the switch off beside them."""
+    import numpy as np
+    from whisper_apr_tpu_torch import ComputeConfig, ModelConfig, WhisperApr
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    quantize_params,
+                                                    to_device)
+    cfg = ModelConfig.large_v3_turbo()
+    params = to_device(quantize_params(init_params(cfg, seed=0), "int8"),
+                       "cuda")
+    audio = np.random.default_rng(7).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    out = {}
+    for flash in (False, True):
+        eng = WhisperApr(cfg, params, compute=ComputeConfig(
+            quantization="int8", compute_dtype="bfloat16",
+            use_flash_attention=flash), device="cuda")
+        mel = eng.compute_mel(audio)
+        attn = "K16" if flash else "plain attention"
+        out[f"bf16 {attn}"] = round(c.encoder_ms(eng, mel), 3)
+        with c.optin_switches(int8=True):
+            out[f"bf16 {attn} + K17"] = round(c.encoder_ms(eng, mel), 3)
+    return out
+
+
 def time_optin_tree(c, root: Path) -> dict:
     """Device microseconds of one checkout's K15-K18 (and their library
     yardsticks) at the whisper-tiny and large-v3 shapes, and of each
@@ -238,7 +354,7 @@ def time_e2e(c, root: Path) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    modes = [a for a in args if a in ("--optin", "--split")]
+    modes = [a for a in args if a in ("--optin", "--split", "--int8")]
     args = [a for a in args if a not in modes]
     if len(args) == 2 and args[0] == "--one":
         root = Path(args[1])

@@ -17,12 +17,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               launch each: clusters of blocks; K1 two on int8 rows) in bf16
               and f32 at both widths, K1 at every SELF_EDGES position over
               bf16 / f32, int8 and fp8 rows, K3 at layers 0, L/2 and L-1,
-              each call twice and bit-identical; K2 (one launch,
+              each call twice and bit-identical; K8 (K17's decode-row
+              kernel) at K8_EDGES (1-40 rows, split and whole K, a part
+              strip, bf16 and f32 out), each call twice and
+              bit-identical; K2 (one launch,
               a cluster per head) also at every cache dtype it takes (int8,
               bf16, f32, fp8) and enc_len 0, 1, 63, 64, 65, 1499, 1500, in
               bf16 and f32 at both widths, each call twice and
               bit-identical (check_cross); then CUDA-graph
-              times of kernel and plain version at B=1 and B=8, of the
+              times of kernel and plain version at B=1 and B=8 (K8 also
+              at the scan step's D x 3D and D x D projections), of the
               large-v3 B=8 serving tick, and of the large-v3 scan step
               (decode_step_q) beside the fused step (decode_step_qf).
 4. e2e      - write a random-weight full-width whisper-tiny .apr with the
@@ -77,7 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               1500 keys, kv_valid 1024 and 1025, causal at 448, an
               uneven split over 1300 keys, mha_flash's strided heads),
               K17 and K18 (int8 / packed-int4 matmuls at M = 1, 8, 1500,
-              odd widths for K18) against their plain versions at the
+              odd widths for K18; K17 also at INT8_MM_EDGES, K18 at
+              INT4_EDGES, each call twice and bit-identical) against
+              their plain versions at the
               tiny and large-v3 shapes in bf16 and f32; their bf16
               times, bounds and library yardsticks (SDPA for K16,
               torch._weight_int8pack_mm for K17,
@@ -95,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               f32 tokens == plain); large-v3 with flash and the int8
               switch (K16, K17 in the encoder, cross K/V and prefill; f32
               tokens == plain) and its encoder ms with and without K16 in
-              f32 and bf16.
+              f32 and bf16, and in bf16 with K17 on.
 
 3d. probes (after 3c) - P1-P3, the lowering probes of the JAX kernel
               tool (csrc/probe_mma.cu), on the tool's inputs: P1 (int8 .
@@ -630,6 +636,7 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
                                  blk["w2"], layer),
             lambda: qm.ffn_fused_plain(x, blk["w1"], blk["s1"], blk["b1"],
                                        blk["w2"], layer)),
+        **k8_scan_cases(x, blk, layer),
     }
 
     def stack(kernels: bool):
@@ -652,7 +659,8 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
     shapes = {"self_block": dict(rows=pos, cache_bytes=2),
               "cross_block": dict(rows=enc_len, cache_bytes=1, scales=True),
               "ffn_block": {}, "qmatvec_greedy_head": {},
-              "qmatvec_stacked": {}, "ffn_fused": {}}
+              "qmatvec_stacked": {}, "ffn_fused": {},
+              "qmatvec_stacked_qkv": {}, "qmatvec_stacked_dd": {}}
     out = {}
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: report the better of each pair
@@ -665,6 +673,7 @@ def time_kernels(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
                 name, D, 1, n_vocab, **shapes[name])
             out[name]["library_ms"] = None
     out["qmatvec_stacked"]["library_ms"] = library_int8_mm(x, wq)
+    k8_scan_library(out, x, blk, layer)
     log(f"[time] {label} (pos {pos}, cross8 rows, bf16), device ms per call "
         f"(eager ms): " + ", ".join(
             f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f}) vs plain "
@@ -785,6 +794,8 @@ def bound(name: str, D: int, B: int, n_vocab: int = 0, rows: int = 0,
         "ffn_block": (8 * D * D, 12 * D, 16 * B * D * D),
         "qmatvec_greedy_head": (D * v_pad, v_pad, 2 * B * D * v_pad),
         "qmatvec_stacked": (D * v_pad, v_pad, 2 * B * D * v_pad),
+        "qmatvec_stacked_qkv": (3 * D * D, 3 * D, 6 * B * D * D),
+        "qmatvec_stacked_dd": (D * D, D, 2 * B * D * D),
         "ffn_fused": (8 * D * D, 8 * D, 16 * B * D * D),
     }[name.replace("_batched", "")]
     row_bytes = D * cache_bytes + (4 if scales else 0)
@@ -795,6 +806,8 @@ def bound(name: str, D: int, B: int, n_vocab: int = 0, rows: int = 0,
         nbytes += 2 * B * (row_bytes + 4)        # the new k/v rows
     if name == "qmatvec_stacked":
         nbytes += B * v_pad * 4 - B * D * act_bytes   # f32 logits out
+    if name == "qmatvec_stacked_qkv":
+        nbytes += 2 * B * D * act_bytes               # [B, 3D] out
     if name == "qmatvec_greedy_head":
         nbytes += B * 12 - B * D * act_bytes          # token, max, lse
     t_bytes = nbytes / HBM_BPS
@@ -817,6 +830,24 @@ def library_int8_mm(x, wq) -> "float | None":
             f"{str(e).splitlines()[0][:120]}")
         torch.cuda.synchronize()
         return None
+
+
+def k8_scan_cases(x, blk, layer: int) -> dict:
+    """K8 at the scan step's projections (``qdecode._qmv``): ``qkv`` D x 3D
+    and ``dd`` D x D (self_o, cross_q and cross_o have this shape), at
+    ``layer`` of a stack, x's dtype out; kernel and plain calls."""
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    return {f"qmatvec_stacked_{k}": (
+        lambda w=w, s=s: qm.qmatvec_stacked(x, blk[w], blk[s], layer),
+        lambda w=w, s=s: qm.qmatvec_stacked_plain(x, blk[w], blk[s], layer))
+        for k, w, s in (("qkv", "wqkv", "sqkv"), ("dd", "wcq", "scq"))}
+
+
+def k8_scan_library(out: dict, x, blk, layer: int) -> None:
+    """torch._weight_int8pack_mm beside K8's scan-projection rows."""
+    for k, w in (("qkv", "wqkv"), ("dd", "wcq")):
+        out[f"qmatvec_stacked_{k}"]["library_ms"] = library_int8_mm(
+            x, blk[w][layer:layer + 1])
 
 
 def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
@@ -870,6 +901,7 @@ def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
                                  blk["w2"], layer),
             lambda: qm.ffn_fused_plain(x, blk["w1"], blk["s1"], blk["b1"],
                                        blk["w2"], layer)),
+        **k8_scan_cases(x, blk, layer),
     }
 
     def tick(kernels: bool):
@@ -907,6 +939,7 @@ def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
                 name, D, B, n_vocab, rows, cache_bytes=1, scales=True)
             out[name]["library_ms"] = None
     out["qmatvec_stacked"]["library_ms"] = library_int8_mm(x, wq)
+    k8_scan_library(out, x, blk, layer)
     log(f"[time] {label} B={B} (pos {pos}, int8 self and cross rows, bf16), "
         f"device ms per call (eager ms) vs plain, bound: " + "; ".join(
             f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f}) vs {v['plain_ms']:.4f} "
@@ -914,6 +947,42 @@ def time_batched(blk, D: int, H: int, L: int, n_vocab: int, T_self: int,
             + (f", bound {v['bound_ms']:.4f}" if "bound_ms" in v else "")
             for k, v in out.items()))
     return out
+
+
+def check_k8_edges(cdt, seed: int) -> float:
+    """K8 against its plain version at K8_EDGES, layer 1 of a stack of
+    two, f32 and bf16 out, each call twice and bit-identical; returns the
+    max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = 0.0
+    for M, K, N in K8_EDGES:
+        w = torch.randint(-128, 128, (2, K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = (0.001 + 0.01 * torch.rand((2, 1, N), generator=gen,
+                                       device=dev)) / np.sqrt(K)
+        x = torch.randn((M, K), generator=gen, device=dev).to(cdt)
+        for out in (torch.float32, torch.bfloat16):
+            got = qm.qmatvec_stacked(x, w, s, 1, out_dtype=out)
+            ref = qm.qmatvec_stacked_plain(x, w, s, 1, out_dtype=out)
+            what = f"M={M} K={K} N={N} out {str(out)[6:]}"
+            assert got.dtype == out and got.shape == (M, N), what
+            t = TOL_BF16 if out == torch.bfloat16 else tol
+            e = rel_err(got, ref)
+            assert e <= t, (f"[kernels] {str(cdt)[6:]} qmatvec_stacked "
+                            f"{what}: rel err {e:.3g} > {t:.3g}")
+            assert torch.equal(got, qm.qmatvec_stacked(
+                x, w, s, 1, out_dtype=out)), \
+                f"[kernels] qmatvec_stacked {what}: two runs differ"
+            worst = max(worst, abs_err(got, ref))
+    torch.cuda.synchronize()
+    log(f"[kernels] {str(cdt)[6:]}: K8 at {len(K8_EDGES)} edges x 2 out "
+        f"dtypes agrees with the plain version, two runs identical; max "
+        f"abs err {worst:.3g}")
+    return worst
 
 
 def check_ffn_fused(blk, D: int, L: int, cdt, label: str, seed: int,
@@ -1033,6 +1102,9 @@ def phase_kernels():
     errs["qmatvec_greedy_head"] = max(errs["qmatvec_greedy_head"],
                                       errs_b.pop("qmatvec_greedy_head"))
     errs.update(errs_b)
+    errs["qmatvec_stacked"] = max(errs["qmatvec_stacked"],
+                                  check_k8_edges(torch.bfloat16, seed=14))
+    check_k8_edges(torch.float32, seed=15)
     errs["ffn_fused"] = check_ffn_fused(blk_tiny, 384, 4, torch.bfloat16,
                                         "tiny bf16", seed=21)
     _, blk32 = check_kernels(**tiny, cdt=torch.float32, label="tiny f32",
@@ -2282,6 +2354,22 @@ MATMUL_ROWS = (1, 8, 1500)
 # kernels' byte-wise path); and K = 16, one step: the decode kernel unsplit
 INT4_EDGES = tuple((M, 200, N) for M in (1, 8, 15, 16, 17, 127, 129)
                    for N in (1000, 999)) + ((4, 16, 64),)
+# K17's edges (M, K, N), the same in bf16 and f32: one to four 8-row
+# tiles of the decode kernel (1, 8; 9, 15, 16; 17; 32), the tile kernel's
+# first rows (33) and either side of its 128-row tile (127, 129); K = 200
+# (not a multiple of a 16-row step or a 64-deep slice: split in two) and
+# 16 (one step: the decode kernel unsplit); N = 1000 and 999 (rows not
+# 16-byte aligned, the kernels' byte-wise path, and an odd width's single
+# last column)
+INT8_MM_EDGES = tuple((M, K, N)
+                      for M in (1, 8, 9, 15, 16, 17, 32, 33, 127, 129)
+                      for K in (200, 16) for N in (1000, 999))
+# K8's edges (M, K, N), at layer 1 of a stack of 2, bf16 and f32 out: the
+# decode kernel's one to four 8-row tiles (1, 8; 9, 16; 17, 24; 25, 32)
+# and two launches (40: 32 + 8 rows); N = 1024 and 96 (a part strip of
+# 128 columns), K = 200 and 16
+K8_EDGES = tuple((M, K, N) for M in (1, 8, 9, 16, 17, 24, 25, 32, 40)
+                 for K in (200, 16) for N in (1024, 96))
 # K16 checks (B, Tq, Tk, kwargs): the encoder's 1500 frames at B=1 and 4,
 # causal, kv_valid; then the ragged edges of the key ring, the split and
 # its combine: one key, a tile's edge either side, 7 tiles (an uneven
@@ -2375,8 +2463,9 @@ def _kernel_and_plain(mod, name):
 
 def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
     """K15-K18 against their plain versions on the card at one model's
-    shapes in ``cdt`` (K18 also at INT4_EDGES, and bit-identical over two
-    runs). Returns each kernel's largest abs error."""
+    shapes in ``cdt`` (K17 also at INT8_MM_EDGES, K18 at INT4_EDGES, both
+    bit-identical over two runs). Returns each kernel's largest abs
+    error."""
     import torch
     from whisper_apr_tpu_torch.ops import flash_attention as fa
     from whisper_apr_tpu_torch.ops import int4_matmul as i4
@@ -2421,12 +2510,18 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
         agree("flash_attention", fa.mha_flash(q, k_, v, H, causal=causal),
               ref, f"mha_flash T={T} causal={causal}")
 
-    for K, N in MATMUL_SHAPES[label]:
-        for M in MATMUL_ROWS:
-            for pc in (True, False):
-                x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 8, pc)
-                agree("int8_matmul", i8.int8_matmul(x, wq, s),
-                      i8.int8_matmul_plain(x, wq, s), f"M={M} K={K} N={N}")
+    int8_cases = [(M, K, N, pc) for K, N in MATMUL_SHAPES[label]
+                  for M in MATMUL_ROWS for pc in (True, False)]
+    for i, (M, K, N) in enumerate(INT8_MM_EDGES):
+        int8_cases.append((M, K, N, i % 3 != 0))   # a third: one scale
+    for M, K, N, pc in int8_cases:
+        x, wq, s = matmul_case(K, N, M, cdt, gen, dev, 8, pc)
+        got = i8.int8_matmul(x, wq, s)
+        what = (f"M={M} K={K} N={N} scales {s.numel()} "
+                f"{i8.int8_plan(M, K, N)}")
+        agree("int8_matmul", got, i8.int8_matmul_plain(x, wq, s), what)
+        assert torch.equal(got, i8.int8_matmul(x, wq, s)), \
+            f"[kernels] {label} int8_matmul {what}: two runs differ"
     int4_cases = [(M, K, n) for K, N in MATMUL_SHAPES[label]
                   for M in MATMUL_ROWS
                   for n in (N, N - 1)]    # an odd width: orig_last N - 1
@@ -2867,7 +2962,8 @@ def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
     the prefill (the decode steps stay on K1-K4); tokens through the
     kernels == the plain versions' (near-tie rule). Then encoder ms with
     and without K16 (K17 off), in f32 and bf16, beside the selector's
-    TPU-measured threshold. ``cfg`` and ``specials`` (default large-v3's)
+    TPU-measured threshold, and in bf16 with K17 on (with and without
+    K16). ``cfg`` and ``specials`` (default large-v3's)
     let a CPU rehearsal run it at a small width, where nothing launches
     and the counts are not held."""
     import torch
@@ -2916,6 +3012,10 @@ def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
         for flash in (False, True):
             enc[f"{dtype} {'K16' if flash else 'plain attention'}"] = \
                 encoder_ms(engine(dtype, flash), mel)
+    for flash in (False, True):     # every linear through K17
+        with optin_switches(int8=True):
+            enc[f"bfloat16 {'K16' if flash else 'plain attention'} + "
+                f"K17"] = encoder_ms(engine("bfloat16", flash), mel)
     log(f"[large-v3 opt-in] flash + int8 switch, f32: {len(kern.tokens)} "
         f"tokens in {dt * 1e3:.1f} ms; tokens "
         f"{'identical' if gap is None else f'near tie {gap:.3g}'} to the "
@@ -3315,7 +3415,7 @@ KERNELS = [
     ("ffn_block_batched",
      "whisper_apr_tpu_torch/csrc/decode_blocks_batched.cu",
      "whisper_apr_tpu/ops/decode_blocks.py:1099", "tiny_b8"),
-    ("qmatvec_stacked", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
+    ("qmatvec_stacked", "whisper_apr_tpu_torch/csrc/int8_matmul.cu",
      "whisper_apr_tpu/ops/qmatvec.py:86", "tiny_b8"),
     ("ffn_fused", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
      "whisper_apr_tpu/ops/qmatvec.py:279", "tiny_b1"),
@@ -3334,7 +3434,7 @@ KERNELS = [
      "whisper_apr_tpu/ops/paged_attention.py:115", "tiny_optin"),
     ("flash_attention", "whisper_apr_tpu_torch/csrc/flash_attention.cu",
      "whisper_apr_tpu/ops/flash_attention.py:135", "tiny_optin"),
-    ("int8_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
+    ("int8_matmul", "whisper_apr_tpu_torch/csrc/int8_matmul.cu",
      "whisper_apr_tpu/ops/int8_matmul.py:72", "tiny_optin"),
     ("int4_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
      "whisper_apr_tpu/ops/int4_matmul.py:115", "tiny_optin"),

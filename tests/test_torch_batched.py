@@ -229,6 +229,59 @@ class TestQmatvecStacked:
                                 out_dtype=torch.float32)
         _close(b, a, cdt)
 
+    @pytest.mark.parametrize("M", [1, 9, 16, 17, 32])
+    @pytest.mark.parametrize("cdt,out", [("f32", None), ("bf16", "f32")])
+    def test_edge_rows_match_jax(self, cfg, qd, M, cdt, out):
+        """The rows either side of the decode kernel's 8-row tiles and of
+        K17's 16-row limit, up to one launch's 32."""
+        jq, tq = qd
+        jx, tx = _x(M, cfg.n_text_state, seed=60 + M, cdt=cdt, scale=0.02)
+        jout = None if out is None else jnp.float32
+        tout = None if out is None else torch.float32
+        a = jstacked(jx, jq["blk"]["w1"], jq["blk"]["s1"], 1,
+                     out_dtype=jout, interpret=True)
+        b = tqm.qmatvec_stacked(tx, tq["blk"]["w1"], tq["blk"]["s1"], 1,
+                                out_dtype=tout)
+        assert b.shape == (M, 4 * cfg.n_text_state)
+        assert b.dtype == from_jax_params(a).dtype
+        _close(b, a, cdt)
+
+    @pytest.mark.parametrize("M", [1, 32, 40])
+    def test_one_launch_per_chunk_with_the_plan(self, monkeypatch, qd, M):
+        """The CUDA wrapper launches once per 32-row chunk, at the
+        layer's weight and scale, with ``int8_plan``'s split for the
+        chunk's rows and no scratch."""
+        from whisper_apr_tpu_torch.ops import int8_matmul as ti8
+        _, tq = qd
+        w, s = tq["blk"]["w1"], tq["blk"]["s1"]
+        L, K, N = w.shape
+        calls = []
+
+        class Lib:
+            def wa_qmatvec_stacked(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(*args, **kwargs):
+            raise AssertionError("K8 needs no scratch")
+
+        monkeypatch.setattr(tqm._build, "library", Lib)
+        monkeypatch.setattr(tqm._build, "stream", lambda: 7)
+        monkeypatch.setattr(tqm._build, "workspace", workspace)
+        x = torch.zeros((M, K), dtype=torch.bfloat16)
+        before = tqm.LAUNCHES["qmatvec_stacked"]
+        y = tqm._stacked_cuda(x, w, s, 2, torch.float32)
+        assert y.shape == (M, N) and y.dtype == torch.float32
+        chunks = [min(32, M - r) for r in range(0, M, 32)]
+        assert tqm.LAUNCHES["qmatvec_stacked"] == before + len(chunks)
+        assert [c[2] for c in calls] == chunks
+        for i, (args, m) in enumerate(zip(calls, chunks)):
+            assert args[0] == x.data_ptr() + 2 * 32 * i * K
+            assert args[4] == w.data_ptr() + 2 * K * N
+            assert args[6] == s.data_ptr() + 4 * 2 * N
+            assert args[8] == 0 and args[11] == 7 and len(args) == 12
+            assert tuple(args[9:11]) == tuple(ti8.int8_plan(m, K, N))
+
     def test_unstacked_wrapper(self, qd):
         _, tq = qd
         x = torch.randn(2, 128, generator=torch.Generator().manual_seed(1))

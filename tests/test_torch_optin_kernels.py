@@ -286,8 +286,14 @@ def _mats(seed, M, K, N):
             rng.normal(size=(N,)).astype(np.float32))
 
 
+# K17's edge rows: the decode kernel's one to four 8-row tiles (1, 9, 16,
+# 17, 32), the tile kernel's first row (33); K not a multiple of a 16-row
+# step, an odd width (rows not 16-byte aligned)
+INT8_EDGES = [(M, 200, 999) for M in (1, 9, 16, 17, 32, 33)]
+
+
 class TestInt8Plain:
-    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("shape", SHAPES + INT8_EDGES)
     @pytest.mark.parametrize("per_channel", [True, False])
     def test_matches_jax(self, shape, per_channel):
         x, w, b = _mats(0, *shape)
@@ -375,7 +381,7 @@ class TestInt4Plan:
             assert end == start
         assert all(s < e for s, e in ranges)           # none empty
         if M > ti4.DECODE_ROWS:
-            assert plan == ti4.Int4Plan(1, K)
+            assert plan == ti4.SplitPlan(1, K)
         else:
             assert 1 <= plan.n_split <= ti4.MAX_SPLIT
             assert plan.split_rows % ti4.STEP == 0
@@ -422,6 +428,174 @@ class TestInt4Plan:
         assert args[1:4] == (0, M, K) and args[5] == N and args[7] == N
         assert tuple(args[9:11]) == tuple(ti4.int4_plan(M, K, N))
         assert args[11] == 7 and len(args) == 12
+
+
+class TestInt8Plan:
+    """``int8_plan``: how the int8 decode-row kernel (K17 at most 16 rows,
+    K8 at most 32) spreads K over blocks (one launch: a strip's splits are
+    one cluster and are summed inside it, so the launch needs no
+    scratch)."""
+
+    @pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 32, 33, 1500])
+    @pytest.mark.parametrize("K,N", [(384, 384), (384, 1152), (1280, 1280),
+                                     (1280, 3840), (384, 51968),
+                                     (1280, 51968), (5120, 1280),
+                                     (200, 1000), (16, 999), (20000, 128)])
+    def test_k_rows_covered_once(self, M, K, N):
+        plan = ti8.int8_plan(M, K, N)
+        ranges = plan.k_ranges(K)
+        assert len(ranges) == plan.n_split
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        for (_, end), (start, _) in zip(ranges, ranges[1:]):
+            assert end == start
+        assert all(s < e for s, e in ranges)           # none empty
+        if M > ti8.DECODE_ROWS:
+            assert plan == ti8.SplitPlan(1, K)
+        else:
+            assert 1 <= plan.n_split <= ti8.MAX_SPLIT
+            steps = plan.split_rows // ti8.STEP
+            assert plan.split_rows % ti8.STEP == 0
+            # one round of the warps' steps, or whole rounds
+            assert steps <= ti8.WARPS or steps % ti8.WARPS == 0
+
+    @pytest.mark.parametrize("M,K,N,n,blocks", [
+        (1, 384, 384, 12, 36), (1, 384, 1152, 12, 108),
+        (1, 1280, 1280, 12, 120), (8, 1280, 3840, 4, 120),
+        (8, 1280, 51968, 1, 406), (8, 1280, 5120, 3, 120),
+        (8, 5120, 1280, 10, 100), (32, 1280, 5120, 2, 80)],
+        ids=["tiny DxD", "tiny Dx3D", "large-v3 DxD", "large-v3 Dx3D",
+             "large-v3 vocab", "large-v3 fc1", "large-v3 fc2",
+             "large-v3 fc1 M=32"])
+    def test_main_path_splits(self, M, K, N, n, blocks):
+        """The scan step's projections and the FFN's linears spread over
+        about 132 blocks (96 above 16 rows) where one block a strip of 128
+        columns would give 3-40; a split past one round of the warps' steps
+        takes whole rounds (fc1: 80 steps in 3 splits of 32, not 27); the
+        vocab is not split."""
+        plan = ti8.int8_plan(M, K, N)
+        assert plan.n_split == n
+        assert n * -(-N // ti8.STRIP) == blocks
+
+    @pytest.mark.parametrize("M,K,N", [(8, 384, 1536), (1, 16, 999),
+                                       (1500, 1280, 5120), (17, 200, 1000)])
+    def test_one_launch_without_scratch(self, monkeypatch, M, K, N):
+        """``_int8_cuda`` makes one call of the C entry point with the
+        plan's split and the stream, and asks for no scratch."""
+        calls = []
+
+        class Lib:
+            def wa_int8_matmul(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(*args, **kwargs):
+            raise AssertionError("K17 needs no scratch")
+
+        monkeypatch.setattr(ti8._build, "library", Lib)
+        monkeypatch.setattr(ti8._build, "stream", lambda: 7)
+        monkeypatch.setattr(ti8._build, "workspace", workspace)
+        rng = np.random.default_rng(8)
+        x = _t(rng.normal(size=(M, K)).astype(np.float32))
+        wq = _t(rng.integers(-128, 128, (K, N)).astype(np.int8))
+        before = ti8.LAUNCHES["int8_matmul"]
+        y = ti8._int8_cuda(x, wq, torch.ones(N))
+        assert y.shape == (M, N) and ti8.LAUNCHES["int8_matmul"] == before + 1
+        assert len(calls) == 1
+        args = calls[0]
+        assert args[1:4] == (0, M, K) and args[5] == N and args[7] == N
+        assert tuple(args[9:11]) == tuple(ti8.int8_plan(M, K, N))
+        assert args[11] == 7 and len(args) == 12
+
+
+def _int8_widen(word: int, B: int) -> float:
+    """The int8 kernels' widening of byte B of a 32-bit word, in numpy:
+    the word ^ 0x80808080, byte B into the low byte of 0x4B000000
+    (``__byte_perm(wx, 0x4B000000, 0x7440 | B)``, 2^23 + b + 128), minus
+    2^23 + 128 as an f32; the result's high half read as a bf16."""
+    wx = word ^ 0x80808080
+    bits = ((wx >> 8 * B) & 0xFF) | 0x4B000000
+    f = np.array([bits], np.uint32).view(np.float32) - np.float32(8388736)
+    u = int(f.view(np.uint32)[0])
+    # exact in f32 and its low half zero: the high half is the value as a
+    # bf16, which the kernels' byte permute (0x7632) keeps
+    assert u & 0xFFFF == 0 and float(f[0]) == int(float(f[0]))
+    return float(np.array([u & 0xFFFF0000], np.uint32).view(np.float32)[0])
+
+
+def _bf16_pair(lo: float, hi: float) -> int:
+    """``bf16_pair``: the high halves of two f32 values in one word."""
+    lo_u, hi_u = np.array([lo, hi], np.float32).view(np.uint32)
+    return int(lo_u >> 16) | int(hi_u >> 16) << 16
+
+
+def _pair_values(word: int) -> tuple:
+    return tuple(float(np.array([h << 16], np.uint32).view(np.float32)[0])
+                 for h in (word & 0xFFFF, word >> 16))
+
+
+class TestInt8Widening:
+    """The int8 kernels' widening to bf16 (no int -> float convert): every
+    byte value at every byte position of a word, the others random; and
+    the decode kernel's A fragments (bytes 2j and 2j + 1 of four K rows)
+    in an mma m16n8k16 mirrored in numpy, against x @ W."""
+
+    def test_all_bytes_every_position(self):
+        rng = np.random.default_rng(10)
+        for b in range(-128, 128):
+            for B in range(4):
+                other = int(rng.integers(0, 2 ** 32)) & ~(0xFF << 8 * B)
+                word = other | (b & 0xFF) << 8 * B
+                assert _int8_widen(word, B) == b, (b, B)
+
+    def test_pairs_keep_order(self):
+        word = 0x807F01FF                       # -128, 127, 1, -1
+        vals = [_int8_widen(word, B) for B in range(4)]
+        assert vals == [-1.0, 1.0, 127.0, -128.0]
+        assert _pair_values(_bf16_pair(vals[0], vals[3])) == (-1.0, -128.0)
+
+    def test_decode_fragments_mirror(self):
+        """Lane (g, t) loads vector g (16 columns) of K rows 2t, 2t + 1,
+        2t + 8, 2t + 9; mma j's A rows g and g + 8 are columns 2j and
+        2j + 1 of the lane's vector; x rows are B's 8 columns; the epilogue
+        puts sum e of mma j at column 16 g + 2j + (e >> 1), row 2t +
+        (e & 1). Together: y = x @ W over a 16-row step of 128 columns."""
+        rng = np.random.default_rng(11)
+        W = rng.integers(-128, 128, (16, 128)).astype(np.int8)
+        x = rng.integers(-4, 5, (8, 16)).astype(np.float32)
+        y = np.zeros((8, 128), np.float32)
+        words = W.view(np.uint8).reshape(16, 8, 4, 4)
+        words = (words.astype(np.uint32)
+                 << (8 * np.arange(4, dtype=np.uint32))).sum(-1)  # [k, v, wd]
+        for j in range(8):
+            A = np.zeros((8, 16, 16), np.float32)    # [g][row][k]
+            for g in range(8):
+                for t in range(4):
+                    r = [int(words[k, g, j // 2]) for k in
+                         (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+                    b0, b1 = 2 * (j % 2), 2 * (j % 2) + 1
+                    a = [_bf16_pair(_int8_widen(r[0], b0),
+                                    _int8_widen(r[1], b0)),
+                         _bf16_pair(_int8_widen(r[0], b1),
+                                    _int8_widen(r[1], b1)),
+                         _bf16_pair(_int8_widen(r[2], b0),
+                                    _int8_widen(r[3], b0)),
+                         _bf16_pair(_int8_widen(r[2], b1),
+                                    _int8_widen(r[3], b1))]
+                    for i, (row, k) in enumerate(((g, 2 * t),
+                                                  (g + 8, 2 * t),
+                                                  (g, 2 * t + 8),
+                                                  (g + 8, 2 * t + 8))):
+                        A[g, row, k:k + 2] = _pair_values(a[i])
+            # the mma's A is the same for every g: row g from lanes (g, .)
+            Am = np.stack([A[g % 8, g] for g in range(16)])
+            for g in range(8):
+                D = Am @ x.T                            # [16, 8]
+                for t in range(4):
+                    for e in range(4):
+                        row = (g if e < 2 else g + 8)
+                        col = 16 * g + 2 * j + (e >> 1)
+                        y[2 * t + (e & 1), col] = D[row, 2 * t + (e & 1)]
+        np.testing.assert_array_equal(y, x @ W.astype(np.float32))
 
 
 def _magic_bf16(byte: int) -> list:

@@ -345,7 +345,7 @@ def test_optin_full_width_phases_on_cpu(smoke, e2e_small):
     assert large["near_tie_gap"] is None
     assert large["want_launches"]["int8_matmul"] == 6 * La + 10 * L
     assert large["want_launches"]["flash_attention"] == La
-    assert len(large["encoder_ms"]) == 4
+    assert len(large["encoder_ms"]) == 6     # bf16 with K17 twice more
     assert not int8_matmul.USE_PALLAS_INT8 and not int4_matmul.USE_PALLAS_INT4
 
 
@@ -514,6 +514,61 @@ def test_int4_cases_reach_each_path(smoke):
         x, wq, s = smoke.matmul_case(K, N, M, torch.float32, gen, "cpu", 4)
         y = i4.int4_matmul(x, wq, s)
         assert y.shape == (M, N + N % 2) and bool(torch.isfinite(y).all())
+
+
+def test_int8_mm_cases_reach_each_path(smoke):
+    """K17's smoke cases take every path of the kernels: one and two
+    8-row tiles of the decode kernel, split and unsplit K, the tile
+    kernel either side of a 128-row tile, K not a multiple of a 16-row
+    step, rows that are not 16-byte aligned (an odd width among them),
+    one scale and one per column; the plain version takes them all on the
+    CPU."""
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    cases = smoke.INT8_MM_EDGES
+    rows = {M for M, _, _ in cases}
+    assert {1, 8} <= rows and {9, 15, 16} <= rows and {17, 32} <= rows
+    assert {33, 127, 129} <= rows
+    decode = [i8.int8_plan(M, K, N) for M, K, N in cases
+              if M <= i8.DECODE_ROWS]
+    assert {p.n_split > 1 for p in decode} == {True, False}
+    assert any(K % i8.STEP for _, K, _ in cases)
+    assert any(N % 16 and N % 2 for _, _, N in cases)
+    assert any(N % 16 and not N % 2 for _, _, N in cases)
+    gen = torch.Generator().manual_seed(0)
+    for i, (M, K, N) in enumerate(cases[:8]):
+        x, wq, s = smoke.matmul_case(K, N, M, torch.float32, gen, "cpu", 8,
+                                     i % 3 != 0)
+        y = i8.int8_matmul(x, wq, s)
+        assert y.shape == (M, N) and bool(torch.isfinite(y).all())
+
+
+def test_k8_edges_reach_each_path(smoke):
+    """K8's smoke cases take one to four 8-row tiles of the decode kernel
+    and two launches (rows past 32), split and unsplit K, a part strip;
+    every width a multiple of 32 (K8's contract)."""
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    tiles = {-(-min(M, 32) // 8) for M, _, _ in smoke.K8_EDGES}
+    assert tiles == {1, 2, 3, 4}
+    assert any(M > 32 for M, _, _ in smoke.K8_EDGES)
+    assert all(N % 32 == 0 for _, _, N in smoke.K8_EDGES)
+    assert any(N % i8.STRIP for _, _, N in smoke.K8_EDGES)
+    plans = {i8.int8_plan(min(M, 32), K, N).n_split > 1
+             for M, K, N in smoke.K8_EDGES}
+    assert plans == {True, False}
+
+
+def test_k8_scan_bounds(smoke):
+    """K8 at the scan step's projections: the int8 weights (3 D^2 and
+    D^2 bytes), the per-column f32 scales and bf16 x in and out over the
+    memory rate, bytes-bound at 8 rows."""
+    for D in (384, 1280):
+        q, by = smoke.bound("qmatvec_stacked_qkv", D, 8)
+        d, by2 = smoke.bound("qmatvec_stacked_dd", D, 8)
+        assert by == by2 == "bytes"
+        want_q = (3 * D * D + 4 * 3 * D + 2 * 8 * D * 2 + 2 * 8 * D * 2)
+        want_d = (D * D + 4 * D + 2 * 8 * D * 2)
+        assert abs(q - 1e3 * want_q / smoke.HBM_BPS) < 1e-9
+        assert abs(d - 1e3 * want_d / smoke.HBM_BPS) < 1e-9
 
 
 def test_int8_edge_cases_reach_each_path(smoke):

@@ -1,0 +1,608 @@
+// K8 and K17: products over int8 weights, on the tensor cores.
+//
+// K17 replaces the Pallas kernel of whisper_apr_tpu/ops/int8_matmul.py
+// (_int8_matmul_kernel / int8_matmul, pallas_call at :72), K8 the one of
+// whisper_apr_tpu/ops/qmatvec.py (_qmatvec_kernel / qmatvec_stacked,
+// pallas_call at :86). Both compute
+//
+//   y[m, n] = (sum_k x[m, k] * w[k, n]) * scale[n]     (f32 sum)
+//
+// with w the int8 weight taken in x's dtype. K17 casts to x's dtype and
+// takes one scale for every column (n_scale == 1) or one per column; K8
+// is one layer of a stacked [L, K, N] weight (the caller offsets the
+// weight and scale pointers), per-column scale, out in x's dtype or f32
+// (the vocab logits).
+//
+// Bound: at a few decode rows the weight bytes (K * N: 66.5 MB for
+// large-v3's vocab), at the encoder's 1500 rows the operations (2 M N K).
+// Both are carried by the tensor cores, as K18's kernels do for int4
+// (dequant_matmul.cu); f32 x above 32 rows in K17 takes the CUDA-core
+// dequant_mm_kernel (quant_mma.cuh), for the token checks.
+//
+// Widening int8 to bf16 without an int -> float convert (I2F runs at a
+// quarter of the FMA rate): bf16 holds every int8 exactly, but no bf16
+// binade holds 256 consecutive integers, so K18's one-lop3 magic does not
+// carry over. Instead b ^ 0x80 = b + 128 goes into the low byte of the f32
+// 2^23 (0x4B0000uu, one byte permute), 2^23 + 128 is subtracted (one f32
+// add, exact), and as b has at most 8 significant bits the f32's high
+// half IS b as a bf16: one more byte permute packs two. Every step exact;
+// the products of int8 values and bf16 values are exact in f32, so the
+// sums are the JAX kernel's arithmetic.
+//
+// - M <= 32 (a decode step, a serving tick, a short prompt; K8 always):
+//   int8_mv_mma_kernel, bytes-bound, one launch. y^T = W^T x^T by
+//   mma.sync m16n8k16: the weights are A (16 output columns by 16 K rows),
+//   x is B in NT tiles of 8 rows. A block owns a strip of 128 columns (8
+//   vectors of 16 bytes) and a range of K rows; lane (g, t) of each warp
+//   reads whole 16-byte vectors (ld.global.nc.v4) of 4 K rows at vector
+//   g, the next step's in flight while it multiplies this one's (two steps
+//   in registers, or a ring of cp.async copies into shared memory, measured
+//   slower). f32 x is fed as three bf16 terms whose sum is x (each product
+//   exact, the sums f32). The warps' sums meet in
+//   shared memory; where K is split (ops/int8_matmul.int8_plan), a strip's
+//   splits are one thread block cluster: each stores its sums into the
+//   blocks of the cluster that own them (distributed shared memory) and,
+//   after the cluster's barrier, each block sums its share in split
+//   order. No scratch, one launch, and a result that does not depend on
+//   the order blocks run in.
+// - K17, bf16 and M > 32 (the encoder, the cross K/V, a long prefill):
+//   int8_mma_kernel, operations-bound: a 128 x 128 output tile, 8 warps of
+//   64 x 32, 64-deep slices, a 3-stage ring of 16-byte cp.async copies of
+//   x's tile and of the int8 tile. The block widens the next slice's int8
+//   tile into a bf16 [k][n] tile while it multiplies this one: A from
+//   ldmatrix.x4 on x's tile, B from ldmatrix.x4.trans on the widened one,
+//   padded row strides (144 and 272 bytes) keeping both free of bank
+//   conflicts.
+//
+// Ragged M, N and K edges are masked; rows whose addresses are not 16-byte
+// aligned take the kernels' byte-wise loads.
+#include "quant_mma.cuh"
+#include "cp_async.cuh"
+
+#include <cooperative_groups.h>
+
+namespace wa {
+namespace {
+
+namespace cg = cooperative_groups;
+
+// --------------------------------------------------------------------------
+// int8 -> bf16, exactly
+// --------------------------------------------------------------------------
+
+constexpr uint32_t FLIP = 0x80808080u;      // b ^ 0x80 == b + 128, per byte
+
+// byte `sel & 3` of wx (a word of weights ^ FLIP) as an f32: u = b + 128
+// as the low byte of 2^23 (selector 0x744B: bytes 1, 2 from 0x00, byte 3
+// from 0x4B), minus 2^23 + 128
+__device__ __forceinline__ float byte_f32(uint32_t wx, int sel) {
+    return __uint_as_float(__byte_perm(wx, 0x4B000000u, sel)) - 8388736.f;
+}
+
+// two such integers as a bf16 pair: their f32 high halves (lo in bits
+// 0-15)
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+template <int B>
+__device__ __forceinline__ float byte_at(uint32_t wx) {
+    return byte_f32(wx, 0x7440 | B);
+}
+
+__device__ __forceinline__ void store_out(void* y, int out_f32, size_t i,
+                                          float v) {
+    if (out_f32)
+        static_cast<float*>(y)[i] = v;
+    else
+        static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16_rn(v);
+}
+
+// --------------------------------------------------------------------------
+// decode rows: M <= 32, one launch
+// --------------------------------------------------------------------------
+
+constexpr int Q8_VECS = 8;                  // 16-byte vectors a block row
+constexpr int Q8_STRIP = 16 * Q8_VECS;      // output columns a block owns
+constexpr int Q8_W = 8;                     // warps a block: split K
+constexpr int Q8_W1 = 4;                    //   and K whole (the vocab)
+constexpr int Q8_THREADS = 32 * Q8_W;
+static_assert(32 * Q8_W1 >= Q8_STRIP, "a scale a thread");
+constexpr int Q8_RS = Q8_VECS * 17;         // a slot's row: padded vectors
+constexpr int Q8_MAX_SPLIT = 16;            // blocks of a cluster
+
+// Lane (g, t) reads rows 2t, 2t + 1, 2t + 8, 2t + 9 of each 16-row step
+// at vector g of the strip, 16 bytes each (ld.global.nc.v4, or byte-wise
+// where rows are not 16-byte aligned), the next step's in flight while it
+// multiplies this one's: the K rows its A and B fragments hold. mma j
+// takes bytes 2j and 2j + 1 of the vectors: A's row g is column 2j of
+// vector g, row g + 8 column 2j + 1. Warp w takes steps w, w + W, .. (W
+// warps: mv8_warps); each stores its sums to its slot of shared memory and the
+// block sums the slots in order. Split K: the grid's splits of a strip
+// are one cluster; split b stores its sums of outputs [r C, (r + 1) C)
+// into block r's shared memory, and after the cluster's barrier block r
+// sums them in split order and writes them.
+template <typename XT, int NT, bool ALIGNED>
+__global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
+        const XT* __restrict__ x, const uint8_t* __restrict__ w,
+        const float* __restrict__ scale, int n_scale, void* __restrict__ y,
+        int out_f32, int M, int K, int N, int split_rows) {
+    constexpr int TERMS = std::is_same<XT, float>::value ? 3 : 1;
+    extern __shared__ __align__(16) unsigned char q8_smem[];
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_threads = blockDim.x, n_warps = n_threads >> 5;
+    const int vec = blockIdx.x * Q8_VECS + g;
+    const bool active = vec < (N + 15) / 16;
+    const int n_split = gridDim.y;
+    // the cluster's first barrier phase: every block has started before
+    // any stores into another's shared memory (waited on below)
+    if (n_split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;");
+    const int k0 = blockIdx.y * split_rows;
+    const int kend = min(K, k0 + split_rows);
+    const int steps = (kend - k0 + 15) / 16;
+    const int rows[4] = {2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9};
+    float acc[NT][8][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            acc[nt][j][0] = acc[nt][j][1] = acc[nt][j][2] = acc[nt][j][3] =
+                0.f;
+    // the strip's scales, requested with the first vectors and kept in
+    // shared memory for the epilogues
+    const int my_col = blockIdx.x * Q8_STRIP + tid;
+    const float my_scale = tid < Q8_STRIP && my_col < N
+                               ? col_scale(scale, n_scale, my_col) : 0.f;
+    // the next step's weight vectors and x pairs, requested while this
+    // step's products run
+    uint4 q[4];
+    XPair<XT> xq[NT][2];
+    const auto fetch = [&](int s) {
+        const int kb = k0 + 16 * s;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int k = kb + rows[i];
+            q[i] = active && k < kend ? load_vec<ALIGNED>(w, N, k, vec)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                xq[nt][h] = x_pair<XT>(x, M, K, kend, 8 * nt + g,
+                                       kb + 2 * t + 8 * h);
+    };
+    fetch(warp);
+    for (int s = warp; s < steps; s += n_warps) {
+        uint32_t r[4][4], b[NT][2][TERMS];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            r[i][0] = q[i].x ^ FLIP; r[i][1] = q[i].y ^ FLIP;
+            r[i][2] = q[i].z ^ FLIP; r[i][3] = q[i].w ^ FLIP;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) x_terms(xq[nt][h], b[nt][h]);
+        fetch(s + n_warps);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            // bytes 2j (A rows g) and 2j + 1 (rows g + 8) of rows 2t, 2t + 1
+            // (a0, a1) and 2t + 8, 2t + 9 (a2, a3)
+            const int wd = j / 2, s0 = 0x7440 | (2 * (j % 2)), s1 = s0 + 1;
+            const uint32_t a[4] = {
+                bf16_pair(byte_f32(r[0][wd], s0), byte_f32(r[1][wd], s0)),
+                bf16_pair(byte_f32(r[0][wd], s1), byte_f32(r[1][wd], s1)),
+                bf16_pair(byte_f32(r[2][wd], s0), byte_f32(r[3][wd], s0)),
+                bf16_pair(byte_f32(r[2][wd], s1), byte_f32(r[3][wd], s1))};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < TERMS; ++i)
+                    mma_bf16(acc[nt][j], a, b[nt][0][i], b[nt][1][i]);
+        }
+    }
+
+    // lane (g, t) holds rows 8 nt + 2t (+1) of columns 16 g + 2j (+1); a
+    // slot is [M rows][8 vectors of 17]. Warps past the block's steps
+    // hold nothing.
+    float* const f_smem = reinterpret_cast<float*>(q8_smem);
+    const int busy = min(n_warps, steps);
+    const int total = M * Q8_STRIP;
+    const int chunk = (total + n_split - 1) / n_split;
+    float* sums = f_smem + n_warps * M * Q8_RS;     // [split][chunk]
+    float* col_scales = sums + (n_split > 1 ? n_split * chunk : 0);
+    if (tid < Q8_STRIP) col_scales[tid] = my_scale;
+    float* slot = f_smem + warp * M * Q8_RS + 17 * g;
+#pragma unroll
+    for (int nt = 0; nt < NT && warp < busy; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int m = 8 * nt + 2 * t + (e & 1);
+            if (m < M) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    slot[m * Q8_RS + 2 * j + (e >> 1)] = acc[nt][j][e];
+            }
+        }
+    __syncthreads();
+    if (n_split > 1) asm volatile("barrier.cluster.wait.aligned;");
+
+    // the slots summed in order; with split K, split b stores its sums of
+    // outputs [r C, (r + 1) C) into block r's shared memory, and after
+    // the cluster's barrier block r sums them in split order
+    for (int e = tid; e < total; e += n_threads) {
+        const int m = e / Q8_STRIP, n = e % Q8_STRIP;
+        const float* s = f_smem + m * Q8_RS + 17 * (n / 16) + n % 16;
+        float v = s[0];
+#pragma unroll
+        for (int i = 1; i < Q8_W; ++i)
+            if (i < busy) v += s[i * M * Q8_RS];
+        const int gn = blockIdx.x * Q8_STRIP + n;
+        if (n_split > 1) {
+            const int r = e / chunk;
+            cg::this_cluster().map_shared_rank(sums, r)[
+                blockIdx.y * chunk + e - r * chunk] = v;
+        } else if (gn < N) {
+            store_out(y, out_f32, (size_t)m * N + gn, v * col_scales[n]);
+        }
+    }
+    if (n_split == 1) return;
+    cg::this_cluster().sync();      // every split's sums have arrived
+    for (int i = tid; i < chunk; i += n_threads) {
+        const int e = blockIdx.y * chunk + i;
+        if (e >= total) break;
+        float a[Q8_MAX_SPLIT];
+#pragma unroll
+        for (int sp = 0; sp < Q8_MAX_SPLIT; ++sp)
+            a[sp] = sp < n_split ? sums[sp * chunk + i] : 0.f;
+        float v = a[0];
+#pragma unroll
+        for (int sp = 1; sp < Q8_MAX_SPLIT; ++sp)
+            if (sp < n_split) v += a[sp];
+        const int n = e % Q8_STRIP, gn = blockIdx.x * Q8_STRIP + n;
+        if (gn < N)
+            store_out(y, out_f32, (size_t)(e / Q8_STRIP) * N + gn,
+                      v * col_scales[n]);
+    }
+}
+
+// the warps of a decode block: 8 where K is split (a split's rows come in
+// rounds of one 16-row step a warp, ops/int8_matmul.int8_plan), 4 where it
+// is whole (the vocab: more blocks resident, so a strip's 406 blocks are
+// one wave; measured faster at every M there, slower on split shapes)
+__host__ __forceinline__ int mv8_warps(int n_split) {
+    return n_split > 1 ? Q8_W : Q8_W1;
+}
+
+// shared memory of a decode launch: the warps' slots, with split K every
+// split's share of the block's outputs, and the strip's scales
+__host__ __forceinline__ size_t mv8_smem(int M, int n_split) {
+    const size_t total = (size_t)M * Q8_STRIP;
+    return sizeof(float)
+           * ((size_t)mv8_warps(n_split) * M * Q8_RS
+              + (n_split > 1 ? n_split * ((total + n_split - 1) / n_split)
+                             : 0)
+              + Q8_STRIP);
+}
+
+template <typename XT, int NT, bool ALIGNED>
+int launch_mv8(const void* x, const uint8_t* w, const float* scale,
+               int n_scale, void* y, int out_f32, int M, int K, int N,
+               int n_split, int split_rows, cudaStream_t st) {
+    const auto kernel = int8_mv_mma_kernel<XT, NT, ALIGNED>;
+    const int smem = (int)mv8_smem(M, n_split);
+    static int opted_in = 0;                // the most asked of this kernel
+    if (smem > opted_in) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e == cudaSuccess && opted_in == 0)    // clusters of up to 16
+            e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+        opted_in = smem;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((N + Q8_STRIP - 1) / Q8_STRIP, n_split);
+    cfg.blockDim = dim3(32 * mv8_warps(n_split));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = n_split;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(x),
+                                   w, scale, n_scale, y, out_f32, M, K, N,
+                                   split_rows);
+}
+
+// the decode kernel for M <= 32 rows: NT = ceil(M / 8) tiles of 8 rows,
+// n_split blocks of split_rows K rows (a multiple of 16) a strip
+template <typename XT>
+int decode_rows(const void* x, const uint8_t* w, const float* scale,
+                int n_scale, void* y, int out_f32, int M, int K, int N,
+                int n_split, int split_rows, cudaStream_t st) {
+    if (n_split < 1 || n_split > Q8_MAX_SPLIT || split_rows < 1
+            || split_rows % 16 || (long long)n_split * split_rows < K
+            || (long long)(n_split - 1) * split_rows >= K || M > 32)
+        return ERR_SHAPE;
+    const bool al = reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
+#define WA_MV8(NT)                                                           \
+    (al ? launch_mv8<XT, NT, true>(x, w, scale, n_scale, y, out_f32, M, K,   \
+                                   N, n_split, split_rows, st)               \
+        : launch_mv8<XT, NT, false>(x, w, scale, n_scale, y, out_f32, M, K,  \
+                                    N, n_split, split_rows, st))
+    if (M <= 8) return WA_MV8(1);
+    if (M <= 16) return WA_MV8(2);
+    if (M <= 24) return WA_MV8(3);
+    return WA_MV8(4);
+#undef WA_MV8
+}
+
+// --------------------------------------------------------------------------
+// K17, bf16 and M > 32: 128 x 128 tiles
+// --------------------------------------------------------------------------
+
+constexpr int T8_BM = 128, T8_BN = 128, T8_BK = 64, T8_STAGES = 3;
+constexpr int T8_THREADS = 256;
+constexpr int T8_XLD = T8_BK + 8;       // x tile row: 144 bytes
+constexpr int T8_WLD = T8_BN + 8;       // widened tile row: 272 bytes
+
+// dynamic shared memory (114688 bytes: two blocks an SM)
+struct T8Smem {
+    __nv_bfloat16 xs[T8_STAGES][T8_BM][T8_XLD];
+    uint8_t wq[T8_STAGES][T8_BK][T8_BN];
+    __nv_bfloat16 wt[2][T8_BK][T8_WLD];     // [k][n], two slices
+};
+
+// stage the slice at k0 of x's tile and of the int8 tile: 16-byte
+// cp.async copies (zero-filled past M, K and N), or, when rows are not
+// 16-byte aligned, element loads
+template <bool ALIGNED>
+__device__ __forceinline__ void t8_stage(
+        T8Smem& s, int st, const __nv_bfloat16* __restrict__ x,
+        const uint8_t* __restrict__ w, int M, int K, int N, int m0, int n0,
+        int k0, int tid) {
+    if (ALIGNED) {
+#pragma unroll
+        for (int e = tid; e < T8_BM * (T8_BK / 8); e += T8_THREADS) {
+            const int r = e / (T8_BK / 8), c = 8 * (e % (T8_BK / 8));
+            const bool ok = m0 + r < M && k0 + c < K;
+            cp_async16(&s.xs[st][r][c],
+                       ok ? x + (size_t)(m0 + r) * K + k0 + c : x,
+                       ok ? 16 : 0);
+        }
+#pragma unroll
+        for (int e = tid; e < T8_BK * (T8_BN / 16); e += T8_THREADS) {
+            const int r = e / (T8_BN / 16), c = 16 * (e % (T8_BN / 16));
+            const bool ok = k0 + r < K && n0 + c < N;
+            cp_async16(&s.wq[st][r][c],
+                       ok ? w + (size_t)(k0 + r) * N + n0 + c : w,
+                       ok ? 16 : 0);
+        }
+        return;
+    }
+    for (int e = tid; e < T8_BM * T8_BK; e += T8_THREADS) {
+        const int r = e / T8_BK, c = e % T8_BK;
+        s.xs[st][r][c] = m0 + r < M && k0 + c < K
+            ? x[(size_t)(m0 + r) * K + k0 + c] : __float2bfloat16_rn(0.f);
+    }
+    for (int e = tid; e < T8_BK * T8_BN; e += T8_THREADS) {
+        const int r = e / T8_BN, c = e % T8_BN;
+        s.wq[st][r][c] = k0 + r < K && n0 + c < N
+            ? w[(size_t)(k0 + r) * N + n0 + c] : (uint8_t)0;
+    }
+}
+
+// widen stage st's int8 slice into wt[buf]: each thread two 16-byte
+// vectors (a warp reads 512 contiguous bytes), 16 bf16 values each, two
+// 16-byte stores
+__device__ __forceinline__ void t8_widen(T8Smem& s, int st, int buf,
+                                         int tid) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int v = tid + T8_THREADS * h;
+        const int r = v / (T8_BN / 16), c = 16 * (v % (T8_BN / 16));
+        const uint4 q = *reinterpret_cast<const uint4*>(&s.wq[st][r][c]);
+        const uint32_t words[4] = {q.x ^ FLIP, q.y ^ FLIP, q.z ^ FLIP,
+                                   q.w ^ FLIP};
+        uint32_t o[8];
+#pragma unroll
+        for (int wd = 0; wd < 4; ++wd) {
+            o[2 * wd] = bf16_pair(byte_at<0>(words[wd]),
+                                  byte_at<1>(words[wd]));
+            o[2 * wd + 1] = bf16_pair(byte_at<2>(words[wd]),
+                                      byte_at<3>(words[wd]));
+        }
+        uint4* dst = reinterpret_cast<uint4*>(&s.wt[buf][r][c]);
+        dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+        dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+}
+
+// one barrier a slice: at slice it, stage it + 1 has landed and slice it
+// is widened; the block requests stage it + 2 (into the ring slot that
+// slice it - 1 freed), widens slice it + 1 into the other wt buffer and
+// runs slice it's products
+template <bool ALIGNED>
+__global__ void __launch_bounds__(T8_THREADS) int8_mma_kernel(
+        const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+        const float* __restrict__ scale, int n_scale,
+        __nv_bfloat16* __restrict__ y, int M, int K, int N) {
+    static_assert(2 * T8_THREADS == T8_BK * (T8_BN / 16), "two vectors each");
+    extern __shared__ __align__(16) unsigned char t8_smem[];
+    T8Smem& s = *reinterpret_cast<T8Smem*>(t8_smem);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+    const int m0 = blockIdx.y * T8_BM, n0 = blockIdx.x * T8_BN;
+    const int nk = (K + T8_BK - 1) / T8_BK;
+    float acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    t8_stage<ALIGNED>(s, 0, x, w, M, K, N, m0, n0, 0, tid);
+    cp_async_commit();
+    if (nk > 1) t8_stage<ALIGNED>(s, 1, x, w, M, K, N, m0, n0, T8_BK, tid);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    t8_widen(s, 0, 0, tid);
+    for (int it = 0; it < nk; ++it) {
+        const int st = it % T8_STAGES, buf = it & 1;
+        cp_async_wait<0>();
+        __syncthreads();
+        if (it + 2 < nk)
+            t8_stage<ALIGNED>(s, (it + 2) % T8_STAGES, x, w, M, K, N, m0,
+                              n0, (it + 2) * T8_BK, tid);
+        cp_async_commit();
+        if (it + 1 < nk) t8_widen(s, (it + 1) % T8_STAGES, buf ^ 1, tid);
+#pragma unroll
+        for (int kc = 0; kc < T8_BK / 16; ++kc) {
+            uint32_t a[4][4], b[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                ldmatrix_x4(a[i], &s.xs[st][wm + 16 * i + (lane & 15)]
+                                       [16 * kc + 8 * (lane >> 4)]);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+                uint32_t r[4];
+                ldmatrix_x4_trans(
+                    r, &s.wt[buf][16 * kc + (lane & 15)]
+                                 [wn + 16 * jj + 8 * (lane >> 4)]);
+                b[2 * jj][0] = r[0]; b[2 * jj][1] = r[1];
+                b[2 * jj + 1][0] = r[2]; b[2 * jj + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+        }
+    }
+    // paired stores where N is even (gn even: the pair is in the row and
+    // 4-byte aligned), else one value at a time
+    const bool pairs = N % 2 == 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + wn + 8 * j + 2 * t;
+        if (gn >= N) continue;
+        const float s0 = col_scale(scale, n_scale, gn);
+        const float s1 = gn + 1 < N ? col_scale(scale, n_scale, gn + 1) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int gm = m0 + wm + 16 * i + g + 8 * h;
+                if (gm >= M) continue;
+                __nv_bfloat16* out = y + (size_t)gm * N + gn;
+                const float v0 = acc[i][j][2 * h] * s0;
+                const float v1 = acc[i][j][2 * h + 1] * s1;
+                if (pairs) {
+                    *reinterpret_cast<__nv_bfloat162*>(out) =
+                        __floats2bfloat162_rn(v0, v1);
+                } else {
+                    out[0] = __float2bfloat16_rn(v0);
+                    if (gn + 1 < N) out[1] = __float2bfloat16_rn(v1);
+                }
+            }
+    }
+}
+
+int launch_tile8(const void* x, const uint8_t* w, const float* scale,
+                 int n_scale, void* y, int M, int K, int N, cudaStream_t st) {
+    const bool al = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0
+                    && reinterpret_cast<uintptr_t>(w) % 16 == 0
+                    && N % 16 == 0;
+    const dim3 grid((N + T8_BN - 1) / T8_BN, (M + T8_BM - 1) / T8_BM);
+    const auto kernel = al ? int8_mma_kernel<true> : int8_mma_kernel<false>;
+    const int smem = (int)sizeof(T8Smem);
+    static bool opted_in[2] = {false, false};   // once per kernel
+    if (!opted_in[al]) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        opted_in[al] = true;
+    }
+    kernel<<<grid, T8_THREADS, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(x), w, scale, n_scale,
+        static_cast<__nv_bfloat16*>(y), M, K, N);
+    return (int)cudaGetLastError();
+}
+
+template <typename XT>
+int int8_matmul_t(const void* x, int M, int K, const uint8_t* w, int N,
+                  const float* scale, int n_scale, void* y, int n_split,
+                  int split_rows, cudaStream_t st) {
+    const int out_f32 = std::is_same<XT, float>::value;
+    if (M <= 32)
+        return decode_rows<XT>(x, w, scale, n_scale, y, out_f32, M, K, N,
+                               n_split, split_rows, st);
+    if (n_split != 1) return ERR_SHAPE;
+    if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
+        return launch_tile8(x, w, scale, n_scale, y, M, K, N, st);
+    } else {
+        dequant_mm_kernel<float, 8><<<dim3((N + DM_BN - 1) / DM_BN,
+                                           (M + 63) / 64), DM_THREADS, 0,
+                                      st>>>(
+            static_cast<const float*>(x), reinterpret_cast<const int8_t*>(w),
+            scale, n_scale, static_cast<float*>(y), M, K, N);
+        return (int)cudaGetLastError();
+    }
+}
+
+}  // namespace
+}  // namespace wa
+
+using namespace wa;
+
+// K17: x [M, K] (f32 or bf16), wq [K, N] int8, scale [n_scale] f32 (1 or
+// per column), y [M, N] in x's dtype. For M <= 32 the caller's plan
+// (ops/int8_matmul.int8_plan): n_split blocks over K (at most 16: one
+// cluster), each split_rows rows (a multiple of 16); for M > 32, n_split
+// 1. No scratch.
+extern "C" int wa_int8_matmul(const void* x, int dtype, int M, int K,
+                              const int8_t* wq, int N, const float* scale,
+                              int n_scale, void* y, int n_split,
+                              int split_rows, void* stream) {
+    if (M < 1 || K < 1 || N < 1 || n_scale < 1
+            || (M + T8_BM - 1) / T8_BM > 65535)
+        return ERR_SHAPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    const auto w = reinterpret_cast<const uint8_t*>(wq);
+    if (dtype == F32)
+        return int8_matmul_t<float>(x, M, K, w, N, scale, n_scale, y,
+                                    n_split, split_rows, st);
+    if (dtype == BF16)
+        return int8_matmul_t<__nv_bfloat16>(x, M, K, w, N, scale, n_scale, y,
+                                            n_split, split_rows, st);
+    return ERR_DTYPE;
+}
+
+// K8: x [M, K] f32 or bf16 (M <= 32); w [K, N] int8 and scale [N] f32 at
+// the layer (N a multiple of 32); out [M, N] f32 or bf16; the plan of
+// ops/int8_matmul.int8_plan. No scratch.
+extern "C" int wa_qmatvec_stacked(const void* x, int x_dtype, int M, int K,
+                                  const void* w, int N, const void* scale,
+                                  void* out, int out_dtype, int n_split,
+                                  int split_rows, void* stream) {
+    if (N % 32 != 0 || M < 1 || M > 32 || K < 1) return ERR_SHAPE;
+    if (out_dtype != F32 && out_dtype != BF16) return ERR_DTYPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    const auto wp = static_cast<const uint8_t*>(w);
+    const auto sp = static_cast<const float*>(scale);
+    const int out_f32 = out_dtype == F32;
+    if (x_dtype == F32)
+        return decode_rows<float>(x, wp, sp, N, out, out_f32, M, K, N,
+                                  n_split, split_rows, st);
+    if (x_dtype == BF16)
+        return decode_rows<__nv_bfloat16>(x, wp, sp, N, out, out_f32, M, K,
+                                          N, n_split, split_rows, st);
+    return ERR_DTYPE;
+}

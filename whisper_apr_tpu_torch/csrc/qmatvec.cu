@@ -1,5 +1,6 @@
-// K4: fused greedy vocab head for M rows, K8: the stacked int8 matvec,
-// and K9: the fused FFN of the scan step.
+// K4: fused greedy vocab head for M rows, and K9: the fused FFN of the
+// scan step. (K8, the stacked int8 matvec, runs K17's decode-row kernel
+// in int8_matmul.cu.)
 //
 // K4 replaces the Pallas kernel of whisper_apr_tpu/ops/qmatvec.py
 // (qmatvec_greedy_head/_greedy_head_kernel) and computes what it computes,
@@ -7,10 +8,6 @@
 // vocab, columns >= n_vocab masked to -inf, then (first index of the max,
 // the max, logsumexp) with no logits row written. The logsumexp is
 // m + log(max(z, 1e-30)); suppressed (-inf) and masked columns add 0.
-//
-// K8 replaces qmatvec_stacked/_qmatvec_kernel: y [M, N] =
-// (x [M, K] @ wq[layer] int8 [K, N]) * scale[layer] [N], output in x's
-// dtype or f32 (the serving tick's vocab logits).
 //
 // K9 replaces ffn_fused/_ffn_kernel: y [M, D] = gelu(x @ w1[layer] *
 // s1[layer] + b1[layer]) @ w2[layer] for x [M, D] f32 or bf16, int8 w1
@@ -24,11 +21,11 @@
 // scratch [M, H], then fc2 with a raw epilogue; the TPU kernel keeps the
 // hidden layer in VMEM, which is later work here.
 //
-// What bounds them on the card: the int8 weight matrix, read once per
-// call for all M rows (the vocab: whisper-tiny 384 x 51968 = 20 MB,
-// large-v3 66.5 MB) — 2M flops a byte, under the card's flop/byte ratio
-// for any M here. Design: the batched matvec of batched_matvec.cuh spreads
-// the columns over N/32 blocks and carries up to 16 rows per weight read.
+// What bounds K4 on the card: the int8 vocab, read once per call for all
+// M rows (whisper-tiny 384 x 51968 = 20 MB, large-v3 66.5 MB) — 2M flops
+// a byte, under the card's flop/byte ratio for any M here. Design: the
+// batched matvec of batched_matvec.cuh spreads the columns over N/32
+// blocks and carries up to 16 rows per weight read.
 // K4's pass 1 writes each block's (max, first argmax, sum of
 // exp(logit - max)) per row into [M, N/32] partials; pass 2, one block per
 // row, merges them in column order by strict ">", so ties keep the FIRST
@@ -160,29 +157,6 @@ extern "C" int wa_greedy_head(const void* x, int x_dtype, int M, int K,
     if (x_dtype == F32) return (int)WA_HEAD(float);
     if (x_dtype == BF16) return (int)WA_HEAD(__nv_bfloat16);
 #undef WA_HEAD
-    return ERR_DTYPE;
-}
-
-// x [M, K] f32 or bf16; w [K, N] int8 and scale [N] f32 at the layer;
-// out [M, N] f32 or bf16.
-extern "C" int wa_qmatvec_stacked(const void* x, int x_dtype, int M, int K,
-                                  const void* w, int N, const void* scale,
-                                  void* out, int out_dtype, void* stream) {
-    if (N % MV_COLS != 0 || M < 1 || M > BMV_MAX_B || K < 1)
-        return ERR_SHAPE;
-    auto st = static_cast<cudaStream_t>(stream);
-#define WA_QMV(XT, OT)                                                       \
-    launch_bmv<XT, OT, BEPI_SCALE>(x, M, K, N, nullptr, nullptr, 0,          \
-                                   (const int8_t*)w, (const float*)scale,    \
-                                   nullptr, nullptr, out, st)
-    if (x_dtype == F32 && out_dtype == F32) return (int)WA_QMV(float, float);
-    if (x_dtype == F32 && out_dtype == BF16)
-        return (int)WA_QMV(float, __nv_bfloat16);
-    if (x_dtype == BF16 && out_dtype == F32)
-        return (int)WA_QMV(__nv_bfloat16, float);
-    if (x_dtype == BF16 && out_dtype == BF16)
-        return (int)WA_QMV(__nv_bfloat16, __nv_bfloat16);
-#undef WA_QMV
     return ERR_DTYPE;
 }
 

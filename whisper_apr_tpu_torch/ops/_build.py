@@ -63,7 +63,7 @@ _SIGNATURES = {
                              _P, _P, _P, _P],
     "wa_greedy_head": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                        _P, _P],
-    "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+    "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     "wa_ffn_fused": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "wa_kq_matvec": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "wa_self_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
@@ -75,7 +75,7 @@ _SIGNATURES = {
                            _P],
     "wa_flash_attention": [*[_P, _LL, _LL, _LL] * 4, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _I, _I, _P, _P, _P],
-    "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+    "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
     "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
     "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],

@@ -22,12 +22,12 @@ it, in the same launch and with no scratch; ``int4_plan`` says how.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from . import _build
-from .int8_matmul import _check_operands
+from .int8_matmul import SplitPlan, _check_operands
 from .quant import QTensor
 
 # opt-in switch (see ops/basic.linear)
@@ -81,19 +81,7 @@ BLOCKS = 96            # blocks a launch aims at: on an H100 (132 SMs)
                        # (PERF.md section 6)
 
 
-class Int4Plan(NamedTuple):
-    """``n_split`` blocks per column strip, split ``s`` taking K rows
-    [s * split_rows, (s + 1) * split_rows)."""
-    n_split: int
-    split_rows: int
-
-    def k_ranges(self, K: int) -> List[Tuple[int, int]]:
-        """The [start, end) K rows of each split."""
-        r = self.split_rows
-        return [(s * r, min(K, (s + 1) * r)) for s in range(self.n_split)]
-
-
-def int4_plan(M: int, K: int, N: int) -> Int4Plan:
+def int4_plan(M: int, K: int, N: int) -> SplitPlan:
     """How K18 spreads K over blocks. Above ``DECODE_ROWS`` rows: one
     block per output tile, K whole. Else each strip of ``STRIP`` columns
     takes enough splits for about ``BLOCKS`` blocks, at most
@@ -101,10 +89,10 @@ def int4_plan(M: int, K: int, N: int) -> Int4Plan:
     launch: no scratch), in whole 16-row steps spread evenly, none
     empty."""
     if M > DECODE_ROWS:
-        return Int4Plan(1, K)
+        return SplitPlan(1, K)
     want = max(1, min(MAX_SPLIT, BLOCKS // math.ceil(N / STRIP)))
     rows = STEP * math.ceil(K / want / STEP)
-    return Int4Plan(math.ceil(K / rows), rows)
+    return SplitPlan(math.ceil(K / rows), rows)
 
 
 def _int4_cuda(x, wq, scale):

@@ -11,14 +11,19 @@ of the sums.
 ``USE_PALLAS_INT8`` (off by default, the JAX package's name) routes the
 plain int8 linears of ``basic.linear`` through this kernel for CUDA
 tensors. ``int8_matmul`` runs the hand-written CUDA kernel
-(``csrc/dequant_matmul.cu``) for CUDA tensors and the plain PyTorch
+(``csrc/int8_matmul.cu``) for CUDA tensors and the plain PyTorch
 version below for CPU tensors. The JAX signature's block sizes are the
-TPU kernel's tiling and are not taken.
+TPU kernel's tiling and are not taken. At most 32 rows the kernel splits
+K over the blocks of a thread block cluster and sums the splits inside
+it, in the same launch and with no scratch; ``int8_plan`` says how. K8
+(``qmatvec.qmatvec_stacked``) runs the same decode-row kernel with the
+same plan.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,16 +72,54 @@ def _check_operands(x, wq, s, N):
                              f"{x.device}")
 
 
-def split_k_partials(x: torch.Tensor, M: int, K: int, N: int) -> int:
-    """Address of the f32 scratch for the partial [M, N] sums of the
-    kernels' split-K pass over at most 16 rows: as many as
-    ``csrc/dequant_matmul.cu`` splits K into at most (32-row units, two
-    blocks for each of 132 multiprocessors). 0 for more rows."""
-    if M > 16:
-        return 0
-    splits = min(-(-K // 32), -(-264 // -(-N // 64)))
-    return _build.workspace(_build.stream(), x.device, "dequant_mv_part",
-                            splits * M * N)
+# the decode-row kernel (csrc/int8_matmul.cu int8_mv_mma_kernel): a
+# block owns STRIP output columns and a range of K rows, in 16-row steps
+# taken by its WARPS warps in turn (4 where K is whole); the splits of a
+# strip form one cluster (at most MAX_SPLIT blocks)
+DECODE_ROWS = 32       # at most this many rows of x take it (one launch
+                       # of K8, _build.MAX_ROWS)
+STRIP = 128
+STEP = 16
+WARPS = 8
+MAX_SPLIT = 16
+BLOCKS = 132           # blocks a launch aims at: one an SM of an H100 ...
+BLOCKS_WIDE = 96       # ... and above 16 rows, where a block holds its SM
+                       # alone (200+ registers a thread)
+
+
+class SplitPlan(NamedTuple):
+    """``n_split`` blocks per column strip, split ``s`` taking K rows
+    [s * split_rows, (s + 1) * split_rows) (``int8_plan``; K18's
+    ``int4_plan``)."""
+    n_split: int
+    split_rows: int
+
+    def k_ranges(self, K: int) -> List[Tuple[int, int]]:
+        """The [start, end) K rows of each split."""
+        r = self.split_rows
+        return [(s * r, min(K, (s + 1) * r)) for s in range(self.n_split)]
+
+
+def int8_plan(M: int, K: int, N: int) -> SplitPlan:
+    """How the int8 kernels spread K over blocks. Above ``DECODE_ROWS``
+    rows (K17's tile kernel): one block per output tile, K whole. Else
+    each strip of ``STRIP`` columns takes enough splits for about
+    ``BLOCKS`` blocks (``BLOCKS_WIDE`` above 16 rows), at most
+    ``MAX_SPLIT`` (the splits are summed inside their cluster, in the
+    same launch: no scratch), in whole 16-row steps, none empty; a split
+    of more steps than the block has warps takes whole rounds of them, so
+    no warp waits on one load more than the others. The scan step's
+    projections take 4-12 splits where one block a strip would leave
+    most of the card idle; the vocab's 406 strips are not split."""
+    if M > DECODE_ROWS:
+        return SplitPlan(1, K)
+    blocks = BLOCKS if M <= 16 else BLOCKS_WIDE
+    want = max(1, min(MAX_SPLIT, blocks // math.ceil(N / STRIP)))
+    steps = math.ceil(K / STEP / want)
+    if steps > WARPS:
+        steps = WARPS * math.ceil(steps / WARPS)
+    rows = STEP * steps
+    return SplitPlan(math.ceil(K / rows), rows)
 
 
 def _int8_cuda(x, wq, scale):
@@ -88,7 +131,7 @@ def _int8_cuda(x, wq, scale):
     P = _build.ptr
     rc = _build.library().wa_int8_matmul(
         P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(s), s.numel(),
-        P(y), split_k_partials(x, M, K, N), _build.stream())
+        P(y), *int8_plan(M, K, N), _build.stream())
     _build.check(rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1
     return y

@@ -13,10 +13,12 @@
   b1[layer]) @ w2[layer], the scan step's FFN; the caller applies fc2's
   scale and bias.
 
-Each wrapper runs its hand-written CUDA kernel (``csrc/qmatvec.cu``) for
-CUDA tensors and the plain PyTorch version below for CPU tensors. One
-launch takes at most ``_build.MAX_ROWS`` rows; a wrapper launches once
-per chunk of rows (``_build.in_row_chunks``).
+Each wrapper runs its hand-written CUDA kernel (``csrc/qmatvec.cu``; K8
+``csrc/int8_matmul.cu``, K17's decode-row kernel, split as
+``int8_matmul.int8_plan`` says) for CUDA tensors and the plain PyTorch
+version below for CPU tensors. One launch takes at most
+``_build.MAX_ROWS`` rows; a wrapper launches once per chunk of rows
+(``_build.in_row_chunks``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from . import _build
 from .basic import gelu
+from .int8_matmul import int8_plan
 
 _COLS = 32             # columns per block (csrc MV_COLS)
 
@@ -147,10 +150,12 @@ def _stacked_cuda(x, wq, scale, layer, out_dtype):
 
     def launch(rows):
         r = rows.start                     # chunk = pointer offsets
+        m = rows.stop - r
         rc = _build.library().wa_qmatvec_stacked(
-            P(x, r * K), _build.DTYPE_CODES[x.dtype], rows.stop - r, K,
+            P(x, r * K), _build.DTYPE_CODES[x.dtype], m, K,
             P(wq, layer * K * N), N, P(scale, layer * N), P(out, r * N),
-            _build.DTYPE_CODES[out_dtype], st)
+            _build.DTYPE_CODES[out_dtype],
+            *int8_plan(m, K, N), st)
         _build.check(rc, "qmatvec_stacked")
         LAUNCHES["qmatvec_stacked"] += 1
 
