@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py [--optin | --split | --int8] DIR [DIR ...]
+    python3 chip_ab.py [--optin | --split | --int8 | --batched] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -34,7 +34,11 @@ weight products instead (``time_int8_tree``): K8 over the vocab and at
 the scan step's projection shapes, K17 at ``MATMUL_SHAPES`` x
 ``MATMUL_ROWS`` and more decode rows, the large-v3 B=8 scan tick, the
 whisper-tiny dense serving tick's device time and the large-v3 bf16
-encoder with the int8 switch on. Needs one CUDA GPU.
+encoder with the int8 switch on. With ``--batched`` each process times
+the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
+kernel, K4-K9 at B = 8 and 32, K12 and K13, the large-v3 scan and fused
+steps at B = 8 and 32 and the whisper-tiny dense serving tick. Needs one
+CUDA GPU.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ def time_tree(root: Path, mode: str = "") -> dict:
         return time_split_tree(c)
     if mode == "--int8":
         return time_int8_tree(c, root)
+    if mode == "--batched":
+        return time_batched_tree(c, root)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -159,6 +165,128 @@ def kernel_split(c, call) -> dict:
     out["kernels"] = round(sum(out.values()), 2)
     out["total"] = round(c.graph_ms(call) * 1e3, 2)
     out["gaps"] = round(out["total"] - out["kernels"], 2)
+    return out
+
+
+BATCHES = (8, 32)      # slots of the --batched mode's kernels and ticks
+
+
+def time_batched_tree(c, root: Path) -> dict:
+    """Device microseconds (CUDA-graph replay, bf16 x) of one checkout's
+    B > 1 decode kernels, timed here alike for every checkout, at the
+    whisper-tiny and large-v3 shapes and B in ``BATCHES``, pos 128 for
+    every slot, int8 self and cross rows (the serving cache), the last
+    layer: K5 and K6 split by kernel (``kernel_split``), then K4 (the
+    greedy head at M = B), K5-K7, K8 (the vocab logits, f32 out) and K9
+    at M = B; K12 and K13 (q4k, B = 1, the other users of
+    ``attention.cuh``) at whisper-base and large-v3. Then the large-v3
+    scan and fused decode steps at B slots (device ms) and the
+    whisper-tiny dense serving tick's device time."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    out = {}
+
+    def us(fn):
+        return round(c.graph_ms(fn) * 1e3, 2)
+
+    for i, (name, shape) in enumerate(SHAPES.items()):
+        D, H, L, n_vocab = shape["D"], shape["H"], shape["L"], \
+            shape["n_vocab"]
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        blk = c.make_blk(D, L, gen, dev)
+        v_pad = n_vocab + (-n_vocab) % 128
+        wq = torch.randint(-127, 128, (1, D, v_pad), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ones = torch.ones((1, 1, v_pad), device=dev)
+        bias = torch.zeros((1, v_pad), device=dev)
+        layer = L - 1
+        for B in BATCHES:
+            sk, sks, sv, svs = c.make_cache("int8", L, shape["T_self"], D,
+                                            gen, dev, bf, B)
+            ck, cks, cv, cvs = c.make_cache("int8", L, shape["T_cross"], D,
+                                            gen, dev, bf, B)
+            x = torch.randn((B, D), generator=gen, device=dev).to(bf)
+            pos = torch.full((B,), 128, dtype=torch.int32, device=dev)
+            calls = {
+                "K5": lambda: db.self_block_batched(
+                    x, blk, sk, sks, sv, svs, pos, layer, H),
+                "K6": lambda: db.cross_block_batched(
+                    x, blk, ck, cks, cv, cvs, shape["enc_len"], layer, H),
+                "K7": lambda: db.ffn_block_batched(x, blk, layer),
+                "K4": lambda: qm.qmatvec_greedy_head(x, wq, bias, n_vocab),
+                "K8": lambda: qm.qmatvec_stacked(x, wq, ones, 0,
+                                                 out_dtype=torch.float32),
+                "K9": lambda: qm.ffn_fused(x, blk["w1"], blk["s1"],
+                                           blk["b1"], blk["w2"], layer)}
+            for k in ("K5", "K6"):
+                out[f"{name}_b{B}_{k}_split"] = kernel_split(c, calls[k])
+            out[f"{name}_b{B}"] = {k: us(f) for k, f in calls.items()}
+            del sk, sks, sv, svs, ck, cks, cv, cvs
+            torch.cuda.empty_cache()
+        del blk, wq
+        label, Dk, Hk = (("base", 512, 8) if name == "tiny"
+                         else ("large-v3", D, H))
+        gen = torch.Generator(device=dev).manual_seed(70 + i)
+        kblk = c.make_kq_blk("q4k", Dk, L, gen, dev)
+        sk, _, sv, _ = c.make_cache("rows", L, shape["T_self"], Dk, gen, dev,
+                                    bf)
+        ck, cks, cv, cvs = c.make_cache("int8", L, shape["T_cross"], Dk, gen,
+                                        dev, bf)
+        x = torch.randn((1, Dk), generator=gen, device=dev).to(bf)
+        out[f"{label}_q4k_b1"] = {
+            "K12": us(lambda: dbk.self_block_kq(x, kblk, sk, None, sv, None,
+                                                128, layer, Hk)),
+            "K13": us(lambda: dbk.cross_block_kq(
+                x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk))}
+        del kblk, sk, sv, ck, cks, cv, cvs
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(105)
+    shape = SHAPES["large"]
+    blk = c.make_blk(shape["D"], shape["L"], gen, dev)
+    out["large_v3_ticks_ms"] = batched_ticks(c, blk, **shape)
+    del blk
+    torch.cuda.empty_cache()
+    out["tiny_serve"] = {"device_ms": round(serve_tick_device_ms(c, root),
+                                            4)}
+    return out
+
+
+def batched_ticks(c, blk, D: int, H: int, L: int, n_vocab: int,
+                  pos: int = 128, **_) -> dict:
+    """Device ms of one decode step at B slots (``BATCHES``), pos for
+    every slot, bf16: the scan step (``decode_step_q``: K8 and K9, torch
+    attention over the dense cache) and the fused step
+    (``decode_step_qf``: K5-K7 per layer and K8's logits over the int8
+    cache), as ``chip_smoke.time_scan_steps`` times them."""
+    import torch
+    from whisper_apr_tpu_torch.config import ModelConfig
+    from whisper_apr_tpu_torch.model import qdecode
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = ModelConfig("timing", n_vocab, 1500, D, H, L, 448, D, H, L, 80)
+    out = {}
+    for B in BATCHES:
+        params, qd, kv = c.scan_case(blk, D, L, n_vocab, B, gen, dev,
+                                     torch.bfloat16)
+        qkv = qdecode.quantize_cache(kv, "int8")
+        tok = torch.randint(0, n_vocab, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        p = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        steps = {
+            "scan": lambda: qdecode.decode_step_q(
+                params, qd, tok, p, kv, cfg, compute_dtype=torch.bfloat16),
+            "fused": lambda: qdecode.decode_step_qf(
+                params, qd, tok, p, qkv, cfg, compute_dtype=torch.bfloat16)}
+        for k, fn in steps.items():
+            out[f"{k}_b{B}"] = round(min(
+                c.graph_ms(fn, reps=3, replays=5),
+                c.graph_ms(fn, reps=3, replays=5)), 4)
+        del params, qd, kv, qkv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -354,7 +482,8 @@ def time_e2e(c, root: Path) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    modes = [a for a in args if a in ("--optin", "--split", "--int8")]
+    modes = [a for a in args
+             if a in ("--optin", "--split", "--int8", "--batched")]
     args = [a for a in args if a not in modes]
     if len(args) == 2 and args[0] == "--one":
         root = Path(args[1])

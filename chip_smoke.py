@@ -24,7 +24,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               a cluster per head) also at every cache dtype it takes (int8,
               bf16, f32, fp8) and enc_len 0, 1, 63, 64, 65, 1499, 1500, in
               bf16 and f32 at both widths, each call twice and
-              bit-identical (check_cross); then CUDA-graph
+              bit-identical (check_cross); K5 and K6 (one cluster per
+              head and tile of slots; K5 two launches on int8 rows) at
+              B = 2, 5, 8, 32, 40 over int8, bf16, f32 and fp8 rows, K5 at
+              SLOT_POS positions mixed within the batch, K6 at every
+              CROSS_EDGES length, in bf16 and f32 at both widths, each
+              call twice and bit-identical (check_batched_edges); then
+              CUDA-graph
               times of kernel and plain version at B=1 and B=8 (K8 also
               at the scan step's D x 3D and D x D projections), of the
               large-v3 B=8 serving tick, and of the large-v3 scan step
@@ -358,16 +364,18 @@ def head_case(n_vocab: int, x, gen):
     return wq, bias, (first, second)
 
 
-def check_row(name, got, ref):
+def check_row(name, got, ref, floor: float = 0.0):
     """Emitted cache rows / scales: int8 within one step, fp8 within one
-    e4m3 ulp, floats as the outputs."""
+    e4m3 ulp, floats as the outputs; float rows within at least ``floor``
+    (the tolerance of the activations they were computed from: f32 rows
+    of bf16 activations carry the bf16 LayerNorm output's rounding)."""
     import torch
     if got.dtype == torch.int8:
         d = (got.int() - ref.int()).abs().max().item()
         assert d <= 1, f"{name}: int8 rows differ by {d}"
         return
-    tol = TOL_FP8 if got.dtype == torch.float8_e4m3fn else (
-        TOL_BF16 if got.dtype == torch.bfloat16 else TOL_F32)
+    tol = max(floor, TOL_FP8 if got.dtype == torch.float8_e4m3fn else (
+        TOL_BF16 if got.dtype == torch.bfloat16 else TOL_F32))
     e = rel_err(got, ref)
     assert e <= tol, f"{name}: rel err {e:.3g} > {tol:.3g}"
 
@@ -487,28 +495,34 @@ def check_kernels(D: int, H: int, L: int, n_vocab: int, T_self: int,
 
 @contextlib.contextmanager
 def quantized_rows(db, rows=None):
-    """K1's plain version (module ``db``) quantizes the new k and v rows
-    through ``db.quantize_row``: the yielded list collects what it is
-    given (the f32 k, then v, before rounding); with ``rows`` (k_row,
-    v_row) the call returns those int8 rows at its own scales."""
+    """K1's and K5's plain version (module ``db``) rounds the new k and v
+    rows through ``db.quantize_row`` (int8 rows) or ``db.cast_row``
+    (float rows): the yielded list collects what they are given (the f32
+    k, then v, before rounding); with ``rows`` (k_row, v_row) the call
+    returns those rows (int8: at its own scales)."""
     seen = []
-    quantize_row = db.quantize_row
+    quantize_row, cast_row = db.quantize_row, db.cast_row
 
     def record(t):
         q, scale = quantize_row(t)
         seen.append(t)
         return (q if rows is None else rows[len(seen) - 1]), scale
 
-    db.quantize_row = record
+    def record_cast(t, dtype):
+        seen.append(t)
+        return cast_row(t, dtype) if rows is None else rows[len(seen) - 1]
+
+    db.quantize_row, db.cast_row = record, record_cast
     try:
         yield seen
     finally:
-        db.quantize_row = quantize_row
+        db.quantize_row, db.cast_row = quantize_row, cast_row
 
 
 def exact_qkv(db, x, blk, layer: int):
-    """K1's projection in f64 from the plain version's LayerNorm output
-    (rounded to x's dtype as it is): [1, 3D], the sums all but exact."""
+    """K1's and K5's projection in f64 from the plain version's LayerNorm
+    output (rounded to x's dtype as it is): [B, 3D], the sums all but
+    exact."""
     l = layer
     h = db.layer_norm(x.float(), blk["ln1_w"][l, 0], blk["ln1_b"][l, 0])
     h = h.to(x.dtype).double()
@@ -522,6 +536,23 @@ def exact_qkv(db, x, blk, layer: int):
 TIE_SPAN, TIE_MAX = 8.0, 4
 
 
+def float_ties(got, ref, pre, exact, name: str):
+    """As ``rounding_ties`` for rows of a float cache narrower than f32
+    (bf16, fp8): the elements where K5's new row ``got`` and the plain
+    version's ``ref`` are neighbours with the plain version's value before
+    rounding, ``pre``, within ``TIE_SPAN`` times the row's largest f32
+    error (against the f64 ``exact``) of the rounding boundary between
+    them. A bool mask like ``got``; raises past ``TIE_MAX`` such
+    elements in a row."""
+    mid = (got.double() + ref.double()) / 2
+    err = (pre.double() - exact).abs().amax()
+    tie = (got != ref) & ((pre.double() - mid).abs() <= TIE_SPAN * err)
+    n = int(tie.sum(-1).max())
+    assert n <= TIE_MAX, (f"{name}: {n} elements of a row a step off at "
+                          f"rounding ties, more than {TIE_MAX}")
+    return tie
+
+
 def rounding_ties(got, ref, pre, exact, name: str):
     """The elements where K1's new int8 row ``got`` and the plain
     version's ``ref`` differ (by one step: ``check_row``) at a rounding
@@ -529,7 +560,7 @@ def rounding_ties(got, ref, pre, exact, name: str):
     scale, lies within ``TIE_SPAN`` times the row's largest f32 error
     (against the f64 ``exact``, in steps) of a half step, so another f32
     summation order may round it the other way. A bool mask like
-    ``got``; raises past ``TIE_MAX`` such elements."""
+    ``got``; raises past ``TIE_MAX`` such elements in a row."""
     def steps(v):
         return v / (v.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127)
 
@@ -537,9 +568,9 @@ def rounding_ties(got, ref, pre, exact, name: str):
     err = (q.double() - steps(exact)).abs().amax()
     half = (q.abs() - q.abs().floor() - 0.5).abs().double()
     tie = (got != ref) & (half <= TIE_SPAN * err)
-    n = int(tie.sum())
-    assert n <= TIE_MAX, (f"{name}: {n} int8 elements a step off at "
-                          f"rounding ties, more than {TIE_MAX}")
+    n = int(tie.sum(-1).max())
+    assert n <= TIE_MAX, (f"{name}: {n} int8 elements of a row a step off "
+                          f"at rounding ties, more than {TIE_MAX}")
     return tie
 
 
@@ -586,6 +617,106 @@ def check_cross(D: int, H: int, cdt, label: str, seed: int, L: int = 2,
     log(f"[kernels] {label}: K2 at enc_len {list(CROSS_EDGES)} over "
         f"{', '.join(n for n, *_ in CROSS_CACHES)} rows agrees with the "
         f"plain version, two runs bit-identical; max abs err {worst:.3g}")
+    return worst
+
+
+# K5's and K6's slot counts: a pair, odd, a full tile of the serving tick,
+# a full launch and two launches (32 + 8)
+BATCH_EDGES = (2, 5, 8, 32, 40)
+
+
+def check_batched_edges(D: int, H: int, cdt, label: str, seed: int,
+                        L: int = 2, T_self: int = 512,
+                        T_cross: int = 1536) -> dict:
+    """K5 and K6 against their plain versions at every ``BATCH_EDGES``
+    slot count and cache dtype (``CROSS_CACHES``): K5 with the
+    ``SLOT_POS`` positions mixed within the batch, K6 at every
+    ``CROSS_EDGES`` length, each call twice: the two runs must give the
+    same bits. Elements of K5's new rows a step off at a rounding tie
+    (int8, bf16 and fp8 rows) take the kernel's side, as in
+    ``check_kernels``. Returns the max abs error of each kernel's block
+    output."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = make_blk(D, L, gen, dev)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = {"self_block_batched": 0.0, "cross_block_batched": 0.0}
+    ties = 0
+
+    def agree(name, got, ref, what):
+        e = rel_err(got, ref)
+        assert e <= tol, (f"[{label}] {name} {what}: rel err {e:.3g} > "
+                          f"{tol:.3g}")
+        worst[name] = max(worst[name], abs_err(got, ref))
+
+    for name, mode, rows_dt in CROSS_CACHES:
+        dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+        for B in BATCH_EDGES:
+            pos = torch.tensor([SLOT_POS[(3 * i + B) % len(SLOT_POS)]
+                                for i in range(B)], dtype=torch.int32,
+                               device=dev)
+            kq, ks, vq, vs = make_cache(mode, L, T_self, D, gen, dev, dt, B)
+            layer = B % L
+            x = torch.randn((B, D), generator=gen, device=dev).to(cdt)
+            what = f"{name} B {B}"
+            got = db.self_block_batched(x, blk, kq, ks, vq, vs, pos, layer,
+                                        H)
+            again = db.self_block_batched(x, blk, kq, ks, vq, vs, pos,
+                                          layer, H)
+            with quantized_rows(db) as pre:
+                ref = db.self_block_plain(x, blk, kq, ks, vq, vs, pos, layer,
+                                          H)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+                f"[{label}] self_block_batched {what}: two runs differ")
+            for i, row in ((1, "k_row"), (3, "v_row"), (2, "k_scale"),
+                           (4, "v_scale")):
+                check_row(f"[{label}] self_block_batched {what} {row}",
+                          got[i], ref[i], tol)
+            if got[1].dtype != torch.float32:     # rows rounded from f32
+                exact = exact_qkv(db, x, blk, layer)
+                ties_of = rounding_ties if mode == "int8" else float_ties
+                tie = [ties_of(got[i], ref[i], pre[j],
+                               exact[:, (j + 1) * D:(j + 2) * D],
+                               f"[{label}] self_block_batched {what}")
+                       for j, i in enumerate((1, 3))]
+                if any(t.any() for t in tie):
+                    ties += int(sum(t.sum() for t in tie))
+                    rows = [torch.where(t, got[i], ref[i])
+                            for t, i in zip(tie, (1, 3))]
+                    with quantized_rows(db, rows):
+                        ref = db.self_block_plain(x, blk, kq, ks, vq, vs, pos,
+                                                  layer, H)
+            agree("self_block_batched", got[0], ref[0],
+                  f"{what} pos {pos.tolist()}")
+            del kq, ks, vq, vs
+            kq, ks, vq, vs = make_cache(mode, L, T_cross, D, gen, dev, dt, B)
+            for enc_len in CROSS_EDGES:
+                layer = enc_len % L
+                x = torch.randn((B, D), generator=gen, device=dev).to(cdt)
+                got = db.cross_block_batched(x, blk, kq, ks, vq, vs, enc_len,
+                                             layer, H)
+                again = db.cross_block_batched(x, blk, kq, ks, vq, vs,
+                                               enc_len, layer, H)
+                ref = db.cross_block_plain(x, blk, kq, ks, vq, vs, enc_len,
+                                           layer, H)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (
+                    f"[{label}] cross_block_batched {what} enc_len "
+                    f"{enc_len}: two runs differ")
+                agree("cross_block_batched", got, ref,
+                      f"{what} enc_len {enc_len}")
+            del kq, ks, vq, vs
+            torch.cuda.empty_cache()
+    log(f"[kernels] {label}: K5 and K6 at B in {list(BATCH_EDGES)} over "
+        f"{', '.join(n for n, *_ in CROSS_CACHES)} rows (K5 at per-slot "
+        f"positions from {list(SLOT_POS)}, K6 at enc_len "
+        f"{list(CROSS_EDGES)}) agree with the plain versions, two runs "
+        f"bit-identical ({ties} elements of K5's new rows a step off at a "
+        f"rounding tie); max abs err " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in worst.items()))
     return worst
 
 
@@ -1089,11 +1220,16 @@ def phase_kernels():
                  T_cross=1536, enc_len=1500)
     errs, blk_tiny = check_kernels(**tiny, cdt=torch.bfloat16,
                                    label="tiny bf16", seed=1)
+    edges = {}
     for D, H, lbl in ((384, 6, "tiny"), (1280, 20, "large-v3")):
         for seed, cdt in ((31, torch.bfloat16), (32, torch.float32)):
             e = check_cross(D, H, cdt, f"{lbl} {str(cdt)[6:]}", seed + D)
             if lbl == "tiny" and cdt == torch.bfloat16:
                 errs["cross_block"] = max(errs["cross_block"], e)
+            e = check_batched_edges(D, H, cdt, f"{lbl} {str(cdt)[6:]}",
+                                    seed + 2 * D)
+            if lbl == "tiny" and cdt == torch.bfloat16:
+                edges = e
     # B=1: K8 with f32 out is the logits tail of beam, sampling and
     # timestamps; B=40: two 32-row chunks per launch
     errs_b = check_batched(blk_tiny, **tiny, cdt=torch.bfloat16,
@@ -1102,6 +1238,8 @@ def phase_kernels():
     errs["qmatvec_greedy_head"] = max(errs["qmatvec_greedy_head"],
                                       errs_b.pop("qmatvec_greedy_head"))
     errs.update(errs_b)
+    for k, v in edges.items():
+        errs[k] = max(errs[k], v)
     errs["qmatvec_stacked"] = max(errs["qmatvec_stacked"],
                                   check_k8_edges(torch.bfloat16, seed=14))
     check_k8_edges(torch.float32, seed=15)

@@ -18,6 +18,8 @@ operands and caches cross through ``from_jax_params``. Tolerances:
   catches a wrong row, slot or scale.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,6 +190,206 @@ class TestCrossBlockBatched:
         b = tdb.cross_block_batched(tx, tq["blk"], *tc, 0, 0, H)
         assert torch.isfinite(b).all()
         _close(b, a, "f32")
+
+
+# K5's and K6's new edges at B = 2: per-slot positions either side of one
+# and of 64 rows (the plan's run and chunk boundaries), enc_len none, one,
+# one chunk group and every padded row
+SELF_EDGE_POS = ((0, 1), (63, 64), (65, 0))
+CROSS_EDGE_LENS = (0, 1, 64, CROSS_T)
+
+
+class TestBatchedEdges:
+    @pytest.mark.parametrize("pos", SELF_EDGE_POS,
+                             ids=[f"pos{a}-{b}" for a, b in SELF_EDGE_POS])
+    def test_self_plain_matches_jax(self, cfg, qd, pos):
+        jq, tq = qd
+        D, L, H = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+        jc, tc = _cache("int8", 2, SELF_T, D, L, seed=60 + pos[0])
+        jx, tx = _x(2, D, seed=61 + pos[0])
+        p = np.asarray(pos, np.int32)
+        a = jdb.self_block_batched(jx, jq["blk"], *jc, jnp.asarray(p), 1, H,
+                                   block_t=128, interpret=True)
+        b = tdb.self_block_plain(tx, tq["blk"], *tc, torch.from_numpy(p), 1,
+                                 H)
+        for got, ref in zip(b, a):
+            assert got.dtype == from_jax_params(ref).dtype
+            np.testing.assert_allclose(got.float().numpy(),
+                                       np.asarray(ref).astype(np.float32),
+                                       **TOL)
+
+    @pytest.mark.parametrize("enc_len", CROSS_EDGE_LENS)
+    def test_cross_plain_matches_jax(self, cfg, qd, enc_len):
+        jq, tq = qd
+        D, L, H = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+        jc, tc = _cache("int8", 2, CROSS_T, D, L, seed=70 + enc_len)
+        jx, tx = _x(2, D, seed=71 + enc_len)
+        a = jdb.cross_block_batched(jx, jq["blk"], *jc, enc_len, 2, H,
+                                    block_t=128, interpret=True)
+        b = tdb.cross_block_plain(tx, tq["blk"], *tc, enc_len, 2, H)
+        assert torch.isfinite(b).all()
+        _close(b, a, "f32")
+
+
+# (heads, width) of whisper-tiny, large-v3, base, medium and the narrow
+# model of these tests; slot counts; cache rows at the split edges
+PLAN_WIDTHS = [(6, 384), (20, 1280), (8, 512), (16, 1024), (4, 128)]
+PLAN_SLOTS = (2, 3, 5, 8, 17, 32)
+PLAN_ROWS = (0, 1, 63, 64, 65, 447, 1500)
+
+
+def _partition(runs, n: int) -> bool:
+    """True when the half-open runs [a, b) cover [0, n) once each."""
+    runs = sorted(r for r in runs if r[1] > r[0])
+    at = 0
+    for a, b in runs:
+        if a != at:
+            return False
+        at = b
+    return at == n
+
+
+class TestBatchedPlan:
+    """``batched_plan``: how K5's and K6's launch spreads B slots over
+    thread block clusters, one a (head, tile of slots), and
+    ``batched_blocks``: the kernel's cut of a tile's work over the blocks
+    of its cluster."""
+
+    @pytest.mark.parametrize("cache_size", [1, 2, 4],
+                             ids=["int8/fp8", "bf16", "f32"])
+    @pytest.mark.parametrize("H,D", PLAN_WIDTHS,
+                             ids=[f"H{h}" for h, _ in PLAN_WIDTHS])
+    def test_every_row_weight_row_and_column_once(self, H, D, cache_size):
+        """Every (slot, head, cache row) in one block of the grid, every Wq
+        row and Wo column of a head in one block of each cluster: K6 with
+        every slot at each ``PLAN_ROWS`` length, K5 with the slots' rows
+        mixed from them. Clusters of 16 blocks at most, tiles of
+        ``BATCHED_CROSS_SLOTS`` (K6) or ``BATCHED_SELF_SLOTS`` (K5) slots at
+        most, chunks of whole 64-row groups
+        that fit the stage (64 rows at least), every block's projection
+        shares within their budget; K6's plan and K5's (192 columns)."""
+        for B, width in ((B, w) for B in PLAN_SLOTS for w in (64, 192)):
+            for n_loop in PLAN_ROWS:
+                plan = tdb.batched_plan(H, D, B, n_loop, cache_size, width)
+                assert 1 <= plan.cluster <= 16
+                assert 1 <= plan.slots <= min(B, tdb.BATCHED_CROSS_SLOTS
+                                              if width == 64 else
+                                              tdb.BATCHED_SELF_SLOTS)
+                assert plan.cluster * plan.slots * width * 4 \
+                    <= tdb.BATCHED_SHARE_BYTES
+                assert plan.chunk % tdb.CROSS_GROUPS == 0
+                assert tdb.CROSS_GROUPS <= plan.chunk <= tdb.CROSS_MAX_CHUNK
+                assert plan.chunk == tdb.CROSS_GROUPS or plan.chunk * 2 * (
+                    tdb.HEAD_DIM * cache_size + 4) <= tdb.BATCHED_STAGE_BYTES
+                tiles = [range(b0, min(B, b0 + plan.slots))
+                         for b0 in range(0, B, plan.slots)]
+                assert sorted(b for t in tiles for b in t) == list(range(B))
+                mixed = [PLAN_ROWS[(3 * b + n_loop) % len(PLAN_ROWS)]
+                         for b in range(B)]
+                for lens_all in ([n_loop] * B, mixed):
+                    for tile in tiles:
+                        lens = [lens_all[b] for b in tile]
+                        blocks = tdb.batched_blocks(plan, D, lens)
+                        assert len(blocks) == plan.cluster
+                        assert _partition([bl["wq_rows"] for bl in blocks],
+                                          D)
+                        assert _partition([bl["wo_cols"] for bl in blocks],
+                                          D)
+                        assert all((c1 - c0) % 16 == 0 for c0, c1 in
+                                   (bl["wo_cols"] for bl in blocks))
+                        for s, n in enumerate(lens):
+                            assert _partition(
+                                [(t0, t1) for bl in blocks
+                                 for ss, t0, t1 in bl["rows"] if ss == s], n)
+                        # every head's cluster cuts alike: H x the rows
+                        assert H * sum(t1 - t0 for bl in blocks
+                                       for _, t0, t1 in bl["rows"]) \
+                            == H * sum(lens)
+
+    @pytest.mark.parametrize("H,D,cross,self_,blocks",
+                             [(6, 384, (4, 1, 192), (4, 4, 64), (192, 48)),
+                              (20, 1280, (4, 3, 128), (8, 4, 64),
+                               (240, 320))],
+                             ids=["tiny", "large-v3"])
+    def test_serving_tick_plan(self, H, D, cross, self_, blocks):
+        """B = 8 slots, int8 rows: K6 over 1500 cross rows in 192 blocks
+        at tiny (eight tiles of a slot), 240 at large-v3 (tiles of 3, 3 and
+        2 slots); K5 in two tiles of 4 slots, clusters of 8 at large-v3
+        (a block's share of a head's 192 Wq columns: 160 rows)."""
+        for width, want, n_loop, n in ((64, cross, 1500, blocks[0]),
+                                       (192, self_, 448, blocks[1])):
+            plan = tdb.batched_plan(H, D, 8, n_loop, 1, width)
+            assert tuple(plan) == want
+            assert plan.cluster * H * math.ceil(8 / plan.slots) == n
+
+    @pytest.mark.parametrize("B", [1, 8, 32, 40])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8, torch.float8_e4m3fn],
+                             ids=["f32", "bf16", "int8", "fp8"])
+    def test_one_launch_per_chunk(self, monkeypatch, cfg, qd, B, dtype):
+        """K6's and K5's wrappers call their C entry once per 32-slot chunk,
+        at the chunk's pointer offsets, with ``batched_plan`` for the
+        chunk's slots, the [H, B, D] o-proj scratch and zeroed tickets, and
+        count one launch a chunk. K5 passes the projection's scratch (the
+        entry's two launches) for int8 rows only."""
+        _, tq = qd
+        D, L, H = cfg.n_text_state, cfg.n_text_layer, cfg.n_text_head
+        calls, spaces = {"self": [], "cross": []}, []
+
+        class Lib:
+            def wa_self_block_batched(self, *args):
+                calls["self"].append(args)
+                return 0
+
+            def wa_cross_block_batched(self, *args):
+                calls["cross"].append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tdb._build, "library", Lib)
+        monkeypatch.setattr(tdb._build, "stream", lambda: 7)
+        monkeypatch.setattr(tdb._build, "workspace", workspace)
+        T, layer = 96, 1
+        kq = torch.zeros((L, B, T, D), dtype=dtype)
+        ks = torch.ones((L, B, T, 1)) if dtype == torch.int8 else None
+        x = torch.zeros((B, D), dtype=torch.bfloat16)
+        pos = torch.arange(B, dtype=torch.int32)
+        chunks = [min(32, B - r) for r in range(0, B, 32)]
+        before = dict(tdb.LAUNCHES)
+        out = tdb._self_block_batched_cuda(x, tq["blk"], kq, ks, kq, ks, pos,
+                                           layer, H)
+        y = tdb._cross_block_batched_cuda(x, tq["blk"], kq, ks, kq, ks, 50,
+                                          layer, H)
+        assert out[0].shape == y.shape == x.shape and out[1].dtype == dtype
+        for k in ("self_block_batched", "cross_block_batched"):
+            assert tdb.LAUNCHES[k] == before[k] + len(chunks)
+        assert [c[2] for c in calls["self"]] == chunks
+        assert [c[2] for c in calls["cross"]] == chunks
+        n = min(B, 32)
+        cs = kq.element_size()
+        for i, m in enumerate(chunks):
+            r0 = 32 * i
+            a = calls["self"][i]
+            assert len(a) == 33 and a[-1] == 7
+            assert a[0] == x.data_ptr() + 2 * r0 * D
+            assert a[10] == kq.data_ptr() + cs * (layer * B + r0) * T * D
+            assert a[16] == pos.data_ptr() + 4 * r0
+            assert tuple(a[25:28]) == tuple(tdb.batched_plan(H, D, m, T, cs,
+                                                             3 * 64))
+            assert (a[30] is None) == (a[31] is None) == (dtype != torch.int8)
+            a = calls["cross"][i]
+            assert len(a) == 27 and a[-1] == 7 and a[16] == 50
+            assert a[10] == kq.data_ptr() + cs * (layer * B + r0) * T * D
+            assert tuple(a[21:24]) == tuple(tdb.batched_plan(H, D, m, 50,
+                                                             cs))
+        assert ("batched_y", H * n * D, torch.float32, False) in spaces
+        assert ("batched_tickets", tdb.BATCHED_TICKETS, torch.int32,
+                True) in spaces
+        assert (("batched_qkv", n * 3 * D, torch.float32, False) in spaces) \
+            == (dtype == torch.int8)
 
 
 class TestFfnBlockBatched:

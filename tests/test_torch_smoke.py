@@ -6,6 +6,7 @@ versions; and the kernel check's and the step timing's inputs must be
 what the kernels and steps take, with the planted head tie a tie."""
 
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
@@ -717,3 +718,97 @@ def test_rounding_ties_at_most_tie_max(smoke):
         got[0, j] += 1
     with pytest.raises(AssertionError, match="rounding ties"):
         smoke.rounding_ties(got, row, pre, pre.double(), "k")
+
+
+def test_batch_edges_reach_each_plan_path(smoke):
+    """K5's and K6's smoke checks take a pair of slots, an odd count, the
+    serving tick's 8, a full 32-slot launch and two launches (40), K5 at
+    positions from SLOT_POS mixed within the batch: over the tiny and
+    large-v3 widths the plans there put the slots in one tile and in
+    several, with slots holding no history row beside full ones."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    from whisper_apr_tpu_torch.ops._build import MAX_ROWS
+    assert {2, 8, MAX_ROWS} <= set(smoke.BATCH_EDGES)
+    assert any(b % 2 for b in smoke.BATCH_EDGES)
+    assert any(b > MAX_ROWS for b in smoke.BATCH_EDGES)
+    assert 0 in smoke.SLOT_POS and max(smoke.SLOT_POS) >= 447
+    tiles = set()
+    for H in (6, 20):
+        for width, n_loop in ((64, 1500), (192, 512)):
+            for b in smoke.BATCH_EDGES:
+                m = min(b, MAX_ROWS)
+                plan = db.batched_plan(H, 64 * H, m, n_loop, 1, width)
+                tiles.add(math.ceil(m / plan.slots))
+    assert 1 in tiles and max(tiles) > 2
+    for b in smoke.BATCH_EDGES:
+        pos = [smoke.SLOT_POS[(3 * i + b) % len(smoke.SLOT_POS)]
+               for i in range(b)]
+        assert len(set(pos)) > 1
+
+
+def _k5_bf16_case(smoke, D=128, H=2, L=2, seed=4):
+    """K5's plain version on the CPU over bf16 rows at f32 activations:
+    (call, x, blk), three slots at positions 0, 5 and 40."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    gen = torch.Generator().manual_seed(seed)
+    blk = smoke.make_blk(D, L, gen, "cpu")
+    kq, ks, vq, vs = smoke.make_cache("rows", L, 64, D, gen, "cpu",
+                                      torch.bfloat16, 3)
+    x = torch.randn((3, D), generator=gen)
+    pos = torch.tensor([0, 5, 40], dtype=torch.int32)
+    return (lambda: db.self_block_plain(x, blk, kq, ks, vq, vs, pos, 1, H),
+            x, blk)
+
+
+def test_quantized_rows_sets_float_rows(smoke):
+    """For a float cache ``quantized_rows`` records the f32 k and v K5's
+    plain version casts and, with given rows, makes it attend to them:
+    its own rows give its own output bit for bit, an element one bf16
+    step off another output; the cast is restored after."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    call, _, _ = _k5_bf16_case(smoke)
+    cast_row = db.cast_row
+    with smoke.quantized_rows(db) as pre:
+        ref = call()
+    assert len(pre) == 2 and pre[0].dtype == torch.float32
+    assert torch.equal(pre[0].to(torch.bfloat16), ref[1])
+    with smoke.quantized_rows(db, (ref[1], ref[3])):
+        same = call()
+    assert all(torch.equal(a, b) for a, b in zip(same, ref))
+    k_row = ref[1].clone()
+    k_row[2, 7] = torch.nextafter(k_row[2, 7].float(),
+                                  torch.tensor(1e9)).to(torch.bfloat16)
+    if torch.equal(k_row, ref[1]):              # rounded back: step in bf16
+        k_row[2, 7] = (k_row[2, 7].float() * (1 + 2 ** -7)).to(
+            torch.bfloat16)
+    with smoke.quantized_rows(db, (k_row, ref[3])):
+        off = call()
+    assert torch.equal(off[1], k_row) and not torch.equal(off[0], ref[0])
+    assert db.cast_row is cast_row
+
+
+def test_float_ties_take_a_tie_only(smoke):
+    """A bf16 element a step off where the f32 value before the cast sits
+    on the boundary between the two neighbours is a tie; one a step off
+    elsewhere is not; more than TIE_MAX ties in a row are refused."""
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    call, x, blk = _k5_bf16_case(smoke)
+    with smoke.quantized_rows(db) as pre:
+        ref = call()
+    k, row = pre[0].clone(), ref[1]
+    exact = smoke.exact_qkv(db, x, blk, 1)[:, 128:256].clone()
+    up = (row.float() * (1 + 2 ** -7)).to(torch.bfloat16)   # next bf16 up
+    got = row.clone()
+    # element 3 of slot 1 on the boundary between row and up; element 9
+    # one step up though its f32 value sits on the row's own value
+    k[1, 3] = (row[1, 3].double() + up[1, 3].double()).float() / 2
+    exact[1, 3] = k[1, 3].double()
+    got[1, 3], got[1, 9] = up[1, 3], up[1, 9]
+    tie = smoke.float_ties(got, row, k, exact, "k")
+    assert tie[1, 3] and not tie[1, 9] and int(tie.sum()) == 1
+    idx = range(10, 11 + smoke.TIE_MAX)
+    for j in idx:
+        k[0, j] = (row[0, j].double() + up[0, j].double()).float() / 2
+        got[0, j] = up[0, j]
+    with pytest.raises(AssertionError, match="rounding ties"):
+        smoke.float_ties(got, row, k, k.double(), "k")

@@ -1,15 +1,14 @@
-// Decode attention shared by the per-block kernels: one query per slot
-// over that slot's cache rows (K1/K2 at one slot, K5/K6 at B slots).
+// Decode attention of one query over a single slot's cache rows, shared
+// by the per-block kernels over k-quant weights (K12, K13 in
+// decode_blocks_kq.cu); NEG, QSCALE and shape_ok also serve K1, K2, K5
+// and K6.
 //
-// One block per (head, split of ATT_ROWS rows, slot) writes a partial
-// (max, sum, acc[64]); a combine kernel of HD threads per (head, slot)
-// merges the splits and, for the self blocks, forms the current token's
-// k/v row in the cache's form, writes it out and attends to it (the
-// dequantized int8 row when the cache is int8). Masked scores are
-// -0.7 * f32max (the JAX kernels' _NEG) and the softmax sum is clamped to
-// 1e-30. Splits that hold no row of their slot (a slot's rows end before
-// the split starts) write an empty partial and the combine skips them, so
-// one launch serves slots at different positions with no host sync.
+// One block per (head, split of ATT_ROWS rows) writes a partial (max,
+// sum, acc[64]); a combine kernel of HD threads per head merges the
+// splits and, for the self blocks, forms the current token's k/v row in
+// the cache's form, writes it out and attends to it (the dequantized int8
+// row when the cache is int8). Masked scores are -0.7 * f32max (the JAX
+// kernels' _NEG) and the softmax sum is clamped to 1e-30.
 #pragma once
 
 #include <type_traits>
@@ -28,36 +27,27 @@ constexpr int ATT_RPW = ATT_ROWS / (ATT_THREADS / 32);  // rows per warp
 constexpr int PART = 2 + HD;           // (m, l, acc[HD]) per split
 constexpr float QSCALE = 0.125f;       // HD ** -0.5
 
-// The operands of one attention launch over B slots. Pointers are at the
-// layer's slot 0; slot b's rows start kv_stride elements further per slot
-// (its row scales T further), its query q_stride further.
-//
-// A launch at one slot (K1/K2) also passes the pointers as kernel
-// parameters and its kernels read them from there: the compiler knows
-// parameter pointers to be global memory and loads through them directly,
-// which on an H100 took K1 back to the time it had before it shared this
-// code with the batched kernels. Launches over slots read them from this
-// struct, which measured faster there for K6 at B=8 (PERF.md).
+// The operands of one attention launch. The kernels also take the
+// pointers as kernel parameters and read them from there: the compiler
+// knows parameter pointers to be global memory and loads through them
+// directly.
 struct AttnArgs {
-    const float* q;          // pre-projection query rows (f32)
-    int q_stride;
-    const void* kc;          // cache rows [B, T, D] of the layer
+    const float* q;          // pre-projection query row (f32) [D]
+    const void* kc;          // cache rows [T, D] of the layer
     const void* vc;
-    const float* ks;         // f32 row scales [B, T] (int8 caches) or null
+    const float* ks;         // f32 row scales [T] (int8 caches) or null
     const float* vs;
-    long long kv_stride;     // T * D
     int T, D, H;
-    const int* lens;         // per-slot rows [B] (self) or null
-    int n_valid, n_loop;     // shared by all slots when lens is null
-    int n_splits;            // splits per (head, slot)
-    float* part;             // [B, H, n_splits, PART] scratch
-    const float* kv_cur;     // current k row of slot b at + b * cur_stride,
-    int cur_stride;          // its v row D further; null: no current row
-    void* k_row;             // [B, D] out, cache dtype
+    int n_valid, n_loop;     // rows that count / rows read
+    int n_splits;            // splits per head
+    float* part;             // [H, n_splits, PART] scratch
+    const float* kv_cur;     // current k row [D] (its v row D further);
+                             // null: no current row
+    void* k_row;             // [D] out, cache dtype
     void* v_row;
-    float* k_scale;          // [B] out
+    float* k_scale;          // [1] out
     float* v_scale;
-    float* attn_out;         // [B, D] out (f32)
+    float* attn_out;         // [D] out (f32)
 };
 
 __device__ __forceinline__ void load2(const float* p, float& a, float& b) {
@@ -78,48 +68,25 @@ __device__ __forceinline__ void load2(const __nv_fp8_e4m3* p, float& a,
     a = to_f32(p[0]); b = to_f32(p[1]);
 }
 
-// Grid (H, n_splits, B). Rows t < n_loop of the slot take part; rows
-// n_valid <= t < n_loop score NEG (only when no row is valid, as the JAX
-// kernels' masked tiles do); rows past n_loop are excluded. Writes the
-// split's (m, l, acc[HD]) with l = sum exp(s - m) and
-// acc = sum exp(s - m) * vscale * v. SLOTS false: one slot whose rows
-// fill every split (K1/K2), so the per-slot lengths, offsets and empty
-// splits compile away.
-template <typename CT, bool SLOTS>
+// Grid (H, n_splits). Rows t < n_loop take part; rows n_valid <= t <
+// n_loop score NEG (only when no row is valid, as the JAX kernels' masked
+// tiles do); rows past n_loop are excluded. Writes the split's
+// (m, l, acc[HD]) with l = sum exp(s - m) and
+// acc = sum exp(s - m) * vscale * v.
+template <typename CT>
 __global__ void __launch_bounds__(ATT_THREADS) attn_part_kernel(
-        const AttnArgs a, const float* q_p, const void* kc_p,
-        const void* vc_p, const float* ks_p, const float* vs_p,
-        float* part_p) {
+        const AttnArgs a, const float* q, const void* kc_p,
+        const void* vc_p, const float* ks, const float* vs, float* part) {
     __shared__ float s_sh[ATT_ROWS];
     __shared__ float acc_sh[ATT_THREADS / HD][HD];
-    const int h = blockIdx.x, sp = blockIdx.y, b = SLOTS ? blockIdx.z : 0;
+    const int h = blockIdx.x, sp = blockIdx.y;
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-    int n_valid = a.n_valid, n_loop = a.n_loop;
-    if (SLOTS && a.lens != nullptr) {
-        n_loop = min(max(a.lens[b], 0), a.T);
-        n_valid = n_loop;
-    }
+    const int n_valid = a.n_valid, n_loop = a.n_loop;
     const int row0 = sp * ATT_ROWS;
-    float* o = (SLOTS ? a.part : part_p)
-        + (((size_t)b * a.H + h) * a.n_splits + sp) * PART;
-    if (SLOTS && row0 >= n_loop) {   // no row of this slot here
-        if (tid < HD) o[2 + tid] = 0.f;
-        if (tid == 0) {
-            o[0] = -INFINITY;
-            o[1] = 0.f;
-        }
-        return;
-    }
+    float* o = part + ((size_t)h * a.n_splits + sp) * PART;
     const int D = a.D;
-    const float* q = (SLOTS ? a.q : q_p) + (size_t)b * a.q_stride;
-    const CT* kc = static_cast<const CT*>(SLOTS ? a.kc : kc_p)
-        + (size_t)b * a.kv_stride;
-    const CT* vc = static_cast<const CT*>(SLOTS ? a.vc : vc_p)
-        + (size_t)b * a.kv_stride;
-    const float* ks = SLOTS ? a.ks : ks_p;
-    const float* vs = SLOTS ? a.vs : vs_p;
-    if (ks != nullptr) ks += (size_t)b * a.T;
-    if (vs != nullptr) vs += (size_t)b * a.T;
+    const CT* kc = static_cast<const CT*>(kc_p);
+    const CT* vc = static_cast<const CT*>(vc_p);
     const float q0 = q[h * HD + 2 * lane] * QSCALE;
     const float q1 = q[h * HD + 2 * lane + 1] * QSCALE;
 
@@ -200,38 +167,32 @@ __device__ __forceinline__ float head_max(float v, float* sh2) {
     return r;
 }
 
-// Grid (H, B), HD threads: merge the slot's splits; with kv_cur (self
-// blocks) also form the current token's k/v row in the cache's form,
-// write it out, and attend to it.
-template <typename CT, bool SLOTS>
+// Grid (H), HD threads: merge the splits; with kv_cur (self blocks) also
+// form the current token's k/v row in the cache's form, write it out, and
+// attend to it.
+template <typename CT>
 __global__ void __launch_bounds__(HD) attn_combine_kernel(
-        const AttnArgs a, const float* part_p, const float* q_p,
-        const float* kv_cur_p, void* k_row_p, void* v_row_p,
+        const AttnArgs a, const float* part_p, const float* q,
+        const float* kv_cur, void* k_row_p, void* v_row_p,
         float* k_scale_p, float* v_scale_p, float* attn_out_p) {
     __shared__ float sh2[2];
-    const int h = blockIdx.x, b = SLOTS ? blockIdx.y : 0, d = threadIdx.x;
+    const int h = blockIdx.x, d = threadIdx.x;
     const int D = a.D;
-    const float* part = (SLOTS ? a.part : part_p)
-        + ((size_t)b * a.H + h) * a.n_splits * PART;
-    const float* kv_cur = SLOTS ? a.kv_cur : kv_cur_p;
+    const float* part = part_p + (size_t)h * a.n_splits * PART;
     float M = -INFINITY;
     for (int sp = 0; sp < a.n_splits; ++sp) M = fmaxf(M, part[sp * PART]);
     float l = 0.f, acc = 0.f;
     for (int sp = 0; sp < a.n_splits; ++sp) {
         const float* p = part + sp * PART;
-        if (SLOTS && p[0] == -INFINITY) continue;      // empty split
         const float w = expf(p[0] - M);
         l += p[1] * w;
         acc += p[2 + d] * w;
     }
     if (kv_cur != nullptr) {
-        const float* q = (SLOTS ? a.q : q_p) + (size_t)b * a.q_stride;
-        const float* kf = kv_cur + (size_t)b * a.cur_stride;    // [D] k
+        const float* kf = kv_cur;                               // [D] k
         const float* vf = kf + D;                               // [D] v
-        CT* k_row = static_cast<CT*>(SLOTS ? a.k_row : k_row_p)
-            + (size_t)b * D;
-        CT* v_row = static_cast<CT*>(SLOTS ? a.v_row : v_row_p)
-            + (size_t)b * D;
+        CT* k_row = static_cast<CT*>(k_row_p);
+        CT* v_row = static_cast<CT*>(v_row_p);
         const int c = h * HD + d;
         float kcur, vcur, ksc = 1.f, vsc = 1.f;
         if constexpr (std::is_same<CT, int8_t>::value) {
@@ -259,8 +220,8 @@ __global__ void __launch_bounds__(HD) attn_combine_kernel(
             vcur = to_f32(vr);
         }
         if (h == 0 && d == 0) {
-            (SLOTS ? a.k_scale : k_scale_p)[b] = ksc;
-            (SLOTS ? a.v_scale : v_scale_p)[b] = vsc;
+            *k_scale_p = ksc;
+            *v_scale_p = vsc;
         }
         const float sc = head_sum(kcur * (q[c] * QSCALE), sh2);
         const float Mn = fmaxf(M, sc);
@@ -269,41 +230,32 @@ __global__ void __launch_bounds__(HD) attn_combine_kernel(
         l = l * alpha + pc;
         acc = acc * alpha + pc * vcur;
     }
-    (SLOTS ? a.attn_out : attn_out_p)[(size_t)b * D + h * HD + d] =
-        acc / fmaxf(l, 1e-30f);
+    attn_out_p[h * HD + d] = acc / fmaxf(l, 1e-30f);
 }
 
-template <typename CT, bool SLOTS>
-cudaError_t launch_attention_t(const AttnArgs& a, int B, cudaStream_t st) {
+template <typename CT>
+cudaError_t launch_attention(const AttnArgs& a, cudaStream_t st) {
     if (a.n_splits > 0) {
-        attn_part_kernel<CT, SLOTS><<<dim3(a.H, a.n_splits, B), ATT_THREADS,
-                                      0, st>>>(a, a.q, a.kc, a.vc, a.ks,
-                                               a.vs, a.part);
+        attn_part_kernel<CT><<<dim3(a.H, a.n_splits), ATT_THREADS, 0, st>>>(
+            a, a.q, a.kc, a.vc, a.ks, a.vs, a.part);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return e;
     }
-    attn_combine_kernel<CT, SLOTS><<<dim3(a.H, B), HD, 0, st>>>(
+    attn_combine_kernel<CT><<<a.H, HD, 0, st>>>(
         a, a.part, a.q, a.kv_cur, a.k_row, a.v_row, a.k_scale, a.v_scale,
         a.attn_out);
     return cudaGetLastError();
 }
 
-template <typename CT>
-cudaError_t launch_attention(const AttnArgs& a, int B, cudaStream_t st) {
-    if (B == 1 && a.lens == nullptr)
-        return launch_attention_t<CT, false>(a, B, st);
-    return launch_attention_t<CT, true>(a, B, st);
-}
-
 // int8 caches (I8) carry f32 row scales ks/vs; every other row type is
 // read as is.
-inline cudaError_t attention(int cache_dtype, const AttnArgs& a, int B,
+inline cudaError_t attention(int cache_dtype, const AttnArgs& a,
                              cudaStream_t st) {
     switch (cache_dtype) {
-        case F32: return launch_attention<float>(a, B, st);
-        case BF16: return launch_attention<__nv_bfloat16>(a, B, st);
-        case I8: return launch_attention<int8_t>(a, B, st);
-        case FP8: return launch_attention<__nv_fp8_e4m3>(a, B, st);
+        case F32: return launch_attention<float>(a, st);
+        case BF16: return launch_attention<__nv_bfloat16>(a, st);
+        case I8: return launch_attention<int8_t>(a, st);
+        case FP8: return launch_attention<__nv_fp8_e4m3>(a, st);
         default: return (cudaError_t)ERR_DTYPE;
     }
 }

@@ -56,15 +56,15 @@ cudaError_t self_block_kq_t(const void* x, int D, int H, const float* ln_w,
         nullptr, qkv, st);
     if (e != cudaSuccess) return e;
     AttnArgs a{};
-    a.q = qkv; a.q_stride = 3 * D;
+    a.q = qkv;
     a.kc = kq; a.vc = vq; a.ks = ks; a.vs = vs;
-    a.kv_stride = (long long)T * D; a.T = T; a.D = D; a.H = H;
-    a.lens = nullptr; a.n_valid = pos; a.n_loop = pos;
+    a.T = T; a.D = D; a.H = H;
+    a.n_valid = pos; a.n_loop = pos;
     a.n_splits = n_att_splits(pos); a.part = part;
-    a.kv_cur = qkv + D; a.cur_stride = 3 * D;
+    a.kv_cur = qkv + D;
     a.k_row = k_row; a.v_row = v_row; a.k_scale = k_scale;
     a.v_scale = v_scale; a.attn_out = attn;
-    e = attention(cache_dtype, a, 1, st);
+    e = attention(cache_dtype, a, st);
     if (e != cudaSuccess) return e;
     return launch_kq<FMT, float, XT, KEPI_RESID, 1>(
         attn, 1, D, D, nullptr, nullptr, bf, wo.q, wo.s, wo.z, bo, x, x_out,
@@ -86,13 +86,13 @@ cudaError_t cross_block_kq_t(const void* x, int D, int H, const float* ln_w,
     // no valid row at all: every padded row takes part at score NEG
     const int n_loop = enc_len > 0 ? enc_len : T;
     AttnArgs a{};
-    a.q = qbuf; a.q_stride = D;
+    a.q = qbuf;
     a.kc = kq; a.vc = vq; a.ks = ks; a.vs = vs;
-    a.kv_stride = (long long)T * D; a.T = T; a.D = D; a.H = H;
-    a.lens = nullptr; a.n_valid = enc_len; a.n_loop = n_loop;
+    a.T = T; a.D = D; a.H = H;
+    a.n_valid = enc_len; a.n_loop = n_loop;
     a.n_splits = n_att_splits(n_loop); a.part = part;
     a.kv_cur = nullptr; a.attn_out = attn;
-    e = attention(cache_dtype, a, 1, st);
+    e = attention(cache_dtype, a, st);
     if (e != cudaSuccess) return e;
     return launch_kq<FMT, float, XT, KEPI_RESID, 1>(
         attn, 1, D, D, nullptr, nullptr, bf, wo.q, wo.s, wo.z, bo, x, x_out,

@@ -55,10 +55,10 @@ _SIGNATURES = {
     "wa_ffn_scratch": [_I, _I],
     "wa_self_block_batched": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _P],
+                              _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "wa_cross_block_batched": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                               _P, _P, _P],
+                               _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                               _I, _I, _P, _P, _P],
     "wa_ffn_block_batched": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P],
     "wa_greedy_head": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,

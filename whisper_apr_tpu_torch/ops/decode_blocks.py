@@ -50,7 +50,6 @@ from .decode_attention import quantize_row
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 HEAD_DIM = 64          # every Whisper size; the kernels require it
-_ATT_ROWS = 64         # cache rows per attention split (csrc ATT_ROWS)
 
 # launches of each kernel in this process (reset by the caller)
 LAUNCHES = {"self_block": 0, "cross_block": 0, "ffn_block": 0,
@@ -112,6 +111,12 @@ def _lengths(n, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(n), device=device)
 
 
+def cast_row(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """New k or v rows [B, D] in a float cache's dtype (int8 rows go
+    through ``quantize_row``)."""
+    return t.to(dtype)
+
+
 def self_attention_plain(qkv: torch.Tensor, kq, ks, vq, vs, pos,
                          layer: int, n_heads: int):
     """The attention part of K1, K5 and K12: from the projected qkv
@@ -127,7 +132,7 @@ def self_attention_plain(qkv: torch.Tensor, kq, ks, vq, vs, pos,
         kc = k_row.float() * k_scale[:, None]
         vc = v_row.float() * v_scale[:, None]
     else:
-        k_row, v_row = k.to(kq.dtype), v.to(vq.dtype)
+        k_row, v_row = cast_row(k, kq.dtype), cast_row(v, vq.dtype)
         kc, vc = k_row.float(), v_row.float()
         k_scale = torch.ones(B, dtype=torch.float32, device=device)
         v_scale = k_scale
@@ -286,10 +291,6 @@ def _check_call(x: torch.Tensor, w: torch.Tensor, layer: int,
     return B
 
 
-def _n_part(n_heads: int, T: int, B: int = 1) -> int:
-    return B * n_heads * max(1, math.ceil(T / _ATT_ROWS)) * (2 + HEAD_DIM)
-
-
 def _self_block_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
                      n_heads: int):
     _check_call(x, blk["wqkv"], l, kq)
@@ -422,6 +423,106 @@ def _slot_positions(pos, B: int, device) -> torch.Tensor:
     return pos
 
 
+# K5's and K6's launch (csrc batched_block_kernel): one thread block
+# cluster per (head, tile of slots); the plan picks the cluster size, the
+# slots of a tile and the rows staged at a time (the kernel cuts Wq's rows,
+# Wo's columns and the tile's cache rows over the cluster's blocks itself:
+# ``batched_blocks`` mirrors that cut). The constants come from sweeps of
+# the plan on an H100 (PERF.md, PR 13): the kernel's time is set by its
+# slowest blocks, so small clusters and short serial chains win
+BATCHED_MIN_CLUSTER = 4        # blocks of a cluster, at least
+BATCHED_WQ_BYTES = 30 * 1024   # a block's share of a head's Wq, at most
+BATCHED_CROSS_BLOCKS = 240     # K6: blocks aimed for over all tiles
+BATCHED_CROSS_SLOTS = 3        # K6: slots of a tile, at most
+BATCHED_SELF_SLOTS = 4         # K5: slots of a tile
+BATCHED_WIDE_ROWS = 512        # K6: a block's rows up to which chunks take
+                               # three row groups, else two
+BATCHED_STAGE_BYTES = 26 * 1024  # staged K/V rows (and row scales), a chunk
+BATCHED_SHARE_BYTES = 24 * 1024  # every block's projection shares, a block
+BATCHED_TICKETS = _build.MAX_ROWS * CROSS_MAX_CLUSTER   # csrc: one a
+                                                        # (tile, block)
+
+
+class BatchedPlan(NamedTuple):
+    """``cluster`` blocks per (head, tile); ``slots`` slots a tile (the
+    grid's tiles: ceil(B / slots)); rows staged ``chunk`` at a time."""
+    cluster: int
+    slots: int
+    chunk: int
+
+
+def batched_plan(n_heads: int, D: int, B: int, n_loop: int,
+                 cache_size: int, width: int = HEAD_DIM) -> BatchedPlan:
+    """K5's and K6's launch for B slots of at most ``n_loop`` cache rows
+    of ``cache_size`` bytes an element (K6: the rows below enc_len, or
+    all of them; K5: the cache's length, the slots' positions being on
+    the device) and ``width`` projected columns a head (K6 64, K5 192).
+
+    Clusters of ``BATCHED_MIN_CLUSTER`` blocks, doubled (up to
+    ``CROSS_MAX_CLUSTER``) while a block's share of a head's Wq exceeds
+    ``BATCHED_WQ_BYTES``. K6 streams B x n_loop rows: tiles of up to
+    ``BATCHED_CROSS_SLOTS`` slots, as few as bring the grid to about
+    ``BATCHED_CROSS_BLOCKS`` blocks (each tile reads the weights once
+    more, from the L2 cache), chunks of three 64-row groups where a block
+    holds at most ``BATCHED_WIDE_ROWS`` rows, else two. K5 attends over
+    few rows a slot at a decode position: tiles of ``BATCHED_SELF_SLOTS``
+    slots and chunks of one group, the smallest shared memory. Chunks fit
+    ``BATCHED_STAGE_BYTES`` (one group at least) and every block's
+    projection shares fit ``BATCHED_SHARE_BYTES``."""
+    H, B = max(1, n_heads), max(1, B)
+    cluster = BATCHED_MIN_CLUSTER
+    while cluster < CROSS_MAX_CLUSTER \
+            and D * width > cluster * BATCHED_WQ_BYTES:
+        cluster *= 2
+    fit_shares = max(1, BATCHED_SHARE_BYTES // (4 * width * cluster))
+    if width > HEAD_DIM:
+        slots = min(B, BATCHED_SELF_SLOTS, fit_shares)
+        groups = 1
+    else:
+        slots = max(1, min(B, BATCHED_CROSS_SLOTS, fit_shares,
+                           math.ceil(B * cluster * H / BATCHED_CROSS_BLOCKS)))
+        rows = math.ceil(slots * max(1, n_loop) / cluster)
+        groups = 3 if rows <= BATCHED_WIDE_ROWS else 2
+    per_row = 2 * (HEAD_DIM * cache_size + 4)
+    fit = BATCHED_STAGE_BYTES // per_row // CROSS_GROUPS
+    return BatchedPlan(cluster, slots,
+                       CROSS_GROUPS * max(1, min(groups, fit)))
+
+
+def batched_blocks(plan: BatchedPlan, D: int, lens) -> list:
+    """How the kernel cuts a tile's work over the blocks of its cluster,
+    for the tile's slots' row counts ``lens`` (K5: pos[b], K6: n_loop for
+    every slot): for block r, its Wq rows [k0, k1), its Wo columns
+    [c0, c1) and its cache rows as (slot, t0, t1) runs (the tile's rows
+    slot after slot, cut into ``cluster`` equal runs; each run walked a
+    slot at a time). Pure Python; csrc batched_block_kernel's steps 1, 3
+    and 6."""
+    C, U = plan.cluster, D // 16
+    pre = [sum(lens[:s]) for s in range(len(lens))]
+    total = sum(lens)
+    run = math.ceil(total / C)
+    out = []
+    for r in range(C):
+        f0 = min(total, r * run)
+        f1 = min(total, f0 + run)
+        rows = [(s, max(f0, p) - p, min(f1, p + n) - p)
+                for s, (p, n) in enumerate(zip(pre, lens))
+                if n > 0 and p < f1 and p + n > f0]
+        out.append({"wq_rows": (r * D // C, (r + 1) * D // C),
+                    "wo_cols": (16 * (r * U // C), 16 * ((r + 1) * U // C)),
+                    "rows": rows})
+    return out
+
+
+def _batched_scratch(st, dev, n_heads: int, D: int, B: int):
+    """The o-proj's per-head partials [H, B, D] (B of one launch) and the
+    zeroed tickets of K5's and K6's launches."""
+    n = min(B, _build.MAX_ROWS)
+    return (_build.workspace(st, dev, "batched_y", n_heads * n * D),
+            _build.workspace(st, dev, "batched_tickets", BATCHED_TICKETS,
+                             torch.int32, zero=True))
+
+
 def _self_block_batched_cuda(x, blk, kq, ks, vq, vs, pos, l: int,
                              n_heads: int):
     B = _check_call(x, blk["wqkv"], l, kq, batched=True)
@@ -436,13 +537,18 @@ def _self_block_batched_cuda(x, blk, kq, ks, vq, vs, pos, l: int,
     W = _build.workspace
     P = _build.ptr
     n = min(B, _build.MAX_ROWS)
-    scratch = (W(st, dev, "qkv", n * 3 * D),
-               W(st, dev, "part", _n_part(n_heads, T, n)),
-               W(st, dev, "attn", n * D))
+    scratch = _batched_scratch(st, dev, n_heads, D, B)
+    # int8 rows: the projection and each head's largest |k|, |v| between
+    # the kernel's two launches
+    between = ((W(st, dev, "batched_qkv", n * 3 * D),
+                W(st, dev, "batched_hmax", n * n_heads * 2))
+               if ks is not None else (None, None))
     c0, s0 = l * B * T * D, l * B * T      # the layer's cache block
 
     def launch(rows):
         r = rows.start                     # chunk = pointer offsets
+        plan = batched_plan(n_heads, D, rows.stop - r, T, kq.element_size(),
+                            3 * HEAD_DIM)
         rc = _build.library().wa_self_block_batched(
             P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D,
             n_heads, P(blk["ln1_w"], l * D), P(blk["ln1_b"], l * D),
@@ -453,7 +559,7 @@ def _self_block_batched_cuda(x, blk, kq, ks, vq, vs, pos, l: int,
             P(blk["self_wo"], l * D * D), P(blk["self_wos"], l * D),
             P(blk["self_wob"], l * D),
             P(x_out, r * D), P(k_row, r * D), P(k_scale, r), P(v_row, r * D),
-            P(v_scale, r), *scratch, st)
+            P(v_scale, r), *plan, *scratch, *between, st)
         _build.check(rc, "self_block_batched")
         LAUNCHES["self_block_batched"] += 1
 
@@ -467,16 +573,15 @@ def _cross_block_batched_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
     D, T = x.shape[1], kq.shape[2]
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
-    W = _build.workspace
     P = _build.ptr
-    n = min(B, _build.MAX_ROWS)
-    scratch = (W(st, dev, "qkv", n * D),
-               W(st, dev, "part", _n_part(n_heads, T, n)),
-               W(st, dev, "attn", n * D))
+    scratch = _batched_scratch(st, dev, n_heads, D, B)
     c0, s0 = l * B * T * D, l * B * T      # the layer's cache block
 
     def launch(rows):
         r = rows.start                     # chunk = pointer offsets
+        plan = batched_plan(n_heads, D, rows.stop - r,
+                            int(enc_len) if enc_len > 0 else T,
+                            kq.element_size())
         rc = _build.library().wa_cross_block_batched(
             P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D,
             n_heads, P(blk["ln2_w"], l * D), P(blk["ln2_b"], l * D),
@@ -486,7 +591,8 @@ def _cross_block_batched_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
             P(vs, s0 + r * T), _build.DTYPE_CODES[kq.dtype], T,
             int(enc_len),
             P(blk["cross_wo"], l * D * D), P(blk["cross_wos"], l * D),
-            P(blk["cross_wob"], l * D), P(x_out, r * D), *scratch, st)
+            P(blk["cross_wob"], l * D), P(x_out, r * D), *plan, *scratch,
+            st)
         _build.check(rc, "cross_block_batched")
         LAUNCHES["cross_block_batched"] += 1
 

@@ -28,16 +28,19 @@ accumulation; attention as K1/K2's.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from . import _build
 from .basic import gelu, layer_norm
-from .decode_blocks import (_check_tensor, _dispatch, _n_part,
+from .decode_blocks import (HEAD_DIM, _check_tensor, _dispatch,
                             cross_attention_plain, self_attention_plain)
 from .kquants import kq_mv_f32
 from .q4k import KQ_FMT, q4k_mv_f32
+
+_ATT_ROWS = 64         # cache rows per attention split (csrc ATT_ROWS)
 
 # launches of each kernel in this process (reset by the caller)
 LAUNCHES = {"self_block_kq": 0, "cross_block_kq": 0, "ffn_block_kq": 0}
@@ -174,6 +177,11 @@ def _w(tri, l: int):
     return (P(wq, l * wq.shape[1] * wq.shape[2]),
             P(s, l * s.shape[1] * s.shape[2]),
             P(z, l * s.shape[1] * s.shape[2]))
+
+
+def _n_part(n_heads: int, T: int) -> int:
+    """f32 elements of attention.cuh's partials for T cache rows."""
+    return n_heads * max(1, math.ceil(T / _ATT_ROWS)) * (2 + HEAD_DIM)
 
 
 def _self_block_kq_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
