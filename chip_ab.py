@@ -36,9 +36,9 @@ the scan step's projection shapes, K17 at ``MATMUL_SHAPES`` x
 whisper-tiny dense serving tick's device time and the large-v3 bf16
 encoder with the int8 switch on. With ``--batched`` each process times
 the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
-kernel, K4-K9 at B = 8 and 32, K12 and K13, the large-v3 scan and fused
-steps at B = 8 and 32 and the whisper-tiny dense serving tick. Needs one
-CUDA GPU.
+kernel, K4, K7 and K9 at one row, K4-K9 at B = 8 and 32, K10-K14 at B =
+1, the large-v3 scan and fused steps at B = 8 and 32 and the whisper-tiny
+dense serving tick. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -174,14 +174,15 @@ BATCHES = (8, 32)      # slots of the --batched mode's kernels and ticks
 def time_batched_tree(c, root: Path) -> dict:
     """Device microseconds (CUDA-graph replay, bf16 x) of one checkout's
     B > 1 decode kernels, timed here alike for every checkout, at the
-    whisper-tiny and large-v3 shapes and B in ``BATCHES``, pos 128 for
-    every slot, int8 self and cross rows (the serving cache), the last
-    layer: K5 and K6 split by kernel (``kernel_split``), then K4 (the
-    greedy head at M = B), K5-K7, K8 (the vocab logits, f32 out) and K9
-    at M = B; K12 and K13 (q4k, B = 1, the other users of
-    ``attention.cuh``) at whisper-base and large-v3. Then the large-v3
-    scan and fused decode steps at B slots (device ms) and the
-    whisper-tiny dense serving tick's device time."""
+    whisper-tiny and large-v3 shapes: K4, K7 and K9 at one row (K9's B=1
+    scan step); then at B in ``BATCHES``, pos 128 for every slot, int8
+    self and cross rows (the serving cache), the last layer: K5 and K6
+    split by kernel (``kernel_split``), then K4 (the greedy head at M =
+    B), K5-K7, K8 (the vocab logits, f32 out) and K9 at M = B; K12-K14
+    and K10 (q4k) and K11 (q5k) at B = 1 (the other users of
+    ``attention.cuh`` and ``batched_matvec.cuh``) at whisper-base and
+    large-v3. Then the large-v3 scan and fused decode steps at B slots
+    (device ms) and the whisper-tiny dense serving tick's device time."""
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
@@ -204,6 +205,12 @@ def time_batched_tree(c, root: Path) -> dict:
         ones = torch.ones((1, 1, v_pad), device=dev)
         bias = torch.zeros((1, v_pad), device=dev)
         layer = L - 1
+        x = torch.randn((1, D), generator=gen, device=dev).to(bf)
+        out[f"{name}_b1"] = {
+            "K4": us(lambda: qm.qmatvec_greedy_head(x, wq, bias, n_vocab)),
+            "K7": us(lambda: db.ffn_block_batched(x, blk, layer)),
+            "K9": us(lambda: qm.ffn_fused(x, blk["w1"], blk["s1"], blk["b1"],
+                                          blk["w2"], layer))}
         for B in BATCHES:
             sk, sks, sv, svs = c.make_cache("int8", L, shape["T_self"], D,
                                             gen, dev, bf, B)
@@ -241,7 +248,13 @@ def time_batched_tree(c, root: Path) -> dict:
             "K12": us(lambda: dbk.self_block_kq(x, kblk, sk, None, sv, None,
                                                 128, layer, Hk)),
             "K13": us(lambda: dbk.cross_block_kq(
-                x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk))}
+                x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk)),
+            "K14": us(lambda: dbk.ffn_block_kq(x, kblk, layer)),
+            "K10": us(lambda: c._kq_matvec("q4k")(x, *kblk["fc1"], layer))}
+        del kblk
+        kblk = c.make_kq_blk("q5k", Dk, L, gen, dev)
+        out[f"{label}_q5k_b1"] = {
+            "K11": us(lambda: c._kq_matvec("q5k")(x, *kblk["fc1"], layer))}
         del kblk, sk, sv, ck, cks, cv, cvs
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(105)

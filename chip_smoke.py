@@ -29,7 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               B = 2, 5, 8, 32, 40 over int8, bf16, f32 and fp8 rows, K5 at
               SLOT_POS positions mixed within the batch, K6 at every
               CROSS_EDGES length, in bf16 and f32 at both widths, each
-              call twice and bit-identical (check_batched_edges); then
+              call twice and bit-identical (check_batched_edges); K7 and
+              K9 (one tensor-core kernel) at FFN_EDGES rows (1 ... 40),
+              layers 0 and L-1, in bf16 and f32 at both widths, each call
+              twice and bit-identical (check_ffn_edges); then
               CUDA-graph
               times of kernel and plain version at B=1 and B=8 (K8 also
               at the scan step's D x 3D and D x D projections), of the
@@ -1116,29 +1119,58 @@ def check_k8_edges(cdt, seed: int) -> float:
     return worst
 
 
-def check_ffn_fused(blk, D: int, L: int, cdt, label: str, seed: int,
-                    rows=(1, 2, 8, 40)) -> float:
-    """K9 against its plain version at M rows (40: two chunks), the first
-    and last layer; returns the max abs error."""
+# K7's and K9's row counts: one row, a pair, odd, a full 8-slot tile, one
+# past it, two tiles, one past them, a full launch and two launches (32 + 8)
+FFN_EDGES = (1, 2, 5, 8, 9, 16, 17, 32, 40)
+
+
+def check_ffn_edges(blk, D: int, L: int, cdt, label: str) -> dict:
+    """K7 and K9 (one kernel, csrc/ffn_batched.cu) against their plain
+    versions at every ``FFN_EDGES`` row count, the first and last layer,
+    each call twice: the two runs must give the same bits. The outputs are
+    held to the dtype's tolerance and no rounding-tie rule is taken: a
+    hidden unit or an output that the kernel's f32 sums (in another order)
+    round to the other bf16 neighbour moves the output by about one bf16
+    ulp of it, within TOL_BF16. The plan's shared memory by the Python
+    mirror (``ffn_smem``) must equal the kernel's own layout's
+    (``wa_ffn_b_smem``). Returns the max abs error of each."""
     import torch
+    from whisper_apr_tpu_torch.ops import _build
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import qmatvec as qm
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(D + L)
     tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
-    worst = 0.0
-    for M in rows:
+    worst = {"ffn_block_batched": 0.0, "ffn_fused": 0.0}
+    size = torch.empty((), dtype=cdt).element_size()
+    for M in FFN_EDGES:
+        plan = db.ffn_plan(D, 4 * D, min(M, _build.MAX_ROWS), size)
+        smem = _build.library().wa_ffn_b_smem(D, *plan,
+                                              _build.DTYPE_CODES[cdt])
+        assert smem == db.ffn_smem(D, *plan, size), (
+            f"[{label}] K7/K9 plan {tuple(plan)}: the kernel lays out "
+            f"{smem} bytes, ffn_smem says {db.ffn_smem(D, *plan, size)}")
         for layer in (0, L - 1):
             x = torch.randn((M, D), generator=gen, device=dev).to(cdt)
             args = (x, blk["w1"], blk["s1"], blk["b1"], blk["w2"], layer)
-            got, ref = qm.ffn_fused(*args), qm.ffn_fused_plain(*args)
-            assert got.dtype == cdt and got.shape == (M, D)
-            e = rel_err(got, ref)
-            assert e <= tol, (f"[{label}] ffn_fused M {M} layer {layer}: "
-                              f"rel err {e:.3g} > {tol:.3g}")
-            worst = max(worst, abs_err(got, ref))
-    torch.cuda.synchronize()
-    log(f"[kernels] {label}: K9 at M in {list(rows)} agrees with the plain "
-        f"version; max abs err {worst:.3g}")
+            for name, kern, plain in (
+                    ("ffn_block_batched",
+                     lambda: db.ffn_block_batched(x, blk, layer),
+                     lambda: db.ffn_block_plain(x, blk, layer)),
+                    ("ffn_fused", lambda: qm.ffn_fused(*args),
+                     lambda: qm.ffn_fused_plain(*args))):
+                got, again, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                what = f"[{label}] {name} M {M} layer {layer}"
+                assert got.dtype == cdt and got.shape == (M, D), what
+                assert torch.equal(got, again), f"{what}: two runs differ"
+                e = rel_err(got, ref)
+                assert e <= tol, f"{what}: rel err {e:.3g} > {tol:.3g}"
+                worst[name] = max(worst[name], abs_err(got, ref))
+    log(f"[kernels] {label}: K7 and K9 at M in {list(FFN_EDGES)}, layers 0 "
+        f"and {L - 1}, agree with the plain versions, two runs "
+        f"bit-identical; max abs err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
     return worst
 
 
@@ -1243,22 +1275,26 @@ def phase_kernels():
     errs["qmatvec_stacked"] = max(errs["qmatvec_stacked"],
                                   check_k8_edges(torch.bfloat16, seed=14))
     check_k8_edges(torch.float32, seed=15)
-    errs["ffn_fused"] = check_ffn_fused(blk_tiny, 384, 4, torch.bfloat16,
-                                        "tiny bf16", seed=21)
+    ffn = check_ffn_edges(blk_tiny, 384, 4, torch.bfloat16, "tiny bf16")
+    errs["ffn_fused"] = ffn["ffn_fused"]
+    errs["ffn_block_batched"] = max(errs["ffn_block_batched"],
+                                    ffn["ffn_block_batched"])
     _, blk32 = check_kernels(**tiny, cdt=torch.float32, label="tiny f32",
                              seed=2)
     check_batched(blk32, **tiny, cdt=torch.float32, label="tiny f32",
                   seed=12, batches=(1, 2, 4, 8, 40))
-    check_ffn_fused(blk32, 384, 4, torch.float32, "tiny f32", seed=22)
+    check_ffn_edges(blk32, 384, 4, torch.float32, "tiny f32")
     del blk32
-    check_kernels(**large, cdt=torch.float32, label="large-v3 f32", seed=9)
+    _, blk32 = check_kernels(**large, cdt=torch.float32,
+                             label="large-v3 f32", seed=9)
+    check_ffn_edges(blk32, 1280, 32, torch.float32, "large-v3 f32")
+    del blk32
     torch.cuda.empty_cache()
     _, blk_large = check_kernels(**large, cdt=torch.bfloat16,
                                  label="large-v3 bf16", seed=3)
     check_batched(blk_large, **large, cdt=torch.bfloat16,
                   label="large-v3 bf16", seed=13)
-    check_ffn_fused(blk_large, 1280, 32, torch.bfloat16, "large-v3 bf16",
-                    seed=23)
+    check_ffn_edges(blk_large, 1280, 32, torch.bfloat16, "large-v3 bf16")
     times = {
         "tiny_b1": time_kernels(blk_tiny, **tiny, pos=128, label="tiny",
                                 seed=4),
@@ -3550,12 +3586,11 @@ KERNELS = [
     ("cross_block_batched",
      "whisper_apr_tpu_torch/csrc/decode_blocks_batched.cu",
      "whisper_apr_tpu/ops/decode_blocks.py:1025", "tiny_b8"),
-    ("ffn_block_batched",
-     "whisper_apr_tpu_torch/csrc/decode_blocks_batched.cu",
+    ("ffn_block_batched", "whisper_apr_tpu_torch/csrc/ffn_batched.cu",
      "whisper_apr_tpu/ops/decode_blocks.py:1099", "tiny_b8"),
     ("qmatvec_stacked", "whisper_apr_tpu_torch/csrc/int8_matmul.cu",
      "whisper_apr_tpu/ops/qmatvec.py:86", "tiny_b8"),
-    ("ffn_fused", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
+    ("ffn_fused", "whisper_apr_tpu_torch/csrc/ffn_batched.cu",
      "whisper_apr_tpu/ops/qmatvec.py:279", "tiny_b1"),
     ("q4k_matvec_stacked", "whisper_apr_tpu_torch/csrc/kquant_matvec.cu",
      "whisper_apr_tpu/ops/q4k.py:329", "base_q4k"),

@@ -392,13 +392,139 @@ class TestBatchedPlan:
             == (dtype == torch.int8)
 
 
+# the decoder widths of whisper-tiny, base, small, medium and large-v3
+FFN_WIDTHS = (384, 512, 768, 1024, 1280)
+FFN_ROWS = (1, 2, 5, 8, 9, 16, 17, 32)
+
+
+class TestFfnPlan:
+    """``ffn_plan``: how K7's and K9's kernel (one kernel for both) spreads
+    the hidden layer and the output columns over thread block clusters,
+    and ``ffn_blocks``: what each block of its grid owns."""
+
+    @pytest.mark.parametrize("x_size", [2, 4], ids=["bf16", "f32"])
+    @pytest.mark.parametrize("D", FFN_WIDTHS,
+                             ids=["tiny", "base", "small", "medium",
+                                  "large-v3"])
+    def test_every_unit_and_column_once_in_one_wave(self, D, x_size):
+        """At every ``FFN_ROWS`` row count: each tile's blocks own every
+        hidden unit once; each cluster's blocks own every output column
+        once, in whole 16-byte vectors, and their w2 slabs span the
+        cluster's units; the tiles cover the rows once. A block's shared
+        memory fits (227 KB), and the grid is one wave at the blocks an SM
+        that memory allows (two at every width and dtype here)."""
+        H = 4 * D
+        for M in FFN_ROWS:
+            plan = tdb.ffn_plan(D, H, M, x_size)
+            U, C, S = plan
+            assert U in (16, 32) and 1 <= C <= tdb.FFN_MAX_CLUSTER
+            assert 1 <= S <= M and D % (16 * C) == 0 and H % (U * C) == 0
+            smem = tdb.ffn_smem(D, U, C, S, x_size)
+            assert smem <= tdb.FFN_MAX_SMEM
+            per_sm = tdb.ffn_blocks_per_sm(smem)
+            assert per_sm == tdb.FFN_BLOCKS_PER_SM
+            blocks = tdb.ffn_blocks(plan, D, H, M)
+            assert len(blocks) <= tdb.FFN_SMS * per_sm
+            tiles = sorted({b["slots"] for b in blocks})
+            assert _partition(tiles, M)
+            for tile in tiles:
+                mine = [b for b in blocks if b["slots"] == tile]
+                assert _partition([b["units"] for b in mine], H)
+                for j0 in sorted({b["cluster_units"][0] for b in mine}):
+                    cl = [b for b in mine if b["cluster_units"][0] == j0]
+                    assert len(cl) == C
+                    assert _partition([b["cols"] for b in cl], D)
+                    assert all((c1 - c0) % 16 == 0
+                               for c0, c1 in (b["cols"] for b in cl))
+                    span = cl[0]["cluster_units"]
+                    assert _partition([(u0 - span[0], u1 - span[0])
+                                       for u0, u1 in (b["units"]
+                                                      for b in cl)],
+                                      span[1] - span[0])
+
+    @pytest.mark.parametrize("D,plan", [(384, (16, 12, 8)),
+                                        (1280, (32, 16, 8))],
+                             ids=["tiny", "large-v3"])
+    def test_serving_tick_plan(self, D, plan):
+        """B = 8 in bf16: whisper-tiny in 8 clusters of 12 blocks of 16
+        units (96 blocks), large-v3 in 10 clusters of 16 blocks of 32
+        units (160 blocks); both one tile of 8 slots."""
+        assert tuple(tdb.ffn_plan(D, 4 * D, 8, 2)) == plan
+
+    @pytest.mark.parametrize("B", [1, 8, 32, 40])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    def test_one_launch_per_chunk(self, monkeypatch, cfg, qd, B, dtype):
+        """K7's and K9's wrappers call their C entry once per 32-row chunk,
+        at the chunk's pointer offsets, with ``ffn_plan`` for the chunk's
+        rows, the clusters' [G, rows, D] f32 scratch and zeroed tickets,
+        and count one launch a chunk."""
+        _, tq = qd
+        blk = tq["blk"]
+        D, L = cfg.n_text_state, cfg.n_text_layer
+        H = 4 * D
+        calls, spaces = {"k7": [], "k9": []}, []
+
+        class Lib:
+            def wa_ffn_block_batched(self, *args):
+                calls["k7"].append(args)
+                return 0
+
+            def wa_ffn_fused(self, *args):
+                calls["k9"].append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tdb._build, "library", Lib)
+        monkeypatch.setattr(tdb._build, "stream", lambda: 7)
+        monkeypatch.setattr(tdb._build, "workspace", workspace)
+        layer = 1
+        x = torch.zeros((B, D), dtype=dtype)
+        chunks = [min(32, B - r) for r in range(0, B, 32)]
+        before = (tdb.LAUNCHES["ffn_block_batched"],
+                  tqm.LAUNCHES["ffn_fused"])
+        y7 = tdb._ffn_block_batched_cuda(x, blk, layer)
+        y9 = tqm._ffn_fused_cuda(x, blk["w1"], blk["s1"], blk["b1"],
+                                 blk["w2"], layer)
+        assert y7.shape == y9.shape == x.shape
+        assert y7.dtype == y9.dtype == dtype
+        assert tdb.LAUNCHES["ffn_block_batched"] == before[0] + len(chunks)
+        assert tqm.LAUNCHES["ffn_fused"] == before[1] + len(chunks)
+        assert [c[2] for c in calls["k7"]] == chunks
+        assert [c[2] for c in calls["k9"]] == chunks
+        es = x.element_size()
+        for i, m in enumerate(chunks):
+            r0 = 32 * i
+            plan = tdb.ffn_plan(D, H, m, es)
+            G = H // (plan.units * plan.cluster)
+            assert ("ffn_b_y", G * m * D, torch.float32, False) in spaces
+            a = calls["k7"][i]
+            assert len(a) == 20 and a[-1] == 7
+            assert a[0] == x.data_ptr() + es * r0 * D and a[3:5] == (D, H)
+            assert a[7] == blk["w1"].data_ptr() + layer * D * H
+            assert a[10] == blk["w2"].data_ptr() + layer * H * D
+            assert a[13] == y7.data_ptr() + es * r0 * D
+            assert tuple(a[14:17]) == tuple(plan)
+            a = calls["k9"][i]
+            assert len(a) == 16 and a[-1] == 7
+            assert a[0] == x.data_ptr() + es * r0 * D and a[3:5] == (D, H)
+            assert a[5] == blk["w1"].data_ptr() + layer * D * H
+            assert a[9] == y9.data_ptr() + es * r0 * D
+            assert tuple(a[10:13]) == tuple(plan)
+        assert ("ffn_b_tickets", tdb.FFN_TICKETS, torch.int32,
+                True) in spaces
+
+
 class TestFfnBlockBatched:
-    @pytest.mark.parametrize("B", [2, 3])
+    @pytest.mark.parametrize("B", [1, 2, 3, 9])
     @pytest.mark.parametrize("cdt", ["f32", "bf16"])
     def test_matches_jax(self, cfg, qd, B, cdt):
         jq, tq = qd
         jx, tx = _x(B, cfg.n_text_state, seed=40 + B, cdt=cdt)
-        layer = B - 1
+        layer = (B - 1) % cfg.n_text_layer   # B = 2, 3: layers 1, 2
         a = jdb.ffn_block_batched(jx, jq["blk"], layer, block_h=256,
                                   interpret=True)
         b = tdb.ffn_block_batched(tx, tq["blk"], layer)

@@ -85,7 +85,7 @@ def interpret():
 
 
 class TestFfnFused:
-    @pytest.mark.parametrize("M", [1, 3])
+    @pytest.mark.parametrize("M", [1, 3, 9])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_plain_matches_jax(self, params, qds, M, dtype):
         """K9's plain version against the JAX kernel in interpret mode,

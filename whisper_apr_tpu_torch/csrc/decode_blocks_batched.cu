@@ -1,37 +1,32 @@
 // Per-block decode kernels for one token of B slots: K5
-// self_block_batched, K6 cross_block_batched and K7 ffn_block_batched.
+// self_block_batched and K6 cross_block_batched. (K7 ffn_block_batched
+// runs K9's tensor-core kernel in ffn_batched.cu.)
 //
 // Replace the Pallas kernels of whisper_apr_tpu/ops/decode_blocks.py
-// (self_block_batched/_self_kernel_b, cross_block_batched/_cross_kernel_b,
-// ffn_block_batched/_ffn_kernel_b) and compute what K1-K3 compute, for
-// x [B, D]:
+// (self_block_batched/_self_kernel_b, cross_block_batched/_cross_kernel_b)
+// and compute what K1 and K2 compute, for x [B, D]:
 //
 //   K5 self_block_batched : LN1 -> QKV int8 matvec x sqkv + bqkv -> each
 //       slot's new k/v row in the cache's form -> attention of slot b over
 //       ITS rows t < pos[b] plus its current row -> o-proj + bias + resid
 //   K6 cross_block_batched: LN2 -> q matvec -> attention of slot b over its
 //       cross rows < enc_len (one length for all slots) -> o-proj + resid
-//   K7 ffn_block_batched  : LN3 -> fc1 x s1 + b1 -> exact GELU -> fc2
-//       (f32 accumulation) x fc2_s + fc2_b + residual
 //
 // What bounds them on the card: the int8 weights of the sub-block (the
-// same bytes as at batch 1: large-v3 6.55 MB for K5, 3.3 MB for K6,
-// 13.1 MB for K7) plus every live cache row of every slot (K6 at B=8,
-// large-v3, int8 rows: 8 x 1500 x 1280 x 2 bytes = 30.7 MB a layer, the
-// largest part of a serving tick). Arithmetic stays at 2B flops a weight
-// byte, far under the card's flop/byte ratio: the lever is keeping enough
-// bytes in flight on enough SMs, and few serial steps.
+// same bytes as at batch 1: large-v3 6.55 MB for K5, 3.3 MB for K6) plus
+// every live cache row of every slot (K6 at B=8, large-v3, int8 rows:
+// 8 x 1500 x 1280 x 2 bytes = 30.7 MB a layer, the largest part of a
+// serving tick). Arithmetic stays at 2B flops a weight byte, far under
+// the card's flop/byte ratio: the lever is keeping enough bytes in flight
+// on enough SMs, and few serial steps.
 //
-// K7 runs the batched matvec of batched_matvec.cuh twice (each int8
-// weight column loaded once per call for all rows of a row tile). K5 and
-// K6 are one kernel, K2's head cluster (decode_blocks.cu) with a slot
-// dimension, below. The rows are computed in f32; the JAX kernels' bf16
-// rounding of the k*q and p*v products is not reproduced (bf16 results
-// agree within the bf16 tolerance; f32 results match).
+// K5 and K6 are one kernel, K2's head cluster (decode_blocks.cu) with a
+// slot dimension, below. The rows are computed in f32; the JAX kernels'
+// bf16 rounding of the k*q and p*v products is not reproduced (bf16
+// results agree within the bf16 tolerance; f32 results match).
 #include <initializer_list>
 
 #include "attention.cuh"
-#include "batched_matvec.cuh"
 #include "cluster.cuh"
 
 namespace wa {
@@ -90,7 +85,7 @@ constexpr int BB_WARPS = BB_THREADS / 32;
 constexpr int BB_GROUPS = BB_THREADS / 4;     // scores: 4 threads a row
 constexpr int BB_MAX_CHUNK = BB_THREADS;      // weights: a row a thread
 constexpr int BB_MAX_CLUSTER = 16;
-constexpr int BB_MAX_SLOTS = BMV_MAX_B;       // slots one launch takes
+constexpr int BB_MAX_SLOTS = 32;       // slots one launch takes
 constexpr int BB_PART = HD + 2;               // a partial: m, l, acc[64]
 constexpr int BB_RING = 3;                    // chunks of rows staged
 constexpr int BB_MAX_HEADS = 32;              // D <= 2048
@@ -907,21 +902,7 @@ int self_block_b_t(int cache_dtype, const void* x, int B, int D, int H,
     });
 }
 
-template <typename XT>
-cudaError_t ffn_block_b_t(const void* x, int B, int D, int Hd,
-                          const float* ln_w, const float* ln_b,
-                          const int8_t* w1, const float* s1, const float* b1,
-                          const int8_t* w2, const float* s2, const float* b2,
-                          void* x_out, float* g, cudaStream_t st) {
-    const int bf = sizeof(XT) == 2;
-    cudaError_t e = launch_bmv<XT, float, BEPI_GELU>(
-        x, B, D, Hd, ln_w, ln_b, bf, w1, s1, b1, nullptr, g, st);
-    if (e != cudaSuccess) return e;
-    return launch_bmv<float, XT, BEPI_RESID>(g, B, Hd, D, nullptr, nullptr,
-                                             bf, w2, s2, b2, x, x_out, st);
-}
-
-bool batch_ok(int B) { return B >= 1 && B <= BMV_MAX_B; }
+bool batch_ok(int B) { return B >= 1 && B <= BB_MAX_SLOTS; }
 
 // K5's and K6's launch plan (ops/decode_blocks.batched_plan) for the
 // cache's row type, and the 16-byte alignment of the operands copied in
@@ -1021,25 +1002,5 @@ extern "C" int wa_cross_block_batched(
     if (x_dtype == F32) return WA_CROSS_B(float);
     if (x_dtype == BF16) return WA_CROSS_B(__nv_bfloat16);
 #undef WA_CROSS_B
-    return ERR_DTYPE;
-}
-
-// x [B, D]; w1 [D, Hd], w2 [Hd, D] at the layer; scratch g [B, Hd].
-extern "C" int wa_ffn_block_batched(
-        const void* x, int x_dtype, int B, int D, int Hd, const void* ln_w,
-        const void* ln_b, const void* w1, const void* s1, const void* b1,
-        const void* w2, const void* s2, const void* b2, void* x_out, void* g,
-        void* stream) {
-    if (D % MV_COLS != 0 || Hd % MV_COLS != 0 || !batch_ok(B))
-        return ERR_SHAPE;
-    auto st = static_cast<cudaStream_t>(stream);
-#define WA_FFN_B(XT)                                                         \
-    ffn_block_b_t<XT>(x, B, D, Hd, (const float*)ln_w, (const float*)ln_b,   \
-                      (const int8_t*)w1, (const float*)s1, (const float*)b1, \
-                      (const int8_t*)w2, (const float*)s2, (const float*)b2, \
-                      x_out, (float*)g, st)
-    if (x_dtype == F32) return (int)WA_FFN_B(float);
-    if (x_dtype == BF16) return (int)WA_FFN_B(__nv_bfloat16);
-#undef WA_FFN_B
     return ERR_DTYPE;
 }

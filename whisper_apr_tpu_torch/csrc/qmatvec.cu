@@ -1,6 +1,6 @@
-// K4: fused greedy vocab head for M rows, and K9: the fused FFN of the
-// scan step. (K8, the stacked int8 matvec, runs K17's decode-row kernel
-// in int8_matmul.cu.)
+// K4: the fused greedy vocab head for M rows. (K8, the stacked int8
+// matvec, runs K17's decode-row kernel in int8_matmul.cu; K9, the scan
+// step's fused FFN, K7's tensor-core kernel in ffn_batched.cu.)
 //
 // K4 replaces the Pallas kernel of whisper_apr_tpu/ops/qmatvec.py
 // (qmatvec_greedy_head/_greedy_head_kernel) and computes what it computes,
@@ -8,18 +8,6 @@
 // vocab, columns >= n_vocab masked to -inf, then (first index of the max,
 // the max, logsumexp) with no logits row written. The logsumexp is
 // m + log(max(z, 1e-30)); suppressed (-inf) and masked columns add 0.
-//
-// K9 replaces ffn_fused/_ffn_kernel: y [M, D] = gelu(x @ w1[layer] *
-// s1[layer] + b1[layer]) @ w2[layer] for x [M, D] f32 or bf16, int8 w1
-// [D, H] and w2 [H, D] (H = 4D), with the fc2 scale and bias left to the
-// caller. Numerics as the TPU kernel: f32 accumulation, the GELU output
-// (exact erf, erff) rounded to x's dtype before fc2, and the UNSCALED fc2
-// sum rounded to x's dtype (the caller scales it in f32; folding fc2's
-// scale in here would move the bf16 rounding). Bound: the 2*D*H weight
-// bytes plus s1/b1 (large-v3: 13.1 MB, ~3.9 us at 3.35 TB/s). Design:
-// the batched matvec twice, fc1 with the GELU epilogue into an f32
-// scratch [M, H], then fc2 with a raw epilogue; the TPU kernel keeps the
-// hidden layer in VMEM, which is later work here.
 //
 // What bounds K4 on the card: the int8 vocab, read once per call for all
 // M rows (whisper-tiny 384 x 51968 = 20 MB, large-v3 66.5 MB) — 2M flops
@@ -46,7 +34,7 @@ __global__ void __launch_bounds__(MV_THREADS) head_part_kernel(
     __shared__ BmvShared<ROWS> s;
     const int r0 = blockIdx.y * ROWS;
     const int nb = min(ROWS, M - r0);
-    bmv_block<XT, ROWS>(x, K, r0, nb, nullptr, nullptr, 0, w, N, s);
+    bmv_block<XT, ROWS>(x, K, r0, nb, w, N, s);
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const int n = blockIdx.x * MV_COLS + lane;      // MV_COLS == 32
     for (int r = wid; r < nb; r += BMV_WARPS) {     // one warp per row
@@ -121,19 +109,6 @@ cudaError_t greedy_head_t(const void* x, int M, int K, const int8_t* w,
     return cudaGetLastError();
 }
 
-template <typename XT>
-cudaError_t ffn_fused_t(const void* x, int M, int D, int H, const int8_t* w1,
-                        const float* s1, const float* b1, const int8_t* w2,
-                        float* g, void* out, cudaStream_t st) {
-    const int bf = sizeof(XT) == 2;
-    cudaError_t e = launch_bmv<XT, float, BEPI_GELU>(
-        x, M, D, H, nullptr, nullptr, bf, w1, s1, b1, nullptr, g, st);
-    if (e != cudaSuccess) return e;
-    return launch_bmv<float, XT, BEPI_RAW>(g, M, H, D, nullptr, nullptr, bf,
-                                           w2, nullptr, nullptr, nullptr, out,
-                                           st);
-}
-
 }  // namespace
 }  // namespace wa
 
@@ -157,23 +132,5 @@ extern "C" int wa_greedy_head(const void* x, int x_dtype, int M, int K,
     if (x_dtype == F32) return (int)WA_HEAD(float);
     if (x_dtype == BF16) return (int)WA_HEAD(__nv_bfloat16);
 #undef WA_HEAD
-    return ERR_DTYPE;
-}
-
-// x [M, D] f32 or bf16; w1 [D, H], s1/b1 [H] f32 and w2 [H, D] at the
-// layer; scratch g [M, H] f32; out [M, D] in x's dtype.
-extern "C" int wa_ffn_fused(const void* x, int x_dtype, int M, int D, int H,
-                            const void* w1, const void* s1, const void* b1,
-                            const void* w2, void* g, void* out,
-                            void* stream) {
-    if (D % MV_COLS != 0 || H % MV_COLS != 0 || M < 1 || M > BMV_MAX_B)
-        return ERR_SHAPE;
-    auto st = static_cast<cudaStream_t>(stream);
-#define WA_FFN(XT)                                                           \
-    ffn_fused_t<XT>(x, M, D, H, (const int8_t*)w1, (const float*)s1,         \
-                    (const float*)b1, (const int8_t*)w2, (float*)g, out, st)
-    if (x_dtype == F32) return (int)WA_FFN(float);
-    if (x_dtype == BF16) return (int)WA_FFN(__nv_bfloat16);
-#undef WA_FFN
     return ERR_DTYPE;
 }

@@ -15,9 +15,11 @@ At B slots, x is [B, D], slot b attends over its own rows (self: rows
 all slots), and each weight is read once for all B rows.
 
 Each wrapper runs its hand-written CUDA kernel (``csrc/decode_blocks.cu``,
-``csrc/decode_blocks_batched.cu``) for CUDA tensors and the plain PyTorch
-version, in this module, for CPU tensors — nothing else picks between the
-two. One plain version per sub-block serves both kernels: it takes any B.
+``csrc/decode_blocks_batched.cu``; K7 ``csrc/ffn_batched.cu``, the
+tensor-core kernel it shares with K9, launched as ``ffn_plan`` says) for
+CUDA tensors and the plain PyTorch version, in this module, for CPU
+tensors — nothing else picks between the two. One plain version per
+sub-block serves both kernels: it takes any B.
 A batched launch takes at most ``_build.MAX_ROWS`` slots; the wrappers
 launch once per chunk of slots (``_build.in_row_chunks``), each chunk a
 pointer offset into x, the positions, the outputs and the layer's
@@ -410,6 +412,138 @@ def _ffn_block_cuda(x, blk, l: int):
     return x_out
 
 
+# K7's and K9's launch (csrc/ffn_batched.cu ffn_mma_kernel): grid (C, G,
+# T) with clusters of C blocks; a block owns U hidden units (its slab of
+# w1) and D / C output columns (its slab of w2 over the cluster's C U
+# units), T = ceil(rows / S) tiles of S slots. ``ffn_smem`` mirrors the
+# kernel's shared-memory layout (csrc ff_layout)
+FFN_WARPS = 8                  # warps of a block (256 threads) ...
+FFN_CONSUMERS = 6              # ... of which these do LN3 and fc1 (the
+                               # others issue the weight copies)
+FFN_W1_CHUNKS = 4              # w1's slab lands in this many parts
+FFN_MAX_CLUSTER = 16           # blocks of a cluster
+FFN_MAX_UNIT_BLOCKS = 192      # U = 16 while H / 16 blocks are at most
+                               # this many, else 32
+FFN_SMS = 132                  # SMs of an H100 SXM
+FFN_BLOCKS_PER_SM = 2          # the kernel's launch bounds (<= 128
+                               # registers a thread)
+FFN_SM_BYTES = 233472          # shared memory of an SM (228 KB) ...
+FFN_BLOCK_RESERVED = 1024      # ... of which each block reserves 1 KB
+FFN_MAX_SMEM = 227 * 1024      # a block's dynamic shared memory, at most
+FFN_TICKETS = _build.MAX_ROWS * FFN_MAX_CLUSTER  # one a (tile, block rank)
+FFN_MAX_SPLITS = 4             # unit splits of an fc2 column vector ...
+FFN_SPLIT_BYTES = 32768        # ... whose sums take at most this
+FFN_XPAD = 8                   # padding of x's staged rows, elements
+
+
+class FfnPlan(NamedTuple):
+    """``units`` hidden units a block, ``cluster`` blocks a cluster,
+    ``slots`` slots a tile of the launch's rows."""
+    units: int
+    cluster: int
+    slots: int
+
+
+def ffn_splits(nv: int, n_us: int, slots: int, cols: int) -> int:
+    """fc2's unit splits of a block's ``nv`` 16-column vectors over
+    ``n_us`` 16-unit steps: the fewest steps for the busiest of the
+    ``FFN_WARPS`` warps (ties: fewer splits), up to ``FFN_MAX_SPLITS``,
+    their sums within ``FFN_SPLIT_BYTES`` (csrc ff_splits)."""
+    best, cost = 1, None
+    for k in range(1, FFN_MAX_SPLITS + 1):
+        if k > 1 and k * slots * cols * 4 > FFN_SPLIT_BYTES:
+            break
+        c = math.ceil(nv * k / FFN_WARPS) * math.ceil(n_us / k)
+        if cost is None or c < cost:
+            best, cost = k, c
+    return best
+
+
+def ffn_smem(D: int, units: int, cluster: int, slots: int,
+             x_size: int) -> int:
+    """Shared memory in bytes of one block of K7's and K9's kernel, for x
+    of ``x_size`` bytes an element (csrc ff_layout)."""
+    U, C, S = units, cluster, slots
+    cols = D // C
+    ks = ffn_splits(cols // 16, C * U // 16, S, cols)
+    region_a = max(D * U, FFN_CONSUMERS * S * (U + 4) * 4,
+                   C * S * (U + 8) * x_size)
+    region_f = max(16 * (D + FFN_XPAD) + 8 * D,
+                   ks * S * cols * 4 + S * U * x_size)
+    barriers = 8 * (FFN_W1_CHUNKS + 4)
+    return region_a + U * D + region_f + 2 * 32 * 4 + barriers
+
+
+def ffn_blocks_per_sm(smem: int) -> int:
+    """Blocks of the kernel an SM holds at once: its launch bounds, or
+    fewer where their shared memory does not fit."""
+    return min(FFN_BLOCKS_PER_SM,
+               FFN_SM_BYTES // (smem + FFN_BLOCK_RESERVED))
+
+
+def ffn_plan(D: int, Hd: int, M: int, x_size: int = 2) -> FfnPlan:
+    """K7's and K9's launch for M <= 32 rows of width D, a hidden layer
+    of Hd and x of ``x_size`` bytes an element. Units: 16 a block where
+    that makes at most ``FFN_MAX_UNIT_BLOCKS`` blocks (whisper-tiny 96,
+    base 128, small 192), else 32 (medium 128, large-v3 160): one wave at
+    two blocks an SM. Cluster: the largest size up to ``FFN_MAX_CLUSTER``
+    that divides both D / 16 (whole 16-byte column vectors a block) and
+    the Hd / U blocks, whose shared memory still lets two blocks share an
+    SM: the fewer clusters, the fewer partial sums the last block of a
+    column range adds. Slots: all M rows in one tile, or (were nothing
+    to fit, which no Whisper width meets) tiles of half as many."""
+    U = 16 if Hd // 16 <= FFN_MAX_UNIT_BLOCKS else 32
+    sizes = [c for c in range(FFN_MAX_CLUSTER, 0, -1)
+             if (D // 16) % c == 0 and (Hd // U) % c == 0]
+    S = max(1, min(M, _build.MAX_ROWS))
+    while True:
+        for C in sizes:
+            smem = ffn_smem(D, U, C, S, x_size)
+            if ffn_blocks_per_sm(smem) == FFN_BLOCKS_PER_SM:
+                return FfnPlan(U, C, S)
+        if S == 1:
+            raise ValueError(f"no K7/K9 launch plan for D {D}, H {Hd}")
+        S = math.ceil(S / 2)
+
+
+def ffn_blocks(plan: FfnPlan, D: int, Hd: int, M: int) -> list:
+    """What each block of K7's and K9's grid owns: its hidden units
+    [u0, u1), its output columns [c0, c1), its slots [s0, s1), and the
+    cluster's units [j0, j1) its w2 slab spans. Pure Python; csrc
+    ffn_mma_kernel's indexing."""
+    U, C, S = plan
+    out = []
+    for tile in range(math.ceil(M / S)):
+        for cl in range(Hd // (U * C)):
+            for r in range(C):
+                u0 = (cl * C + r) * U
+                out.append({"units": (u0, u0 + U),
+                            "cols": (r * D // C, (r + 1) * D // C),
+                            "slots": (tile * S, min(M, (tile + 1) * S)),
+                            "cluster_units": (cl * C * U, (cl + 1) * C * U)})
+    return out
+
+
+def ffn_launch(x, Hd: int, launch) -> None:
+    """K7's and K9's chunked launch over x [B, D]'s rows: ``launch(rows,
+    plan, ypart, tickets)`` once per chunk of at most 32 rows, with the
+    chunk's plan, the clusters' partial sums [G, rows, D] (f32 scratch)
+    and the zeroed tickets."""
+    D = x.shape[1]
+    dev, st = x.device, _build.stream()
+    tickets = _build.workspace(st, dev, "ffn_b_tickets", FFN_TICKETS,
+                               torch.int32, zero=True)
+
+    def chunk(rows):
+        m = rows.stop - rows.start
+        plan = ffn_plan(D, Hd, m, x.element_size())
+        G = Hd // (plan.units * plan.cluster)
+        ypart = _build.workspace(st, dev, "ffn_b_y", G * m * D)
+        launch(rows, plan, ypart, tickets)
+
+    _build.in_row_chunks(x.shape[0], chunk)
+
+
 def _slot_positions(pos, B: int, device) -> torch.Tensor:
     """pos as the kernel reads it: a contiguous int32 [B] on ``device``
     (an int is broadcast; a tensor elsewhere is refused, not copied)."""
@@ -601,14 +735,12 @@ def _cross_block_batched_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
 
 
 def _ffn_block_batched_cuda(x, blk, l: int):
-    B = _check_call(x, blk["w1"], l, batched=True)
+    _check_call(x, blk["w1"], l, batched=True)
     D, H = blk["w1"].shape[1], blk["w1"].shape[2]
-    dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
     P = _build.ptr
-    g = _build.workspace(st, dev, "g", min(B, _build.MAX_ROWS) * H)
 
-    def launch(rows):
+    def launch(rows, plan, ypart, tickets):
         r = rows.start                     # chunk = pointer offsets
         rc = _build.library().wa_ffn_block_batched(
             P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D, H,
@@ -616,11 +748,11 @@ def _ffn_block_batched_cuda(x, blk, l: int):
             P(blk["w1"], l * D * H), P(blk["s1"], l * H),
             P(blk["b1"], l * H), P(blk["w2"], l * H * D),
             P(blk["fc2_s"], l * D), P(blk["fc2_b"], l * D), P(x_out, r * D),
-            g, st)
+            *plan, ypart, tickets, _build.stream())
         _build.check(rc, "ffn_block_batched")
         LAUNCHES["ffn_block_batched"] += 1
 
-    _build.in_row_chunks(B, launch)
+    ffn_launch(x, H, launch)
     return x_out
 
 

@@ -15,7 +15,9 @@
 
 Each wrapper runs its hand-written CUDA kernel (``csrc/qmatvec.cu``; K8
 ``csrc/int8_matmul.cu``, K17's decode-row kernel, split as
-``int8_matmul.int8_plan`` says) for CUDA tensors and the plain PyTorch
+``int8_matmul.int8_plan`` says; K9 ``csrc/ffn_batched.cu``, K7's
+tensor-core kernel, launched as ``decode_blocks.ffn_plan`` says) for CUDA
+tensors and the plain PyTorch
 version below for CPU tensors. One launch takes at most
 ``_build.MAX_ROWS`` rows; a wrapper launches once per chunk of rows
 (``_build.in_row_chunks``).
@@ -29,6 +31,7 @@ import torch
 
 from . import _build
 from .basic import gelu
+from .decode_blocks import ffn_launch
 from .int8_matmul import int8_plan
 
 _COLS = 32             # columns per block (csrc MV_COLS)
@@ -175,23 +178,22 @@ def _ffn_fused_cuda(x, w1, s1, b1, w2, layer):
                          "[L, D, H], [L, 1, H], [L, 1, H], [L, H, D]")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside the {L}-layer stack")
-    M = _check_rows(x, D)
+    _check_rows(x, D)
     _check_on(x.device, x=x, w1=w1, s1=s1, b1=b1, w2=w2)
-    dev, st = x.device, _build.stream()
     out = torch.empty_like(x)
-    g = _build.workspace(st, dev, "ffn_g", min(M, _build.MAX_ROWS) * H)
     P = _build.ptr
 
-    def launch(rows):
+    def launch(rows, plan, ypart, tickets):
         r = rows.start                     # chunk = pointer offsets
         rc = _build.library().wa_ffn_fused(
             P(x, r * D), _build.DTYPE_CODES[x.dtype], rows.stop - r, D, H,
             P(w1, layer * D * H), P(s1, layer * H), P(b1, layer * H),
-            P(w2, layer * H * D), g, P(out, r * D), st)
+            P(w2, layer * H * D), P(out, r * D), *plan, ypart, tickets,
+            _build.stream())
         _build.check(rc, "ffn_fused")
         LAUNCHES["ffn_fused"] += 1
 
-    _build.in_row_chunks(M, launch)
+    ffn_launch(x, H, launch)
     return out
 
 
