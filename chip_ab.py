@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py [--optin | --split | --int8 | --batched] DIR [DIR ...]
+    python3 chip_ab.py [--optin | --split | --int8 | --batched | --bits]
+                       DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -22,8 +23,12 @@ each process times the opt-in kernels and the probes instead:
 ``chip_smoke.time_optin`` (K15-K18 and their library yardsticks at the
 whisper-tiny and large-v3 shapes, bf16), K18 at one decode row
 (``time_int4_m1``, timed alike in every checkout), the whisper-tiny int4
-engine's host ms per decode step (``time_int4_engine``) and
-``chip_smoke.phase_probes`` (P1-P3 per case, device microseconds). With
+engine's host ms per decode step (``time_int4_engine``),
+``chip_smoke.phase_probes`` (P1-P3 per case, device microseconds) and
+the whisper-tiny paged serving tick's device ms (``paged_tick_device_ms``:
+8 slots, ``chip_smoke.paged_device_ms``; plain, then with
+use_flash_attention and the int8 switch on, as ``--int8`` times the dense
+tick). With
 ``--split`` each process splits the device time of each B=1 decode block
 (K1 ``self_block``, K2 ``cross_block``, K3 ``ffn_block``, at
 ``time_kernels``' operands and both shapes) by kernel instead
@@ -37,8 +42,12 @@ whisper-tiny dense serving tick's device time and the large-v3 bf16
 encoder with the int8 switch on. With ``--batched`` each process times
 the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
 kernel, K4, K7 and K9 at one row, K4-K9 at B = 8 and 32, K10-K14 at B =
-1, the large-v3 scan and fused steps at B = 8 and 32 and the whisper-tiny
-dense serving tick. Needs one CUDA GPU.
+1, the large-v3 scan and fused steps at B = 8 and 32, the whisper-tiny
+dense serving tick and the large-v3 q4k B = 1 decode step
+(``chip_smoke.time_kq_steps``: K12-K14 in every layer, device ms). With
+``--bits`` each process prints, instead of times, a SHA-256 digest of K1's
+and K2's outputs over fixed inputs (``bits_tree``): equal digests in two
+checkouts mean bit-identical kernels. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -71,6 +80,8 @@ def time_tree(root: Path, mode: str = "") -> dict:
         return time_int8_tree(c, root)
     if mode == "--batched":
         return time_batched_tree(c, root)
+    if mode == "--bits":
+        return bits_tree(c)
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -86,6 +97,48 @@ def time_tree(root: Path, mode: str = "") -> dict:
         del blk
         torch.cuda.empty_cache()
     out["e2e_tiny"] = time_e2e(c, root)
+    return out
+
+
+def bits_tree(c) -> dict:
+    """SHA-256 digests (first 16 hex digits) of K1's and K2's outputs, at
+    the whisper-tiny and large-v3 shapes in bf16 and f32: K1 over bf16 /
+    f32, int8 and fp8 self rows at ``chip_smoke.SELF_EDGES`` positions
+    (its new rows and scales too), K2 over ``chip_smoke.CROSS_CACHES`` at
+    ``CROSS_EDGES`` lengths, inputs from fixed seeds."""
+    import hashlib
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
+    dev = torch.device("cuda")
+    out = {}
+    for i, (name, shape) in enumerate(SHAPES.items()):
+        D, H = shape["D"], shape["H"]
+        for cdt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(90 + i)
+            blk = c.make_blk(D, 2, gen, dev)
+            digest = {"K1": hashlib.sha256(), "K2": hashlib.sha256()}
+
+            def feed(k, *ts):
+                for t in ts:
+                    digest[k].update(t.contiguous().view(torch.uint8)
+                                     .cpu().numpy().tobytes())
+            for mode in ("rows", "int8", "fp8"):
+                kq, ks, vq, vs = c.make_cache(mode, 2, 512, D, gen, dev, cdt)
+                for pos in c.SELF_EDGES:
+                    x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+                    feed("K1", *(t for t in db.self_block(
+                        x, blk, kq, ks, vq, vs, pos, pos % 2, H)))
+            for _, mode, rows_dt in c.CROSS_CACHES:
+                dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+                kq, ks, vq, vs = c.make_cache(mode, 2, 1536, D, gen, dev, dt)
+                for enc_len in c.CROSS_EDGES:
+                    x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+                    feed("K2", db.cross_block(x, blk, kq, ks, vq, vs,
+                                              enc_len, enc_len % 2, H))
+            out[f"{name}_{str(cdt)[6:]}"] = {
+                k: v.hexdigest()[:16] for k, v in digest.items()}
+            del blk
+            torch.cuda.empty_cache()
     return out
 
 
@@ -265,6 +318,10 @@ def time_batched_tree(c, root: Path) -> dict:
     torch.cuda.empty_cache()
     out["tiny_serve"] = {"device_ms": round(serve_tick_device_ms(c, root),
                                             4)}
+    steps = c.time_kq_steps(1280, 20, 32, 51866, "large-v3", seed=60,
+                            fmts=("q4k",))
+    out["large_v3_kq_step_ms"] = {k: round(v["ms"], 4)
+                                  for k, v in steps.items()}
     return out
 
 
@@ -429,6 +486,31 @@ def time_optin_tree(c, root: Path) -> dict:
     _, pr = c.phase_probes()
     out["probes"] = {f"{r['probe']} {r['name']}": round(r["ms"] * 1e3, 2)
                      for r in pr["probe_cases"]}
+    out["tiny_paged"] = paged_tick_device_ms(c, root)
+    return out
+
+
+def paged_tick_device_ms(c, root: Path) -> dict:
+    """Device ms per pure decode tick of a whisper-tiny int8 bf16
+    ``BatchScheduler(paged=True)`` of 8 slots (``chip_smoke.
+    paged_device_ms``: K15 in every layer), plain and with
+    use_flash_attention and the int8 switch on (K17 in the tick's
+    linears)."""
+    import tempfile
+    from whisper_apr_tpu_torch import ComputeConfig, ModelConfig, WhisperApr
+    (root / "build").mkdir(exist_ok=True)
+    clips = c.make_clips(c.SERVE_SECONDS[:8], seed=1)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root / "build") as work:
+        apr = Path(work) / "tiny.apr"
+        c.write_random_apr(apr, ModelConfig.tiny())
+        for name, optin in (("device_ms", False),
+                            ("flash_int8_device_ms", True)):
+            eng = WhisperApr.load_from_apr(str(apr), ComputeConfig(
+                quantization="int8", compute_dtype="bfloat16",
+                use_flash_attention=optin))
+            with c.optin_switches(int8=optin):
+                out[name] = round(c.paged_device_ms(eng, clips, 8), 4)
     return out
 
 
@@ -496,7 +578,7 @@ def time_e2e(c, root: Path) -> dict:
 def main() -> int:
     args = sys.argv[1:]
     modes = [a for a in args
-             if a in ("--optin", "--split", "--int8", "--batched")]
+             if a in ("--optin", "--split", "--int8", "--batched", "--bits")]
     args = [a for a in args if a not in modes]
     if len(args) == 2 and args[0] == "--one":
         root = Path(args[1])

@@ -71,8 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               in Q4_K, Q5_K and Q6_K at the whisper-base and large-v3
               decoder shapes (bf16; f32 at base) over bf16 and int8 self
               rows and int8 cross rows (cross8), K10/K11 at M = 1, 8 and
-              40; their times and bounds; the large-v3 32-layer B=1
-              k-quant step (q4k, q5k).
+              40; K13 (K2's head-cluster kernel over k-quant weights) in
+              every format at enc_len 0, 1, 31, 32, 33, 1500 and 1536 over
+              int8, bf16, f32 and fp8 cross rows, bf16 and f32 x, both
+              widths, each call twice and bit-identical (check_cross_kq);
+              their times and bounds; the large-v3 32-layer B=1 k-quant
+              step (q4k, q5k).
 7b. kquant (after phase 7) - whisper-base .apr files with header
               quantization q4k, q5k and q6k written by the port and loaded
               by load_from_apr: 30 s of noise at B=1 (K12-K14 L times and
@@ -84,7 +88,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               decoding through the transcode (near-tie rule).
 3c. optin kernels (after 3b) - K15 (paged attention: 8 slots, lengths
               1-460 over tables of 28 scattered pages, a table cut to 2
-              pages), K16 (flash attention over 1500 frames at B=1 and 4,
+              pages; then 16 slots over tables of 1, 2, 28 and 29 pages:
+              an empty slot, lengths either side of paged_plan's run
+              boundaries, the table's end and past it, an out-of-range
+              page id, NaN in every row past a non-empty slot's length;
+              each call twice and bit-identical: check_paged_edges),
+              K16 (flash attention over 1500 frames at B=1 and 4,
               causal, kv_valid 1000; the ragged edges of its key ring,
               split and combine: Tk 1, 63, 65, 448, Tq 1 and 100 over
               1500 keys, kv_valid 1024 and 1025, causal at 448, an
@@ -152,6 +161,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -2133,6 +2143,49 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
     return worst
 
 
+# K13's cross lengths over a 1536-row cache: none (every padded row at
+# NEG), one row, either side of a 32-row group, the encoder's 1500 frames
+# and the whole cache
+KQ_CROSS_EDGES = (0, 1, 31, 32, 33, 1500, 1536)
+
+
+def check_cross_kq(fmt: str, D: int, H: int, cdt, label: str, seed: int,
+                   L: int = 2, T: int = 1536) -> float:
+    """K13 against its plain version over ``fmt`` weights at every cache
+    dtype (``CROSS_CACHES``) and every ``KQ_CROSS_EDGES`` length, each
+    call twice: the two runs must give the same bits. Returns the max abs
+    error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = make_kq_blk(fmt, D, L, gen, dev)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = 0.0
+    for name, mode, rows_dt in CROSS_CACHES:
+        dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+        kq, ks, vq, vs = make_cache(mode, L, T, D, gen, dev, dt)
+        for enc_len in KQ_CROSS_EDGES:
+            layer = enc_len % L
+            x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
+            args = (x, blk, kq, ks, vq, vs, enc_len, layer, H)
+            got = dbk.cross_block_kq(*args)
+            again = dbk.cross_block_kq(*args)
+            ref = dbk.cross_block_kq_plain(*args)
+            torch.cuda.synchronize()
+            what = (f"[kquant] {label} {fmt} cross_block_kq {name} enc_len "
+                    f"{enc_len}")
+            assert torch.equal(got, again), f"{what}: two runs differ"
+            e = rel_err(got, ref)
+            assert e <= tol, f"{what}: rel err {e:.3g} > {tol:.3g}"
+            worst = max(worst, abs_err(got, ref))
+        del kq, ks, vq, vs
+    log(f"[kquant] {label} {fmt}: K13 at enc_len {list(KQ_CROSS_EDGES)} over "
+        f"{', '.join(n for n, *_ in CROSS_CACHES)} rows agrees with the "
+        f"plain version, two runs bit-identical; max abs err {worst:.3g}")
+    return worst
+
+
 def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
             enc_len: int, pos: int, label: str, seed: int) -> dict:
     """K12-K14 and K10/K11 (M=1, fc1's weight) against their plain
@@ -2237,6 +2290,13 @@ def phase_kquant_kernels() -> tuple:
             w = check_kq(fmt, **shape, cdt=cdt, label=label, seed=30 + i)
             for k, v in w.items():
                 errs[k] = max(errs.get(k, 0.0), v)
+        for (D, H, label), cdt in itertools.product(
+                ((512, 8, "base"), (1280, 20, "large-v3")),
+                (torch.bfloat16, torch.float32)):
+            e = check_cross_kq(fmt, D, H, cdt,
+                               f"{label} {str(cdt).split('.')[-1]}",
+                               seed=33 + i)
+            errs["cross_block_kq"] = max(errs["cross_block_kq"], e)
     times = {}
     for i, fmt in enumerate(KQ_MODES):
         times[f"base_{fmt}"] = time_kq(fmt, **base, pos=128, label="base",
@@ -2713,6 +2773,81 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
     return worst
 
 
+# K15's edge checks: 16 slots over tables of these widths in pages (one,
+# two, the serving pool's 28, and 29: a last run shorter than the rest)
+PAGED_EDGE_WIDTHS = (1, 2, 28, 29)
+PAGED_EDGE_SLOTS = 16
+
+
+def paged_edge_lengths(P: int, run: int, B: int, gen) -> list:
+    """B slot lengths over P-page tables with ``run`` pages a block: an
+    empty slot, one row, either side of a page's end, of the first two run
+    boundaries and of the table's end, past it; the rest random."""
+    import torch
+    cap = 16 * P
+    want = {0, 1, 15, 16, 17, cap - 1, cap, cap + 1, cap + 37}
+    for k in (1, 2):
+        want |= {16 * run * k - 1, 16 * run * k, 16 * run * k + 1}
+    lens = sorted(n for n in want if 0 <= n <= cap + 37)[:B]
+    extra = torch.randint(1, cap + 1, (B - len(lens),), generator=gen,
+                          device=gen.device).tolist()
+    return lens + extra
+
+
+def check_paged_edges(label: str, D: int, H: int, cdt, seed: int) -> float:
+    """K15 against its plain version at ``PAGED_EDGE_WIDTHS`` x
+    ``paged_edge_lengths``, each call twice and bit-identical: every
+    slot's pages scattered over one pool; each row past a non-empty
+    slot's length (its last page's tail and its later pages) NaN in K and
+    V, which must not reach any output; one slot's first page id past the
+    pool (clamped to its last page, which no table holds). Returns the
+    max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import paged_attention as pa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    B, worst = PAGED_EDGE_SLOTS, 0.0
+    for P in PAGED_EDGE_WIDTHS:
+        plan = pa.paged_plan(B, P, H, D, torch.empty((), dtype=cdt)
+                             .element_size())
+        lens = paged_edge_lengths(P, plan.run, B, gen)
+        n_pages = B * P + 1                   # the last page: in no table
+        kp = torch.randn((2, n_pages, 16, D), generator=gen, device=dev)
+        vp = torch.randn((2, n_pages, 16, D), generator=gen, device=dev)
+        tables = torch.randperm(n_pages - 1, generator=gen, device=dev)[
+            : B * P].reshape(B, P).to(torch.int32)
+        rows = torch.arange(16 * P, device=dev)
+        for b, n in enumerate(lens):
+            if n <= 0:
+                continue                      # reads all of its pages
+            past = rows[n:]
+            for pool in (kp, vp):
+                pool[:, tables[b, past // 16].long(), past % 16] = \
+                    float("nan")
+        b = next(b for b, n in enumerate(lens) if n >= 17)
+        tables[b, 0] = n_pages + 7
+        q = torch.randn((B, D), generator=gen, device=dev).to(cdt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for layer in (0, 1):
+            args = (q, kp.to(cdt), vp.to(cdt), tables, lengths, layer, H)
+            got = pa.paged_attention_stacked(*args)
+            again = pa.paged_attention_stacked(*args)
+            ref = pa.paged_attention_stacked_plain(*args)
+            torch.cuda.synchronize()
+            what = f"[kernels] {label} paged_attention_stacked P={P} {plan}"
+            assert torch.equal(got, again), f"{what}: two runs differ"
+            assert bool(torch.isfinite(got).all()), f"{what}: not finite"
+            e = rel_err(got, ref)
+            assert e <= tol, f"{what}: rel err {e:.3g} > {tol:.3g}"
+            worst = max(worst, abs_err(got, ref))
+    log(f"[kernels] {label} {str(cdt).split('.')[-1]}: K15 at table widths "
+        f"{list(PAGED_EDGE_WIDTHS)}, {B} slots (empty, run edges, past the "
+        f"table, NaN past each length, a clamped page id) agrees with the "
+        f"plain version, two runs bit-identical; max abs err {worst:.3g}")
+    return worst
+
+
 def library_sdpa(q, k, v) -> "float | None":
     """Time of torch's scaled_dot_product_attention on K16's tensors: a
     yardstick only, the port never calls it."""
@@ -2870,6 +3005,9 @@ def phase_optin_kernels() -> tuple:
         for cdt in (torch.bfloat16, torch.float32):
             for k, v in check_optin(label, D, H, cdt, seed).items():
                 errs[k] = max(errs.get(k, 0.0), v)
+            errs["paged_attention_stacked"] = max(
+                errs["paged_attention_stacked"],
+                check_paged_edges(label, D, H, cdt, seed + 100))
             seed += 1
     times = {"tiny_optin": time_optin("tiny", 384, 6, seed=45),
              "large_v3_optin": time_optin("large-v3", 1280, 20, seed=46)}
@@ -3598,7 +3736,7 @@ KERNELS = [
      "whisper_apr_tpu/ops/kquants.py:458", "base_q5k"),
     ("self_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:395", "base_q4k"),
-    ("cross_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+    ("cross_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:549", "base_q4k"),
     ("ffn_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:672", "base_q4k"),

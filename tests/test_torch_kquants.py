@@ -325,6 +325,100 @@ class TestBlocks:
         assert got.dtype == tdt
         _close(got, want, dtype, mode)
 
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("dtype,rows", [("f32", "rows"),
+                                            ("bf16", "rows"),
+                                            ("f32", "int8"),
+                                            ("bf16", "int8")])
+    def test_cross_block_enc_len_edges(self, kq_params, mode, dtype, rows):
+        """K13 at the cross lengths that cut its attention apart: none
+        (every padded row at NEG), one row, either side of a 32-row group
+        and the whole cache."""
+        tdt, jdt = DTYPES[dtype]
+        _, _, jqdd, tqdd = kq_params[mode]
+        jblk, tblk = dict(jqd.kq_block_operands(jqdd)), dict(tqdd["blk"])
+        rng = np.random.default_rng(6)
+        for k in ("ln2_w", "ln2_b", "b_cross_q", "b_cross_o"):
+            a = rng.normal(1.0 if k.endswith("_w") else 0.0, 0.1,
+                           tblk[k].shape).astype(np.float32)
+            jblk[k], tblk[k] = jnp.asarray(a.reshape(jblk[k].shape)), \
+                torch.from_numpy(a)
+        T = 256                 # the JAX kernel's row block
+        jc, tc = _caches(rows, dtype, seed=8, T=T)
+        for i, enc_len in enumerate((0, 1, 31, 32, 33, T)):
+            x = rng.normal(0, 1, (1, 256)).astype(np.float32)
+            xj, xt = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+            want = jkq.cross_block_kq(xj, jblk, *jc, enc_len, i % 2, 4,
+                                      interpret=True)
+            got = tkq.cross_block_kq(xt, tblk, *tc, enc_len, i % 2, 4)
+            assert got.dtype == tdt
+            _close(got, want, dtype, mode, attends=True)
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("D,H", [(384, 6), (512, 8), (768, 12),
+                                     (1280, 20)])
+    def test_cross_kq_plan(self, mode, D, H):
+        """K13's launch at the tiny, base, small and large-v3 widths:
+        clusters of at most 16 blocks, every block's share of Wq whole
+        groups (none empty, in rank order, all of D), a head's 64 rows of
+        Wo whole groups, every cross row in some block, shared memory
+        within 227 KB."""
+        sub = tkq.KQ_SUB[mode]
+        assert 64 % sub == 0
+        for n_loop, cache_size in ((1500, 1), (1, 2), (1536, 4), (448, 1)):
+            plan = tkq.cross_kq_plan(H, D, n_loop, cache_size, mode)
+            assert 1 <= plan.cluster <= 16
+            assert plan.rows * plan.cluster >= n_loop
+            shares = tkq.kq_shares(D, plan.cluster, mode)
+            assert shares[0][0] == 0 and shares[-1][1] == D
+            assert all(a < b and a % sub == 0 and b % sub == 0
+                       for a, b in shares)
+            assert all(shares[i][1] == shares[i + 1][0]
+                       for i in range(len(shares) - 1))
+            assert tkq.head_smem(D, plan.cluster, plan.chunk, cache_size,
+                                 mode) <= 227 * 1024
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("enc_len", [200, 0])
+    def test_cross_block_one_launch(self, kq_params, monkeypatch, mode,
+                                    enc_len):
+        """``_cross_block_kq_cuda`` makes one call of the C entry point
+        with one argument per ctypes type, the format, the plan for its
+        rows (all T of them when enc_len is 0) and K2's scratch, and
+        counts one launch."""
+        _, _, _, tqdd = kq_params[mode]
+        blk = tqdd["blk"]
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_cross_block_kq(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tkq._build, "library", Lib)
+        monkeypatch.setattr(tkq._build, "stream", lambda: 7)
+        monkeypatch.setattr(tkq._build, "workspace", workspace)
+        _, (kq, ks, vq, vs) = _caches("int8", "f32", seed=9, T=256)
+        x = torch.zeros((1, 256))
+        before = tkq.LAUNCHES["cross_block_kq"]
+        y = tkq._cross_block_kq_cuda(x, blk, kq, ks, vq, vs, enc_len, 1, 4)
+        assert y.shape == x.shape
+        assert tkq.LAUNCHES["cross_block_kq"] == before + 1
+        args = calls[0]
+        assert len(calls) == 1
+        assert len(args) == len(tkq._build._SIGNATURES["wa_cross_block_kq"])
+        assert args[4] == tkq.KQ_FMT[mode] and args[16:18] == (256, enc_len)
+        assert tuple(args[23:26]) == tuple(tkq.cross_kq_plan(
+            4, 256, enc_len or 256, 1, mode))
+        assert args[-1] == 7
+        assert (args[9] is None) == (mode == "q6k")      # Wq's zero plane
+        assert spaces == [("cross_y", 4 * 256, torch.float32, False),
+                          ("cross_tickets", 16, torch.int32, True)]
+
     def test_weight_fmt(self, kq_params):
         for mode in MODES:
             blk = kq_params[mode][3]["blk"]

@@ -142,6 +142,145 @@ class TestPagedAttentionPlain:
                                        atol=1e-5)
 
 
+# K15's edges (table width P in pages, slot lengths): an empty slot
+# (averaged over all 16 P rows), a one-page table, lengths either side of
+# one and two pages and of the table's end, a length past the table
+PAGED_EDGES = [
+    (1, [0, 1, 15, 16, 40]),
+    (2, [16, 17, 0, 32, 33, 3]),
+    (3, [0, 15, 16, 17, 32, 33, 48, 60]),
+]
+
+
+class TestPagedAttentionEdges:
+    """K15's plain version against the JAX kernel at the edges of its
+    pages, and its launch plan (pure Python)."""
+
+    @pytest.mark.parametrize("P,lengths", PAGED_EDGES)
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_edges_match_jax(self, P, lengths, dtype):
+        rng = np.random.default_rng(P)
+        B, D, H = len(lengths), 128, 2
+        n_pages = B * P + 1
+        k = rng.normal(0, 0.5, (2, n_pages, PAGE, D)).astype(np.float32)
+        v = rng.normal(0, 0.5, (2, n_pages, PAGE, D)).astype(np.float32)
+        q = rng.normal(0, 0.5, (B, D)).astype(np.float32)
+        tables = rng.permutation(n_pages)[: B * P].reshape(B, P).astype(
+            np.int32)
+        lens = np.array(lengths, np.int32)
+        if dtype == "f32":
+            tq, tk, tv = _t(q), _t(k), _t(v)
+            jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        else:
+            (tq, jq), (tk, jk), (tv, jv) = map(_to_bf16, (q, k, v))
+        want = np.asarray(jpa.paged_attention_stacked(
+            jq, jk, jv, jnp.asarray(tables), jnp.asarray(lens), 1, H,
+            interpret=True)).astype(np.float32)
+        got = tpa.paged_attention_stacked(tq, tk, tv, _t(tables), _t(lens),
+                                          1, H).float().numpy()
+        if dtype == "f32":
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        else:
+            err = np.abs(got - want).max()
+            assert err <= 2.0 ** -6 * np.abs(want).max(), err
+        # the empty slot is the mean of V over its table's rows
+        b = lengths.index(0) if 0 in lengths else None
+        if b is not None and dtype == "f32":
+            rows = v[1][tables[b]].reshape(P * PAGE, D)
+            np.testing.assert_allclose(got[b], rows.mean(0), rtol=1e-4,
+                                       atol=1e-5)
+
+    @pytest.mark.parametrize("bad,jax_reads", [(-1, 4), (-7, 0), (8, 4)])
+    def test_out_of_range_page_ids(self, bad, jax_reads):
+        """A reference fault, recorded: the JAX kernel in interpret mode
+        wraps a page id in [-n_pages, 0) to id + n_pages and clamps the
+        rest; the port clamps every id into [0, n_pages). They agree but
+        for ids -n_pages .. -1."""
+        rng = np.random.default_rng(11)
+        B, D, H, NP = 2, 128, 2, 5
+        k = rng.normal(0, 0.5, (1, NP, PAGE, D)).astype(np.float32)
+        v = rng.normal(0, 0.5, (1, NP, PAGE, D)).astype(np.float32)
+        q = rng.normal(0, 0.5, (B, D)).astype(np.float32)
+        lens = np.array([30, 20], np.int32)
+
+        def jax_at(tables):
+            return np.asarray(jpa.paged_attention_stacked(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                jnp.asarray(tables), jnp.asarray(lens), 0, H,
+                interpret=True))
+        tables = np.array([[1, bad], [3, 2]], np.int32)
+        got = tpa.paged_attention_stacked(*map(_t, (q, k, v, tables, lens)),
+                                          0, H).numpy()
+        clamped = tables.clip(0, NP - 1)
+        np.testing.assert_allclose(got, jax_at(clamped), rtol=1e-5,
+                                   atol=1e-6)
+        read = tables.copy()
+        read[0, 1] = jax_reads          # the page the JAX kernel reads
+        np.testing.assert_allclose(jax_at(tables), jax_at(read), rtol=1e-5,
+                                   atol=1e-6)
+        assert (jax_reads == clamped[0, 1]) == (bad >= 0 or bad < -NP)
+
+    @pytest.mark.parametrize("B,P,H,D", [(8, 28, 6, 384), (8, 29, 6, 384),
+                                         (1, 1, 6, 384), (16, 2, 8, 512),
+                                         (8, 28, 12, 768), (8, 28, 20, 1280),
+                                         (32, 29, 20, 1280),
+                                         (4, 64, 16, 1024)])
+    @pytest.mark.parametrize("elem", [2, 4])
+    def test_plan(self, B, P, H, D, elem):
+        """Every (slot, page, head) is owned by exactly one block; a
+        slot's runs fit one cluster of at most 16; the head groups divide
+        H; shared memory fits 227 KB; the grid is from shapes alone."""
+        plan = tpa.paged_plan(B, P, H, D, elem)
+        assert 1 <= plan.run <= tpa.PAGED_MAX_RUN
+        assert -(-P // plan.run) <= tpa.PAGED_MAX_CLUSTER
+        assert H % plan.groups == 0
+        owned = [(b, p, h) for b, pages, heads in tpa.paged_blocks(
+            plan, B, P, H) for p in pages for h in heads]
+        assert sorted(owned) == [(b, p, h) for b in range(B)
+                                 for p in range(P) for h in range(H)]
+        assert tpa.paged_smem(D, H, elem, *plan, P) <= 227 * 1024
+
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_one_launch(self, monkeypatch, dtype):
+        """``_paged_cuda`` makes one call of the C entry point with one
+        argument per ctypes type, the layer's pool block and the plan from
+        the host's shapes, and counts one launch; ``lengths`` is not read
+        on the host."""
+        calls = []
+
+        class Lib:
+            def wa_paged_attention(self, *args):
+                calls.append(args)
+                return 0
+
+        class Lengths(torch.Tensor):
+            def tolist(self):
+                raise AssertionError("lengths read on the host")
+
+            def item(self):
+                raise AssertionError("lengths read on the host")
+
+        monkeypatch.setattr(tpa._build, "library", Lib)
+        monkeypatch.setattr(tpa._build, "stream", lambda: 7)
+        B, P, H, D, L, NP = 8, 28, 6, 384, 2, 225
+        q = torch.zeros((B, D), dtype=dtype)
+        pool = torch.zeros((L, NP, PAGE, D), dtype=dtype)
+        tables = torch.zeros((B, P), dtype=torch.int32)
+        lengths = torch.zeros(B, dtype=torch.int32).as_subclass(Lengths)
+        before = tpa.LAUNCHES["paged_attention_stacked"]
+        out = tpa._paged_cuda(q, pool, pool, tables, lengths, 1, H)
+        assert out.shape == q.shape and out.dtype == dtype
+        assert tpa.LAUNCHES["paged_attention_stacked"] == before + 1
+        args = calls[0]
+        assert len(calls) == 1
+        assert len(args) == len(tpa._build._SIGNATURES["wa_paged_attention"])
+        assert args[5] == pool.data_ptr() + NP * PAGE * D * q.element_size()
+        assert tuple(args[12:14]) == tuple(tpa.paged_plan(
+            B, P, H, D, q.element_size()))
+        assert args[-1] == 7
+
+
 class TestPagedKVCache:
     def _stream(self, pk, err):
         """An alloc / extend / free stream with an exhaustion in it."""

@@ -1,7 +1,6 @@
-// Decode attention of one query over a single slot's cache rows, shared
-// by the per-block kernels over k-quant weights (K12, K13 in
-// decode_blocks_kq.cu); NEG, QSCALE and shape_ok also serve K1, K2, K5
-// and K6.
+// Decode attention of one query over a single slot's cache rows, used by
+// the self block over k-quant weights (K12 in decode_blocks_kq.cu); NEG,
+// QSCALE and shape_ok also serve K1, K2, K13, K5 and K6.
 //
 // One block per (head, split of ATT_ROWS rows) writes a partial (max,
 // sum, acc[64]); a combine kernel of HD threads per head merges the

@@ -1,9 +1,11 @@
 // Per-block decode kernels for one token at batch 1: K1 self_block,
-// K2 cross_block and K3 ffn_block.
+// K2 cross_block and K3 ffn_block, and K13 cross_block_kq (K2 over
+// k-quant weights).
 //
 // Replace the Pallas kernels of whisper_apr_tpu/ops/decode_blocks.py
 // (self_block/_self_kernel, cross_block/_cross_kernel,
-// ffn_block/_ffn_kernel) and compute what they compute:
+// ffn_block/_ffn_kernel) and of whisper_apr_tpu/ops/decode_blocks_kq.py
+// (cross_block_kq/_cross_kernel_kq), and compute what they compute:
 //
 //   K1 self_block : LN1 -> fused QKV int8 matvec x sqkv + bqkv -> the new
 //                   k/v row in the cache's form (int8 + f32 row scale, or
@@ -12,6 +14,8 @@
 //                   + residual
 //   K2 cross_block: LN2 -> q int8 matvec -> attention over cross rows
 //                   < enc_len -> o-proj + bias + residual
+//   K13           : K2 with the q and o-proj matvecs over Q4_K / Q5_K /
+//                   Q6_K planar weights (kquant.cuh), biases in f32
 //   K3 ffn_block  : LN3 -> fc1 int8 x s1 + b1 -> exact GELU (erff) ->
 //                   fc2 int8 (f32 accumulation) x fc2_s + fc2_b + residual
 //
@@ -28,17 +32,18 @@
 // of a block moves well under a microsecond of bytes, so launches and the
 // serial path inside each block set the time from the L2 cache; from
 // device memory (the decode step cycles through every layer's weights)
-// the bytes a block copies at its start do. K1 and K2 share one kernel: a
-// thread block cluster per head (below). K3 cuts the hidden layer over
-// clusters (further below).
+// the bytes a block copies at its start do. K1, K2 and K13 share one
+// kernel, templated on the weights' form: a thread block cluster per head
+// (below). K3 cuts the hidden layer over clusters (further below).
 #include "attention.cuh"
 #include "cluster.cuh"
+#include "kquant.cuh"
 
 namespace wa {
 namespace {
 
 // --------------------------------------------------------------------------
-// K1 self_block and K2 cross_block: one thread block cluster per head
+// K1 self_block, K2 cross_block and K13: one thread block cluster per head
 // --------------------------------------------------------------------------
 //
 // Grid (C, H) with clusters of (C, 1, 1): the C blocks of head h's cluster
@@ -46,7 +51,8 @@ namespace {
 // C, the rows per block and the rows staged at a time):
 //   - the head's projection, LN(x) . Wq[:, head's columns]: 64 columns
 //     (q_h) for K2, 192 for K1 (q_h, k_h and v_h of the fused QKV); block
-//     r sums Wq rows [r D / C, (r + 1) D / C) and stores its share into
+//     r sums Wq rows [r D / C, (r + 1) D / C) (K13: whole groups, below)
+//     and stores its share into
 //     every block of the cluster (st.async into distributed shared memory,
 //     counted by the receiver's transaction barrier); each adds them in
 //     rank order;
@@ -81,6 +87,26 @@ namespace {
 // back (the scales from all of k and v) and goes on from the current row.
 enum HeadKind { HB_CROSS = 0, HB_SELF = 1, HB_PROJECT = 2, HB_ATTEND = 3 };
 
+// The form of the projections' weights, a template argument of the
+// kernel: int8 with one f32 scale a column (K1, K2), or a k-quant planar
+// form of kquant.cuh (K13 over Q4_K, Q5_K or Q6_K): VPB K values a byte
+// row, one scale (and a zero) a group of SUB values and column, the
+// group's term S (h . q) - Z sum(h) taken row by row. A block's share of
+// Wq's rows is then whole groups, and a head's 64 rows of Wo are 2 (Q4_K,
+// Q5_K) or 4 (Q6_K) whole groups: each head's o-proj partial carries its
+// own scales and zeros, and the ticket's sum adds only bias and residual.
+struct WInt8 {
+    static constexpr bool KQ = false, ZERO = false;
+    static constexpr int VPB = 1, SUB = 0, PLANES = 0;
+};
+template <int FMT>
+struct WKq {
+    static constexpr bool KQ = true, ZERO = KqTraits<FMT>::ZERO;
+    static constexpr int VPB = FMT == KQ_Q4K ? 2 : 1;
+    static constexpr int SUB = KqTraits<FMT>::SUB;
+    static constexpr int PLANES = ZERO ? 2 : 1;     // scale (and zero)
+};
+
 constexpr int CB_THREADS = 256;
 constexpr int CB_GROUPS = CB_THREADS / 4;          // scores: 4 threads a row
 constexpr int CB_MAX_CHUNK = CB_THREADS;           // rows staged at a time
@@ -90,23 +116,30 @@ constexpr int CB_KLANES = CB_THREADS / 16;         // q matvec: 16 threads a row
 constexpr int CB_RED = 1024;                       // floats of reduction scratch
 constexpr unsigned FULL = 0xffffffffu;
 
-// shared-memory layout of a K1 / K2 block, in bytes (every offset a
-// multiple of 16); W projected columns (64 or 192)
+// shared-memory layout of a K1 / K2 / K13 block, in bytes (every offset
+// a multiple of 16); W projected columns (64 or 192); k-quant weights
+// (sub > 0): vpb values a byte row, `planes` f32 planes (scale, zero) of
+// a group of sub rows, both for Wq's share and the head's rows of Wo
 struct HeadLayout {
     int wq_rows, wo_cols;                 // most rows / columns a block takes
-    int xs, wq, wo, k, v, ks, vs, s, p, red, qall, pall, q, att, cur, flag,
-        bars, total;
+    int xs, wq, sq, wo, wos, k, v, ks, vs, s, p, red, qall, pall, q, att,
+        cur, flag, bars, total;
 };
 
 __host__ __device__ inline HeadLayout head_layout(int D, int C, int chunk,
-                                                  int cache_size, int W) {
+                                                  int cache_size, int W,
+                                                  int vpb = 1, int sub = 0,
+                                                  int planes = 0) {
     HeadLayout L;
-    L.wq_rows = (D + C - 1) / C;
+    const int groups = sub > 0 ? (D / sub + C - 1) / C : 0;  // most a block
+    L.wq_rows = sub > 0 ? groups * sub / vpb : (D + C - 1) / C;
     L.wo_cols = 16 * ((D / 16 + C - 1) / C);
     int o = 0;
     L.xs = o;   o += D * 4;
     L.wq = o;   o += L.wq_rows * W;
-    L.wo = o;   o += HD * L.wo_cols;
+    L.sq = o;   o += planes * groups * W * 4;
+    L.wo = o;   o += HD / vpb * L.wo_cols;
+    L.wos = o;  o += sub > 0 ? planes * (HD / sub) * L.wo_cols * 4 : 0;
     L.k = o;    o += chunk * HD * cache_size;
     L.v = o;    o += chunk * HD * cache_size;
     L.ks = o;   o += chunk * 4;
@@ -124,6 +157,36 @@ __host__ __device__ inline HeadLayout head_layout(int D, int C, int chunk,
     L.bars = o; o += 16;                  // the two barriers of the exchanges
     L.total = o;
     return L;
+}
+
+template <typename WF>
+__host__ __device__ inline HeadLayout head_layout_wf(int D, int C, int chunk,
+                                                     int cache_size, int W) {
+    return head_layout(D, C, chunk, cache_size, W, WF::VPB, WF::SUB,
+                       WF::PLANES);
+}
+
+// One byte row of k-quant weights, four columns: d[j] = the row's values
+// . their inputs h (two K values a byte for Q4_K: low nibble, then high;
+// the raw byte zero-extended), hs = the sum of those inputs
+template <typename WF>
+__device__ __forceinline__ void kq_row4(char4 w, const float* h, float (&d)[4],
+                                        float& hs) {
+    const int8_t b[4] = {w.x, w.y, w.z, w.w};
+    if constexpr (WF::VPB == 2) {
+        const float h0 = h[0], h1 = h[1];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned u = (unsigned)(unsigned char)b[j];
+            d[j] = h0 * (float)(u & 15u) + h1 * (float)(u >> 4);
+        }
+        hs = h0 + h1;
+    } else {
+        const float h0 = h[0];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[j] = h0 * (float)b[j];
+        hs = h0;
+    }
 }
 
 // LayerNorm statistics of xs[0, D) (f32 in shared memory): every warp
@@ -224,16 +287,21 @@ __device__ __forceinline__ void current_row(
 }
 
 // grid (C, H), clusters (C, 1, 1); see above. K2: HB_CROSS; K1: HB_SELF
-// (f32, bf16 and fp8 rows), or HB_PROJECT then HB_ATTEND (int8 rows).
-template <typename XT, typename CT, int KIND>
+// (f32, bf16 and fp8 rows), or HB_PROJECT then HB_ATTEND (int8 rows);
+// both over int8 weights (WInt8: sq, wos [N] column scales, zq, woz
+// null). K13: HB_CROSS over a k-quant form (WKq: sq, zq the [K / SUB, D]
+// planes of Wq, wos, woz Wo's; zq, woz null for Q6_K).
+template <typename XT, typename CT, int KIND, typename WF = WInt8>
 __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
         const XT* __restrict__ x, int D, const float* __restrict__ ln_w,
         const float* __restrict__ ln_b, const int8_t* __restrict__ wq,
-        const float* __restrict__ sq, const float* __restrict__ bq,
+        const float* __restrict__ sq, const float* __restrict__ zq,
+        const float* __restrict__ bq,
         const CT* __restrict__ kc, const CT* __restrict__ vc,
         const float* __restrict__ ks, const float* __restrict__ vs,
         int n_valid, int n_loop, int rows, int chunk,
         const int8_t* __restrict__ wo, const float* __restrict__ wos,
+        const float* __restrict__ woz,
         const float* __restrict__ wob, XT* __restrict__ x_out,
         float* __restrict__ ypart, int* __restrict__ tickets,
         CT* __restrict__ k_row, CT* __restrict__ v_row,
@@ -244,10 +312,12 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     constexpr bool ATT = KIND != HB_PROJECT;   // attends and projects out
     constexpr int NP = SELF ? 3 : 1;           // 64-column pieces: q (k, v)
     constexpr int W = NP * HD;
+    static_assert(!WF::KQ || KIND == HB_CROSS, "k-quant weights: K13 only");
     extern __shared__ __align__(16) unsigned char cb_smem[];
     const int C = gridDim.x, r = blockIdx.x, h = blockIdx.y, H = gridDim.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const HeadLayout lay = head_layout(D, C, ATT ? chunk : 0, sizeof(CT), W);
+    const HeadLayout lay = head_layout_wf<WF>(D, C, ATT ? chunk : 0,
+                                              sizeof(CT), W);
     // the exchanges' barriers expect every block's projection share and
     // its (m, l, acc[64]); a block stores into the others only once all
     // have set theirs up: arrive here, wait before the first remote store
@@ -262,7 +332,9 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     float* xs = reinterpret_cast<float*>(cb_smem + lay.xs);
     int8_t* wq_s = reinterpret_cast<int8_t*>(cb_smem + lay.wq);
+    float* sq_s = reinterpret_cast<float*>(cb_smem + lay.sq);    // k-quant
     int8_t* wo_s = reinterpret_cast<int8_t*>(cb_smem + lay.wo);
+    float* wos_s = reinterpret_cast<float*>(cb_smem + lay.wos);  // k-quant
     CT* k_s = reinterpret_cast<CT*>(cb_smem + lay.k);
     CT* v_s = reinterpret_cast<CT*>(cb_smem + lay.v);
     float* ks_s = reinterpret_cast<float*>(cb_smem + lay.ks);
@@ -281,8 +353,17 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     float* s_cur = amax + 16;       // the current row's score
     int* flag = reinterpret_cast<int*>(cb_smem + lay.flag);
 
-    // this block's shares of Wq's rows, Wo's columns and the cache rows
-    const int k0 = r * D / C, k1 = (r + 1) * D / C;
+    // this block's shares of Wq's rows (k-quant: whole groups), Wo's
+    // columns and the cache rows
+    int k0, k1;
+    if constexpr (WF::KQ) {
+        const int G = D / WF::SUB;
+        k0 = WF::SUB * (r * G / C);
+        k1 = WF::SUB * ((r + 1) * G / C);
+    } else {
+        k0 = r * D / C;
+        k1 = (r + 1) * D / C;
+    }
     const int U = D / 16;
     const int c0 = 16 * (r * U / C), c1 = 16 * ((r + 1) * U / C);
     const int t0 = min(n_loop, r * rows), t1 = min(n_loop, t0 + rows);
@@ -300,11 +381,31 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
             const int i = tid + j * CB_THREADS;
             xr[j] = i < D ? to_f32(x[i]) : 0.f;
         }
-        for (int e = tid; e < (k1 - k0) * 4 * NP; e += CB_THREADS) {
-            const int row = e / (4 * NP), pc = e % (4 * NP);
-            const int c = (pc >> 2) * HD + (pc & 3) * 16;  // piece, 16 bytes
-            cp_async16(wq_s + row * W + c, wq + (size_t)(k0 + row) * NP * D
-                       + (pc >> 2) * D + h * HD + (pc & 3) * 16, 16);
+        if constexpr (WF::KQ) {
+            // the share's byte rows of the head's 64 columns, then its
+            // groups' scale (and zero) rows of those columns
+            const int b0 = k0 / WF::VPB, nb = (k1 - k0) / WF::VPB;
+            for (int e = tid; e < nb * 4; e += CB_THREADS) {
+                const int row = e >> 2, c = (e & 3) * 16;
+                cp_async16(wq_s + row * W + c,
+                           wq + (size_t)(b0 + row) * D + h * HD + c, 16);
+            }
+            const int g0 = k0 / WF::SUB, ng = (k1 - k0) / WF::SUB;
+            const int gmax = lay.wq_rows * WF::VPB / WF::SUB;
+            for (int e = tid; e < WF::PLANES * ng * 16; e += CB_THREADS) {
+                const int pl = e / (ng * 16), g = e / 16 % ng;
+                const int c = (e & 15) * 4;
+                cp_async16(sq_s + (pl * gmax + g) * W + c,
+                           (pl ? zq : sq) + (size_t)(g0 + g) * D + h * HD + c,
+                           16);
+            }
+        } else {
+            for (int e = tid; e < (k1 - k0) * 4 * NP; e += CB_THREADS) {
+                const int row = e / (4 * NP), pc = e % (4 * NP);
+                const int c = (pc >> 2) * HD + (pc & 3) * 16;  // 16 bytes
+                cp_async16(wq_s + row * W + c, wq + (size_t)(k0 + row) * NP
+                           * D + (pc >> 2) * D + h * HD + (pc & 3) * 16, 16);
+            }
         }
         cp_async_commit();
     } else {
@@ -330,10 +431,22 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     };
     if constexpr (ATT) {
         const int wo_pieces = (c1 - c0) / 16;
-        for (int e = tid; e < HD * wo_pieces; e += CB_THREADS) {
+        constexpr int WO_ROWS = HD / WF::VPB;       // byte rows of the head
+        for (int e = tid; e < WO_ROWS * wo_pieces; e += CB_THREADS) {
             const int d = e / wo_pieces, c = (e % wo_pieces) * 16;
             cp_async16(wo_s + d * lay.wo_cols + c,
-                       wo + (size_t)(h * HD + d) * D + c0 + c, 16);
+                       wo + (size_t)(h * WO_ROWS + d) * D + c0 + c, 16);
+        }
+        if constexpr (WF::KQ) {     // the head's groups' scale (and zero)
+            constexpr int GO = HD / WF::SUB;        // rows, on these columns
+            const int q4 = (c1 - c0) / 4;
+            for (int e = tid; e < WF::PLANES * GO * q4; e += CB_THREADS) {
+                const int pg = e / q4, c = (e % q4) * 4;
+                const int pl = pg / GO, g = pg % GO;
+                cp_async16(wos_s + pg * lay.wo_cols + c,
+                           (pl ? woz : wos) + (size_t)(h * GO + g) * D + c0
+                           + c, 16);
+            }
         }
         cp_async_commit();
         stage_rows(t0, min(chunk, t1 - t0));
@@ -341,7 +454,7 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
         for (int j = 0; j < CB_RED / CB_THREADS; ++j) {
             const int n = c0 + tid + j * CB_THREADS;
             const bool in = n < c1;
-            ep_s[j] = in ? wos[n] : 0.f;
+            ep_s[j] = in && !WF::KQ ? wos[n] : 0.f;
             ep_b[j] = in ? wob[n] : 0.f;
             ep_x[j] = in ? to_f32(x[n]) : 0.f;
         }
@@ -376,14 +489,37 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
 #pragma unroll
         for (int pc = 0; pc < NP; ++pc) {
             float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-            for (int k = k0 + kl; k < k1; k += CB_KLANES) {
-                const char4 w = *reinterpret_cast<const char4*>(
-                    wq_s + (k - k0) * W + pc * HD + 4 * c4);
-                const float hv = xs[k];
-                a0 += hv * (float)w.x;
-                a1 += hv * (float)w.y;
-                a2 += hv * (float)w.z;
-                a3 += hv * (float)w.w;
+            if constexpr (WF::KQ) {
+                // byte row by byte row: S (h . q) - Z sum(h) of its group
+                constexpr int BRG = WF::SUB / WF::VPB;  // byte rows a group
+                const int gmax = lay.wq_rows / BRG;
+                for (int br = kl; br < (k1 - k0) / WF::VPB;
+                     br += CB_KLANES) {
+                    const char4 w = *reinterpret_cast<const char4*>(
+                        wq_s + br * W + 4 * c4);
+                    float dq[4], hs;
+                    kq_row4<WF>(w, xs + k0 + WF::VPB * br, dq, hs);
+                    const float4 S = *reinterpret_cast<const float4*>(
+                        sq_s + (br / BRG) * W + 4 * c4);
+                    float4 Z = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if constexpr (WF::ZERO)
+                        Z = *reinterpret_cast<const float4*>(
+                            sq_s + (gmax + br / BRG) * W + 4 * c4);
+                    a0 += S.x * dq[0] - Z.x * hs;
+                    a1 += S.y * dq[1] - Z.y * hs;
+                    a2 += S.z * dq[2] - Z.z * hs;
+                    a3 += S.w * dq[3] - Z.w * hs;
+                }
+            } else {
+                for (int k = k0 + kl; k < k1; k += CB_KLANES) {
+                    const char4 w = *reinterpret_cast<const char4*>(
+                        wq_s + (k - k0) * W + pc * HD + 4 * c4);
+                    const float hv = xs[k];
+                    a0 += hv * (float)w.x;
+                    a1 += hv * (float)w.y;
+                    a2 += hv * (float)w.z;
+                    a3 += hv * (float)w.w;
+                }
             }
             a0 += __shfl_xor_sync(FULL, a0, 16);
             a1 += __shfl_xor_sync(FULL, a1, 16);
@@ -420,7 +556,9 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
             for (int rr = 0; rr < CB_MAX_CLUSTER; ++rr)
                 if (rr < C) q += qs[rr];
             const int col = (tid / HD) * D + h * HD + tid % HD;
-            if constexpr (!SELF) {
+            if constexpr (WF::KQ) {     // the groups' scales are in q
+                qf[tid] = (q + bq[col]) * QSCALE;
+            } else if constexpr (!SELF) {
                 qf[tid] = (q * sq[col] + bq[col]) * QSCALE;
             } else if constexpr (KIND == HB_PROJECT) {
                 if (r == 0) qkv[col] = q * sq[col] + bq[col];
@@ -562,14 +700,46 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     for (int e = tid; e < G * DS; e += CB_THREADS) {
         const int g = e % G, dc = e / G;
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        for (int d = dc * dlen; d < (dc + 1) * dlen; ++d) {
-            const char4 w = *reinterpret_cast<const char4*>(
-                wo_s + d * lay.wo_cols + 4 * g);
-            const float av = att[d];
-            a0 += av * (float)w.x;
-            a1 += av * (float)w.y;
-            a2 += av * (float)w.z;
-            a3 += av * (float)w.w;
+        if constexpr (WF::KQ) {
+            // the run's byte rows, a group's S (attn . q) - Z sum(attn) at
+            // a time (a run lies in one group or holds whole ones)
+            constexpr int BRG = WF::SUB / WF::VPB;
+            constexpr int GO = HD / WF::SUB;
+            const int blen = HD / WF::VPB / DS;
+            for (int b0 = dc * blen; b0 < (dc + 1) * blen; b0 += BRG) {
+                float dq[4] = {0.f, 0.f, 0.f, 0.f}, as = 0.f;
+                for (int br = b0; br < min(b0 + BRG, (dc + 1) * blen);
+                     ++br) {
+                    const char4 w = *reinterpret_cast<const char4*>(
+                        wo_s + br * lay.wo_cols + 4 * g);
+                    float dr[4], hs;
+                    kq_row4<WF>(w, att + WF::VPB * br, dr, hs);
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) dq[j] += dr[j];
+                    as += hs;
+                }
+                const int gi = b0 / BRG;
+                const float4 S = *reinterpret_cast<const float4*>(
+                    wos_s + gi * lay.wo_cols + 4 * g);
+                float4 Z = make_float4(0.f, 0.f, 0.f, 0.f);
+                if constexpr (WF::ZERO)
+                    Z = *reinterpret_cast<const float4*>(
+                        wos_s + (GO + gi) * lay.wo_cols + 4 * g);
+                a0 += S.x * dq[0] - Z.x * as;
+                a1 += S.y * dq[1] - Z.y * as;
+                a2 += S.z * dq[2] - Z.z * as;
+                a3 += S.w * dq[3] - Z.w * as;
+            }
+        } else {
+            for (int d = dc * dlen; d < (dc + 1) * dlen; ++d) {
+                const char4 w = *reinterpret_cast<const char4*>(
+                    wo_s + d * lay.wo_cols + 4 * g);
+                const float av = att[d];
+                a0 += av * (float)w.x;
+                a1 += av * (float)w.y;
+                a2 += av * (float)w.z;
+                a3 += av * (float)w.w;
+            }
         }
         float* o = red + dc * ncols + 4 * g;
         o[0] = a0; o[1] = a1; o[2] = a2; o[3] = a3;
@@ -581,7 +751,7 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
         ypart[(size_t)h * D + c0 + n] = y;
     }
     // 6. the last of the H blocks on these columns adds the heads'
-    //    partials in head order, then scale, bias and residual
+    //    partials in head order, then scale (int8), bias and residual
     if (!last_ticket(tickets + r, H, flag)) return;
 #pragma unroll
     for (int j = 0; j < CB_RED / CB_THREADS; ++j) {
@@ -590,24 +760,29 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
             float y = 0.f;
             for (int hh = 0; hh < H; ++hh)
                 y += __ldcg(ypart + (size_t)hh * D + n);
-            x_out[n] = from_f32<XT>(y * ep_s[j] + ep_b[j] + ep_x[j]);
+            if constexpr (WF::KQ)
+                x_out[n] = from_f32<XT>(y + ep_b[j] + ep_x[j]);
+            else
+                x_out[n] = from_f32<XT>(y * ep_s[j] + ep_b[j] + ep_x[j]);
         }
     }
     if (tid == 0) tickets[r] = 0;   // ready for the next launch
 }
 
-template <typename XT, typename CT, int KIND>
+template <typename XT, typename CT, int KIND, typename WF = WInt8>
 int launch_head(const void* x, int D, int H, const float* ln_w,
                 const float* ln_b, const int8_t* wq, const float* sq,
-                const float* bq, const void* kc, const float* ks,
-                const void* vc, const float* vs, int n_valid, int n_loop,
-                int C, int rows, int chunk, const int8_t* wo,
-                const float* wos, const float* wob, void* x_out,
-                float* ypart, int* tickets, void* k_row, void* v_row,
-                float* k_scale, float* v_scale, float* qkv, cudaStream_t st) {
-    const auto kernel = head_block_kernel<XT, CT, KIND>;
-    const int smem = head_layout(D, C, KIND == HB_PROJECT ? 0 : chunk,
-                                 sizeof(CT), KIND == HB_CROSS ? HD : 3 * HD)
+                const float* zq, const float* bq, const void* kc,
+                const float* ks, const void* vc, const float* vs,
+                int n_valid, int n_loop, int C, int rows, int chunk,
+                const int8_t* wo, const float* wos, const float* woz,
+                const float* wob, void* x_out, float* ypart, int* tickets,
+                void* k_row, void* v_row, float* k_scale, float* v_scale,
+                float* qkv, cudaStream_t st) {
+    const auto kernel = head_block_kernel<XT, CT, KIND, WF>;
+    const int smem = head_layout_wf<WF>(D, C, KIND == HB_PROJECT ? 0 : chunk,
+                                        sizeof(CT),
+                                        KIND == HB_CROSS ? HD : 3 * HD)
         .total;
     static int opted_in = 0;                // the most asked of this kernel
     if (smem > opted_in) {
@@ -632,9 +807,10 @@ int launch_head(const void* x, int D, int H, const float* ln_w,
     cfg.attrs = cluster;
     cfg.numAttrs = 1;
     cudaError_t e = cudaLaunchKernelEx(
-        &cfg, kernel, static_cast<const XT*>(x), D, ln_w, ln_b, wq, sq, bq,
-        static_cast<const CT*>(kc), static_cast<const CT*>(vc), ks, vs,
-        n_valid, n_loop, rows, chunk, wo, wos, wob, static_cast<XT*>(x_out),
+        &cfg, kernel, static_cast<const XT*>(x), D, ln_w, ln_b, wq, sq, zq,
+        bq, static_cast<const CT*>(kc), static_cast<const CT*>(vc), ks, vs,
+        n_valid, n_loop, rows, chunk, wo, wos, woz, wob,
+        static_cast<XT*>(x_out),
         ypart, tickets, static_cast<CT*>(k_row), static_cast<CT*>(v_row),
         k_scale, v_scale, qkv);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
@@ -651,9 +827,27 @@ int cross_block_t(int cache_dtype, const void* x, int D, int H,
     return with_cache_type(cache_dtype, [&](auto ct) {
         using CT = decltype(ct);
         return launch_head<XT, CT, HB_CROSS>(
-            x, D, H, ln_w, ln_b, wq, sq, bq, kc, ks, vc, vs, n_valid, n_loop,
-            C, rows, chunk, wo, wos, wob, x_out, ypart, tickets, nullptr,
-            nullptr, nullptr, nullptr, nullptr, st);
+            x, D, H, ln_w, ln_b, wq, sq, nullptr, bq, kc, ks, vc, vs,
+            n_valid, n_loop, C, rows, chunk, wo, wos, nullptr, wob, x_out,
+            ypart, tickets, nullptr, nullptr, nullptr, nullptr, nullptr, st);
+    });
+}
+
+// K13: K2 over the k-quant form FMT (KqW: values, scale and zero planes)
+template <int FMT, typename XT>
+int cross_block_kq_t(int cache_dtype, const void* x, int D, int H,
+                     const float* ln_w, const float* ln_b, KqW wq,
+                     const float* bq, const void* kc, const float* ks,
+                     const void* vc, const float* vs, int n_valid,
+                     int n_loop, int C, int rows, int chunk, KqW wo,
+                     const float* wob, void* x_out, float* ypart,
+                     int* tickets, cudaStream_t st) {
+    return with_cache_type(cache_dtype, [&](auto ct) {
+        using CT = decltype(ct);
+        return launch_head<XT, CT, HB_CROSS, WKq<FMT>>(
+            x, D, H, ln_w, ln_b, wq.q, wq.s, wq.z, bq, kc, ks, vc, vs,
+            n_valid, n_loop, C, rows, chunk, wo.q, wo.s, wo.z, wob, x_out,
+            ypart, tickets, nullptr, nullptr, nullptr, nullptr, nullptr, st);
     });
 }
 
@@ -671,20 +865,21 @@ int self_block_t(int cache_dtype, const void* x, int D, int H,
         using CT = decltype(ct);
         if constexpr (std::is_same<CT, int8_t>::value) {
             const int e = launch_head<XT, CT, HB_PROJECT>(
-                x, D, H, ln_w, ln_b, wqkv, sqkv, bqkv, nullptr, nullptr,
-                nullptr, nullptr, 0, 0, C, rows, chunk, nullptr, nullptr,
+                x, D, H, ln_w, ln_b, wqkv, sqkv, nullptr, bqkv, nullptr,
+                nullptr, nullptr, nullptr, 0, 0, C, rows, chunk, nullptr,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, nullptr, qkv, st);
+                nullptr, nullptr, nullptr, nullptr, qkv, st);
             if (e != 0) return e;
             return launch_head<XT, CT, HB_ATTEND>(
-                x, D, H, nullptr, nullptr, nullptr, nullptr, nullptr, kc,
-                ks, vc, vs, pos, pos, C, rows, chunk, wo, wos, wob, x_out,
-                ypart, tickets, k_row, v_row, k_scale, v_scale, qkv, st);
+                x, D, H, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, kc, ks, vc, vs, pos, pos, C, rows, chunk, wo, wos,
+                nullptr, wob, x_out, ypart, tickets, k_row, v_row, k_scale,
+                v_scale, qkv, st);
         } else {
             return launch_head<XT, CT, HB_SELF>(
-                x, D, H, ln_w, ln_b, wqkv, sqkv, bqkv, kc, ks, vc, vs, pos,
-                pos, C, rows, chunk, wo, wos, wob, x_out, ypart, tickets,
-                k_row, v_row, k_scale, v_scale, nullptr, st);
+                x, D, H, ln_w, ln_b, wqkv, sqkv, nullptr, bqkv, kc, ks, vc,
+                vs, pos, pos, C, rows, chunk, wo, wos, nullptr, wob, x_out,
+                ypart, tickets, k_row, v_row, k_scale, v_scale, nullptr, st);
         }
     });
 }
@@ -955,22 +1150,28 @@ int ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
 
 using namespace wa;
 
-// K1's and K2's launch plan for n_loop rows of cache_size bytes an element
-// and W projected columns a head, and the 16-byte alignment of the
-// copied operands
+// K1's, K2's and K13's launch plan for n_loop rows of cache_size bytes an
+// element and W projected columns a head (k-quant weights: vpb values a
+// byte row, `planes` f32 planes a group of sub rows), and the 16-byte
+// alignment of the copied operands (`scales`: K13's four planes, or null)
 static bool head_plan_ok(int D, int cluster, int rows, int chunk, int n_loop,
                          int cache_dtype, int W, const void* wq,
-                         const void* wo, const void* kq, const void* vq) {
+                         const void* wo, const void* kq, const void* vq,
+                         int vpb = 1, int sub = 0, int planes = 0,
+                         const void* const* scales = nullptr) {
     const int cache_size = cache_dtype == F32 ? 4
         : cache_dtype == BF16 ? 2 : 1;
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(wq)
+    uintptr_t bases = reinterpret_cast<uintptr_t>(wq)
         | reinterpret_cast<uintptr_t>(wo) | reinterpret_cast<uintptr_t>(kq)
         | reinterpret_cast<uintptr_t>(vq);
+    for (int i = 0; scales != nullptr && i < 4; ++i)
+        bases |= reinterpret_cast<uintptr_t>(scales[i]);
     return D <= CB_THREADS * CB_XMAX && cluster >= 1
         && cluster <= CB_MAX_CLUSTER && rows >= 1
         && (long long)rows * cluster >= n_loop && chunk >= CB_GROUPS
         && chunk <= CB_MAX_CHUNK && chunk % CB_GROUPS == 0
-        && head_layout(D, cluster, chunk, cache_size, W).total <= 227 * 1024
+        && head_layout(D, cluster, chunk, cache_size, W, vpb, sub, planes)
+               .total <= 227 * 1024
         && 16 * ((D / 16 + cluster - 1) / cluster) <= CB_RED
         && bases % 16 == 0;
 }
@@ -1044,6 +1245,50 @@ extern "C" int wa_cross_block(
     if (x_dtype == BF16) return WA_CROSS(__nv_bfloat16);
 #undef WA_CROSS
     return ERR_DTYPE;
+}
+
+// K13: K2 over k-quant weights, fmt KQ_Q4K ([D/2, D] nibble bytes) or
+// KQ_Q5K / KQ_Q6K ([D, D] values) with f32 [D/sub, D] scale planes (and
+// zero planes: not Q6_K) for Wq and Wo; biases [D] f32. Caches, plan and
+// scratch as wa_cross_block's (the plan from
+// ops/decode_blocks_kq.cross_kq_plan).
+extern "C" int wa_cross_block_kq(
+        const void* x, int x_dtype, int D, int H, int fmt, const void* ln_w,
+        const void* ln_b, const void* wq, const void* sq, const void* zq,
+        const void* bq, const void* kq, const void* ks, const void* vq,
+        const void* vs, int cache_dtype, int T, int enc_len, const void* wo,
+        const void* so, const void* zo, const void* bo, void* x_out,
+        int cluster, int rows, int chunk, void* ypart, void* tickets,
+        void* stream) {
+    if (!shape_ok(D, H) || !kq_shape_ok(fmt, D, D) || T < 1 || enc_len < 0
+            || enc_len > T)
+        return ERR_SHAPE;
+    // no valid row at all: every padded row takes part at score NEG
+    const int n_loop = enc_len > 0 ? enc_len : T;
+    const void* scales[4] = {sq, zq, so, zo};
+    if (!head_plan_ok(D, cluster, rows, chunk, n_loop, cache_dtype, HD, wq,
+                      wo, kq, vq, fmt == KQ_Q4K ? 2 : 1,
+                      fmt == KQ_Q6K ? 16 : 32, fmt == KQ_Q6K ? 1 : 2,
+                      scales))
+        return ERR_SHAPE;
+    if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr)
+            || !zeros_ok(fmt, zq) || !zeros_ok(fmt, zo))
+        return ERR_DTYPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    return (int)with_kq_fmt(fmt, [&](auto f) {
+        constexpr int FMT = decltype(f)::value;
+#define WA_CROSS_KQ(XT)                                                      \
+        (cudaError_t)cross_block_kq_t<FMT, XT>(                              \
+            cache_dtype, x, D, H, (const float*)ln_w, (const float*)ln_b,    \
+            kqw(wq, sq, zq), (const float*)bq, kq, (const float*)ks, vq,     \
+            (const float*)vs, enc_len, n_loop, cluster, rows, chunk,         \
+            kqw(wo, so, zo), (const float*)bo, x_out, (float*)ypart,         \
+            (int*)tickets, st)
+        if (x_dtype == F32) return WA_CROSS_KQ(float);
+        if (x_dtype == BF16) return WA_CROSS_KQ(__nv_bfloat16);
+#undef WA_CROSS_KQ
+        return (cudaError_t)ERR_DTYPE;
+    });
 }
 
 // K3's scratch: the f32 elements of ypart, a row of D for each cluster

@@ -1,18 +1,15 @@
 // Per-block decode kernels for one token at batch 1 over k-quant weights
-// (Q4_K, Q5_K, Q6_K): K12 self_block_kq, K13 cross_block_kq and K14
-// ffn_block_kq.
+// (Q4_K, Q5_K, Q6_K): K12 self_block_kq and K14 ffn_block_kq. (K13
+// cross_block_kq runs on K2's head-cluster kernel, decode_blocks.cu.)
 //
 // Replace the Pallas kernels of whisper_apr_tpu/ops/decode_blocks_kq.py
-// (self_block_kq/_self_kernel_kq, cross_block_kq/_cross_kernel_kq,
-// ffn_block_kq/_ffn_kernel_kq) and compute what they compute: K1-K3
-// (decode_blocks.cu) with every int8 matvec replaced by the k-quant matvec
-// of kquant.cuh, biases added in f32:
+// (self_block_kq/_self_kernel_kq, ffn_block_kq/_ffn_kernel_kq) and compute
+// what they compute: K1 and K3 (decode_blocks.cu) with every int8 matvec
+// replaced by the k-quant matvec of kquant.cuh, biases added in f32:
 //
 //   K12: LN1 -> QKV k-quant matvec + bqkv -> the new k/v row in the
 //        cache's form -> attention over rows < pos plus the current row
 //        -> o-proj k-quant + bias + residual
-//   K13: LN2 -> q matvec + bias -> attention over cross rows < enc_len ->
-//        o-proj + bias + residual
 //   K14: LN3 -> fc1 + b1 -> exact GELU (erff), rounded to x's dtype ->
 //        fc2, + b2 + residual in f32, cast once
 //
@@ -22,24 +19,16 @@
 //
 // What bounds them on the card: the k-quant weight bytes of the
 // sub-block, read once per call (large-v3, Q4_K: 4.9 MB QKV + o-proj,
-// 2.5 MB q + o-proj, 9.8 MB fc1 + fc2; Q5_K/Q6_K 5/3 of that) plus, for
-// attention, every live cache row once. Design: one launch per matvec,
-// the columns spread over N/32 blocks, each recomputing the LayerNorm from
-// the D-long input; attention is attention.cuh unchanged, with its
-// int8/fp8/bf16 self-row output.
+// 9.8 MB fc1 + fc2; Q5_K/Q6_K 5/3 of that) plus, for attention, every
+// live cache row once. Design: one launch per matvec, the columns spread
+// over N/32 blocks, each recomputing the LayerNorm from the D-long input;
+// attention is attention.cuh unchanged, with its int8/fp8/bf16 self-row
+// output.
 #include "attention.cuh"
 #include "kquant.cuh"
 
 namespace wa {
 namespace {
-
-// One layer's k-quant weight: values, per-group scale and zero (null for
-// Q6_K), at the layer.
-struct KqW {
-    const int8_t* q;
-    const float* s;
-    const float* z;
-};
 
 template <int FMT, typename XT>
 cudaError_t self_block_kq_t(const void* x, int D, int H, const float* ln_w,
@@ -72,34 +61,6 @@ cudaError_t self_block_kq_t(const void* x, int D, int H, const float* ln_w,
 }
 
 template <int FMT, typename XT>
-cudaError_t cross_block_kq_t(const void* x, int D, int H, const float* ln_w,
-                             const float* ln_b, KqW wq, const float* bq,
-                             const void* kq, const float* ks, const void* vq,
-                             const float* vs, int cache_dtype, int T,
-                             int enc_len, KqW wo, const float* bo,
-                             void* x_out, float* qbuf, float* part,
-                             float* attn, cudaStream_t st) {
-    const int bf = sizeof(XT) == 2;
-    cudaError_t e = launch_kq<FMT, XT, float, KEPI_AFFINE, 1>(
-        x, 1, D, D, ln_w, ln_b, bf, wq.q, wq.s, wq.z, bq, nullptr, qbuf, st);
-    if (e != cudaSuccess) return e;
-    // no valid row at all: every padded row takes part at score NEG
-    const int n_loop = enc_len > 0 ? enc_len : T;
-    AttnArgs a{};
-    a.q = qbuf;
-    a.kc = kq; a.vc = vq; a.ks = ks; a.vs = vs;
-    a.T = T; a.D = D; a.H = H;
-    a.n_valid = enc_len; a.n_loop = n_loop;
-    a.n_splits = n_att_splits(n_loop); a.part = part;
-    a.kv_cur = nullptr; a.attn_out = attn;
-    e = attention(cache_dtype, a, st);
-    if (e != cudaSuccess) return e;
-    return launch_kq<FMT, float, XT, KEPI_RESID, 1>(
-        attn, 1, D, D, nullptr, nullptr, bf, wo.q, wo.s, wo.z, bo, x, x_out,
-        st);
-}
-
-template <int FMT, typename XT>
 cudaError_t ffn_block_kq_t(const void* x, int D, int Hd, const float* ln_w,
                            const float* ln_b, KqW w1, const float* b1,
                            KqW w2, const float* b2, void* x_out, float* g,
@@ -111,16 +72,6 @@ cudaError_t ffn_block_kq_t(const void* x, int D, int Hd, const float* ln_w,
     return launch_kq<FMT, float, XT, KEPI_RESID, 1>(
         g, 1, Hd, D, nullptr, nullptr, bf, w2.q, w2.s, w2.z, b2, x, x_out,
         st);
-}
-
-inline KqW kqw(const void* q, const void* s, const void* z) {
-    return KqW{static_cast<const int8_t*>(q), static_cast<const float*>(s),
-               static_cast<const float*>(z)};
-}
-
-// Q6_K has no zero, the others one per group
-inline bool zeros_ok(int fmt, const void* z) {
-    return (fmt == KQ_Q6K) == (z == nullptr);
 }
 
 }  // namespace
@@ -158,36 +109,6 @@ extern "C" int wa_self_block_kq(
         if (x_dtype == F32) return WA_SELF(float);
         if (x_dtype == BF16) return WA_SELF(__nv_bfloat16);
 #undef WA_SELF
-        return (cudaError_t)ERR_DTYPE;
-    });
-}
-
-extern "C" int wa_cross_block_kq(
-        const void* x, int x_dtype, int D, int H, int fmt, const void* ln_w,
-        const void* ln_b, const void* wq, const void* sq, const void* zq,
-        const void* bq, const void* kq, const void* ks, const void* vq,
-        const void* vs, int cache_dtype, int T, int enc_len, const void* wo,
-        const void* so, const void* zo, const void* bo, void* x_out,
-        void* qbuf, void* part, void* attn, void* stream) {
-    if (!shape_ok(D, H) || !kq_shape_ok(fmt, D, D) || enc_len < 0
-            || enc_len > T)
-        return ERR_SHAPE;
-    if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr)
-            || !zeros_ok(fmt, zq) || !zeros_ok(fmt, zo))
-        return ERR_DTYPE;
-    auto st = static_cast<cudaStream_t>(stream);
-    return (int)with_kq_fmt(fmt, [&](auto f) {
-        constexpr int FMT = decltype(f)::value;
-#define WA_CROSS(XT)                                                         \
-        cross_block_kq_t<FMT, XT>(                                           \
-            x, D, H, (const float*)ln_w, (const float*)ln_b,                 \
-            kqw(wq, sq, zq), (const float*)bq, kq, (const float*)ks, vq,     \
-            (const float*)vs, cache_dtype, T, enc_len, kqw(wo, so, zo),      \
-            (const float*)bo, x_out, (float*)qbuf, (float*)part,             \
-            (float*)attn, st)
-        if (x_dtype == F32) return WA_CROSS(float);
-        if (x_dtype == BF16) return WA_CROSS(__nv_bfloat16);
-#undef WA_CROSS
         return (cudaError_t)ERR_DTYPE;
     });
 }

@@ -311,6 +311,24 @@ cudaError_t with_kq_fmt(int fmt, F&& f) {
 
 inline bool kq_fmt_ok(int fmt) { return fmt >= KQ_Q4K && fmt <= KQ_Q6K; }
 
+// One layer's k-quant weight: values, per-group scale and zero (null for
+// Q6_K), at the layer.
+struct KqW {
+    const int8_t* q;
+    const float* s;
+    const float* z;
+};
+
+inline KqW kqw(const void* q, const void* s, const void* z) {
+    return KqW{static_cast<const int8_t*>(q), static_cast<const float*>(s),
+               static_cast<const float*>(z)};
+}
+
+// Q6_K has no zero, the others one per group
+inline bool zeros_ok(int fmt, const void* z) {
+    return (fmt == KQ_Q6K) == (z == nullptr);
+}
+
 inline bool kq_shape_ok(int fmt, int K, int N) {
     const int sub = fmt == KQ_Q6K ? 16 : 32;
     return kq_fmt_ok(fmt) && K > 0 && K % sub == 0 && N > 0

@@ -70,10 +70,10 @@ _SIGNATURES = {
     "wa_self_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
                          *[_P] * 13],
     "wa_cross_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
-                          *[_P] * 9],
+                          *[_P] * 5, _I, _I, _I, _P, _P, _P],
     "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 13],
     "wa_paged_attention": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
-                           _P],
+                           _I, _I, _P],
     "wa_flash_attention": [*[_P, _LL, _LL, _LL] * 4, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _I, _I, _P, _P, _P],
     "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],

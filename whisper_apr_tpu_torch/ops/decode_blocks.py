@@ -344,16 +344,16 @@ class CrossPlan(NamedTuple):
     chunk: int
 
 
-def cross_plan(n_heads: int, D: int, n_loop: int,
-               cache_size: int) -> CrossPlan:
+def cross_plan(n_heads: int, D: int, n_loop: int, cache_size: int,
+               max_cluster: int = CROSS_MAX_CLUSTER) -> CrossPlan:
     """K1's and K2's launch for ``n_loop`` cache rows of ``cache_size``
     bytes an element (K1: the ``pos`` history rows): about
-    ``CROSS_BLOCKS`` blocks, ``CROSS_MAX_CLUSTER`` at most a head; the
+    ``CROSS_BLOCKS`` blocks, ``max_cluster`` at most a head; the
     rows cut evenly over the cluster (the last blocks may hold fewer, or
     none); each block stages its rows in chunks of a multiple of
     ``CROSS_GROUPS`` rows whose K and V (and row scales) fit in
     ``CROSS_STAGE_BYTES``."""
-    cluster = max(1, min(CROSS_MAX_CLUSTER, CROSS_BLOCKS // max(1, n_heads)))
+    cluster = max(1, min(max_cluster, CROSS_BLOCKS // max(1, n_heads)))
     rows = max(1, math.ceil(n_loop / cluster))
     per_row = 2 * (HEAD_DIM * cache_size + 4)
     fit = min(CROSS_MAX_CHUNK, CROSS_STAGE_BYTES // per_row

@@ -17,13 +17,14 @@ plane packs two K values per row, so its rows are 16 per scale row; the
 int8 value planes keep one value per row (32 per scale row for Q5_K, 16
 for Q6_K, which has no zero).
 
-Each wrapper runs its hand-written CUDA kernel
-(``csrc/decode_blocks_kq.cu``) for CUDA tensors and the plain PyTorch
-version, in this module, for CPU tensors; nothing else picks between the
-two. Numerics kept from the JAX kernels: LayerNorm in f32; every matvec
-input (the LN output, the attention output, the GELU output) rounded to
-the compute dtype before its dot and before its group sums; f32
-accumulation; attention as K1/K2's.
+Each wrapper runs its hand-written CUDA kernel for CUDA tensors (K12 and
+K14 in ``csrc/decode_blocks_kq.cu``; K13 on K2's head-cluster kernel in
+``csrc/decode_blocks.cu``, its plan :func:`cross_kq_plan`) and the plain
+PyTorch version, in this module, for CPU tensors; nothing else picks
+between the two. Numerics kept from the JAX kernels: LayerNorm in f32;
+every matvec input (the LN output, the attention output, the GELU
+output) rounded to the compute dtype before its dot and before its group
+sums; f32 accumulation; attention as K1/K2's.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ import torch
 
 from . import _build
 from .basic import gelu, layer_norm
-from .decode_blocks import (HEAD_DIM, _check_tensor, _dispatch,
-                            cross_attention_plain, self_attention_plain)
+from .decode_blocks import (CROSS_MAX_CLUSTER, HEAD_DIM, CrossPlan,
+                            _check_tensor, _dispatch, cross_attention_plain,
+                            cross_plan, self_attention_plain)
 from .kquants import kq_mv_f32
 from .q4k import KQ_FMT, q4k_mv_f32
 
@@ -212,24 +214,75 @@ def _self_block_kq_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
     return x_out, k_row, k_scale, v_row, v_scale
 
 
+# K13's launch: K2's (``decode_blocks.cross_plan``), the cluster capped at
+# the groups of Wq's rows so that every block's share is whole groups and
+# none is empty. ``head_smem`` mirrors the kernel's shared-memory layout
+# (csrc head_layout), ``kq_shares`` its cut of Wq's rows.
+KQ_SUB = {"q4k": 32, "q5k": 32, "q6k": 16}       # K values a group
+KQ_VPB = {"q4k": 2, "q5k": 1, "q6k": 1}          # K values a byte row
+KQ_PLANES = {"q4k": 2, "q5k": 2, "q6k": 1}       # scale (and zero)
+_HEAD_RED = 1024                                 # csrc CB_RED
+
+
+def cross_kq_plan(n_heads: int, D: int, n_loop: int, cache_size: int,
+                  fmt: str) -> CrossPlan:
+    """K13's launch for ``n_loop`` cross rows of ``cache_size`` bytes an
+    element over ``fmt`` weights: K2's plan with at most D / sub blocks a
+    head."""
+    return cross_plan(n_heads, D, n_loop, cache_size,
+                      min(CROSS_MAX_CLUSTER, D // KQ_SUB[fmt]))
+
+
+def kq_shares(D: int, cluster: int, fmt: str) -> list:
+    """The K rows [k0, k1) of Wq that each block of a head's cluster sums
+    (csrc head_block_kernel): whole groups of the format, in rank order."""
+    sub = KQ_SUB[fmt]
+    G = D // sub
+    return [(sub * (r * G // cluster), sub * ((r + 1) * G // cluster))
+            for r in range(cluster)]
+
+
+def head_smem(D: int, cluster: int, chunk: int, cache_size: int,
+              fmt: str) -> int:
+    """Bytes of shared memory of a K13 block (csrc head_layout, 64
+    projected columns a head): x in f32, the share of Wq's byte rows and
+    its groups' f32 planes, the head's rows of Wo's columns and theirs, a
+    chunk of K/V rows and their scales, scores and weights, reduction
+    scratch, the exchanged shares and partials, q and the attention row,
+    the flag and the barriers."""
+    C, W = cluster, HEAD_DIM
+    sub, vpb, planes = KQ_SUB[fmt], KQ_VPB[fmt], KQ_PLANES[fmt]
+    groups = -(-(D // sub) // C)
+    wo_cols = 16 * (-(-(D // 16) // C))
+    return (4 * D + groups * sub // vpb * W + planes * groups * W * 4
+            + HEAD_DIM // vpb * wo_cols
+            + planes * (HEAD_DIM // sub) * wo_cols * 4
+            + 2 * chunk * HEAD_DIM * cache_size + 4 * chunk * 4
+            + max(_HEAD_RED, 8 * W) * 4 + C * W * 4 + C * (HEAD_DIM + 4) * 4
+            + 2 * HEAD_DIM * 4 + 32)
+
+
 def _cross_block_kq_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
                          n_heads: int):
     _check_call(x, blk, l, kq)
     D, T = x.shape[1], kq.shape[2]
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
+    fmt = weight_fmt(blk["cross_q"])
+    plan = cross_kq_plan(n_heads, D, int(enc_len) if enc_len > 0 else T,
+                         kq.element_size(), fmt)
     W = _build.workspace
     P = _build.ptr
     rc = _build.library().wa_cross_block_kq(
-        P(x), _build.DTYPE_CODES[x.dtype], D, n_heads,
-        KQ_FMT[weight_fmt(blk["cross_q"])],
+        P(x), _build.DTYPE_CODES[x.dtype], D, n_heads, KQ_FMT[fmt],
         P(blk["ln2_w"], l * D), P(blk["ln2_b"], l * D),
         *_w(blk["cross_q"], l), P(blk["b_cross_q"], l * D),
         P(kq, l * T * D), P(ks, l * T), P(vq, l * T * D), P(vs, l * T),
         _build.DTYPE_CODES[kq.dtype], T, int(enc_len),
         *_w(blk["cross_o"], l), P(blk["b_cross_o"], l * D), P(x_out),
-        W(st, dev, "qkv", D), W(st, dev, "part", _n_part(n_heads, T)),
-        W(st, dev, "attn", D), st)
+        *plan, W(st, dev, "cross_y", max(1, n_heads) * D),
+        W(st, dev, "cross_tickets", CROSS_MAX_CLUSTER, torch.int32,
+          zero=True), st)
     _build.check(rc, "cross_block_kq")
     LAUNCHES["cross_block_kq"] += 1
     return x_out
