@@ -42,12 +42,13 @@ whisper-tiny dense serving tick's device time and the large-v3 bf16
 encoder with the int8 switch on. With ``--batched`` each process times
 the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
 kernel, K4, K7 and K9 at one row, K4-K9 at B = 8 and 32, K10-K14 at B =
-1, the large-v3 scan and fused steps at B = 8 and 32, the whisper-tiny
-dense serving tick and the large-v3 q4k B = 1 decode step
+1 (K12 in q4k, q5k and q6k, over compute-dtype and int8 self rows), the
+large-v3 scan and fused steps at B = 8 and 32, the whisper-tiny dense
+serving tick and the large-v3 q4k B = 1 decode step
 (``chip_smoke.time_kq_steps``: K12-K14 in every layer, device ms). With
-``--bits`` each process prints, instead of times, a SHA-256 digest of K1's
-and K2's outputs over fixed inputs (``bits_tree``): equal digests in two
-checkouts mean bit-identical kernels. Needs one CUDA GPU.
+``--bits`` each process prints, instead of times, a SHA-256 digest of K1's,
+K2's and K13's outputs over fixed inputs (``bits_tree``): equal digests in
+two checkouts mean bit-identical kernels. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -101,14 +102,18 @@ def time_tree(root: Path, mode: str = "") -> dict:
 
 
 def bits_tree(c) -> dict:
-    """SHA-256 digests (first 16 hex digits) of K1's and K2's outputs, at
-    the whisper-tiny and large-v3 shapes in bf16 and f32: K1 over bf16 /
-    f32, int8 and fp8 self rows at ``chip_smoke.SELF_EDGES`` positions
-    (its new rows and scales too), K2 over ``chip_smoke.CROSS_CACHES`` at
-    ``CROSS_EDGES`` lengths, inputs from fixed seeds."""
+    """SHA-256 digests (first 16 hex digits) of K1's, K2's and K13's
+    outputs, at the whisper-tiny and large-v3 shapes in bf16 and f32: K1
+    over bf16 / f32, int8 and fp8 self rows at ``chip_smoke.SELF_EDGES``
+    positions (its new rows and scales too), K2 over
+    ``chip_smoke.CROSS_CACHES`` at ``CROSS_EDGES`` lengths, K13 in q4k,
+    q5k and q6k (whisper-base's width in the whisper-tiny run) over the
+    same caches at ``KQ_CROSS_EDGES`` lengths, inputs from fixed
+    seeds."""
     import hashlib
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -116,7 +121,7 @@ def bits_tree(c) -> dict:
         for cdt in (torch.bfloat16, torch.float32):
             gen = torch.Generator(device=dev).manual_seed(90 + i)
             blk = c.make_blk(D, 2, gen, dev)
-            digest = {"K1": hashlib.sha256(), "K2": hashlib.sha256()}
+            digest = {k: hashlib.sha256() for k in ("K1", "K2", "K13")}
 
             def feed(k, *ts):
                 for t in ts:
@@ -135,9 +140,23 @@ def bits_tree(c) -> dict:
                     x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
                     feed("K2", db.cross_block(x, blk, kq, ks, vq, vs,
                                               enc_len, enc_len % 2, H))
+            del blk
+            Dk, Hk = (512, 8) if name == "tiny" else (D, H)
+            for fmt in c.KQ_MODES:
+                kblk = c.make_kq_blk(fmt, Dk, 2, gen, dev)
+                for _, mode, rows_dt in c.CROSS_CACHES:
+                    dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+                    kq, ks, vq, vs = c.make_cache(mode, 2, 1536, Dk, gen,
+                                                  dev, dt)
+                    for enc_len in c.KQ_CROSS_EDGES:
+                        x = torch.randn((1, Dk), generator=gen,
+                                        device=dev).to(cdt)
+                        feed("K13", dbk.cross_block_kq(
+                            x, kblk, kq, ks, vq, vs, enc_len, enc_len % 2,
+                            Hk))
+                del kblk
             out[f"{name}_{str(cdt)[6:]}"] = {
                 k: v.hexdigest()[:16] for k, v in digest.items()}
-            del blk
             torch.cuda.empty_cache()
     return out
 
@@ -231,11 +250,12 @@ def time_batched_tree(c, root: Path) -> dict:
     scan step); then at B in ``BATCHES``, pos 128 for every slot, int8
     self and cross rows (the serving cache), the last layer: K5 and K6
     split by kernel (``kernel_split``), then K4 (the greedy head at M =
-    B), K5-K7, K8 (the vocab logits, f32 out) and K9 at M = B; K12-K14
-    and K10 (q4k) and K11 (q5k) at B = 1 (the other users of
-    ``attention.cuh`` and ``batched_matvec.cuh``) at whisper-base and
-    large-v3. Then the large-v3 scan and fused decode steps at B slots
-    (device ms) and the whisper-tiny dense serving tick's device time."""
+    B), K5-K7, K8 (the vocab logits, f32 out) and K9 at M = B; at B = 1
+    and whisper-base and large-v3, K12 in q4k, q5k and q6k over
+    compute-dtype self rows and (``K12_int8``) int8 rows, K13, K14 and
+    K10 in q4k, K11 in q5k. Then the large-v3 scan and fused decode steps
+    at B slots (device ms) and the whisper-tiny dense serving tick's
+    device time."""
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
@@ -297,18 +317,23 @@ def time_batched_tree(c, root: Path) -> dict:
         ck, cks, cv, cvs = c.make_cache("int8", L, shape["T_cross"], Dk, gen,
                                         dev, bf)
         x = torch.randn((1, Dk), generator=gen, device=dev).to(bf)
-        out[f"{label}_q4k_b1"] = {
-            "K12": us(lambda: dbk.self_block_kq(x, kblk, sk, None, sv, None,
-                                                128, layer, Hk)),
-            "K13": us(lambda: dbk.cross_block_kq(
-                x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk)),
-            "K14": us(lambda: dbk.ffn_block_kq(x, kblk, layer)),
-            "K10": us(lambda: c._kq_matvec("q4k")(x, *kblk["fc1"], layer))}
-        del kblk
-        kblk = c.make_kq_blk("q5k", Dk, L, gen, dev)
-        out[f"{label}_q5k_b1"] = {
-            "K11": us(lambda: c._kq_matvec("q5k")(x, *kblk["fc1"], layer))}
-        del kblk, sk, sv, ck, cks, cv, cvs
+        for fmt in ("q4k", "q5k", "q6k"):
+            if fmt != "q4k":
+                kblk = c.make_kq_blk(fmt, Dk, L, gen, dev)
+            t = out[f"{label}_{fmt}_b1"] = {
+                "K12": us(lambda: dbk.self_block_kq(
+                    x, kblk, sk, None, sv, None, 128, layer, Hk)),
+                "K12_int8": us(lambda: dbk.self_block_kq(
+                    x, kblk, ck, cks, cv, cvs, 128, layer, Hk))}
+            if fmt == "q4k":
+                t["K13"] = us(lambda: dbk.cross_block_kq(
+                    x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk))
+                t["K14"] = us(lambda: dbk.ffn_block_kq(x, kblk, layer))
+            if fmt != "q6k":
+                t["K1" + ("0" if fmt == "q4k" else "1")] = us(
+                    lambda: c._kq_matvec(fmt)(x, *kblk["fc1"], layer))
+            del kblk
+        del sk, sv, ck, cks, cv, cvs
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(105)
     shape = SHAPES["large"]

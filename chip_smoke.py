@@ -32,12 +32,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               call twice and bit-identical (check_batched_edges); K7 and
               K9 (one tensor-core kernel) at FFN_EDGES rows (1 ... 40),
               layers 0 and L-1, in bf16 and f32 at both widths, each call
-              twice and bit-identical (check_ffn_edges); then
-              CUDA-graph
-              times of kernel and plain version at B=1 and B=8 (K8 also
-              at the scan step's D x 3D and D x D projections), of the
-              large-v3 B=8 serving tick, and of the large-v3 scan step
-              (decode_step_q) beside the fused step (decode_step_qf).
+              twice and bit-identical (check_ffn_edges); K4 (K8's
+              decode-row kernel with a head epilogue) at HEAD_ROWS rows
+              (1 ... 40) over ties within and across 128-column strips
+              (HEAD_TIES), a winner in the last real column and all -inf
+              logits, in bf16 and f32 at both widths, each call twice and
+              bit-identical, its scratch left zero (check_head_edges),
+              and in a CUDA graph over new x (check_head_graph); then
+              CUDA-graph times of kernel and plain version at B=1 and B=8
+              (K8 also at the scan step's D x 3D and D x D projections),
+              of the large-v3 B=8 serving tick, and of the large-v3 scan
+              step (decode_step_q) beside the fused step (decode_step_qf).
 4. e2e      - write a random-weight full-width whisper-tiny .apr with the
               port's AprWriter, load it through WhisperApr.load_from_apr
               (int8 weights, bf16 compute) and transcribe 30 s of noise, a
@@ -69,8 +74,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               plain versions (near-tie rule).
 3b. kquant kernels (after phase 3) - K10-K14 against their plain versions
               in Q4_K, Q5_K and Q6_K at the whisper-base and large-v3
-              decoder shapes (bf16; f32 at base) over bf16 and int8 self
-              rows and int8 cross rows (cross8), K10/K11 at M = 1, 8 and
+              decoder shapes (bf16; f32 at base), K12 (K1's head-cluster
+              kernel over k-quant weights; two launches on int8 rows) at
+              KQ_SELF_EDGES positions (0 ... 447) over int8, bf16, f32 and
+              fp8 self rows, each call twice and bit-identical, K13 and
+              K14 over int8 cross rows (cross8), K10/K11 at M = 1, 8 and
               40; K13 (K2's head-cluster kernel over k-quant weights) in
               every format at enc_len 0, 1, 31, 32, 33, 1500 and 1536 over
               int8, bf16, f32 and fp8 cross rows, bf16 and f32 x, both
@@ -357,24 +365,139 @@ def make_cache(mode: str, L: int, T: int, D: int, gen, device, cdt,
     return kq, ks, vq, vs
 
 
-def head_case(n_vocab: int, x, gen):
+def head_case(n_vocab: int, x, gen, tie=None):
     """K4's operands for x [M, D]: the vocab lane-padded to 128, a planted
-    tie across blocks (bias 1e6 on two equal columns, above any random
-    logit), real suppressions, and padding columns that would win for the
-    first row if not masked. Returns (wq, bias, (first, second)) of the
-    tie."""
+    tie (bias 1e6 on two equal columns, above any random logit; by default
+    across strips far apart, else the columns ``tie``), real
+    suppressions, and padding columns that would win for the first row if
+    not masked. Returns (wq, bias, (first, second)) of the tie."""
     import torch
     dev, D = x.device, x.shape[1]
     v_pad = n_vocab + (-n_vocab) % 128
     wq = torch.randint(-127, 128, (1, D, v_pad), generator=gen, device=dev,
                        dtype=torch.int8)
-    first, second = n_vocab // 40, n_vocab * 3 // 4
+    first, second = tie or (n_vocab // 40, n_vocab * 3 // 4)
     wq[0, :, second] = wq[0, :, first]
     wq[0, :, n_vocab:] = (127 * torch.sign(x[0].float())).to(torch.int8)[:, None]
     bias = torch.zeros((1, v_pad), device=dev)
     bias[0, [first, second]] = 1e6
     bias[0, n_vocab - 100:n_vocab - 50] = float("-inf")
     return wq, bias, (first, second)
+
+
+# K4's rows: one, either side of an 8-row tile, one launch's 32 and the
+# 32-row chunking above; its ties within one 128-column strip and across
+# strips
+HEAD_ROWS = (1, 8, 9, 32, 33, 40)
+HEAD_TIES = ((5, 120), (127, 128), (255, 256))
+
+
+def check_head_edges(D: int, n_vocab: int, cdt, label: str,
+                     seed: int) -> float:
+    """K4 against its plain version at every ``HEAD_ROWS`` row count: a
+    planted tie at each ``HEAD_TIES`` pair (every row takes the first),
+    the winner in the last real column beside padding columns that would
+    win if not masked, and every logit -inf (token 0, max and lse -inf),
+    each call twice: the two runs must give the same bits. Tokens exact,
+    max and lse within 1e-5 of max(1, |plain|). Returns the max abs error
+    of max and lse (finite rows)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for M in HEAD_ROWS:
+        x = torch.randn((M, D), generator=gen, device=dev).to(cdt)
+        cases = []
+        for tie in HEAD_TIES:
+            wq, bias, (first, _) = head_case(n_vocab, x, gen, tie)
+            cases.append((f"tie {tie}", wq, bias, first))
+        bias = torch.zeros_like(bias)
+        bias[0, n_vocab - 1] = 1e6
+        bias[0, n_vocab:] = 2e6
+        cases.append(("last column", wq, bias, n_vocab - 1))
+        cases.append(("all -inf", wq, torch.full_like(bias, float("-inf")),
+                      0))
+        for what, wq, bias, want in cases:
+            name = f"[{label}] head M={M} {what}"
+            got = qm.qmatvec_greedy_head(x, wq, bias, n_vocab)
+            again = qm.qmatvec_greedy_head(x, wq, bias, n_vocab)
+            ref = qm.qmatvec_greedy_head_plain(x, wq, bias, n_vocab)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+                f"{name}: two runs differ")
+            assert got[0].tolist() == ref[0].tolist() == [want] * M, (
+                f"{name}: kernel {got[0].tolist()}, plain "
+                f"{ref[0].tolist()}, want {want}")
+            for i in (1, 2):
+                if what == "all -inf":
+                    assert torch.equal(got[i], ref[i]) and bool(
+                        (got[i] == float("-inf")).all()), (
+                        f"{name}: output {i} {got[i].tolist()}")
+                    continue
+                e = float(((got[i] - ref[i]).abs()
+                           / ref[i].abs().clamp_min(1.0)).max())
+                assert e <= 1e-5, f"{name}: output {i} rel err {e:.3g}"
+                worst = max(worst, abs_err(got[i], ref[i]))
+        del cases
+    check_head_scratch(label)
+    log(f"[kernels] {label}: K4 at M in {list(HEAD_ROWS)}, ties "
+        f"{list(HEAD_TIES)}, the last real column and all -inf agrees with "
+        f"the plain version, two runs bit-identical, its scratch left zero; "
+        f"max abs err {worst:.3g}")
+    return worst
+
+
+def check_head_scratch(label: str) -> None:
+    """K4 leaves its partials and ticket zero (its workspaces on every
+    stream), as the next launch, a grown buffer and a CUDA graph's replay
+    rely on."""
+    import torch
+    from whisper_apr_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    for (_, name, _), buf in _build._workspaces.items():
+        if name in ("head_part", "head_ticket"):
+            assert not bool(buf.any()), f"[{label}] K4 left its {name} nonzero"
+
+
+def check_head_graph(D: int, n_vocab: int, cdt, label: str, seed: int,
+                     M: int = 8, replays: int = 4) -> None:
+    """K4 captured in a CUDA graph on a stream that first meets it there
+    (its scratch allocated, and zeroed, inside the capture, so that each
+    replay zeroes it again) and replayed over new x: every replay agrees
+    with the plain version (tokens exact, max and lse within 1e-5 of
+    max(1, |plain|)) and leaves the scratch zero."""
+    import torch
+    from whisper_apr_tpu_torch.ops import _build
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, D), generator=gen, device=dev).to(cdt)
+    wq, bias, _ = head_case(n_vocab, x, gen)
+    bias[bias == 1e6] = 0.0             # no planted tie: tokens follow x
+    side = torch.cuda.Stream()
+    for key in [k for k in _build._workspaces
+                if k[0] == side.cuda_stream and k[1].startswith("head_")]:
+        del _build._workspaces[key]     # a pooled stream K4 met before
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = qm.qmatvec_greedy_head(x, wq, bias, n_vocab)
+    for r in range(replays):
+        x.copy_(torch.randn((M, D), generator=gen, device=dev))
+        graph.replay()
+        ref = qm.qmatvec_greedy_head_plain(x, wq, bias, n_vocab)
+        torch.cuda.synchronize()
+        name = f"[{label}] head graph replay {r}"
+        assert got[0].tolist() == ref[0].tolist(), (
+            f"{name}: kernel {got[0].tolist()}, plain {ref[0].tolist()}")
+        for i in (1, 2):
+            e = float(((got[i] - ref[i]).abs()
+                       / ref[i].abs().clamp_min(1.0)).max())
+            assert e <= 1e-5, f"{name}: output {i} rel err {e:.3g}"
+    check_head_scratch(label)
+    log(f"[kernels] {label}: K4 in a CUDA graph (scratch allocated in the "
+        f"capture) agrees with the plain version over {replays} replays of "
+        f"new x, its scratch left zero")
 
 
 def check_row(name, got, ref, floor: float = 0.0):
@@ -545,35 +668,39 @@ def exact_qkv(db, x, blk, layer: int):
 
 # a rounding tie: the plain version's value before rounding (in steps)
 # within TIE_SPAN times its row's largest f32 error of a half step; at most
-# TIE_MAX of them a row
-TIE_SPAN, TIE_MAX = 8.0, 4
+# TIE_MAX of them a row. K12's k-quant projection takes each group's
+# S (h . q) - Z sum(h), two terms of about the result's size, so its f32
+# error is several times an int8 projection's and more of a row's
+# elements sit that near a boundary (9 of 1280 seen in a large-v3 bf16
+# row): at most KQ_TIE_MAX of them
+TIE_SPAN, TIE_MAX, KQ_TIE_MAX = 8.0, 4, 32
 
 
-def float_ties(got, ref, pre, exact, name: str):
+def float_ties(got, ref, pre, exact, name: str, max_ties: int = TIE_MAX):
     """As ``rounding_ties`` for rows of a float cache narrower than f32
     (bf16, fp8): the elements where K5's new row ``got`` and the plain
     version's ``ref`` are neighbours with the plain version's value before
     rounding, ``pre``, within ``TIE_SPAN`` times the row's largest f32
     error (against the f64 ``exact``) of the rounding boundary between
-    them. A bool mask like ``got``; raises past ``TIE_MAX`` such
+    them. A bool mask like ``got``; raises past ``max_ties`` such
     elements in a row."""
     mid = (got.double() + ref.double()) / 2
     err = (pre.double() - exact).abs().amax()
     tie = (got != ref) & ((pre.double() - mid).abs() <= TIE_SPAN * err)
     n = int(tie.sum(-1).max())
-    assert n <= TIE_MAX, (f"{name}: {n} elements of a row a step off at "
-                          f"rounding ties, more than {TIE_MAX}")
+    assert n <= max_ties, (f"{name}: {n} elements of a row a step off at "
+                           f"rounding ties, more than {max_ties}")
     return tie
 
 
-def rounding_ties(got, ref, pre, exact, name: str):
+def rounding_ties(got, ref, pre, exact, name: str, max_ties: int = TIE_MAX):
     """The elements where K1's new int8 row ``got`` and the plain
     version's ``ref`` differ (by one step: ``check_row``) at a rounding
     tie: the plain version's value before rounding, ``pre`` / its row
     scale, lies within ``TIE_SPAN`` times the row's largest f32 error
     (against the f64 ``exact``, in steps) of a half step, so another f32
     summation order may round it the other way. A bool mask like
-    ``got``; raises past ``TIE_MAX`` such elements in a row."""
+    ``got``; raises past ``max_ties`` such elements in a row."""
     def steps(v):
         return v / (v.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127)
 
@@ -582,8 +709,8 @@ def rounding_ties(got, ref, pre, exact, name: str):
     half = (q.abs() - q.abs().floor() - 0.5).abs().double()
     tie = (got != ref) & (half <= TIE_SPAN * err)
     n = int(tie.sum(-1).max())
-    assert n <= TIE_MAX, (f"{name}: {n} int8 elements of a row a step off "
-                          f"at rounding ties, more than {TIE_MAX}")
+    assert n <= max_ties, (f"{name}: {n} int8 elements of a row a step off "
+                           f"at rounding ties, more than {max_ties}")
     return tie
 
 
@@ -1284,6 +1411,14 @@ def phase_kernels():
         errs[k] = max(errs[k], v)
     errs["qmatvec_stacked"] = max(errs["qmatvec_stacked"],
                                   check_k8_edges(torch.bfloat16, seed=14))
+    for (D, n_vocab, lbl), (seed, cdt) in itertools.product(
+            ((384, 51865, "tiny"), (1280, 51866, "large-v3")),
+            ((16, torch.bfloat16), (17, torch.float32))):
+        e = check_head_edges(D, n_vocab, cdt, f"{lbl} {str(cdt)[6:]}",
+                             seed + D)
+        check_head_graph(D, n_vocab, cdt, f"{lbl} {str(cdt)[6:]}", seed)
+        if lbl == "tiny" and cdt == torch.bfloat16:
+            errs["qmatvec_greedy_head"] = max(errs["qmatvec_greedy_head"], e)
     check_k8_edges(torch.float32, seed=15)
     ffn = check_ffn_edges(blk_tiny, 384, 4, torch.bfloat16, "tiny bf16")
     errs["ffn_fused"] = ffn["ffn_fused"]
@@ -2076,21 +2211,54 @@ def _kq_matvec(fmt: str, plain: bool = False):
     return getattr(mod, name)
 
 
+def exact_qkv_kq(x, blk, layer: int, fmt: str):
+    """K12's projection in f64 from the plain version's LayerNorm output
+    (rounded to x's dtype as it is) over the dequantized planar QKV
+    weight: [1, 3D], the sums all but exact."""
+    import torch
+    from whisper_apr_tpu_torch.ops.basic import layer_norm
+    l = layer
+    h = layer_norm(x.float(), blk["ln1_w"][l, 0], blk["ln1_b"][l, 0])
+    h = h.to(x.dtype).double()
+    wq, s, z = (None if t is None else t[l] for t in blk["qkv"])
+    if fmt == "q4k":           # byte row r: K value 2r low, 2r + 1 high
+        u = wq.to(torch.int16) & 0xFF
+        q = torch.stack([u & 0x0F, u >> 4], 1).reshape(-1, wq.shape[1])
+    else:
+        q = wq
+    sub = q.shape[0] // s.shape[0]
+    w = q.double() * s.double().repeat_interleave(sub, 0)
+    if z is not None:
+        w = w - z.double().repeat_interleave(sub, 0)
+    return h @ w + blk["bqkv"][l].double()
+
+
+# K12's positions: no history, one row, either side of 64 (a row group's
+# span), one of K13's cut of the rows and the last row of a 448-token
+# window
+KQ_SELF_EDGES = (0, 1, 63, 64, 65, 255, 447)
+
+
 def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
              enc_len: int, cdt, label: str, seed: int,
              rows=(1, 8, 40)) -> dict:
-    """K12-K14 against their plain versions at one shape in ``fmt``: self
-    over compute-dtype and int8 rows at several positions, cross over
-    int8 rows (cross8), the FFN, at the first and last layer; then K10 or
-    K11 over fc1's and fc2's weights at M in ``rows`` (40: two 32-row
-    chunks). Returns each kernel's max abs error."""
+    """K12-K14 against their plain versions at one shape in ``fmt``: K12
+    at every ``KQ_SELF_EDGES`` position over every self-row dtype
+    (``CROSS_CACHES``: int8, bf16, f32, fp8), each call twice: the two
+    runs must give the same bits (elements of its new rows a step off at
+    a rounding tie take the kernel's side, as in ``check_kernels``); K13
+    over int8 rows (cross8), the FFN, at the first and last layer; then
+    K10 or K11 over fc1's and fc2's weights at M in ``rows`` (40: two
+    32-row chunks). Returns each kernel's max abs error."""
     import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     blk = make_kq_blk(fmt, D, L, gen, dev)
     tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
     mv = KQ_MATVEC[fmt]
+    ties = 0
     worst = dict.fromkeys(["self_block_kq", "cross_block_kq",
                            "ffn_block_kq", mv], 0.0)
 
@@ -2103,19 +2271,40 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
                           f"{e:.3g} > {tol:.3g}")
         worst[name] = max(worst[name], abs_err(got, ref))
 
-    for mode in ("rows", "int8"):
-        kq, ks, vq, vs = make_cache(mode, L, T_self, D, gen, dev, cdt)
-        for pos in (1, 129, 447):
+    for name, mode, rows_dt in CROSS_CACHES:
+        dt = cdt if rows_dt is None else getattr(torch, rows_dt)
+        kq, ks, vq, vs = make_cache(mode, L, T_self, D, gen, dev, dt)
+        for pos in KQ_SELF_EDGES:
             layer = (pos * 7) % L
             x = x_in()
-            got = dbk.self_block_kq(x, blk, kq, ks, vq, vs, pos, layer, H)
-            ref = dbk.self_block_kq_plain(x, blk, kq, ks, vq, vs, pos,
-                                          layer, H)
-            agree("self_block_kq", got[0], ref[0], f"{mode} pos {pos}")
-            for i, what in ((1, "k_row"), (3, "v_row"), (2, "k_scale"),
-                            (4, "v_scale")):
-                check_row(f"[kquant] {label} {fmt} self {mode} pos {pos} "
-                          f"{what}", got[i], ref[i])
+            args = (x, blk, kq, ks, vq, vs, pos, layer, H)
+            what = f"[kquant] {label} {fmt} self_block_kq {name} pos {pos}"
+            got = dbk.self_block_kq(*args)
+            again = dbk.self_block_kq(*args)
+            with quantized_rows(db) as pre:
+                ref = dbk.self_block_kq_plain(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+                f"{what}: two runs differ")
+            for i, row in ((1, "k_row"), (3, "v_row")):
+                check_row(f"{what} {row}", got[i], ref[i], tol)
+            for i, row in ((2, "k_scale"), (4, "v_scale")):
+                check_row(f"{what} {row}", got[i], ref[i])
+            if got[1].dtype != torch.float32:     # rows rounded from f32
+                exact = exact_qkv_kq(x, blk, layer, fmt)
+                ties_of = rounding_ties if mode == "int8" else float_ties
+                tie = [ties_of(got[i], ref[i], pre[j],
+                               exact[:, (j + 1) * D:(j + 2) * D], what,
+                               KQ_TIE_MAX)
+                       for j, i in enumerate((1, 3))]
+                if any(t.any() for t in tie):
+                    ties += int(sum(t.sum() for t in tie))
+                    rows_kv = [torch.where(t, got[i], ref[i])
+                               for t, i in zip(tie, (1, 3))]
+                    with quantized_rows(db, rows_kv):
+                        ref = dbk.self_block_kq_plain(*args)
+            agree("self_block_kq", got[0], ref[0], f"{name} pos {pos}")
+        del kq, ks, vq, vs
     kq, ks, vq, vs = make_cache("int8", L, T_cross, D, gen, dev, cdt)
     for layer in (0, L - 1):
         x = x_in()
@@ -2138,7 +2327,10 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
                       f"{w} M {M} layer {layer}")
     torch.cuda.synchronize()
     log(f"[kquant] {label} {fmt}: K12-K14 and {mv} at M in {list(rows)} "
-        f"agree with the plain versions; max abs err " + ", ".join(
+        f"agree with the plain versions, K12 at pos {list(KQ_SELF_EDGES)} "
+        f"over {', '.join(n for n, *_ in CROSS_CACHES)} rows two runs "
+        f"bit-identical ({ties} elements of its new rows a step off at a "
+        f"rounding tie); max abs err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()))
     return worst
 
@@ -3716,7 +3908,7 @@ KERNELS = [
      "whisper_apr_tpu/ops/decode_blocks.py:545", "tiny_b1"),
     ("ffn_block", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks.py:625", "tiny_b1"),
-    ("qmatvec_greedy_head", "whisper_apr_tpu_torch/csrc/qmatvec.cu",
+    ("qmatvec_greedy_head", "whisper_apr_tpu_torch/csrc/int8_matmul.cu",
      "whisper_apr_tpu/ops/qmatvec.py:193", "tiny_b1"),
     ("self_block_batched",
      "whisper_apr_tpu_torch/csrc/decode_blocks_batched.cu",
@@ -3734,7 +3926,7 @@ KERNELS = [
      "whisper_apr_tpu/ops/q4k.py:329", "base_q4k"),
     ("kq_matvec_stacked", "whisper_apr_tpu_torch/csrc/kquant_matvec.cu",
      "whisper_apr_tpu/ops/kquants.py:458", "base_q5k"),
-    ("self_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+    ("self_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:395", "base_q4k"),
     ("cross_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:549", "base_q4k"),

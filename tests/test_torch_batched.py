@@ -640,6 +640,89 @@ class TestGreedyHeadRows:
         np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), **TOL)
         np.testing.assert_allclose(b[2].numpy(), np.asarray(a[2]), **TOL)
 
+    @pytest.mark.parametrize("M", [1, 32, 40])
+    @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+    def test_one_call_per_chunk(self, monkeypatch, qd, M, cdt):
+        """The CUDA wrapper calls ``wa_greedy_head`` once per 32-row
+        chunk, each at its rows of x and of the outputs, over the whole
+        vocab, with [3, chunk, N / 128] int64 partials (three words for
+        each 128-column strip of the kernel) and an int64 ticket, both
+        zeroed when allocated, and counts one launch each."""
+        _, tq = qd
+        wq = tq["vocab_qT"]
+        K, N = wq.shape[1], wq.shape[2]
+        bias = torch.zeros((1, N))
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_greedy_head(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tqm._build, "library", Lib)
+        monkeypatch.setattr(tqm._build, "stream", lambda: 7)
+        monkeypatch.setattr(tqm._build, "workspace", workspace)
+        x = torch.zeros((M, K), dtype=cdt)
+        before = tqm.LAUNCHES["qmatvec_greedy_head"]
+        tok, mx, lse = tqm._greedy_head_cuda(x, wq, bias, 700)
+        assert tok.shape == mx.shape == lse.shape == (M,)
+        chunks = [min(32, M - r) for r in range(0, M, 32)]
+        assert len(calls) == len(chunks)
+        assert tqm.LAUNCHES["qmatvec_greedy_head"] == before + len(chunks)
+        n_part = min(M, 32) * (N // 128)
+        assert spaces == [("head_part", 3 * n_part, torch.int64, True),
+                          ("head_ticket", 1, torch.int64, True)]
+        sig = tqm._build._SIGNATURES["wa_greedy_head"]
+        for i, (args, m) in enumerate(zip(calls, chunks)):
+            assert len(args) == len(sig) and args[-1] == 7
+            assert args[0] == x.data_ptr() + x.element_size() * 32 * i * K
+            assert args[1:6] == (tqm._build.DTYPE_CODES[cdt], m, K,
+                                 wq.data_ptr(), N)
+            assert args[7] == 700 and args[8:10] == (1001, 1002)
+            assert args[10:13] == (tok.data_ptr() + 4 * 32 * i,
+                                   mx.data_ptr() + 4 * 32 * i,
+                                   lse.data_ptr() + 4 * 32 * i)
+
+    def test_grown_partials_start_zero(self, monkeypatch, qd):
+        """Each launch finds K4's partials and ticket zero where the
+        wrapper grew them for more rows: words that an earlier launch left
+        marked written (low half 1, the kernel's mark of a partial) in the
+        old buffer are not in the new one, so no merge can take them for a
+        strip of this launch. (That every launch leaves the buffers it
+        reuses zero, the ticket too, is the kernel's part, checked on
+        the card.)"""
+        _, tq = qd
+        wq = tq["vocab_qT"]
+        K, N = wq.shape[1], wq.shape[2]
+        seen = []
+
+        def buf_at(ptr):
+            return next(b for b in tqm._build._workspaces.values()
+                        if b.data_ptr() == ptr)
+
+        class Lib:
+            def wa_greedy_head(self, *args):
+                part, ticket = buf_at(args[8]), buf_at(args[9])
+                seen.append((part.numel(), bool(part.any()),
+                             bool(ticket.any())))
+                part.fill_((1 << 32) | 1)      # stale words, marked written
+                return 0
+
+        monkeypatch.setattr(tqm._build, "_workspaces", {})
+        monkeypatch.setattr(tqm._build, "library", Lib)
+        monkeypatch.setattr(tqm._build, "stream", lambda: 7)
+        for M in (1, 4, 32):
+            tqm._greedy_head_cuda(torch.zeros((M, K)), wq,
+                                  torch.zeros((1, N)), 700)
+        S = N // 128
+        assert [n for n, _, _ in seen] == [3 * S, 12 * S, 96 * S]
+        assert not any(dirty for _, dirty, _ in seen)
+        assert not seen[0][2]                   # the ticket, new
+
 
 @pytest.fixture(scope="module")
 def prefilled3(cfg, params):

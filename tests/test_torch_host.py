@@ -222,8 +222,9 @@ class TestKernelBuild:
         assert p.parent == REPO / "build" / "kernels"
         assert p == _build.library_path()
         names = {s.name for s in _build._sources()}
-        assert {"decode_blocks.cu", "decode_blocks_batched.cu", "qmatvec.cu",
-                "common.cuh", "attention.cuh", "batched_matvec.cuh"} <= names
+        assert {"decode_blocks.cu", "decode_blocks_batched.cu",
+                "int8_matmul.cu", "common.cuh", "attention.cuh",
+                "kquant.cuh"} <= names
 
     def test_check_maps_return_codes(self):
         _build.check(0, "k")

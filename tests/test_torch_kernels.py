@@ -240,6 +240,61 @@ class TestGreedyHead:
         np.testing.assert_allclose(lse.numpy(), np.asarray(a[2]), **TOL)
 
 
+    @pytest.mark.parametrize("cdt", ["f32", "bf16"])
+    @pytest.mark.parametrize("M", [1, 9, 17, 32, 33, 40])
+    def test_strip_edges_match_jax(self, qd, M, cdt):
+        """K4 at the kernel's 128-column strip edges over M rows (the
+        32-row chunking above 32), f32 and bf16 x: two identical columns
+        with the top bias tie exactly in every row, within one strip (5,
+        120) and across strips (127 / 128, 255 / 256), and the first wins;
+        a winner in the last real column beside padding columns that
+        would win if not masked; a row whose logits are all -inf gives
+        token 0 and max -inf. Tokens exact, max and lse within TOL. For
+        the all -inf row the JAX kernel's lse is NaN (0 * exp(-inf -
+        -inf)); the port's is the contract's m + log(max(z, 1e-30)) =
+        -inf."""
+        jq, _ = qd
+        rng = np.random.default_rng(70 + M)
+        jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                    "bf16": (jnp.bfloat16, torch.bfloat16)}[cdt]
+        x = rng.normal(0, 1.0, (M, jq["vocab_qT"].shape[1])).astype(
+            np.float32)
+        xt = torch.from_numpy(x).to(tdt)
+        xj = jnp.asarray(x, jdt)
+        base = np.asarray(jq["vocab_qT"]).copy()
+
+        def both(wq, bias):
+            a = jhead(xj, jnp.asarray(wq), jnp.asarray(bias), 700,
+                      interpret=True)
+            b = tqm.qmatvec_greedy_head(xt, torch.from_numpy(wq),
+                                        torch.from_numpy(bias), 700)
+            assert b[0].tolist() == np.asarray(a[0]).tolist()
+            np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), **TOL)
+            return a, b
+
+        for first, second in ((5, 120), (127, 128), (255, 256)):
+            wq = base.copy()
+            wq[0, :, second] = wq[0, :, first]
+            bias = rng.normal(0, 0.1, (1, wq.shape[2])).astype(np.float32)
+            bias[0, [first, second]] = 1e4
+            a, b = both(wq, bias)
+            assert b[0].tolist() == [first] * M
+            np.testing.assert_allclose(b[2].numpy(), np.asarray(a[2]), **TOL)
+        wq = base.copy()
+        wq[0, :, 700:] = 127
+        x_sum = x.sum(1)
+        bias = np.zeros((1, wq.shape[2]), np.float32)
+        bias[0, 699] = 1e4
+        bias[0, 700:] = 2e4 + 127 * np.abs(x_sum).max()
+        a, b = both(wq, bias)
+        assert b[0].tolist() == [699] * M
+        np.testing.assert_allclose(b[2].numpy(), np.asarray(a[2]), **TOL)
+        bias = np.full((1, wq.shape[2]), -np.inf, np.float32)
+        a, b = both(wq, bias)
+        assert b[0].tolist() == [0] * M
+        assert b[1].tolist() == b[2].tolist() == [float("-inf")] * M
+
+
 class TestRowQuantization:
     def test_round_half_to_even_and_clip(self):
         """s = max(amax, 1e-12)/127, round half to even, clip +-127 — the

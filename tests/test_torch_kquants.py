@@ -355,6 +355,117 @@ class TestBlocks:
             _close(got, want, dtype, mode, attends=True)
 
     @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("dtype,rows", [("f32", "rows"),
+                                            ("bf16", "rows"),
+                                            ("f32", "int8"),
+                                            ("bf16", "int8")])
+    def test_self_block_pos_edges(self, kq_params, mode, dtype, rows):
+        """K12 at the positions that cut its attention apart: no history,
+        one row, either side of the JAX kernel's 128-row block and the
+        last row of a 256-row cache; the new k/v rows as the cache holds
+        them (int8 rows within one step)."""
+        tdt, jdt = DTYPES[dtype]
+        _, _, jqdd, tqdd = kq_params[mode]
+        jblk, tblk = dict(jqd.kq_block_operands(jqdd)), dict(tqdd["blk"])
+        rng = np.random.default_rng(11)
+        for k in ("ln1_w", "ln1_b", "bqkv", "b_self_o"):
+            a = rng.normal(1.0 if k.endswith("_w") else 0.0, 0.1,
+                           tblk[k].shape).astype(np.float32)
+            jblk[k], tblk[k] = jnp.asarray(a.reshape(jblk[k].shape)), \
+                torch.from_numpy(a)
+        T = 256                 # two of the JAX kernel's 128-row blocks
+        jc, tc = _caches(rows, dtype, seed=12, T=T)
+        for i, pos in enumerate((0, 1, 127, 128, 129, T - 1)):
+            x = rng.normal(0, 1, (1, 256)).astype(np.float32)
+            xj, xt = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+            want = jkq.self_block_kq(xj, jblk, *jc, pos, i % 2, 4,
+                                     interpret=True)
+            got = tkq.self_block_kq(xt, tblk, *tc, pos, i % 2, 4)
+            assert got[0].dtype == tdt
+            _close(got[0], want[0], dtype, mode, attends=True)
+            if rows == "int8":
+                for g, w in ((got[1], want[1]), (got[3], want[3])):
+                    assert int((g.int() - torch.from_numpy(
+                        np.asarray(w).astype(np.int32))).abs().max()) <= 1
+            else:
+                _close(got[1], want[1], dtype, mode)
+                _close(got[3], want[3], dtype, mode)
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("D,H", [(384, 6), (512, 8), (768, 12),
+                                     (1280, 20)])
+    def test_self_kq_plan(self, mode, D, H):
+        """K12's launch at the tiny, base, small and large-v3 widths:
+        clusters of at most 16 blocks, every block's share of the QKV
+        rows whole groups (none empty, in rank order, all of D), every
+        history row in some block, shared memory at 192 projected
+        columns a head within 227 KB."""
+        sub = tkq.KQ_SUB[mode]
+        for pos, cache_size in ((0, 1), (1, 2), (128, 2), (447, 4),
+                                (448, 1)):
+            plan = tkq.cross_kq_plan(H, D, pos, cache_size, mode)
+            assert 1 <= plan.cluster <= min(16, D // sub)
+            assert plan.rows * plan.cluster >= pos
+            shares = tkq.kq_shares(D, plan.cluster, mode)
+            assert shares[0][0] == 0 and shares[-1][1] == D
+            assert all(a < b and a % sub == 0 and b % sub == 0
+                       for a, b in shares)
+            assert all(shares[i][1] == shares[i + 1][0]
+                       for i in range(len(shares) - 1))
+            smem = tkq.head_smem(D, plan.cluster, plan.chunk, cache_size,
+                                 mode, W=192)
+            assert tkq.head_smem(D, plan.cluster, plan.chunk, cache_size,
+                                 mode) < smem <= 227 * 1024
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("rows", ["int8", "bf16"])
+    def test_self_block_one_launch(self, kq_params, monkeypatch, mode,
+                                   rows):
+        """``_self_block_kq_cuda`` makes one call of the C entry point
+        with one argument per ctypes type, the format, the plan for its
+        history rows and K1's scratch (the head-ordered partials, the
+        tickets and, on int8 rows only, the projection between the two
+        launches), and counts one launch."""
+        _, _, _, tqdd = kq_params[mode]
+        blk = tqdd["blk"]
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_self_block_kq(self, *args):
+                calls.append(args)
+                return 0
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tkq._build, "library", Lib)
+        monkeypatch.setattr(tkq._build, "stream", lambda: 7)
+        monkeypatch.setattr(tkq._build, "workspace", workspace)
+        _, (kq, ks, vq, vs) = _caches("int8" if rows == "int8" else "rows",
+                                      "bf16", seed=13, T=256)
+        x = torch.zeros((1, 256), dtype=torch.bfloat16)
+        before = tkq.LAUNCHES["self_block_kq"]
+        out = tkq._self_block_kq_cuda(x, blk, kq, ks, vq, vs, 130, 1, 4)
+        assert out[0].shape == x.shape and out[1].dtype == kq.dtype
+        assert tkq.LAUNCHES["self_block_kq"] == before + 1
+        args = calls[0]
+        assert len(calls) == 1
+        assert len(args) == len(tkq._build._SIGNATURES["wa_self_block_kq"])
+        assert args[4] == tkq.KQ_FMT[mode] and args[16:18] == (256, 130)
+        assert tuple(args[27:30]) == tuple(tkq.cross_kq_plan(
+            4, 256, 130, kq.element_size(), mode))
+        assert args[-1] == 7
+        assert (args[9] is None) == (mode == "q6k")      # the QKV's zeros
+        want = [("self_y", 4 * 256, torch.float32, False),
+                ("self_tickets", 16, torch.int32, True)]
+        if rows == "int8":
+            want.append(("self_qkv", 3 * 256, torch.float32, False))
+        assert spaces == want
+        assert args[30:32] == (1001, 1002)
+        assert args[32] == (1003 if rows == "int8" else None)
+
+    @pytest.mark.parametrize("mode", MODES)
     @pytest.mark.parametrize("D,H", [(384, 6), (512, 8), (768, 12),
                                      (1280, 20)])
     def test_cross_kq_plan(self, mode, D, H):

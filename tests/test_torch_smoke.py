@@ -812,3 +812,53 @@ def test_float_ties_take_a_tie_only(smoke):
         got[0, j] = up[0, j]
     with pytest.raises(AssertionError, match="rounding ties"):
         smoke.float_ties(got, row, k, k.double(), "k")
+
+
+def test_head_edges_cover_the_strips(smoke):
+    """K4's smoke checks take ties within one 128-column strip of the
+    kernel and across the boundary of two, one row, both sides of an
+    8-row tile and of a launch's 32 rows; the planted tie of each pair
+    resolves to its first column in the plain version, at every row."""
+    from whisper_apr_tpu_torch.ops import qmatvec as qm
+    strips = {tuple(c // 128 for c in tie) for tie in smoke.HEAD_TIES}
+    assert any(a == b for a, b in strips)
+    assert any(b == a + 1 for a, b in strips)
+    assert {1, 8, 9, 32, 33} <= set(smoke.HEAD_ROWS)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 64), generator=gen)
+    for tie in smoke.HEAD_TIES:
+        wq, bias, (first, second) = smoke.head_case(700, x, gen, tie)
+        assert (first, second) == tie
+        tok = qm.qmatvec_greedy_head_plain(x, wq, bias, 700)[0]
+        assert tok.tolist() == [first] * 3
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q6k"])
+def test_exact_qkv_kq_is_the_plain_projection(smoke, fmt):
+    """K12's f64 projection over the dequantized planes is the plain
+    version's ``kq_mv`` of the LayerNorm output (plus the bias) within
+    f32 summation error, in bf16 and f32."""
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    from whisper_apr_tpu_torch.ops.basic import layer_norm
+    gen = torch.Generator().manual_seed(5)
+    blk = smoke.make_kq_blk(fmt, 256, 2, gen, "cpu")
+    for cdt in (torch.bfloat16, torch.float32):
+        x = torch.randn((1, 256), generator=gen).to(cdt)
+        exact = smoke.exact_qkv_kq(x, blk, 1, fmt)
+        h = layer_norm(x.float(), blk["ln1_w"][1, 0], blk["ln1_b"][1, 0])
+        got = dbk.kq_mv(h, blk["qkv"], 1, cdt) + blk["bqkv"][1]
+        assert exact.shape == (1, 768) and exact.dtype == torch.float64
+        err = float((got.double() - exact).abs().max())
+        assert err <= 1e-5 * float(exact.abs().max())
+
+
+def test_kq_self_edges_cover_the_split(smoke):
+    """K12's smoke checks take no history, one row, both sides of a
+    64-row group, a row past the cluster's first cut and the last row of
+    a 448-token window, all inside the checks' 512-row self cache."""
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    edges = set(smoke.KQ_SELF_EDGES)
+    assert {0, 1, 63, 64, 65, 447} <= edges and max(edges) < 512
+    for H, D in ((8, 512), (20, 1280)):
+        plan = dbk.cross_kq_plan(H, D, 447, 2, "q4k")
+        assert any(plan.rows < e < 447 for e in edges)

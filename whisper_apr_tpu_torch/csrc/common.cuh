@@ -1,10 +1,6 @@
-// Shared device helpers for the decode kernels (decode_blocks.cu,
-// qmatvec.cu, ...): element conversions, warp/block reductions and the
-// int8 matvec tiling of the batched kernels.
-//
-// Plain CUDA cores, no tensor cores: at batch 1 every decode matvec reads
-// each int8 weight byte once and does two flops with it, so the bound is
-// the device memory bandwidth over the int8 bytes, not arithmetic.
+// Shared device helpers of the kernels (decode_blocks.cu,
+// int8_matmul.cu, ...): dtype and error codes, element conversions, warp
+// reductions and the column tiling of the k-quant matvec (kquant.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,44 +70,6 @@ __device__ __forceinline__ int warp_min_int(int v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
-}
-
-// Sum over the whole block (blockDim.x a multiple of 32, <= 1024); every
-// thread gets the result. Contains __syncthreads: call from all threads.
-__device__ __forceinline__ float block_sum(float v, float* scratch32) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    v = warp_sum(v);
-    __syncthreads();
-    if (lane == 0) scratch32[wid] = v;
-    __syncthreads();
-    if (wid == 0) {
-        float t = lane < nw ? scratch32[lane] : 0.f;
-        t = warp_sum(t);
-        if (lane == 0) scratch32[0] = t;
-    }
-    __syncthreads();
-    const float r = scratch32[0];
-    __syncthreads();
-    return r;
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch32) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    v = warp_max(v);
-    __syncthreads();
-    if (lane == 0) scratch32[wid] = v;
-    __syncthreads();
-    if (wid == 0) {
-        float t = lane < nw ? scratch32[lane] : -INFINITY;
-        t = warp_max(t);
-        if (lane == 0) scratch32[0] = t;
-    }
-    __syncthreads();
-    const float r = scratch32[0];
-    __syncthreads();
-    return r;
 }
 
 }  // namespace wa

@@ -1,11 +1,12 @@
 // Per-block decode kernels for one token at batch 1: K1 self_block,
-// K2 cross_block and K3 ffn_block, and K13 cross_block_kq (K2 over
-// k-quant weights).
+// K2 cross_block and K3 ffn_block, and K12 self_block_kq and K13
+// cross_block_kq (K1 and K2 over k-quant weights).
 //
 // Replace the Pallas kernels of whisper_apr_tpu/ops/decode_blocks.py
 // (self_block/_self_kernel, cross_block/_cross_kernel,
 // ffn_block/_ffn_kernel) and of whisper_apr_tpu/ops/decode_blocks_kq.py
-// (cross_block_kq/_cross_kernel_kq), and compute what they compute:
+// (self_block_kq/_self_kernel_kq, cross_block_kq/_cross_kernel_kq), and
+// compute what they compute:
 //
 //   K1 self_block : LN1 -> fused QKV int8 matvec x sqkv + bqkv -> the new
 //                   k/v row in the cache's form (int8 + f32 row scale, or
@@ -14,8 +15,9 @@
 //                   + residual
 //   K2 cross_block: LN2 -> q int8 matvec -> attention over cross rows
 //                   < enc_len -> o-proj + bias + residual
-//   K13           : K2 with the q and o-proj matvecs over Q4_K / Q5_K /
-//                   Q6_K planar weights (kquant.cuh), biases in f32
+//   K12, K13      : K1, K2 with the projections' matvecs over Q4_K /
+//                   Q5_K / Q6_K planar weights (kquant.cuh), biases in
+//                   f32
 //   K3 ffn_block  : LN3 -> fc1 int8 x s1 + b1 -> exact GELU (erff) ->
 //                   fc2 int8 (f32 accumulation) x fc2_s + fc2_b + residual
 //
@@ -28,13 +30,13 @@
 // fewer bytes and keeping enough blocks in flight to pull the bandwidth.
 //
 // Design: one C entry per op, each a single launch on the rows the decode
-// step uses (K1 on int8 self rows takes two, below). At batch 1 each step
-// of a block moves well under a microsecond of bytes, so launches and the
-// serial path inside each block set the time from the L2 cache; from
-// device memory (the decode step cycles through every layer's weights)
-// the bytes a block copies at its start do. K1, K2 and K13 share one
-// kernel, templated on the weights' form: a thread block cluster per head
-// (below). K3 cuts the hidden layer over clusters (further below).
+// step uses (K1 and K12 on int8 self rows take two, below). At batch 1
+// each step of a block moves well under a microsecond of bytes, so
+// launches and the serial path inside each block set the time from the L2
+// cache; from device memory (the decode step cycles through every layer's
+// weights) the bytes a block copies at its start do. K1, K2, K12 and K13 share
+// one kernel, templated on the weights' form: a thread block cluster per
+// head (below). K3 cuts the hidden layer over clusters (further below).
 #include "attention.cuh"
 #include "cluster.cuh"
 #include "kquant.cuh"
@@ -43,7 +45,7 @@ namespace wa {
 namespace {
 
 // --------------------------------------------------------------------------
-// K1 self_block, K2 cross_block and K13: one thread block cluster per head
+// K1 self_block, K2 cross_block, K12, K13: one thread block cluster a head
 // --------------------------------------------------------------------------
 //
 // Grid (C, H) with clusters of (C, 1, 1): the C blocks of head h's cluster
@@ -51,7 +53,8 @@ namespace {
 // C, the rows per block and the rows staged at a time):
 //   - the head's projection, LN(x) . Wq[:, head's columns]: 64 columns
 //     (q_h) for K2, 192 for K1 (q_h, k_h and v_h of the fused QKV); block
-//     r sums Wq rows [r D / C, (r + 1) D / C) (K13: whole groups, below)
+//     r sums Wq rows [r D / C, (r + 1) D / C) (K12, K13: whole groups,
+//     below)
 //     and stores its share into
 //     every block of the cluster (st.async into distributed shared memory,
 //     counted by the receiver's transaction barrier); each adds them in
@@ -82,19 +85,21 @@ namespace {
 // over all D columns, so head h's current row depends on every head's
 // projection: a dependency across clusters, which one launch could only
 // meet by a grid-wide wait (safe only if every block is resident at
-// once). K1 on int8 rows is two launches of this kernel instead:
+// once). K1 (and K12) on int8 rows is two launches of this kernel instead:
 // HB_PROJECT writes the projection [3D] to scratch, HB_ATTEND reads it
 // back (the scales from all of k and v) and goes on from the current row.
 enum HeadKind { HB_CROSS = 0, HB_SELF = 1, HB_PROJECT = 2, HB_ATTEND = 3 };
 
 // The form of the projections' weights, a template argument of the
 // kernel: int8 with one f32 scale a column (K1, K2), or a k-quant planar
-// form of kquant.cuh (K13 over Q4_K, Q5_K or Q6_K): VPB K values a byte
-// row, one scale (and a zero) a group of SUB values and column, the
+// form of kquant.cuh (K12, K13 over Q4_K, Q5_K or Q6_K): VPB K values a
+// byte row, one scale (and a zero) a group of SUB values and column, the
 // group's term S (h . q) - Z sum(h) taken row by row. A block's share of
-// Wq's rows is then whole groups, and a head's 64 rows of Wo are 2 (Q4_K,
-// Q5_K) or 4 (Q6_K) whole groups: each head's o-proj partial carries its
-// own scales and zeros, and the ticket's sum adds only bias and residual.
+// Wq's rows is then whole groups (K12: of each of the head's three
+// 64-column pieces of the [D, 3D] QKV planes), and a head's 64 rows of Wo
+// are 2 (Q4_K, Q5_K) or 4 (Q6_K) whole groups: each head's o-proj partial
+// carries its own scales and zeros, and the ticket's sum adds only bias
+// and residual.
 struct WInt8 {
     static constexpr bool KQ = false, ZERO = false;
     static constexpr int VPB = 1, SUB = 0, PLANES = 0;
@@ -116,7 +121,7 @@ constexpr int CB_KLANES = CB_THREADS / 16;         // q matvec: 16 threads a row
 constexpr int CB_RED = 1024;                       // floats of reduction scratch
 constexpr unsigned FULL = 0xffffffffu;
 
-// shared-memory layout of a K1 / K2 / K13 block, in bytes (every offset
+// shared-memory layout of a K1 / K2 / K12 / K13 block, in bytes (every offset
 // a multiple of 16); W projected columns (64 or 192); k-quant weights
 // (sub > 0): vpb values a byte row, `planes` f32 planes (scale, zero) of
 // a group of sub rows, both for Wq's share and the head's rows of Wo
@@ -289,8 +294,8 @@ __device__ __forceinline__ void current_row(
 // grid (C, H), clusters (C, 1, 1); see above. K2: HB_CROSS; K1: HB_SELF
 // (f32, bf16 and fp8 rows), or HB_PROJECT then HB_ATTEND (int8 rows);
 // both over int8 weights (WInt8: sq, wos [N] column scales, zq, woz
-// null). K13: HB_CROSS over a k-quant form (WKq: sq, zq the [K / SUB, D]
-// planes of Wq, wos, woz Wo's; zq, woz null for Q6_K).
+// null). K13 as K2 and K12 as K1 over a k-quant form (WKq: sq, zq the
+// [K / SUB, NP D] planes of Wq, wos, woz Wo's; zq, woz null for Q6_K).
 template <typename XT, typename CT, int KIND, typename WF = WInt8>
 __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
         const XT* __restrict__ x, int D, const float* __restrict__ ln_w,
@@ -312,7 +317,6 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
     constexpr bool ATT = KIND != HB_PROJECT;   // attends and projects out
     constexpr int NP = SELF ? 3 : 1;           // 64-column pieces: q (k, v)
     constexpr int W = NP * HD;
-    static_assert(!WF::KQ || KIND == HB_CROSS, "k-quant weights: K13 only");
     extern __shared__ __align__(16) unsigned char cb_smem[];
     const int C = gridDim.x, r = blockIdx.x, h = blockIdx.y, H = gridDim.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -382,22 +386,25 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
             xr[j] = i < D ? to_f32(x[i]) : 0.f;
         }
         if constexpr (WF::KQ) {
-            // the share's byte rows of the head's 64 columns, then its
-            // groups' scale (and zero) rows of those columns
+            // the share's byte rows of the head's NP 64-column pieces
+            // (rows NP D long), then its groups' scale (and zero) rows of
+            // those columns
             const int b0 = k0 / WF::VPB, nb = (k1 - k0) / WF::VPB;
-            for (int e = tid; e < nb * 4; e += CB_THREADS) {
-                const int row = e >> 2, c = (e & 3) * 16;
-                cp_async16(wq_s + row * W + c,
-                           wq + (size_t)(b0 + row) * D + h * HD + c, 16);
+            for (int e = tid; e < nb * 4 * NP; e += CB_THREADS) {
+                const int row = e / (4 * NP), pc = e % (4 * NP);
+                const int c = (pc >> 2) * HD + (pc & 3) * 16;
+                cp_async16(wq_s + row * W + c, wq + (size_t)(b0 + row) * NP
+                           * D + (pc >> 2) * D + h * HD + (pc & 3) * 16, 16);
             }
             const int g0 = k0 / WF::SUB, ng = (k1 - k0) / WF::SUB;
             const int gmax = lay.wq_rows * WF::VPB / WF::SUB;
-            for (int e = tid; e < WF::PLANES * ng * 16; e += CB_THREADS) {
-                const int pl = e / (ng * 16), g = e / 16 % ng;
-                const int c = (e & 15) * 4;
-                cp_async16(sq_s + (pl * gmax + g) * W + c,
-                           (pl ? zq : sq) + (size_t)(g0 + g) * D + h * HD + c,
-                           16);
+            for (int e = tid; e < WF::PLANES * ng * 16 * NP;
+                 e += CB_THREADS) {
+                const int c4 = e & 15, pc = (e >> 4) % NP;
+                const int g = (e >> 4) / NP % ng, pl = (e >> 4) / NP / ng;
+                cp_async16(sq_s + (pl * gmax + g) * W + pc * HD + 4 * c4,
+                           (pl ? zq : sq) + (size_t)(g0 + g) * NP * D
+                           + pc * D + h * HD + 4 * c4, 16);
             }
         } else {
             for (int e = tid; e < (k1 - k0) * 4 * NP; e += CB_THREADS) {
@@ -495,16 +502,17 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
                 const int gmax = lay.wq_rows / BRG;
                 for (int br = kl; br < (k1 - k0) / WF::VPB;
                      br += CB_KLANES) {
+                    const int o = pc * HD + 4 * c4;
                     const char4 w = *reinterpret_cast<const char4*>(
-                        wq_s + br * W + 4 * c4);
+                        wq_s + br * W + o);
                     float dq[4], hs;
                     kq_row4<WF>(w, xs + k0 + WF::VPB * br, dq, hs);
                     const float4 S = *reinterpret_cast<const float4*>(
-                        sq_s + (br / BRG) * W + 4 * c4);
+                        sq_s + (br / BRG) * W + o);
                     float4 Z = make_float4(0.f, 0.f, 0.f, 0.f);
                     if constexpr (WF::ZERO)
                         Z = *reinterpret_cast<const float4*>(
-                            sq_s + (gmax + br / BRG) * W + 4 * c4);
+                            sq_s + (gmax + br / BRG) * W + o);
                     a0 += S.x * dq[0] - Z.x * hs;
                     a1 += S.y * dq[1] - Z.y * hs;
                     a2 += S.z * dq[2] - Z.z * hs;
@@ -557,7 +565,14 @@ __global__ void __launch_bounds__(CB_THREADS) head_block_kernel(
                 if (rr < C) q += qs[rr];
             const int col = (tid / HD) * D + h * HD + tid % HD;
             if constexpr (WF::KQ) {     // the groups' scales are in q
-                qf[tid] = (q + bq[col]) * QSCALE;
+                const float p = q + bq[col];
+                if constexpr (!SELF) {
+                    qf[tid] = p * QSCALE;
+                } else if constexpr (KIND == HB_PROJECT) {
+                    if (r == 0) qkv[col] = p;
+                } else {
+                    proj[tid] = p;
+                }
             } else if constexpr (!SELF) {
                 qf[tid] = (q * sq[col] + bq[col]) * QSCALE;
             } else if constexpr (KIND == HB_PROJECT) {
@@ -851,34 +866,37 @@ int cross_block_kq_t(int cache_dtype, const void* x, int D, int H,
     });
 }
 
-// K1: rows < pos are the history; int8 rows take two launches (above)
-template <typename XT>
+// K1 (WInt8: sq, wos column scales, zq, woz null) and K12 (WKq<FMT>: the
+// planes of the k-quant form): rows < pos are the history; int8 rows take
+// two launches (above)
+template <typename XT, typename WF = WInt8>
 int self_block_t(int cache_dtype, const void* x, int D, int H,
                  const float* ln_w, const float* ln_b, const int8_t* wqkv,
-                 const float* sqkv, const float* bqkv, const void* kc,
-                 const float* ks, const void* vc, const float* vs, int pos,
-                 int C, int rows, int chunk, const int8_t* wo,
-                 const float* wos, const float* wob, void* x_out,
-                 void* k_row, float* k_scale, void* v_row, float* v_scale,
-                 float* ypart, int* tickets, float* qkv, cudaStream_t st) {
+                 const float* sqkv, const float* zqkv, const float* bqkv,
+                 const void* kc, const float* ks, const void* vc,
+                 const float* vs, int pos, int C, int rows, int chunk,
+                 const int8_t* wo, const float* wos, const float* woz,
+                 const float* wob, void* x_out, void* k_row, float* k_scale,
+                 void* v_row, float* v_scale, float* ypart, int* tickets,
+                 float* qkv, cudaStream_t st) {
     return with_cache_type(cache_dtype, [&](auto ct) {
         using CT = decltype(ct);
         if constexpr (std::is_same<CT, int8_t>::value) {
-            const int e = launch_head<XT, CT, HB_PROJECT>(
-                x, D, H, ln_w, ln_b, wqkv, sqkv, nullptr, bqkv, nullptr,
+            const int e = launch_head<XT, CT, HB_PROJECT, WF>(
+                x, D, H, ln_w, ln_b, wqkv, sqkv, zqkv, bqkv, nullptr,
                 nullptr, nullptr, nullptr, 0, 0, C, rows, chunk, nullptr,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, nullptr, nullptr, qkv, st);
             if (e != 0) return e;
-            return launch_head<XT, CT, HB_ATTEND>(
+            return launch_head<XT, CT, HB_ATTEND, WF>(
                 x, D, H, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, kc, ks, vc, vs, pos, pos, C, rows, chunk, wo, wos,
-                nullptr, wob, x_out, ypart, tickets, k_row, v_row, k_scale,
+                woz, wob, x_out, ypart, tickets, k_row, v_row, k_scale,
                 v_scale, qkv, st);
         } else {
-            return launch_head<XT, CT, HB_SELF>(
-                x, D, H, ln_w, ln_b, wqkv, sqkv, nullptr, bqkv, kc, ks, vc,
-                vs, pos, pos, C, rows, chunk, wo, wos, nullptr, wob, x_out,
+            return launch_head<XT, CT, HB_SELF, WF>(
+                x, D, H, ln_w, ln_b, wqkv, sqkv, zqkv, bqkv, kc, ks, vc,
+                vs, pos, pos, C, rows, chunk, wo, wos, woz, wob, x_out,
                 ypart, tickets, k_row, v_row, k_scale, v_scale, nullptr, st);
         }
     });
@@ -1150,10 +1168,11 @@ int ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
 
 using namespace wa;
 
-// K1's, K2's and K13's launch plan for n_loop rows of cache_size bytes an
-// element and W projected columns a head (k-quant weights: vpb values a
-// byte row, `planes` f32 planes a group of sub rows), and the 16-byte
-// alignment of the copied operands (`scales`: K13's four planes, or null)
+// K1's, K2's, K12's and K13's launch plan for n_loop rows of cache_size
+// bytes an element and W projected columns a head (k-quant weights: vpb
+// values a byte row, `planes` f32 planes a group of sub rows), and the
+// 16-byte alignment of the copied operands (`scales`: K12's or K13's four
+// planes, or null)
 static bool head_plan_ok(int D, int cluster, int rows, int chunk, int n_loop,
                          int cache_dtype, int W, const void* wq,
                          const void* wo, const void* kq, const void* vq,
@@ -1200,12 +1219,12 @@ extern "C" int wa_self_block(
 #define WA_SELF(XT)                                                          \
     self_block_t<XT>(cache_dtype, x, D, H, (const float*)ln_w,               \
                      (const float*)ln_b, (const int8_t*)wqkv,                \
-                     (const float*)sqkv, (const float*)bqkv, kq,             \
+                     (const float*)sqkv, nullptr, (const float*)bqkv, kq,    \
                      (const float*)ks, vq, (const float*)vs, pos, cluster,   \
                      rows, chunk, (const int8_t*)wo, (const float*)wos,      \
-                     (const float*)wob, x_out, k_row, (float*)k_scale,       \
-                     v_row, (float*)v_scale, (float*)ypart, (int*)tickets,   \
-                     (float*)qkv, st)
+                     nullptr, (const float*)wob, x_out, k_row,               \
+                     (float*)k_scale, v_row, (float*)v_scale,                \
+                     (float*)ypart, (int*)tickets, (float*)qkv, st)
     if (x_dtype == F32) return WA_SELF(float);
     if (x_dtype == BF16) return WA_SELF(__nv_bfloat16);
 #undef WA_SELF
@@ -1287,6 +1306,51 @@ extern "C" int wa_cross_block_kq(
         if (x_dtype == F32) return WA_CROSS_KQ(float);
         if (x_dtype == BF16) return WA_CROSS_KQ(__nv_bfloat16);
 #undef WA_CROSS_KQ
+        return (cudaError_t)ERR_DTYPE;
+    });
+}
+
+// K12: K1 over k-quant weights, fmt KQ_Q4K ([D/2, 3D] and [D/2, D] nibble
+// bytes) or KQ_Q5K / KQ_Q6K ([D, 3D], [D, D] values) with f32 [D/sub, 3D]
+// and [D/sub, D] scale planes (and zero planes: not Q6_K) for the QKV and
+// Wo; biases [3D], [D] f32. Caches, outputs, plan and scratch as
+// wa_self_block's (the plan from ops/decode_blocks_kq.cross_kq_plan).
+extern "C" int wa_self_block_kq(
+        const void* x, int x_dtype, int D, int H, int fmt, const void* ln_w,
+        const void* ln_b, const void* wqkv, const void* sqkv,
+        const void* zqkv, const void* bqkv, const void* kq, const void* ks,
+        const void* vq, const void* vs, int cache_dtype, int T, int pos,
+        const void* wo, const void* so, const void* zo, const void* bo,
+        void* x_out, void* k_row, void* k_scale, void* v_row, void* v_scale,
+        int cluster, int rows, int chunk, void* ypart, void* tickets,
+        void* qkv, void* stream) {
+    const void* scales[4] = {sqkv, zqkv, so, zo};
+    if (!shape_ok(D, H) || !kq_shape_ok(fmt, D, 3 * D) || pos < 0
+            || pos > T
+            || !head_plan_ok(D, cluster, rows, chunk, pos, cache_dtype,
+                             3 * HD, wqkv, wo, kq, vq, fmt == KQ_Q4K ? 2 : 1,
+                             fmt == KQ_Q6K ? 16 : 32, fmt == KQ_Q6K ? 1 : 2,
+                             scales))
+        return ERR_SHAPE;
+    if ((cache_dtype == I8) != (ks != nullptr && vs != nullptr)
+            || (cache_dtype == I8 && qkv == nullptr)
+            || !zeros_ok(fmt, zqkv) || !zeros_ok(fmt, zo))
+        return ERR_DTYPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    return (int)with_kq_fmt(fmt, [&](auto f) {
+        constexpr int FMT = decltype(f)::value;
+#define WA_SELF_KQ(XT)                                                       \
+        (cudaError_t)self_block_t<XT, WKq<FMT>>(                             \
+            cache_dtype, x, D, H, (const float*)ln_w, (const float*)ln_b,    \
+            (const int8_t*)wqkv, (const float*)sqkv, (const float*)zqkv,     \
+            (const float*)bqkv, kq, (const float*)ks, vq, (const float*)vs,  \
+            pos, cluster, rows, chunk, (const int8_t*)wo, (const float*)so,  \
+            (const float*)zo, (const float*)bo, x_out, k_row,                \
+            (float*)k_scale, v_row, (float*)v_scale, (float*)ypart,          \
+            (int*)tickets, (float*)qkv, st)
+        if (x_dtype == F32) return WA_SELF_KQ(float);
+        if (x_dtype == BF16) return WA_SELF_KQ(__nv_bfloat16);
+#undef WA_SELF_KQ
         return (cudaError_t)ERR_DTYPE;
     });
 }

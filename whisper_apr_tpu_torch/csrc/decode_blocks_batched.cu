@@ -25,6 +25,7 @@
 // bf16 rounding of the k*q and p*v products is not reproduced (bf16
 // results agree within the bf16 tolerance; f32 results match).
 #include <initializer_list>
+#include <type_traits>
 
 #include "attention.cuh"
 #include "cluster.cuh"

@@ -1,9 +1,11 @@
-// K8 and K17: products over int8 weights, on the tensor cores.
+// K8, K17 and K4: products over int8 weights, on the tensor cores.
 //
 // K17 replaces the Pallas kernel of whisper_apr_tpu/ops/int8_matmul.py
 // (_int8_matmul_kernel / int8_matmul, pallas_call at :72), K8 the one of
 // whisper_apr_tpu/ops/qmatvec.py (_qmatvec_kernel / qmatvec_stacked,
-// pallas_call at :86). Both compute
+// pallas_call at :86), K4 the fused greedy head of the same file
+// (_greedy_head_kernel / qmatvec_greedy_head, pallas_call at :193). K8
+// and K17 compute
 //
 //   y[m, n] = (sum_k x[m, k] * w[k, n]) * scale[n]     (f32 sum)
 //
@@ -11,10 +13,16 @@
 // takes one scale for every column (n_scale == 1) or one per column; K8
 // is one layer of a stacked [L, K, N] weight (the caller offsets the
 // weight and scale pointers), per-column scale, out in x's dtype or f32
-// (the vocab logits).
+// (the vocab logits). K4 takes the same sums over the lane-padded int8
+// vocab (no column scale: the K-side scale is folded into x), adds the f32
+// bias, masks the columns >= n_vocab to -inf and, per row, returns the
+// first index of the maximum (jnp.argmax's rule), the maximum and the
+// logsumexp m + log(max(z, 1e-30)) (-inf columns add 0; a row of -inf
+// logits gives token 0), writing no logits.
 //
 // Bound: at a few decode rows the weight bytes (K * N: 66.5 MB for
-// large-v3's vocab), at the encoder's 1500 rows the operations (2 M N K).
+// large-v3's vocab, 20 MB for whisper-tiny's), at the encoder's 1500 rows
+// the operations (2 M N K).
 // Both are carried by the tensor cores, as K18's kernels do for int4
 // (dequant_matmul.cu); f32 x above 32 rows in K17 takes the CUDA-core
 // dequant_mm_kernel (quant_mma.cuh), for the token checks.
@@ -45,6 +53,25 @@
 //   after the cluster's barrier, each block sums its share in split
 //   order. No scratch, one launch, and a result that does not depend on
 //   the order blocks run in.
+// - K4: the decode-row kernel with a head epilogue (Q8_HEAD) over the
+//   vocab, K whole (int8_plan gives the vocab's 406 strips one split).
+//   Once a strip's sums are final, a warp a row sums them, adds the bias,
+//   masks the padding and takes the strip's max, its first index and
+//   sum exp(l - max) into [M, strips] partials: 64-bit words, each value
+//   beside a nonzero mark, so a word read is known whole and written.
+//   Each block takes an atomic ticket as it starts; the blocks of the
+//   last min(S, M) tickets (every other block has started, so waiting
+//   on them cannot deadlock) each merge whole rows once every partial of
+//   the row has landed: a block a row, the first index of the maximum
+//   and the sums rescaled to it in a fixed order. The merge zeroes each
+//   word it has read and the last ticket resets the ticket, so every
+//   launch leaves its scratch as it found it, zero: no state carries from
+//   one launch to the next (a buffer grown, or zeroed again by a memset
+//   that a CUDA graph captured with the launch, is as good as one used
+//   before). Measured on the H100 (PERF.md, K4's design notes) against
+//   the two-launch form and a ticket taken as the blocks end, this is the
+//   faster at every M: the merge starts one load round trip after the
+//   last strip, with no fence, atomic or launch in between.
 // - K17, bf16 and M > 32 (the encoder, the cross K/V, a long prefill):
 //   int8_mma_kernel, operations-bound: a 128 x 128 output tile, 8 warps of
 //   64 x 32, 64-deep slices, a 3-stage ring of 16-byte cp.async copies of
@@ -56,6 +83,8 @@
 //
 // Ragged M, N and K edges are masked; rows whose addresses are not 16-byte
 // aligned take the kernels' byte-wise loads.
+#include <limits.h>
+
 #include "quant_mma.cuh"
 #include "cp_async.cuh"
 
@@ -111,6 +140,120 @@ static_assert(32 * Q8_W1 >= Q8_STRIP, "a scale a thread");
 constexpr int Q8_RS = Q8_VECS * 17;         // a slot's row: padded vectors
 constexpr int Q8_MAX_SPLIT = 16;            // blocks of a cluster
 
+// the decode kernel's epilogue: the plain store (K8, K17), or K4's head
+enum Q8Epi { Q8_STORE = 0, Q8_HEAD = 1 };
+
+// K4's operands: bias [N] f32; the partials, three 64-bit words a row
+// and strip ([3][M][S]: max, sum of exp(l - max), first index, each in
+// the high half beside HEAD_MARK in the low half, so that a word read is
+// known whole and written by this launch: zero before the launch, and
+// zeroed again once read); the ticket (zero before the launch, and
+// reset by its last block) and the [M] outputs
+struct HeadArgs {
+    const float* bias;
+    int n_vocab;
+    unsigned long long* part;
+    unsigned long long* ticket;
+    int* tok;
+    float* mx;
+    float* lse;
+};
+
+constexpr uint32_t HEAD_MARK = 1u;  // low half of a written partial
+
+__device__ __forceinline__ void st_word(unsigned long long* p, uint32_t hi) {
+    const unsigned long long w = (unsigned long long)hi << 32 | HEAD_MARK;
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" :: "l"(p), "l"(w)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_word(
+        const unsigned long long* p) {
+    unsigned long long w;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(w) : "l"(p)
+                 : "memory");
+    return w;
+}
+
+constexpr int HEAD_PER = 4;         // strips a thread requests
+constexpr int HEAD_MAX_S = HEAD_PER * 32 * Q8_W1;   // strips a merge takes
+
+// row m's outputs from its S <= HEAD_MAX_S strip partials, by a whole
+// block (32 Q8_W1 threads): each requests the three words of every 128th
+// strip (the vocab's 406 strips at once), again until every word of the
+// block's is marked written, then zeroes them; the block takes their
+// max, the first index at it and the sums rescaled to it (each thread's
+// in strip order, the warps' by shuffles, the block's in warp order).
+// red: 96 words of shared memory
+__device__ __forceinline__ void head_row(const HeadArgs& hd, int m, int M,
+                                         int S, float* red) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nw = blockDim.x >> 5;
+    int* ired = reinterpret_cast<int*>(red + 64);
+    float pm[HEAD_PER], pz[HEAD_PER];
+    int pi[HEAD_PER];
+    bool ok;
+    int polls = 0;
+    do {
+        if (++polls > (1 << 22)) __trap();  // never written: a fault
+        ok = true;
+#pragma unroll
+        for (int j = 0; j < HEAD_PER; ++j) {
+            const int s = tid + j * blockDim.x;
+            unsigned long long w[3] = {HEAD_MARK, HEAD_MARK, HEAD_MARK};
+            if (s < S)
+#pragma unroll
+                for (int k = 0; k < 3; ++k)
+                    w[k] = ld_word(hd.part + ((size_t)k * M + m) * S + s);
+            ok = ok && (uint32_t)w[0] == HEAD_MARK
+                 && (uint32_t)w[1] == HEAD_MARK && (uint32_t)w[2] == HEAD_MARK;
+            pm[j] = s < S ? __uint_as_float(w[0] >> 32) : -INFINITY;
+            pz[j] = __uint_as_float(w[1] >> 32);
+            pi[j] = (int)(w[2] >> 32);
+        }
+    } while (!__syncthreads_and(ok));
+#pragma unroll
+    for (int j = 0; j < HEAD_PER; ++j) {    // read: zero for the next launch
+        const int s = tid + j * blockDim.x;
+        if (s < S)
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                hd.part[((size_t)k * M + m) * S + s] = 0ull;
+    }
+    float bm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < HEAD_PER; ++j) bm = fmaxf(bm, pm[j]);
+    bm = warp_max(bm);
+    if (lane == 0) red[warp] = bm;
+    __syncthreads();
+    for (int i = 0; i < nw; ++i) bm = fmaxf(bm, red[i]);
+    float bz = 0.f;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < HEAD_PER; ++j) {   // an empty partial adds 0
+        if (pm[j] == bm) bi = min(bi, pi[j]);
+        if (pm[j] != -INFINITY) bz += pz[j] * expf(pm[j] - bm);
+    }
+    bz = warp_sum(bz);
+    bi = warp_min_int(bi);
+    if (lane == 0) {
+        red[32 + warp] = bz;
+        ired[warp] = bi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        bz = 0.f;
+        for (int i = 0; i < nw; ++i) {
+            bz += red[32 + i];
+            bi = min(bi, ired[i]);
+        }
+        hd.tok[m] = bm == -INFINITY ? 0 : bi;   // the JAX kernel's start
+        hd.mx[m] = bm;
+        hd.lse[m] = bm + logf(fmaxf(bz, 1e-30f));
+    }
+    __syncthreads();                        // red is read
+}
+
 // Lane (g, t) reads rows 2t, 2t + 1, 2t + 8, 2t + 9 of each 16-row step
 // at vector g of the strip, 16 bytes each (ld.global.nc.v4, or byte-wise
 // where rows are not 16-byte aligned), the next step's in flight while it
@@ -122,12 +265,13 @@ constexpr int Q8_MAX_SPLIT = 16;            // blocks of a cluster
 // are one cluster; split b stores its sums of outputs [r C, (r + 1) C)
 // into block r's shared memory, and after the cluster's barrier block r
 // sums them in split order and writes them.
-template <typename XT, int NT, bool ALIGNED>
+template <typename XT, int NT, bool ALIGNED, int EPI>
 __global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
         const XT* __restrict__ x, const uint8_t* __restrict__ w,
         const float* __restrict__ scale, int n_scale, void* __restrict__ y,
-        int out_f32, int M, int K, int N, int split_rows) {
+        int out_f32, int M, int K, int N, int split_rows, HeadArgs hd) {
     constexpr int TERMS = std::is_same<XT, float>::value ? 3 : 1;
+    constexpr bool HEAD = EPI != Q8_STORE;
     extern __shared__ __align__(16) unsigned char q8_smem[];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -135,6 +279,11 @@ __global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
     const int vec = blockIdx.x * Q8_VECS + g;
     const bool active = vec < (N + 15) / 16;
     const int n_split = gridDim.y;
+    // K4: a ticket as the block starts, its answer kept in a register
+    // until the end (nothing waits on it before)
+    __shared__ unsigned long long ticket;
+    unsigned long long my_ticket = 0;
+    if (HEAD && tid == 0) my_ticket = atomicAdd(hd.ticket, 1ull);
     // the cluster's first barrier phase: every block has started before
     // any stores into another's shared memory (waited on below)
     if (n_split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;");
@@ -149,11 +298,16 @@ __global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
         for (int j = 0; j < 8; ++j)
             acc[nt][j][0] = acc[nt][j][1] = acc[nt][j][2] = acc[nt][j][3] =
                 0.f;
-    // the strip's scales, requested with the first vectors and kept in
-    // shared memory for the epilogues
+    // the strip's scales (K4: its bias, -inf on the padding), requested
+    // with the first vectors and kept in shared memory for the epilogues
     const int my_col = blockIdx.x * Q8_STRIP + tid;
-    const float my_scale = tid < Q8_STRIP && my_col < N
-                               ? col_scale(scale, n_scale, my_col) : 0.f;
+    float my_scale;
+    if constexpr (HEAD)
+        my_scale = tid < Q8_STRIP && my_col < hd.n_vocab ? hd.bias[my_col]
+                                                         : -INFINITY;
+    else
+        my_scale = tid < Q8_STRIP && my_col < N
+                       ? col_scale(scale, n_scale, my_col) : 0.f;
     // the next step's weight vectors and x pairs, requested while this
     // step's products run
     uint4 q[4];
@@ -214,6 +368,7 @@ __global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
     float* sums = f_smem + n_warps * M * Q8_RS;     // [split][chunk]
     float* col_scales = sums + (n_split > 1 ? n_split * chunk : 0);
     if (tid < Q8_STRIP) col_scales[tid] = my_scale;
+    if (HEAD && tid == 0) ticket = my_ticket;
     float* slot = f_smem + warp * M * Q8_RS + 17 * g;
 #pragma unroll
     for (int nt = 0; nt < NT && warp < busy; ++nt)
@@ -228,6 +383,57 @@ __global__ void __launch_bounds__(Q8_THREADS) int8_mv_mma_kernel(
         }
     __syncthreads();
     if (n_split > 1) asm volatile("barrier.cluster.wait.aligned;");
+
+    if constexpr (HEAD) {
+        // K (and so the strip) is whole: a warp a row sums the slots of
+        // its 4 columns a lane in order, adds the bias (-inf on the
+        // padding) and takes the strip's max, its first index and
+        // sum exp(l - max)
+        const int S = gridDim.x;
+        for (int m = warp; m < M; m += n_warps) {
+            float l[4], lm = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int n = lane + 32 * i;
+                const float* s = f_smem + m * Q8_RS + 17 * (n / 16) + n % 16;
+                float v = s[0];
+#pragma unroll
+                for (int k = 1; k < Q8_W; ++k)
+                    if (k < busy) v += s[k * M * Q8_RS];
+                l[i] = v + col_scales[n];
+                lm = fmaxf(lm, l[i]);
+            }
+            const float mw = warp_max(lm);
+            int idx = INT_MAX;
+            float z = 0.f;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (idx == INT_MAX && l[i] == mw)
+                    idx = blockIdx.x * Q8_STRIP + lane + 32 * i;
+                if (l[i] != -INFINITY) z += expf(l[i] - mw);
+            }
+            idx = warp_min_int(idx);
+            z = warp_sum(z);
+            if (lane == 0) {
+                unsigned long long* o = hd.part + (size_t)m * S + blockIdx.x;
+                st_word(o, __float_as_uint(mw));
+                st_word(o + (size_t)M * S, __float_as_uint(z));
+                st_word(o + (size_t)2 * M * S, (uint32_t)idx);
+            }
+        }
+        // the blocks of the last R = min(S, M) tickets merge, the block of
+        // ticket S - 1 - q the rows q, q + R, ..: none waits on a block
+        // that cannot run, every other block has started or will once one
+        // of the others ends. The last resets the ticket to zero (every
+        // ticket is taken)
+        const int R = min(S, M);
+        const int q = S - 1 - (int)ticket;
+        if (q >= R) return;
+        if (q == 0 && tid == 0) atomicExch(hd.ticket, 0ull);
+        __shared__ float red[96];
+        for (int m = q; m < M; m += R) head_row(hd, m, M, S, red);
+        return;
+    }
 
     // the slots summed in order; with split K, split b stores its sums of
     // outputs [r C, (r + 1) C) into block r's shared memory, and after
@@ -287,11 +493,12 @@ __host__ __forceinline__ size_t mv8_smem(int M, int n_split) {
               + Q8_STRIP);
 }
 
-template <typename XT, int NT, bool ALIGNED>
+template <typename XT, int NT, bool ALIGNED, int EPI>
 int launch_mv8(const void* x, const uint8_t* w, const float* scale,
                int n_scale, void* y, int out_f32, int M, int K, int N,
-               int n_split, int split_rows, cudaStream_t st) {
-    const auto kernel = int8_mv_mma_kernel<XT, NT, ALIGNED>;
+               int n_split, int split_rows, const HeadArgs& hd,
+               cudaStream_t st) {
+    const auto kernel = int8_mv_mma_kernel<XT, NT, ALIGNED, EPI>;
     const int smem = (int)mv8_smem(M, n_split);
     static int opted_in = 0;                // the most asked of this kernel
     if (smem > opted_in) {
@@ -317,25 +524,32 @@ int launch_mv8(const void* x, const uint8_t* w, const float* scale,
     cfg.numAttrs = 1;
     return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(x),
                                    w, scale, n_scale, y, out_f32, M, K, N,
-                                   split_rows);
+                                   split_rows, hd);
 }
 
 // the decode kernel for M <= 32 rows: NT = ceil(M / 8) tiles of 8 rows,
-// n_split blocks of split_rows K rows (a multiple of 16) a strip
-template <typename XT>
+// n_split blocks of split_rows K rows (a multiple of 16) a strip; the
+// head (EPI != Q8_STORE) takes n_split 1 and 16-byte aligned rows
+template <typename XT, int EPI = Q8_STORE>
 int decode_rows(const void* x, const uint8_t* w, const float* scale,
                 int n_scale, void* y, int out_f32, int M, int K, int N,
-                int n_split, int split_rows, cudaStream_t st) {
+                int n_split, int split_rows, cudaStream_t st,
+                const HeadArgs& hd = HeadArgs{}) {
     if (n_split < 1 || n_split > Q8_MAX_SPLIT || split_rows < 1
             || split_rows % 16 || (long long)n_split * split_rows < K
-            || (long long)(n_split - 1) * split_rows >= K || M > 32)
+            || (long long)(n_split - 1) * split_rows >= K || M > 32
+            || (EPI != Q8_STORE && n_split != 1))
         return ERR_SHAPE;
     const bool al = reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
+    if (EPI != Q8_STORE && !al) return ERR_SHAPE;   // the head: the padded
+                                                    // vocab, 16-byte rows
+    constexpr bool ANY = EPI == Q8_STORE;           // byte-wise rows too
 #define WA_MV8(NT)                                                           \
-    (al ? launch_mv8<XT, NT, true>(x, w, scale, n_scale, y, out_f32, M, K,   \
-                                   N, n_split, split_rows, st)               \
-        : launch_mv8<XT, NT, false>(x, w, scale, n_scale, y, out_f32, M, K,  \
-                                    N, n_split, split_rows, st))
+    (al ? launch_mv8<XT, NT, true, EPI>(x, w, scale, n_scale, y, out_f32, M, \
+                                        K, N, n_split, split_rows, hd, st)   \
+        : launch_mv8<XT, NT, !ANY, EPI>(x, w, scale, n_scale, y, out_f32,    \
+                                        M, K, N, n_split, split_rows, hd,    \
+                                        st))
     if (M <= 8) return WA_MV8(1);
     if (M <= 16) return WA_MV8(2);
     if (M <= 24) return WA_MV8(3);
@@ -604,5 +818,35 @@ extern "C" int wa_qmatvec_stacked(const void* x, int x_dtype, int M, int K,
     if (x_dtype == BF16)
         return decode_rows<__nv_bfloat16>(x, wp, sp, N, out, out_f32, M, K,
                                           N, n_split, split_rows, st);
+    return ERR_DTYPE;
+}
+
+// K4: x [M, K] f32 or bf16 (M <= 32, the K-side scale folded in); w
+// [K, N] int8, 16-byte aligned (the vocab, N lane-padded >= n_vocab, a
+// multiple of 16, at most 65536); bias [N] f32;
+// partials int64 [3, M, ceil(N / 128)] and ticket int64 [1], zero before
+// the launch, which leaves them zero; outputs tok int32, mx and lse f32
+// [M].
+extern "C" int wa_greedy_head(const void* x, int x_dtype, int M, int K,
+                              const void* w, int N, const void* bias,
+                              int n_vocab, void* part, void* ticket,
+                              void* tok, void* mx, void* lse, void* stream) {
+    if (n_vocab > N || n_vocab < 1 || M < 1 || M > 32 || K < 1
+            || (N + Q8_STRIP - 1) / Q8_STRIP > HEAD_MAX_S)
+        return ERR_SHAPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    const auto wp = static_cast<const uint8_t*>(w);
+    const HeadArgs hd{static_cast<const float*>(bias), n_vocab,
+                      static_cast<unsigned long long*>(part),
+                      static_cast<unsigned long long*>(ticket),
+                      static_cast<int*>(tok), static_cast<float*>(mx),
+                      static_cast<float*>(lse)};
+    const int rows = 16 * ((K + 15) / 16);          // K whole: one split
+#define WA_HEAD(XT)                                                          \
+    decode_rows<XT, Q8_HEAD>(x, wp, nullptr, 0, nullptr, 0, M, K, N, 1, rows, \
+                             st, hd)
+    if (x_dtype == F32) return WA_HEAD(float);
+    if (x_dtype == BF16) return WA_HEAD(__nv_bfloat16);
+#undef WA_HEAD
     return ERR_DTYPE;
 }

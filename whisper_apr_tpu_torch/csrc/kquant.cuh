@@ -1,7 +1,8 @@
 // The k-quant weight reader: a column matvec over the planar Q4_K, Q5_K
 // and Q6_K weights, templated on the format. K10/K11 (kquant_matvec.cu)
-// run it over row tiles of activations, K12-K14 (decode_blocks_kq.cu) at
-// one row with the LayerNorm recomputed per column block.
+// run it over row tiles of activations, K14 (decode_blocks_kq.cu) at one
+// row with the LayerNorm recomputed per column block. (K12 and K13 run on
+// K2's head-cluster kernel, decode_blocks.cu, over these planar forms.)
 //
 // Planar forms (ops/q4k.py, ops/kquants.py), per layer, input-major:
 //   Q4_K: wq int8 [K/2, N], byte row r holds K value 2r in its low nibble
@@ -21,21 +22,21 @@
 // 1.25 for Q5_K (one byte plus 8 per 32) and for Q6_K (one plus 4 per 16);
 // two flops a weight per row stay far under the card's flop/byte ratio.
 //
-// Design (as the int8 matvec of common.cuh / batched_matvec.cuh): a block
-// owns MV_COLS columns, each thread four neighbouring columns (one 32-bit
-// load of a weight row) and one of MV_KLANES k-lanes. A k-lane walks whole
-// groups: 16 byte rows of Q4_K, 32 value rows of Q5_K, 16 of Q6_K; it
-// keeps the group's partial sums h.q in registers and applies S (and
-// -Z times the group's sum of h) once at the group's end, so each scale
-// and zero is read once per group. The group sums of h are computed once
-// per block into shared memory. A row tile (1, 4 or 8 rows, the smallest
-// that holds the batch) is staged in chunks of KC values whose groups the
-// k-lanes share, and every weight byte feeds every row of the tile.
+// Design (the matvec tiling of common.cuh): a block owns MV_COLS columns, each
+// thread four neighbouring columns (one 32-bit load of a weight row) and one
+// of MV_KLANES k-lanes. A k-lane walks whole groups: 16 byte rows of Q4_K, 32
+// value rows of Q5_K, 16 of Q6_K; it keeps the group's partial sums h.q in
+// registers and applies S (and -Z times the group's sum of h) once at the
+// group's end, so each scale and zero is read once per group. The group sums
+// of h are computed once per block into shared memory. A row tile (1, 4 or 8
+// rows, the smallest that holds the batch) is staged in chunks of KC values
+// whose groups the k-lanes share, and every weight byte feeds every row of the
+// tile.
 #pragma once
 
 #include <type_traits>
 
-#include "batched_matvec.cuh"
+#include "common.cuh"
 
 namespace wa {
 namespace {
@@ -57,6 +58,8 @@ template <> struct KqTraits<KQ_Q6K> {
 };
 
 constexpr int KQ_ROWS = 8;      // the tallest row tile
+constexpr int KQ_MAX_B = 32;    // rows an entry takes (four row tiles)
+constexpr int KQ_WARPS = MV_THREADS / 32;
 
 // Staged row k sits at kidx(k): one pad row per 32 keeps the k-lanes of a
 // warp (whole groups apart) in different banks.
@@ -68,7 +71,7 @@ struct KqShared {
     static constexpr int KC = ROWS == 1 ? 2048 : (ROWS == 4 ? 1024 : 512);
     alignas(16) float hs[KC + KC / 32][PITCH];
     float gsum[KC / 16][ROWS];               // sums of h per group
-    float red[BMV_WARPS][ROWS][MV_COLS];     // per-warp column partials
+    float red[KQ_WARPS][ROWS][MV_COLS];     // per-warp column partials
     float out[ROWS][MV_COLS + 1];            // the block's sums
     float mean[ROWS];
     float rstd[ROWS];
@@ -96,7 +99,7 @@ __device__ __forceinline__ void kq_block(
     const int kl = tid / MV_CGROUPS;
     const int n0 = blockIdx.x * MV_COLS + cg * 4;
     if (ln_w != nullptr) {
-        for (int r = wid; r < nb; r += BMV_WARPS) {
+        for (int r = wid; r < nb; r += KQ_WARPS) {
             const IT* xr = x + (size_t)(r0 + r) * K;
             float sum = 0.f;
             for (int i = lane; i < K; i += 32) sum += to_f32(xr[i]);
@@ -221,17 +224,16 @@ __device__ __forceinline__ void kq_block(
         const int r = i / MV_COLS, c = i % MV_COLS;
         float v = 0.f;
 #pragma unroll
-        for (int w = 0; w < BMV_WARPS; ++w) v += s.red[w][r][c];
+        for (int w = 0; w < KQ_WARPS; ++w) v += s.red[w][r][c];
         s.out[r][c] = v;
     }
     __syncthreads();
 }
 
-enum KqEpi { KEPI_OUT = 0, KEPI_AFFINE = 1, KEPI_GELU = 2, KEPI_RESID = 3 };
+enum KqEpi { KEPI_OUT = 0, KEPI_GELU = 1, KEPI_RESID = 2 };
 
 // out[b, n] = epilogue(k-quant matvec of h[b]) for x [B, K]:
 //   KEPI_OUT:    acc rounded to OT                     (K10, K11)
-//   KEPI_AFFINE: acc + bias                            (OT = float)
 //   KEPI_GELU:   gelu(acc + bias) [bf16-rounded]       (OT = float)
 //   KEPI_RESID:  acc + bias + resid[b, n], cast once   (OT = resid's type)
 // Grid (N / MV_COLS, ceil(B / ROWS)).
@@ -255,8 +257,6 @@ __global__ void __launch_bounds__(MV_THREADS) kq_kernel(
         const float y = s.out[r][c];
         if constexpr (EPI == KEPI_OUT) {
             out[o] = from_f32<OT>(y);
-        } else if constexpr (EPI == KEPI_AFFINE) {
-            out[o] = y + bias[n];
         } else if constexpr (EPI == KEPI_GELU) {
             const float z = y + bias[n];
             float g = 0.5f * z * (1.0f + erff(z * 0.7071067811865475f));
@@ -269,7 +269,7 @@ __global__ void __launch_bounds__(MV_THREADS) kq_kernel(
 }
 
 // Calls f(std::integral_constant<int, ROWS>{}) with the row tile for B;
-// MAX_ROWS 1 instantiates the single-row kernel only (K12-K14).
+// MAX_ROWS 1 instantiates the single-row kernel only (K14).
 template <int MAX_ROWS, typename F>
 cudaError_t with_kq_row_tile(int B, F&& f) {
     if constexpr (MAX_ROWS == 1) {

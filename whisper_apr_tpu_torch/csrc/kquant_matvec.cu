@@ -29,7 +29,7 @@ using namespace wa;
 extern "C" int wa_kq_matvec(const void* x, int x_dtype, int M, int K,
                             int fmt, const void* wq, int N, const void* sc,
                             const void* zr, void* out, void* stream) {
-    if (!kq_shape_ok(fmt, K, N) || M < 1 || M > BMV_MAX_B) return ERR_SHAPE;
+    if (!kq_shape_ok(fmt, K, N) || M < 1 || M > KQ_MAX_B) return ERR_SHAPE;
     if ((fmt == KQ_Q6K) != (zr == nullptr)) return ERR_DTYPE;
     auto st = static_cast<cudaStream_t>(stream);
     return (int)with_kq_fmt(fmt, [&](auto f) {

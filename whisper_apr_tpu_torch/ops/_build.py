@@ -63,12 +63,12 @@ _SIGNATURES = {
                              _P, _P],
     "wa_ffn_b_smem": [_I, _I, _I, _I, _I],
     "wa_greedy_head": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                       _P, _P],
+                       _P],
     "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     "wa_ffn_fused": [_P, _I, _I, _I, _I, *[_P] * 5, _I, _I, _I, _P, _P, _P],
     "wa_kq_matvec": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "wa_self_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
-                         *[_P] * 13],
+                         *[_P] * 9, _I, _I, _I, _P, _P, _P, _P],
     "wa_cross_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
                           *[_P] * 5, _I, _I, _I, _P, _P, _P],
     "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 13],
@@ -86,7 +86,7 @@ _SIGNATURES = {
 }
 
 MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc
-                       # BMV_MAX_B, FF_MAX_ROWS); the wrappers chunk larger
+                       # KQ_MAX_B, FF_MAX_ROWS); the wrappers chunk larger
                        # batches
 
 _lib: Optional[ctypes.CDLL] = None

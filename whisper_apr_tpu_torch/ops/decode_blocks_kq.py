@@ -18,18 +18,18 @@ int8 value planes keep one value per row (32 per scale row for Q5_K, 16
 for Q6_K, which has no zero).
 
 Each wrapper runs its hand-written CUDA kernel for CUDA tensors (K12 and
-K14 in ``csrc/decode_blocks_kq.cu``; K13 on K2's head-cluster kernel in
-``csrc/decode_blocks.cu``, its plan :func:`cross_kq_plan`) and the plain
-PyTorch version, in this module, for CPU tensors; nothing else picks
-between the two. Numerics kept from the JAX kernels: LayerNorm in f32;
-every matvec input (the LN output, the attention output, the GELU
-output) rounded to the compute dtype before its dot and before its group
-sums; f32 accumulation; attention as K1/K2's.
+K13 on K1's and K2's head-cluster kernel in ``csrc/decode_blocks.cu``,
+both planned by :func:`cross_kq_plan`; K14 in
+``csrc/decode_blocks_kq.cu``) and the plain PyTorch version, in this
+module, for CPU tensors; nothing else picks between the two. Numerics
+kept from the JAX kernels: LayerNorm in f32; every matvec input (the LN
+output, the attention output, the GELU output) rounded to the compute
+dtype before its dot and before its group sums; f32 accumulation;
+attention as K1/K2's.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -41,8 +41,6 @@ from .decode_blocks import (CROSS_MAX_CLUSTER, HEAD_DIM, CrossPlan,
                             cross_plan, self_attention_plain)
 from .kquants import kq_mv_f32
 from .q4k import KQ_FMT, q4k_mv_f32
-
-_ATT_ROWS = 64         # cache rows per attention split (csrc ATT_ROWS)
 
 # launches of each kernel in this process (reset by the caller)
 LAUNCHES = {"self_block_kq": 0, "cross_block_kq": 0, "ffn_block_kq": 0}
@@ -112,7 +110,8 @@ def ffn_block_kq_plain(x, blk, layer: int):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/decode_blocks_kq.cu)
+# CUDA kernels (csrc/decode_blocks.cu: K12, K13; csrc/decode_blocks_kq.cu:
+# K14)
 # ---------------------------------------------------------------------------
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -181,43 +180,11 @@ def _w(tri, l: int):
             P(z, l * s.shape[1] * s.shape[2]))
 
 
-def _n_part(n_heads: int, T: int) -> int:
-    """f32 elements of attention.cuh's partials for T cache rows."""
-    return n_heads * max(1, math.ceil(T / _ATT_ROWS)) * (2 + HEAD_DIM)
-
-
-def _self_block_kq_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
-                        n_heads: int):
-    _check_call(x, blk, l, kq)
-    D, T = x.shape[1], kq.shape[2]
-    dev, st = x.device, _build.stream()
-    x_out = torch.empty_like(x)
-    k_row = torch.empty((1, D), dtype=kq.dtype, device=dev)
-    v_row = torch.empty((1, D), dtype=kq.dtype, device=dev)
-    k_scale = torch.empty(1, dtype=torch.float32, device=dev)
-    v_scale = torch.empty(1, dtype=torch.float32, device=dev)
-    W = _build.workspace
-    P = _build.ptr
-    rc = _build.library().wa_self_block_kq(
-        P(x), _build.DTYPE_CODES[x.dtype], D, n_heads,
-        KQ_FMT[weight_fmt(blk["qkv"])],
-        P(blk["ln1_w"], l * D), P(blk["ln1_b"], l * D),
-        *_w(blk["qkv"], l), P(blk["bqkv"], l * 3 * D),
-        P(kq, l * T * D), P(ks, l * T), P(vq, l * T * D), P(vs, l * T),
-        _build.DTYPE_CODES[kq.dtype], T, int(pos),
-        *_w(blk["self_o"], l), P(blk["b_self_o"], l * D),
-        P(x_out), P(k_row), P(k_scale), P(v_row), P(v_scale),
-        W(st, dev, "qkv", 3 * D), W(st, dev, "part", _n_part(n_heads, T)),
-        W(st, dev, "attn", D), st)
-    _build.check(rc, "self_block_kq")
-    LAUNCHES["self_block_kq"] += 1
-    return x_out, k_row, k_scale, v_row, v_scale
-
-
-# K13's launch: K2's (``decode_blocks.cross_plan``), the cluster capped at
-# the groups of Wq's rows so that every block's share is whole groups and
-# none is empty. ``head_smem`` mirrors the kernel's shared-memory layout
-# (csrc head_layout), ``kq_shares`` its cut of Wq's rows.
+# K12's and K13's launch: K1's and K2's (``decode_blocks.cross_plan``), the
+# cluster capped at the groups of Wq's rows so that every block's share is
+# whole groups and none is empty. ``head_smem`` mirrors the kernel's
+# shared-memory layout (csrc head_layout), ``kq_shares`` its cut of Wq's
+# rows.
 KQ_SUB = {"q4k": 32, "q5k": 32, "q6k": 16}       # K values a group
 KQ_VPB = {"q4k": 2, "q5k": 1, "q6k": 1}          # K values a byte row
 KQ_PLANES = {"q4k": 2, "q5k": 2, "q6k": 1}       # scale (and zero)
@@ -228,7 +195,9 @@ def cross_kq_plan(n_heads: int, D: int, n_loop: int, cache_size: int,
                   fmt: str) -> CrossPlan:
     """K13's launch for ``n_loop`` cross rows of ``cache_size`` bytes an
     element over ``fmt`` weights: K2's plan with at most D / sub blocks a
-    head."""
+    head. K12 takes it too, with its ``pos`` history rows as ``n_loop``:
+    a block's share of each of a head's three 64-column QKV pieces is the
+    same whole groups as its share of Wq."""
     return cross_plan(n_heads, D, n_loop, cache_size,
                       min(CROSS_MAX_CLUSTER, D // KQ_SUB[fmt]))
 
@@ -243,14 +212,16 @@ def kq_shares(D: int, cluster: int, fmt: str) -> list:
 
 
 def head_smem(D: int, cluster: int, chunk: int, cache_size: int,
-              fmt: str) -> int:
-    """Bytes of shared memory of a K13 block (csrc head_layout, 64
-    projected columns a head): x in f32, the share of Wq's byte rows and
-    its groups' f32 planes, the head's rows of Wo's columns and theirs, a
-    chunk of K/V rows and their scales, scores and weights, reduction
-    scratch, the exchanged shares and partials, q and the attention row,
-    the flag and the barriers."""
-    C, W = cluster, HEAD_DIM
+              fmt: str, W: int = HEAD_DIM) -> int:
+    """Bytes of shared memory of a K13 (``W`` = 64 projected columns a
+    head) or K12 block (``W`` = 192: q, k and v) (csrc head_layout): x in
+    f32, the share of Wq's byte rows and its groups' f32 planes, the
+    head's rows of Wo's columns and theirs, a chunk of K/V rows and their
+    scales, scores and weights, reduction scratch, the exchanged shares and
+    partials, q and the attention row, K12's current row (the head's
+    projection, its k and v rows as the cache holds them, the warps'
+    maxima and its score), the flag and the barriers."""
+    C = cluster
     sub, vpb, planes = KQ_SUB[fmt], KQ_VPB[fmt], KQ_PLANES[fmt]
     groups = -(-(D // sub) // C)
     wo_cols = 16 * (-(-(D // 16) // C))
@@ -259,7 +230,40 @@ def head_smem(D: int, cluster: int, chunk: int, cache_size: int,
             + planes * (HEAD_DIM // sub) * wo_cols * 4
             + 2 * chunk * HEAD_DIM * cache_size + 4 * chunk * 4
             + max(_HEAD_RED, 8 * W) * 4 + C * W * 4 + C * (HEAD_DIM + 4) * 4
-            + 2 * HEAD_DIM * 4 + 32)
+            + 2 * HEAD_DIM * 4
+            + ((W + 2 * HEAD_DIM + 20) * 4 if W > HEAD_DIM else 0) + 32)
+
+
+def _self_block_kq_cuda(x, blk, kq, ks, vq, vs, pos: int, l: int,
+                        n_heads: int):
+    _check_call(x, blk, l, kq)
+    D, T = x.shape[1], kq.shape[2]
+    dev, st = x.device, _build.stream()
+    x_out = torch.empty_like(x)
+    k_row = torch.empty((1, D), dtype=kq.dtype, device=dev)
+    v_row = torch.empty((1, D), dtype=kq.dtype, device=dev)
+    k_scale = torch.empty(1, dtype=torch.float32, device=dev)
+    v_scale = torch.empty(1, dtype=torch.float32, device=dev)
+    fmt = weight_fmt(blk["qkv"])
+    plan = cross_kq_plan(n_heads, D, int(pos), kq.element_size(), fmt)
+    W = _build.workspace
+    P = _build.ptr
+    rc = _build.library().wa_self_block_kq(
+        P(x), _build.DTYPE_CODES[x.dtype], D, n_heads, KQ_FMT[fmt],
+        P(blk["ln1_w"], l * D), P(blk["ln1_b"], l * D),
+        *_w(blk["qkv"], l), P(blk["bqkv"], l * 3 * D),
+        P(kq, l * T * D), P(ks, l * T), P(vq, l * T * D), P(vs, l * T),
+        _build.DTYPE_CODES[kq.dtype], T, int(pos),
+        *_w(blk["self_o"], l), P(blk["b_self_o"], l * D),
+        P(x_out), P(k_row), P(k_scale), P(v_row), P(v_scale), *plan,
+        W(st, dev, "self_y", max(1, n_heads) * D),
+        W(st, dev, "self_tickets", CROSS_MAX_CLUSTER, torch.int32,
+          zero=True),
+        # int8 rows: the projection between the kernel's two launches
+        W(st, dev, "self_qkv", 3 * D) if ks is not None else None, st)
+    _build.check(rc, "self_block_kq")
+    LAUNCHES["self_block_kq"] += 1
+    return x_out, k_row, k_scale, v_row, v_scale
 
 
 def _cross_block_kq_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,

@@ -17,7 +17,8 @@ TPU kernel's tiling and are not taken. At most 32 rows the kernel splits
 K over the blocks of a thread block cluster and sums the splits inside
 it, in the same launch and with no scratch; ``int8_plan`` says how. K8
 (``qmatvec.qmatvec_stacked``) runs the same decode-row kernel with the
-same plan.
+same plan, and K4 (``qmatvec.qmatvec_greedy_head``) with K whole and a
+head epilogue in place of the store.
 """
 
 from __future__ import annotations

@@ -13,11 +13,11 @@
   b1[layer]) @ w2[layer], the scan step's FFN; the caller applies fc2's
   scale and bias.
 
-Each wrapper runs its hand-written CUDA kernel (``csrc/qmatvec.cu``; K8
-``csrc/int8_matmul.cu``, K17's decode-row kernel, split as
-``int8_matmul.int8_plan`` says; K9 ``csrc/ffn_batched.cu``, K7's
-tensor-core kernel, launched as ``decode_blocks.ffn_plan`` says) for CUDA
-tensors and the plain PyTorch
+Each wrapper runs its hand-written CUDA kernel (K4 and K8
+``csrc/int8_matmul.cu``, K17's decode-row kernel: K8 split as
+``int8_matmul.int8_plan`` says, K4 with K whole and a head epilogue; K9
+``csrc/ffn_batched.cu``, K7's tensor-core kernel, launched as
+``decode_blocks.ffn_plan`` says) for CUDA tensors and the plain PyTorch
 version below for CPU tensors. One launch takes at most
 ``_build.MAX_ROWS`` rows; a wrapper launches once per chunk of rows
 (``_build.in_row_chunks``).
@@ -34,7 +34,7 @@ from .basic import gelu
 from .decode_blocks import ffn_launch
 from .int8_matmul import int8_plan
 
-_COLS = 32             # columns per block (csrc MV_COLS)
+_STRIP = 128           # vocab columns a block of K4 owns (csrc Q8_STRIP)
 
 # launches of each kernel in this process (reset by the caller)
 LAUNCHES = {"qmatvec_greedy_head": 0, "qmatvec_stacked": 0, "ffn_fused": 0}
@@ -110,15 +110,17 @@ def _greedy_head_cuda(x, wq, bias, n_vocab):
     M = _check_rows(x, K)
     _check_on(x.device, x=x, wq=wq, bias=bias)
     dev, st = x.device, _build.stream()
-    nb = N // _COLS                # per-block partials of each row
+    strips = -(-N // _STRIP)       # partials of each row: one a strip
     tok = torch.empty(M, dtype=torch.int32, device=dev)
     mx = torch.empty(M, dtype=torch.float32, device=dev)
     lse = torch.empty(M, dtype=torch.float32, device=dev)
     W = _build.workspace
     P = _build.ptr
-    n_part = min(M, _build.MAX_ROWS) * nb
-    part = (W(st, dev, "head_m", n_part), W(st, dev, "head_z", n_part),
-            W(st, dev, "head_i", n_part, torch.int32))
+    n_part = min(M, _build.MAX_ROWS) * strips
+    # zero when allocated, and each launch leaves them zero: a partial
+    # counts once the kernel has marked it written, never left over
+    part = (W(st, dev, "head_part", 3 * n_part, torch.int64, zero=True),
+            W(st, dev, "head_ticket", 1, torch.int64, zero=True))
 
     def launch(rows):
         r = rows.start                     # chunk = pointer offsets
@@ -203,7 +205,9 @@ def qmatvec_greedy_head(x: torch.Tensor, wq: torch.Tensor,
     """Greedy vocab head (K4).
 
     x [M, K] (the vocab K-side scale already folded in); wq [1, K, N]
-    int8 (N lane-padded >= n_vocab); bias [1, N] f32 (real suppressions).
+    int8 (N lane-padded >= n_vocab; the kernel takes N a multiple of 16
+    up to 65536, every Whisper vocab); bias [1, N] f32 (real
+    suppressions).
     Returns (token [M] int32, max_logit [M] f32, logsumexp [M] f32).
     """
     if x.device.type == "cpu":
