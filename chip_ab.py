@@ -42,13 +42,15 @@ whisper-tiny dense serving tick's device time and the large-v3 bf16
 encoder with the int8 switch on. With ``--batched`` each process times
 the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
 kernel, K4, K7 and K9 at one row, K4-K9 at B = 8 and 32, K10-K14 at B =
-1 (K12 in q4k, q5k and q6k, over compute-dtype and int8 self rows), the
+1 (K12 and K14 in q4k, q5k and q6k, K12 over compute-dtype and int8 self
+rows; K10 and K11 at the scan step's four shapes, M = 1 and 8), the
 large-v3 scan and fused steps at B = 8 and 32, the whisper-tiny dense
-serving tick and the large-v3 q4k B = 1 decode step
-(``chip_smoke.time_kq_steps``: K12-K14 in every layer, device ms). With
-``--bits`` each process prints, instead of times, a SHA-256 digest of K1's,
-K2's and K13's outputs over fixed inputs (``bits_tree``): equal digests in
-two checkouts mean bit-identical kernels. Needs one CUDA GPU.
+serving tick and the large-v3 q4k B = 1 fused and scan decode steps
+(``kq_steps_ms``: K12-K14, or K10, in every layer, device ms). With
+``--bits`` each process prints, instead of times, a SHA-256 digest of
+K1's, K2's, K3's and K13's outputs over fixed inputs (``bits_tree``):
+equal digests in two checkouts mean bit-identical kernels. Needs one CUDA
+GPU.
 """
 
 from __future__ import annotations
@@ -102,11 +104,12 @@ def time_tree(root: Path, mode: str = "") -> dict:
 
 
 def bits_tree(c) -> dict:
-    """SHA-256 digests (first 16 hex digits) of K1's, K2's and K13's
+    """SHA-256 digests (first 16 hex digits) of K1's, K2's, K3's and K13's
     outputs, at the whisper-tiny and large-v3 shapes in bf16 and f32: K1
     over bf16 / f32, int8 and fp8 self rows at ``chip_smoke.SELF_EDGES``
     positions (its new rows and scales too), K2 over
-    ``chip_smoke.CROSS_CACHES`` at ``CROSS_EDGES`` lengths, K13 in q4k,
+    ``chip_smoke.CROSS_CACHES`` at ``CROSS_EDGES`` lengths, K3 over 16
+    inputs at both layers, K13 in q4k,
     q5k and q6k (whisper-base's width in the whisper-tiny run) over the
     same caches at ``KQ_CROSS_EDGES`` lengths, inputs from fixed
     seeds."""
@@ -121,7 +124,8 @@ def bits_tree(c) -> dict:
         for cdt in (torch.bfloat16, torch.float32):
             gen = torch.Generator(device=dev).manual_seed(90 + i)
             blk = c.make_blk(D, 2, gen, dev)
-            digest = {k: hashlib.sha256() for k in ("K1", "K2", "K13")}
+            digest = {k: hashlib.sha256()
+                      for k in ("K1", "K2", "K3", "K13")}
 
             def feed(k, *ts):
                 for t in ts:
@@ -140,6 +144,10 @@ def bits_tree(c) -> dict:
                     x = torch.randn((1, D), generator=gen, device=dev).to(cdt)
                     feed("K2", db.cross_block(x, blk, kq, ks, vq, vs,
                                               enc_len, enc_len % 2, H))
+            for j in range(16):
+                x = (4.0 * torch.randn((1, D), generator=gen,
+                                       device=dev)).to(cdt)
+                feed("K3", db.ffn_block(x, blk, j % 2))
             del blk
             Dk, Hk = (512, 8) if name == "tiny" else (D, H)
             for fmt in c.KQ_MODES:
@@ -252,10 +260,13 @@ def time_batched_tree(c, root: Path) -> dict:
     split by kernel (``kernel_split``), then K4 (the greedy head at M =
     B), K5-K7, K8 (the vocab logits, f32 out) and K9 at M = B; at B = 1
     and whisper-base and large-v3, K12 in q4k, q5k and q6k over
-    compute-dtype self rows and (``K12_int8``) int8 rows, K13, K14 and
-    K10 in q4k, K11 in q5k. Then the large-v3 scan and fused decode steps
-    at B slots (device ms) and the whisper-tiny dense serving tick's
-    device time."""
+    compute-dtype self rows and (``K12_int8``) int8 rows, K14 in each
+    format, K13 in q4k, K10 in q4k and K11 in q5k (the control) at the
+    scan step's four shapes (fc1, qkv, self_o, fc2) and M = 1 and 8 (fc1
+    at M = 1 under the bare name). Then the large-v3 scan and fused decode
+    steps at B slots (device ms), the whisper-tiny dense serving tick's
+    device time and the large-v3 q4k B = 1 fused and scan steps
+    (``kq_steps_ms``)."""
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
@@ -328,10 +339,17 @@ def time_batched_tree(c, root: Path) -> dict:
             if fmt == "q4k":
                 t["K13"] = us(lambda: dbk.cross_block_kq(
                     x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk))
-                t["K14"] = us(lambda: dbk.ffn_block_kq(x, kblk, layer))
-            if fmt != "q6k":
-                t["K1" + ("0" if fmt == "q4k" else "1")] = us(
-                    lambda: c._kq_matvec(fmt)(x, *kblk["fc1"], layer))
+            t["K14"] = us(lambda: dbk.ffn_block_kq(x, kblk, layer))
+            if fmt != "q6k":        # K10 (q4k), K11 (q5k, the control)
+                k = "K10" if fmt == "q4k" else "K11"
+                for w in ("fc1", "qkv", "self_o", "fc2"):
+                    K = Dk * (4 if w == "fc2" else 1)
+                    for M in (1, 8):
+                        xm = torch.randn((M, K), generator=gen,
+                                         device=dev).to(bf)
+                        name = k if (w, M) == ("fc1", 1) else f"{k}_{w}_m{M}"
+                        t[name] = us(lambda: c._kq_matvec(fmt)(
+                            xm, *kblk[w], layer))
             del kblk
         del sk, sv, ck, cks, cv, cvs
         torch.cuda.empty_cache()
@@ -343,10 +361,40 @@ def time_batched_tree(c, root: Path) -> dict:
     torch.cuda.empty_cache()
     out["tiny_serve"] = {"device_ms": round(serve_tick_device_ms(c, root),
                                             4)}
-    steps = c.time_kq_steps(1280, 20, 32, 51866, "large-v3", seed=60,
-                            fmts=("q4k",))
-    out["large_v3_kq_step_ms"] = {k: round(v["ms"], 4)
-                                  for k, v in steps.items()}
+    out["large_v3_kq_step_ms"] = kq_steps_ms(c)
+    return out
+
+
+def kq_steps_ms(c, D: int = 1280, H: int = 20, L: int = 32,
+                n_vocab: int = 51866, pos: int = 128) -> dict:
+    """Device ms (CUDA-graph replay, best of two) of the large-v3 B=1
+    decode steps over a random q4k qd, timed here alike for every
+    checkout: the fused step (K12-K14 a layer, the K8 logits; cross8
+    cache) and the scan step (K10 six times a layer, torch attention over
+    the dense cache, the K8 logits), bf16."""
+    import torch
+    from whisper_apr_tpu_torch.config import ModelConfig
+    from whisper_apr_tpu_torch.model import qdecode
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(60)
+    cfg = ModelConfig("timing", n_vocab, 1500, D, H, L, 448, D, H, L, 80)
+    blk = c.make_kq_blk("q4k", D, L, gen, dev)
+    params, qd, kv = c.scan_case(blk, D, L, n_vocab, 1, gen, dev,
+                                 torch.bfloat16)
+    qd["mode"] = "q4k"
+    qkv = qdecode.quantize_cache(kv, "cross8")
+    tok = torch.randint(0, n_vocab, (1,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    steps = {
+        "q4k": lambda: qdecode.decode_step_qf(
+            params, qd, tok, pos, qkv, cfg, compute_dtype=torch.bfloat16),
+        "q4k_scan": lambda: qdecode.decode_step_q(
+            params, qd, tok, pos, kv, cfg, compute_dtype=torch.bfloat16)}
+    out = {k: round(min(c.graph_ms(f, reps=3, replays=5),
+                        c.graph_ms(f, reps=3, replays=5)), 4)
+           for k, f in steps.items()}
+    del blk, params, qd, kv, qkv
+    torch.cuda.empty_cache()
     return out
 
 

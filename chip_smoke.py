@@ -2249,7 +2249,9 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
     a rounding tie take the kernel's side, as in ``check_kernels``); K13
     over int8 rows (cross8), the FFN, at the first and last layer; then
     K10 or K11 over fc1's and fc2's weights at M in ``rows`` (40: two
-    32-row chunks). Returns each kernel's max abs error."""
+    32-row chunks). K14 too runs twice with equal bits, and in a CUDA
+    graph (``check_ffn_kq_graph``). Returns each kernel's max abs
+    error."""
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
@@ -2313,8 +2315,13 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
               dbk.cross_block_kq_plain(x, blk, kq, ks, vq, vs, enc_len,
                                        layer, H), f"layer {layer}")
         x = x_in()
-        agree("ffn_block_kq", dbk.ffn_block_kq(x, blk, layer),
-              dbk.ffn_block_kq_plain(x, blk, layer), f"layer {layer}")
+        got = dbk.ffn_block_kq(x, blk, layer)
+        assert torch.equal(got, dbk.ffn_block_kq(x, blk, layer)), (
+            f"[kquant] {label} {fmt} ffn_block_kq layer {layer}: two runs "
+            f"differ")
+        agree("ffn_block_kq", got, dbk.ffn_block_kq_plain(x, blk, layer),
+              f"layer {layer}")
+    check_ffn_kq_graph(blk, L - 1, x_in, f"{label} {fmt}")
     kern, plain = _kq_matvec(fmt), _kq_matvec(fmt, plain=True)
     for M in rows:
         for w, K in (("fc1", D), ("fc2", 4 * D)):
@@ -2332,6 +2339,76 @@ def check_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
         f"bit-identical ({ties} elements of its new rows a step off at a "
         f"rounding tie); max abs err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def check_ffn_kq_graph(blk, layer: int, x_in, label: str,
+                       replays: int = 3) -> None:
+    """K14 captured in a CUDA graph and replayed ``replays`` times over
+    the same x: every replay gives the eager call's bits, so each launch
+    leaves its tickets as it found them (zero) and takes no state from
+    the launch before."""
+    import torch
+    from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    x = x_in()
+    want = dbk.ffn_block_kq(x, blk, layer)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = dbk.ffn_block_kq(x, blk, layer)
+    for r in range(replays):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (
+            f"[kquant] {label} ffn_block_kq graph replay {r}: differs from "
+            f"the eager call")
+
+
+# K10's edges: rows about its 8-row tiles and 32-row chunks (M), the scan
+# step's four shapes at whisper-base and large-v3 (D x 3D, D x D, fc1,
+# fc2), and odd group counts against partial strips (K / 32 = 1, 3, 9; N =
+# 32, 96, 160 over 128-column strips)
+Q4K_ROWS = (1, 2, 8, 9, 16, 17, 32, 33, 40)
+Q4K_EDGES = tuple((K, N) for D in (512, 1280)
+                  for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D))) \
+    + tuple((K, N) for K in (32, 96, 288) for N in (32, 96, 160))
+
+
+def check_q4k_edges(cdt, seed: int) -> float:
+    """K10 against its plain version at every ``Q4K_EDGES`` shape and
+    ``Q4K_ROWS`` row count, layer 1 of a stack of two, each call twice and
+    bit-identical; returns the max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import q4k
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    worst = 0.0
+    for K, N in Q4K_EDGES:
+        wq = torch.randint(-128, 128, (2, K // 2, N), generator=gen,
+                           device=dev, dtype=torch.int8)
+        s = (0.5 + torch.rand((2, K // 32, N), generator=gen, device=dev)) \
+            / (KQ_AMP["q4k"] * np.sqrt(K))
+        z = s * KQ_AMP["q4k"] * (0.9 + 0.2 * torch.rand(
+            s.shape, generator=gen, device=dev))
+        for M in Q4K_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(cdt)
+            got = q4k.q4k_matvec_stacked(x, wq, s, z, 1)
+            again = q4k.q4k_matvec_stacked(x, wq, s, z, 1)
+            ref = q4k.q4k_matvec_stacked_plain(x, wq, s, z, 1)
+            what = (f"[kquant] {str(cdt)[6:]} q4k_matvec_stacked M={M} K={K} "
+                    f"N={N}")
+            assert got.dtype == cdt and got.shape == (M, N), what
+            assert torch.equal(got, again), f"{what}: two runs differ"
+            e = rel_err(got, ref)
+            assert e <= tol, f"{what}: rel err {e:.3g} > {tol:.3g}"
+            worst = max(worst, abs_err(got, ref))
+    torch.cuda.synchronize()
+    log(f"[kquant] {str(cdt)[6:]}: K10 at {len(Q4K_EDGES)} shapes x M in "
+        f"{list(Q4K_ROWS)} agrees with the plain version, two runs "
+        f"bit-identical; max abs err {worst:.3g}")
     return worst
 
 
@@ -2380,8 +2457,9 @@ def check_cross_kq(fmt: str, D: int, H: int, cdt, label: str, seed: int,
 
 def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
             enc_len: int, pos: int, label: str, seed: int) -> dict:
-    """K12-K14 and K10/K11 (M=1, fc1's weight) against their plain
-    versions, device ms per call by CUDA-graph replay (eager in
+    """K12-K14 and K10/K11 (M=1, the scan step's four weights: fc1's under
+    the kernel's name, the others as "<name> qkv", "dd", "fc2") against
+    their plain versions, device ms per call by CUDA-graph replay (eager in
     "eager_*"), at the main path's B=1 shapes: bf16 activations, bf16
     self rows at ``pos``, int8 cross rows (cross8); with the bound and no
     library call (no single PyTorch call computes a k-quant matvec)."""
@@ -2409,13 +2487,20 @@ def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
             lambda: dbk.cross_block_kq_plain(x, blk, ck, cks, cv, cvs,
                                              enc_len, layer, H)),
         "ffn_block_kq": (lambda: dbk.ffn_block_kq(x, blk, layer),
-                         lambda: dbk.ffn_block_kq_plain(x, blk, layer)),
-        mv: (lambda: kern(x, *blk["fc1"], layer),
-             lambda: plain(x, *blk["fc1"], layer))}
+                         lambda: dbk.ffn_block_kq_plain(x, blk, layer))}
     shapes = {"self_block_kq": dict(rows=pos),
               "cross_block_kq": dict(rows=enc_len, cache_bytes=1,
                                      scales=True),
-              "ffn_block_kq": {}, mv: dict(K=D, N=4 * D)}
+              "ffn_block_kq": {}}
+    # K10 / K11 at the scan step's four shapes, M = 1 (fc1's row is the
+    # kernels line's)
+    for key, w in ((mv, "fc1"), (f"{mv} qkv", "qkv"), (f"{mv} dd", "self_o"),
+                   (f"{mv} fc2", "fc2")):
+        K = D * (4 if w == "fc2" else 1)
+        xk = torch.randn((1, K), generator=gen, device=dev).to(cdt)
+        cases[key] = (lambda xk=xk, w=w: kern(xk, *blk[w], layer),
+                      lambda xk=xk, w=w: plain(xk, *blk[w], layer))
+        shapes[key] = dict(K=K, N=blk[w][0].shape[2])
     out = {}
     for name, (k, p) in cases.items():
         p1, k1, k2, p2 = graph_ms(p), graph_ms(k), graph_ms(k), graph_ms(p)
@@ -2432,10 +2517,13 @@ def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
 
 
 def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
-                  seed: int, pos: int = 128, fmts=("q4k", "q5k")) -> dict:
+                  seed: int, pos: int = 128, fmts=("q4k", "q5k"),
+                  scan_fmts=("q4k",)) -> dict:
     """Device ms of one B=1 decode step over a k-quant qd (K12-K14 per
     layer, the K8 logits tail; cross8 cache, bf16) by CUDA-graph replay,
-    eager in brackets, with random planar stacks of each format."""
+    eager in brackets, with random planar stacks of each format; for
+    ``scan_fmts`` also the scan step ("<fmt>_scan": K10 or K11 six times a
+    layer, torch attention over the dense cache, the K8 logits)."""
     import torch
     from whisper_apr_tpu_torch.config import ModelConfig
     from whisper_apr_tpu_torch.model import qdecode
@@ -2455,12 +2543,20 @@ def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
         def step():
             return qdecode.decode_step_qf(params, qd, tok, pos, qkv, cfg,
                                           compute_dtype=torch.bfloat16)
-        out[fmt] = {"ms": min(graph_ms(step, reps=3, replays=5),
-                              graph_ms(step, reps=3, replays=5)),
-                    "eager_ms": cuda_ms(step, iters=10)}
+
+        def scan():
+            return qdecode.decode_step_q(params, qd, tok, pos, kv, cfg,
+                                         compute_dtype=torch.bfloat16)
+        for key, fn in ((fmt, step), (f"{fmt}_scan", scan)):
+            if key == f"{fmt}_scan" and fmt not in scan_fmts:
+                continue
+            out[key] = {"ms": min(graph_ms(fn, reps=3, replays=5),
+                                  graph_ms(fn, reps=3, replays=5)),
+                        "eager_ms": cuda_ms(fn, iters=10)}
         del blk, params, qd, kv, qkv
         torch.cuda.empty_cache()
-    log(f"[time] {label} k-quant B=1 decode step (K12-K14 x {L} + K8), "
+    log(f"[time] {label} k-quant B=1 decode step (K12-K14 x {L} + K8; "
+        f"_scan: K10/K11 x 6 x {L} + K8), "
         f"device ms (eager ms), pos {pos}, bf16, cross8: " + ", ".join(
             f"{k} {v['ms']:.4f} ({v['eager_ms']:.4f})" for k, v in out.items()))
     return out
@@ -2468,9 +2564,10 @@ def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
 
 def phase_kquant_kernels() -> tuple:
     """K10-K14 against their plain versions in every format at the
-    whisper-base and large-v3 decoder shapes (bf16; f32 at base), then
-    their times at both and the large-v3 B=1 k-quant step. Returns (max
-    abs errors, times)."""
+    whisper-base and large-v3 decoder shapes (bf16; f32 at base), K10 at
+    its edges (``check_q4k_edges``, bf16 and f32), then their times at
+    both and the large-v3 B=1 k-quant steps. Returns (max abs errors,
+    times)."""
     import torch
     base = dict(D=512, H=8, L=4, T_self=512, T_cross=1536, enc_len=1500)
     large = dict(D=1280, H=20, L=4, T_self=512, T_cross=1536, enc_len=1500)
@@ -2489,6 +2586,9 @@ def phase_kquant_kernels() -> tuple:
                                f"{label} {str(cdt).split('.')[-1]}",
                                seed=33 + i)
             errs["cross_block_kq"] = max(errs["cross_block_kq"], e)
+    for seed, cdt in ((36, torch.bfloat16), (37, torch.float32)):
+        errs["q4k_matvec_stacked"] = max(errs["q4k_matvec_stacked"],
+                                         check_q4k_edges(cdt, seed))
     times = {}
     for i, fmt in enumerate(KQ_MODES):
         times[f"base_{fmt}"] = time_kq(fmt, **base, pos=128, label="base",
@@ -3930,7 +4030,7 @@ KERNELS = [
      "whisper_apr_tpu/ops/decode_blocks_kq.py:395", "base_q4k"),
     ("cross_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:549", "base_q4k"),
-    ("ffn_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks_kq.cu",
+    ("ffn_block_kq", "whisper_apr_tpu_torch/csrc/decode_blocks.cu",
      "whisper_apr_tpu/ops/decode_blocks_kq.py:672", "base_q4k"),
     ("paged_attention_stacked",
      "whisper_apr_tpu_torch/csrc/paged_attention.cu",

@@ -251,6 +251,87 @@ class TestMatvecs:
         assert np.abs(got - want).max() <= 1e-5 * scale
         assert np.abs(ref(h) - want).max() > 1e-3 * scale
 
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    @pytest.mark.parametrize("N", [128, 384])
+    @pytest.mark.parametrize("K", [32, 96, 288])
+    @pytest.mark.parametrize("M", [1, 9, 17, 32, 33])
+    def test_q4k_matvec_edges(self, M, K, N, dtype):
+        """K10's plain version against the JAX kernel at the edges of the
+        card kernel's cut: 8-row tiles and 32-row chunks (M 9, 17, 33), odd
+        group counts (K / 32 = 1, 3, 9: splits end mid-range) and a strip
+        and a half of 128 columns (N 384)."""
+        tdt, jdt = DTYPES[dtype]
+        rng = np.random.default_rng(M * 1000 + K + N)
+        wq = rng.integers(-128, 128, (2, K // 2, N), dtype=np.int8)
+        s = rng.uniform(0.5, 1.5, (2, K // 32, N)).astype(np.float32) \
+            / (7.5 * np.sqrt(K))
+        z = s * 7.5 * rng.uniform(0.9, 1.1, s.shape).astype(np.float32)
+        x = rng.normal(0, 1, (M, K)).astype(np.float32)
+        xj, xt = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+        want = jq4k.q4k_matvec_stacked(xj, jnp.asarray(wq), jnp.asarray(s),
+                                       jnp.asarray(z), 1, interpret=True)
+        got = tq4k.q4k_matvec_stacked(xt, *(torch.from_numpy(a)
+                                            for a in (wq, s, z)), 1)
+        assert got.dtype == tdt and tuple(got.shape) == (M, N)
+        _close(got, want, dtype, "q4k")
+
+    @pytest.mark.parametrize("D", [384, 512, 1280])
+    @pytest.mark.parametrize("M", [1, 8, 17, 32])
+    def test_q4k_plan(self, D, M):
+        """K10's launch at the scan step's four shapes (D x 3D, D x D, fc1
+        D x 4D, fc2 4D x D) of the whisper-tiny, base and large-v3 widths:
+        every split whole 32-groups, none empty, the splits covering every
+        K row once, in order; clusters within the plan's limit, the launch
+        within ``BLOCKS`` blocks once split; shared memory within
+        227 KB."""
+        for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+            plan = tq4k.q4k_plan(K, N)
+            assert 1 <= plan.n_split <= tq4k.MAX_SPLIT
+            assert plan.n_split == 1 or \
+                plan.n_split * -(-N // tq4k.STRIP) <= tq4k.BLOCKS
+            assert plan.split_rows % 32 == 0
+            ranges = plan.k_ranges(K)
+            assert ranges[0][0] == 0 and ranges[-1][1] == K
+            assert all(a < b and (b - a) % 32 == 0 for a, b in ranges)
+            assert all(ranges[i][1] == ranges[i + 1][0]
+                       for i in range(len(ranges) - 1))
+            assert tq4k.q4k_smem(M, plan) <= 227 * 1024
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_matvec_one_call_per_chunk(self, monkeypatch, mode):
+        """``kq_matvec_cuda`` calls ``wa_kq_matvec`` once per chunk of at
+        most 32 rows (40 rows: 32, then 8), each call with one argument
+        per ctypes type, the chunk's pointer offsets and K10's plan for
+        its rows (q4k; K11 takes none), and counts each launch."""
+        calls = []
+
+        class Lib:
+            def wa_kq_matvec(self, *args):
+                calls.append(args)
+                return 0
+
+        monkeypatch.setattr(tq4k._build, "library", Lib)
+        monkeypatch.setattr(tq4k._build, "stream", lambda: 7)
+        K, N, sub = 512, 1536, 16 if mode == "q6k" else 32
+        rows = K // 2 if mode == "q4k" else K
+        wq = torch.zeros((2, rows, N), dtype=torch.int8)
+        s = torch.ones((2, K // sub, N))
+        z = None if mode == "q6k" else torch.zeros((2, K // sub, N))
+        x = torch.zeros((40, K), dtype=torch.bfloat16)
+        launches = {"mv": 0}
+        y = tq4k.kq_matvec_cuda(x, wq, s, z, 1, mode, "mv", launches)
+        assert y.shape == (40, N) and y.dtype == x.dtype
+        assert launches["mv"] == 2 and len(calls) == 2
+        for args, (r0, m) in zip(calls, ((0, 32), (32, 8))):
+            assert len(args) == len(tq4k._build._SIGNATURES["wa_kq_matvec"])
+            assert args[0] == x.data_ptr() + r0 * K * 2
+            assert args[2:5] == (m, K, tq4k.KQ_FMT[mode])
+            assert args[5] == wq.data_ptr() + rows * N
+            assert args[9] == y.data_ptr() + r0 * N * 2
+            plan = tq4k.q4k_plan(K, N) if mode == "q4k" else (1, K)
+            assert tuple(args[10:12]) == tuple(plan)
+            assert (args[8] is None) == (mode == "q6k") and args[-1] == 7
+
     def test_q4k_nibbles_zero_extend(self):
         """Bytes >= 0x80 (negative as int8) split into 8..15 high
         nibbles: a weight of all 0xF7 bytes is lo 7, hi 15."""
@@ -529,6 +610,70 @@ class TestBlocks:
         assert (args[9] is None) == (mode == "q6k")      # Wq's zero plane
         assert spaces == [("cross_y", 4 * 256, torch.float32, False),
                           ("cross_tickets", 16, torch.int32, True)]
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("D", [384, 512, 768, 1024, 1280])
+    def test_ffn_kq_plan(self, mode, D):
+        """K14's launch at the tiny, base, small, medium and large-v3
+        widths: every block's hidden units whole groups of fc2's input
+        rows (q4k: whole groups of byte rows), the units of all blocks
+        covering the hidden layer once, clusters of 8 blocks (within K3's
+        16 tickets), and a shared-memory layout of 16-byte aligned regions
+        that adds up to ``ffn_kq_smem`` and stays within 227 KB."""
+        H, sub = 4 * D, tkq.KQ_SUB[mode]
+        vpb, planes = tkq.KQ_VPB[mode], tkq.KQ_PLANES[mode]
+        U = tkq.ffn_kq_units(H, mode)
+        assert U % sub == 0 and (U // vpb) % (sub // vpb) == 0
+        C = tkq.FFN_CLUSTER
+        assert C <= 16 and H % (C * U) == 0
+        units = [u for cl in range(H // (C * U)) for r in range(C)
+                 for u in range((cl * C + r) * U, (cl * C + r + 1) * U)]
+        assert sorted(units) == list(range(H))
+        regions = [4 * D, D // vpb * U, planes * (D // sub) * U * 4,
+                   U // vpb * D, planes * (U // sub) * D * 4,
+                   16 * -(-(D // sub + U // sub) // 4), 8 * U * 4, U * 4,
+                   4 * D, 16, 16]
+        assert all(r % 16 == 0 for r in regions)
+        assert sum(regions) == tkq.ffn_kq_smem(D, H, mode) <= 227 * 1024
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_ffn_block_one_launch(self, kq_params, monkeypatch, mode):
+        """``_ffn_block_kq_cuda`` makes one call of the C entry point with
+        one argument per ctypes type and the format, hands it K3's scratch
+        (the clusters' sums, sized by ``wa_ffn_scratch``, and the tickets,
+        zeroed once) and no GELU scratch, and counts one launch."""
+        _, _, _, tqdd = kq_params[mode]
+        blk = tqdd["blk"]
+        calls, spaces = [], []
+
+        class Lib:
+            def wa_ffn_block_kq(self, *args):
+                calls.append(args)
+                return 0
+
+            def wa_ffn_scratch(self, D, H):
+                return H // 256 * D
+
+        def workspace(st, dev, name, n, dtype=torch.float32, zero=False):
+            spaces.append((name, n, dtype, zero))
+            return 1000 + len(spaces)
+
+        monkeypatch.setattr(tkq._build, "library", Lib)
+        monkeypatch.setattr(tkq._build, "stream", lambda: 7)
+        monkeypatch.setattr(tkq._build, "workspace", workspace)
+        x = torch.zeros((1, 256), dtype=torch.bfloat16)
+        before = tkq.LAUNCHES["ffn_block_kq"]
+        y = tkq._ffn_block_kq_cuda(x, blk, 1)
+        assert y.shape == x.shape and y.dtype == x.dtype
+        assert tkq.LAUNCHES["ffn_block_kq"] == before + 1
+        assert len(calls) == 1
+        args = calls[0]
+        assert len(args) == len(tkq._build._SIGNATURES["wa_ffn_block_kq"])
+        assert args[2:5] == (256, 1024, tkq.KQ_FMT[mode])
+        assert (args[9] is None) == (args[13] is None) == (mode == "q6k")
+        assert spaces == [("ffn_y", 1024 // 256 * 256, torch.float32, False),
+                          ("ffn_tickets", 16, torch.int32, True)]
+        assert args[16:] == (1001, 1002, 7)
 
     def test_weight_fmt(self, kq_params):
         for mode in MODES:

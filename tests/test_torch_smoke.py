@@ -558,6 +558,27 @@ def test_k8_edges_reach_each_path(smoke):
     assert plans == {True, False}
 
 
+def test_q4k_edges_reach_each_path(smoke):
+    """K10's smoke cases take one to four 8-row tiles and two launches
+    (rows past 32), split and unsplit K, splits of an odd group count
+    (the last split shorter), part strips and the four scan shapes at
+    whisper-base and large-v3; every width a multiple of 32 (its
+    contract), every plan within its shared memory."""
+    from whisper_apr_tpu_torch.ops import q4k
+    tiles = {-(-min(M, 32) // 8) for M in smoke.Q4K_ROWS}
+    assert tiles == {1, 2, 3, 4} and max(smoke.Q4K_ROWS) > 32
+    assert all(K % 32 == 0 and N % 32 == 0 for K, N in smoke.Q4K_EDGES)
+    assert any(N % q4k.STRIP for _, N in smoke.Q4K_EDGES)
+    for D in (512, 1280):
+        for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+            assert (K, N) in smoke.Q4K_EDGES
+    plans = [q4k.q4k_plan(K, N) for K, N in smoke.Q4K_EDGES]
+    assert {p.n_split > 1 for p in plans} == {True, False}
+    assert any(K % p.split_rows for (K, _), p in zip(smoke.Q4K_EDGES, plans))
+    assert all(q4k.q4k_smem(min(M, 32), p) <= 227 * 1024
+               for p in plans for M in smoke.Q4K_ROWS)
+
+
 def test_k8_scan_bounds(smoke):
     """K8 at the scan step's projections: the int8 weights (3 D^2 and
     D^2 bytes), the per-column f32 scales and bf16 x in and out over the

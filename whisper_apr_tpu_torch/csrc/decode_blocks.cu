@@ -1,12 +1,13 @@
 // Per-block decode kernels for one token at batch 1: K1 self_block,
-// K2 cross_block and K3 ffn_block, and K12 self_block_kq and K13
-// cross_block_kq (K1 and K2 over k-quant weights).
+// K2 cross_block and K3 ffn_block, and K12 self_block_kq, K13
+// cross_block_kq and K14 ffn_block_kq (K1, K2 and K3 over k-quant
+// weights).
 //
 // Replace the Pallas kernels of whisper_apr_tpu/ops/decode_blocks.py
 // (self_block/_self_kernel, cross_block/_cross_kernel,
 // ffn_block/_ffn_kernel) and of whisper_apr_tpu/ops/decode_blocks_kq.py
-// (self_block_kq/_self_kernel_kq, cross_block_kq/_cross_kernel_kq), and
-// compute what they compute:
+// (self_block_kq/_self_kernel_kq, cross_block_kq/_cross_kernel_kq,
+// ffn_block_kq/_ffn_kernel_kq), and compute what they compute:
 //
 //   K1 self_block : LN1 -> fused QKV int8 matvec x sqkv + bqkv -> the new
 //                   k/v row in the cache's form (int8 + f32 row scale, or
@@ -15,15 +16,18 @@
 //                   + residual
 //   K2 cross_block: LN2 -> q int8 matvec -> attention over cross rows
 //                   < enc_len -> o-proj + bias + residual
-//   K12, K13      : K1, K2 with the projections' matvecs over Q4_K /
-//                   Q5_K / Q6_K planar weights (kquant.cuh), biases in
-//                   f32
 //   K3 ffn_block  : LN3 -> fc1 int8 x s1 + b1 -> exact GELU (erff) ->
 //                   fc2 int8 (f32 accumulation) x fc2_s + fc2_b + residual
+//   K12, K13, K14 : K1, K2, K3 with the matvecs over Q4_K / Q5_K / Q6_K
+//                   planar weights (kquant.cuh), biases in f32; every
+//                   matvec input (the LN output, the attention output, the
+//                   GELU output) rounded to x's dtype before its dot and
+//                   before its group sums
 //
 // What bounds them on the card: at batch 1 each call reads every int8
 // weight byte of its sub-block once (large-v3: 6.55 MB QKV [1280, 3840]
-// plus o-proj [1280, 1280], 3.3 MB q+o-proj, 13.1 MB fc1+fc2 per layer)
+// plus o-proj [1280, 1280], 3.3 MB q+o-proj, 13.1 MB fc1+fc2 per layer;
+// Q4_K 0.75 bytes a weight, Q5_K and Q6_K 1.25)
 // and, for attention, every live cache row once (cross8 large-v3: 1500
 // int8 rows of K and V, 3.8 MB per layer). Arithmetic is two flops per
 // byte, far under the card's flop/byte ratio, so the only lever is moving
@@ -36,7 +40,8 @@
 // cache; from device memory (the decode step cycles through every layer's
 // weights) the bytes a block copies at its start do. K1, K2, K12 and K13 share
 // one kernel, templated on the weights' form: a thread block cluster per
-// head (below). K3 cuts the hidden layer over clusters (further below).
+// head (below). K3 and K14 share another, templated alike, that cuts the
+// hidden layer over clusters (further below).
 #include "attention.cuh"
 #include "cluster.cuh"
 #include "kquant.cuh"
@@ -903,7 +908,8 @@ int self_block_t(int cache_dtype, const void* x, int D, int H,
 }
 
 // --------------------------------------------------------------------------
-// K3 ffn_block: one launch, the hidden layer cut over thread block clusters
+// K3 ffn_block, K14: one launch, the hidden layer cut over thread block
+// clusters
 // --------------------------------------------------------------------------
 //
 // Grid (C, G) with clusters of (C, 1, 1), C = FB_CLUSTER; block r of
@@ -925,6 +931,23 @@ int self_block_t(int cache_dtype, const void* x, int D, int H,
 // started as the block starts (W1's slab of U bytes a row, then W2's U
 // contiguous rows), so the LayerNorm overlaps W1's copy and fc1 overlaps
 // W2's. Every sum runs in a fixed order: two runs give the same bits.
+//
+// K14 is the same kernel over a k-quant form (WKq<FMT>, as K12 and K13):
+// U is whole groups of fc2's input rows (ffn_units_kq: 32 for Q4_K and
+// Q5_K, K3's 16 or 32 for Q6_K; whisper-base's Q4_K and Q5_K then take 64
+// blocks, and two blocks a unit range, each half of fc1's rows and fc2's
+// columns, measured slower there: PERF.md), so a block's W2 rows are
+// U / VPB byte rows with their [U / SUB, D] scale (and zero) rows, and its
+// W1 slab the U columns of the [D / VPB, Hd] values and of the
+// [D / SUB, Hd] planes, all copied as K3 copies its slabs. The group sums
+// of the rounded h are taken as the LayerNorm writes it (a warp's 32
+// elements are whole groups, summed by shuffles), the rounded g's as the
+// GELU writes it; fc1 takes
+// each group's S (h . q) - Z sum(h) over whole groups a k-lane, and each
+// block's fc2 share carries its own groups' scales and zeros (as each
+// head's o-proj partial does in K12 and K13), so the ticket's sum adds
+// only the bias and the residual. The weights are widened exactly without
+// an int -> float convert (widen4; Q4_K's nibbles, nibbles4).
 
 constexpr int FB_THREADS = 256;
 constexpr int FB_WARPS = FB_THREADS / 32;
@@ -936,18 +959,30 @@ static_assert(FB_CLUSTER <= CB_MAX_CLUSTER, "K3 takes K1's and K2's tickets");
 // gives FB_MIN_BLOCKS blocks (large-v3: 160), else 16 (whisper-tiny: 96)
 inline int ffn_units(int Hd) { return Hd / 32 >= FB_MIN_BLOCKS ? 32 : 16; }
 
+// K14's: K3's, but at least a group of `sub` rows (whole groups of W2's
+// rows a block; whisper-base's Q4_K and Q5_K: 64 blocks)
+inline int ffn_units_kq(int Hd, int sub) {
+    return ffn_units(Hd) > sub ? ffn_units(Hd) : sub;
+}
+
 struct FfnLayout {
-    int xs, w1, w2, red, g, yall, flag, bars, total;
+    int xs, w1, s1, w2, s2, gs, red, g, yall, flag, bars, total;
 };
 
-// shared-memory layout of a K3 block, in bytes (every offset a multiple
-// of 16 for D a multiple of 32)
-__host__ __device__ inline FfnLayout ffn_layout(int D, int U) {
+// shared-memory layout of a K3 / K14 block, in bytes (every offset a
+// multiple of 16 for D a multiple of 32); k-quant weights (sub > 0): vpb
+// values a byte row, `planes` f32 planes (scale, zero) of each group of
+// sub rows of W1's slab and of W2's rows, and the groups' sums of h and g
+__host__ __device__ inline FfnLayout ffn_layout(int D, int U, int vpb = 1,
+                                                int sub = 0, int planes = 0) {
     FfnLayout L;
     int o = 0;
     L.xs = o;   o += D * 4;
-    L.w1 = o;   o += D * U;
-    L.w2 = o;   o += U * D;
+    L.w1 = o;   o += D / vpb * U;
+    L.s1 = o;   o += sub > 0 ? planes * (D / sub) * U * 4 : 0;
+    L.w2 = o;   o += U / vpb * D;
+    L.s2 = o;   o += sub > 0 ? planes * (U / sub) * D * 4 : 0;
+    L.gs = o;   o += sub > 0 ? 16 * ((D / sub + U / sub + 3) / 4) : 0;
     L.red = o;  o += FB_WARPS * U * 4;    // the warps' fc1 sums
     L.g = o;    o += U * 4;
     L.yall = o; o += D * 4;               // C shares of D / C columns
@@ -957,21 +992,68 @@ __host__ __device__ inline FfnLayout ffn_layout(int D, int U) {
     return L;
 }
 
-// grid (FB_CLUSTER, G), clusters (FB_CLUSTER, 1, 1); see above
-template <typename XT, int U>
+template <typename WF>
+__host__ __device__ inline FfnLayout ffn_layout_wf(int D, int U) {
+    return ffn_layout(D, U, WF::VPB, WF::SUB, WF::PLANES);
+}
+
+// d[c] += the k-quant byte row's four columns (one 32-bit word) . their
+// inputs h: Q4_K two K values a byte (low nibble h[0], high h[1]), else
+// one (h[0]); widened exactly at the FMA rate
+template <typename WF>
+__device__ __forceinline__ void kq_dot4(uint32_t w, const float* h,
+                                        float (&d)[4]) {
+    if constexpr (WF::VPB == 2) {
+        float lo[4], hi[4];
+        nibbles4(w, lo, hi);
+        const float h0 = h[0], h1 = h[1];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) d[c] += h0 * lo[c] + h1 * hi[c];
+    } else {
+        float v[4];
+        widen4(w, v);
+        const float h0 = h[0];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) d[c] += h0 * v[c];
+    }
+}
+
+// d[c] += the BRG byte rows (a group) from `w` on, rows `pitch` bytes
+// apart, four columns a row, against h, from row `rot` on (mod BRG: the
+// k-lanes of a warp start on other rows, so other banks)
+template <typename WF>
+__device__ __forceinline__ void kq_group4(const int8_t* w, int pitch,
+                                          const float* h, int rot,
+                                          float (&d)[4]) {
+    constexpr int BRG = WF::SUB / WF::VPB;
+#pragma unroll 8
+    for (int i = 0; i < BRG; ++i) {
+        const int br = (i + rot) & (BRG - 1);
+        kq_dot4<WF>(*reinterpret_cast<const uint32_t*>(w + br * pitch),
+                    h + WF::VPB * br, d);
+    }
+}
+
+// grid (FB_CLUSTER, G), clusters (FB_CLUSTER, 1, 1); see above. K3: WInt8
+// (s1 [Hd], s2 [D] column scales, z1 and z2 null); K14: WKq<FMT> (s1, z1
+// the [D / SUB, Hd] planes of W1, s2, z2 W2's [Hd / SUB, D]; z1, z2 null
+// for Q6_K)
+template <typename XT, int U, typename WF = WInt8>
 __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
         const XT* __restrict__ x, int D, int Hd,
         const float* __restrict__ ln_w, const float* __restrict__ ln_b,
         const int8_t* __restrict__ w1, const float* __restrict__ s1,
-        const float* __restrict__ b1, const int8_t* __restrict__ w2,
-        const float* __restrict__ s2, const float* __restrict__ b2,
+        const float* __restrict__ z1, const float* __restrict__ b1,
+        const int8_t* __restrict__ w2, const float* __restrict__ s2,
+        const float* __restrict__ z2, const float* __restrict__ b2,
         XT* __restrict__ x_out, float* __restrict__ ypart,
         int* __restrict__ tickets) {
     extern __shared__ __align__(16) unsigned char fb_smem[];
     constexpr int C = FB_CLUSTER;
+    constexpr int VPB = WF::VPB;
     const int r = blockIdx.x, cl = blockIdx.y, G = gridDim.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const FfnLayout lay = ffn_layout(D, U);
+    const FfnLayout lay = ffn_layout_wf<WF>(D, U);
     const int cols = D / C;                 // the block's column range
     const int j0 = (cl * C + r) * U;        // its first hidden unit
     uint64_t* bar = reinterpret_cast<uint64_t*>(fb_smem + lay.bars);
@@ -988,6 +1070,12 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
     float* g_s = reinterpret_cast<float*>(fb_smem + lay.g);
     float* yall = reinterpret_cast<float*>(fb_smem + lay.yall);   // [C][cols]
     int* flag = reinterpret_cast<int*>(fb_smem + lay.flag);
+    // k-quant: W1's planes [PLANES][D / SUB][U], W2's [PLANES][U / SUB][D],
+    // the groups' sums of h [D / SUB] and of g [U / SUB]
+    float* s1_s = reinterpret_cast<float*>(fb_smem + lay.s1);
+    float* s2_s = reinterpret_cast<float*>(fb_smem + lay.s2);
+    float* hsum = reinterpret_cast<float*>(fb_smem + lay.gs);
+    float* gsum = hsum + D / (WF::KQ ? WF::SUB : D);
 
     // 1. load x; copy W1's slab (U bytes of each of the D rows), then W2's
     //    U rows: two groups. Then the epilogue's operands of this block's
@@ -999,25 +1087,43 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
         xr[j] = i < D ? to_f32(x[i]) : 0.f;
     }
     constexpr int PIECES = U / 16;          // 16-byte copies a row
-    for (int e = tid; e < D * PIECES; e += FB_THREADS) {
+    for (int e = tid; e < D / VPB * PIECES; e += FB_THREADS) {
         const int k = e / PIECES, c = (e % PIECES) * 16;
         cp_async16(w1_s + k * U + c, w1 + (size_t)k * Hd + j0 + c, 16);
     }
+    if constexpr (WF::KQ) {         // its groups' scale (and zero) rows
+        constexpr int Q = U / 4;
+        const int G1 = D / WF::SUB;
+        for (int e = tid; e < WF::PLANES * G1 * Q; e += FB_THREADS) {
+            const int pg = e / Q, c = (e % Q) * 4;
+            cp_async16(s1_s + pg * U + c, (pg >= G1 ? z1 : s1)
+                       + (size_t)(pg % G1) * Hd + j0 + c, 16);
+        }
+    }
     cp_async_commit();
-    const int8_t* w2_rows = w2 + (size_t)j0 * D;
-    for (int e = tid; e < U * D / 16; e += FB_THREADS)
+    const int8_t* w2_rows = w2 + (size_t)(j0 / VPB) * D;
+    for (int e = tid; e < U / VPB * D / 16; e += FB_THREADS)
         cp_async16(w2_s + 16 * e, w2_rows + 16 * e, 16);
+    if constexpr (WF::KQ) {         // its groups' scale (and zero) rows
+        constexpr int G2 = U / WF::SUB;
+        const int Q = D / 4;
+        for (int e = tid; e < WF::PLANES * G2 * Q; e += FB_THREADS) {
+            const int pg = e / Q, c = (e % Q) * 4;
+            cp_async16(s2_s + pg * D + c, (pg >= G2 ? z2 : s2)
+                       + (size_t)(j0 / WF::SUB + pg % G2) * D + c, 16);
+        }
+    }
     cp_async_commit();
     const int n_ep = r * cols + tid;        // cols <= FB_THREADS
     float ep_s = 0.f, ep_b = 0.f, ep_x = 0.f;
     if (tid < cols) {
-        ep_s = s2[n_ep];
+        if constexpr (!WF::KQ) ep_s = s2[n_ep];
         ep_b = b2[n_ep];
         ep_x = to_f32(x[n_ep]);
     }
     float t_s = 0.f, t_b = 0.f;             // fc1's scale and bias
     if (tid < U) {
-        t_s = s1[j0 + tid];
+        if constexpr (!WF::KQ) t_s = s1[j0 + tid];
         t_b = b1[j0 + tid];
     }
 #pragma unroll
@@ -1027,32 +1133,61 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
     }
     __syncthreads();
 
-    // 2. LayerNorm over all of x, rounded to x's dtype
+    // 2. LayerNorm over all of x, rounded to x's dtype (k-quant: and the
+    //    groups' sums of it, a warp's 32 elements being whole groups)
     float mean, rstd;
     ln_stats(xs, D, mean, rstd);
     __syncthreads();                // every warp has read x
     for (int i = tid; i < D; i += FB_THREADS) {
         const float hv = (xs[i] - mean) * rstd * ln_w[i] + ln_b[i];
         xs[i] = sizeof(XT) == 2 ? round_bf16(hv) : hv;
+        if constexpr (WF::KQ) {
+            float s = xs[i];
+#pragma unroll
+            for (int o = WF::SUB / 2; o > 0; o >>= 1)
+                s += __shfl_xor_sync(FULL, s, o);
+            if (lane % WF::SUB == 0) hsum[i / WF::SUB] = s;
+        }
     }
     cp_async_wait<1>();             // W1's slab has landed
     __syncthreads();
 
     // 3. fc1 on the block's U units: CG groups of 4 columns, the rows cut
-    //    over KL lanes; the lanes of a warp summed by shuffles, the warps
-    //    in order; then the GELU
+    //    over KL lanes (k-quant: whole groups a lane); the lanes of a warp
+    //    summed by shuffles, the warps in order; then the GELU
     {
         constexpr int CG = U / 4, KL = FB_THREADS / CG;
         const int cg = tid % CG, kl = tid / CG;
         float a[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (WF::KQ) {
+            constexpr int BRG = WF::SUB / VPB;  // byte rows a group
+            const int G1 = D / WF::SUB;
+            for (int gi = kl; gi < G1; gi += KL) {
+                float d[4] = {0.f, 0.f, 0.f, 0.f};
+                kq_group4<WF>(w1_s + gi * BRG * U + 4 * cg, U,
+                              xs + gi * WF::SUB, kl, d);
+                const float4 S = *reinterpret_cast<const float4*>(
+                    s1_s + gi * U + 4 * cg);
+                float4 Z = make_float4(0.f, 0.f, 0.f, 0.f);
+                if constexpr (WF::ZERO)
+                    Z = *reinterpret_cast<const float4*>(
+                        s1_s + (G1 + gi) * U + 4 * cg);
+                const float hs = WF::ZERO ? hsum[gi] : 0.f;
+                a[0] += S.x * d[0] - Z.x * hs;
+                a[1] += S.y * d[1] - Z.y * hs;
+                a[2] += S.z * d[2] - Z.z * hs;
+                a[3] += S.w * d[3] - Z.w * hs;
+            }
+        } else {
 #pragma unroll 4
-        for (int k = kl; k < D; k += KL) {
-            float w[4];
-            widen4(*reinterpret_cast<const uint32_t*>(w1_s + k * U + 4 * cg),
-                   w);
-            const float hv = xs[k];
+            for (int k = kl; k < D; k += KL) {
+                float w[4];
+                widen4(*reinterpret_cast<const uint32_t*>(w1_s + k * U
+                                                          + 4 * cg), w);
+                const float hv = xs[k];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] += hv * w[i];
+                for (int i = 0; i < 4; ++i) a[i] += hv * w[i];
+            }
         }
 #pragma unroll
         for (int o = CG; o < 32; o <<= 1)
@@ -1063,7 +1198,26 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
             for (int i = 0; i < 4; ++i) red[warp * U + 4 * cg + i] = a[i];
     }
     __syncthreads();
-    if (tid < U) {
+    if constexpr (WF::KQ) {
+        // U <= 32: warp 0 holds the units, and the groups' sums of the
+        // rounded g by shuffles
+        if (warp == 0) {
+            float gv = 0.f;
+            if (lane < U) {
+                float t = 0.f;
+#pragma unroll
+                for (int w = 0; w < FB_WARPS; ++w) t += red[w * U + lane];
+                t += t_b;
+                gv = 0.5f * t * (1.0f + erff(t * 0.7071067811865475f));
+                gv = sizeof(XT) == 2 ? round_bf16(gv) : gv;
+                g_s[lane] = gv;
+            }
+#pragma unroll
+            for (int o = WF::SUB / 2; o > 0; o >>= 1)
+                gv += __shfl_xor_sync(FULL, gv, o);
+            if (lane < U && lane % WF::SUB == 0) gsum[lane / WF::SUB] = gv;
+        }
+    } else if (tid < U) {
         float t = 0.f;
 #pragma unroll
         for (int w = 0; w < FB_WARPS; ++w) t += red[w * U + tid];
@@ -1074,19 +1228,41 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
     cp_async_wait<0>();             // W2's rows too
     __syncthreads();
 
-    // 4. the block's share of fc2 over all D columns, 4 columns a thread;
-    //    each 4 stored into the block that owns them (st.async)
+    // 4. the block's share of fc2 over all D columns, 4 columns a thread
+    //    (k-quant: its groups' S (g . q) - Z sum(g)); each 4 stored into
+    //    the block that owns them (st.async)
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     for (int n4 = tid; n4 < D / 4; n4 += FB_THREADS) {
         float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-        for (int j = 0; j < U; ++j) {
-            float w[4];
-            widen4(*reinterpret_cast<const uint32_t*>(w2_s + j * D + 4 * n4),
-                   w);
-            const float gv = g_s[j];
+        if constexpr (WF::KQ) {
+            constexpr int G2 = U / WF::SUB, BRG = WF::SUB / VPB;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] += gv * w[i];
+            for (int gi = 0; gi < G2; ++gi) {
+                float d[4] = {0.f, 0.f, 0.f, 0.f};
+                kq_group4<WF>(w2_s + gi * BRG * D + 4 * n4, D,
+                              g_s + gi * WF::SUB, 0, d);
+                const float4 S = *reinterpret_cast<const float4*>(
+                    s2_s + gi * D + 4 * n4);
+                float4 Z = make_float4(0.f, 0.f, 0.f, 0.f);
+                if constexpr (WF::ZERO)
+                    Z = *reinterpret_cast<const float4*>(
+                        s2_s + (G2 + gi) * D + 4 * n4);
+                const float gs = WF::ZERO ? gsum[gi] : 0.f;
+                a[0] += S.x * d[0] - Z.x * gs;
+                a[1] += S.y * d[1] - Z.y * gs;
+                a[2] += S.z * d[2] - Z.z * gs;
+                a[3] += S.w * d[3] - Z.w * gs;
+            }
+        } else {
+#pragma unroll 8
+            for (int j = 0; j < U; ++j) {
+                float w[4];
+                widen4(*reinterpret_cast<const uint32_t*>(w2_s + j * D
+                                                          + 4 * n4), w);
+                const float gv = g_s[j];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) a[i] += gv * w[i];
+            }
         }
         const int dst = 4 * n4 / cols;
         st_async4(cluster_addr(yall + r * cols + 4 * n4 - dst * cols, dst), a,
@@ -1103,24 +1279,27 @@ __global__ void __launch_bounds__(FB_THREADS) ffn_block_kernel(
     }
 
     // 6. the last of the G blocks on these columns adds the clusters' sums
-    //    in cluster order, then scale, bias and residual
+    //    in cluster order, then scale (int8), bias and residual
     if (!last_ticket(tickets + r, G, flag)) return;
     if (tid < cols) {
         float y = 0.f;
         for (int c = 0; c < G; ++c) y += __ldcg(ypart + (size_t)c * D + n_ep);
-        x_out[n_ep] = from_f32<XT>(y * ep_s + ep_b + ep_x);
+        if constexpr (WF::KQ)
+            x_out[n_ep] = from_f32<XT>(y + ep_b + ep_x);
+        else
+            x_out[n_ep] = from_f32<XT>(y * ep_s + ep_b + ep_x);
     }
     if (tid == 0) tickets[r] = 0;   // ready for the next launch
 }
 
-template <typename XT, int U>
+template <typename XT, int U, typename WF = WInt8>
 int launch_ffn(const void* x, int D, int Hd, const float* ln_w,
                const float* ln_b, const int8_t* w1, const float* s1,
-               const float* b1, const int8_t* w2, const float* s2,
-               const float* b2, void* x_out, float* ypart, int* tickets,
-               cudaStream_t st) {
-    const auto kernel = ffn_block_kernel<XT, U>;
-    const int smem = ffn_layout(D, U).total;
+               const float* z1, const float* b1, const int8_t* w2,
+               const float* s2, const float* z2, const float* b2,
+               void* x_out, float* ypart, int* tickets, cudaStream_t st) {
+    const auto kernel = ffn_block_kernel<XT, U, WF>;
+    const int smem = ffn_layout_wf<WF>(D, U).total;
     static int opted_in = 0;                // the most asked of this kernel
     if (smem > opted_in) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -1142,25 +1321,38 @@ int launch_ffn(const void* x, int D, int Hd, const float* ln_w,
     cfg.numAttrs = 1;
     cudaError_t e = cudaLaunchKernelEx(
         &cfg, kernel, static_cast<const XT*>(x), D, Hd, ln_w, ln_b, w1, s1,
-        b1, w2, s2, b2, static_cast<XT*>(x_out), ypart, tickets);
+        z1, b1, w2, s2, z2, b2, static_cast<XT*>(x_out), ypart, tickets);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename XT>
-int ffn_block_t(const void* x, int D, int Hd, const float* ln_w,
+// K3 (WInt8) and K14 (WKq<FMT>) with U hidden units a block
+template <typename XT, typename WF = WInt8>
+int ffn_block_t(int U, const void* x, int D, int Hd, const float* ln_w,
                 const float* ln_b, const int8_t* w1, const float* s1,
-                const float* b1, const int8_t* w2, const float* s2,
-                const float* b2, void* x_out, float* ypart, int* tickets,
-                cudaStream_t st) {
+                const float* z1, const float* b1, const int8_t* w2,
+                const float* s2, const float* z2, const float* b2,
+                void* x_out, float* ypart, int* tickets, cudaStream_t st) {
 #define WA_FFN_U(UU)                                                         \
-    launch_ffn<XT, UU>(x, D, Hd, ln_w, ln_b, w1, s1, b1, w2, s2, b2, x_out,  \
-                       ypart, tickets, st)
-    switch (ffn_units(Hd)) {
-        case 16: return WA_FFN_U(16);
+    launch_ffn<XT, UU, WF>(x, D, Hd, ln_w, ln_b, w1, s1, z1, b1, w2, s2, z2, \
+                           b2, x_out, ypart, tickets, st)
+    switch (U) {
+        case 16:
+            if constexpr (WF::SUB <= 16) return WA_FFN_U(16);  // whole groups
+            return ERR_SHAPE;
         case 32: return WA_FFN_U(32);
         default: return ERR_SHAPE;
     }
 #undef WA_FFN_U
+}
+
+// K3's and K14's plan: U hidden units a block from Hd, D's and Hd's
+// multiples, the shared memory and the 16-byte alignment of the copied
+// operands (`bases`: their addresses or'ed)
+static bool ffn_plan_ok(int D, int Hd, int U, int smem, uintptr_t bases) {
+    return D % (4 * FB_CLUSTER) == 0 && D % 32 == 0
+        && D / FB_CLUSTER <= FB_THREADS && D <= FB_THREADS * CB_XMAX
+        && Hd >= FB_CLUSTER * U && Hd % (FB_CLUSTER * U) == 0
+        && smem <= 227 * 1024 && bases % 16 == 0;
 }
 
 }  // namespace
@@ -1356,6 +1548,7 @@ extern "C" int wa_self_block_kq(
 }
 
 // K3's scratch: the f32 elements of ypart, a row of D for each cluster
+// (K14's too: its U is at least K3's, so its clusters at most as many)
 extern "C" int wa_ffn_scratch(int D, int Hd) {
     return Hd / (FB_CLUSTER * ffn_units(Hd)) * D;
 }
@@ -1371,19 +1564,57 @@ extern "C" int wa_ffn_block(
     const uintptr_t bases = reinterpret_cast<uintptr_t>(w1)      // 16-byte
         | reinterpret_cast<uintptr_t>(w2);                       // copies
     const int U = ffn_units(Hd);
-    if (D % (4 * FB_CLUSTER) != 0 || D % 32 != 0
-            || D / FB_CLUSTER > FB_THREADS || D > FB_THREADS * CB_XMAX
-            || Hd < FB_CLUSTER * U || Hd % (FB_CLUSTER * U) != 0
-            || ffn_layout(D, U).total > 227 * 1024 || bases % 16 != 0)
+    if (!ffn_plan_ok(D, Hd, U, ffn_layout(D, U).total, bases))
         return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
 #define WA_FFN(XT)                                                           \
-    ffn_block_t<XT>(x, D, Hd, (const float*)ln_w, (const float*)ln_b,        \
-                    (const int8_t*)w1, (const float*)s1, (const float*)b1,   \
-                    (const int8_t*)w2, (const float*)s2, (const float*)b2,   \
-                    x_out, (float*)ypart, (int*)tickets, st)
+    ffn_block_t<XT>(U, x, D, Hd, (const float*)ln_w, (const float*)ln_b,     \
+                    (const int8_t*)w1, (const float*)s1, nullptr,            \
+                    (const float*)b1, (const int8_t*)w2, (const float*)s2,   \
+                    nullptr, (const float*)b2, x_out, (float*)ypart,         \
+                    (int*)tickets, st)
     if (x_dtype == F32) return WA_FFN(float);
     if (x_dtype == BF16) return WA_FFN(__nv_bfloat16);
 #undef WA_FFN
     return ERR_DTYPE;
+}
+
+// K14: K3 over k-quant weights, fmt KQ_Q4K ([D/2, Hd] and [Hd/2, D]
+// nibble bytes) or KQ_Q5K / KQ_Q6K ([D, Hd], [Hd, D] values) with f32
+// [D/sub, Hd] and [Hd/sub, D] scale planes (and zero planes: not Q6_K);
+// biases [Hd], [D] f32. Scratch and tickets as wa_ffn_block's.
+extern "C" int wa_ffn_block_kq(
+        const void* x, int x_dtype, int D, int Hd, int fmt, const void* ln_w,
+        const void* ln_b, const void* w1, const void* s1, const void* z1,
+        const void* b1, const void* w2, const void* s2, const void* z2,
+        const void* b2, void* x_out, void* ypart, void* tickets,
+        void* stream) {
+    if (!kq_shape_ok(fmt, D, Hd) || !kq_shape_ok(fmt, Hd, D))
+        return ERR_SHAPE;
+    if (!zeros_ok(fmt, z1) || !zeros_ok(fmt, z2)) return ERR_DTYPE;
+    const int sub = fmt == KQ_Q6K ? 16 : 32, vpb = fmt == KQ_Q4K ? 2 : 1;
+    const int planes = fmt == KQ_Q6K ? 1 : 2;
+    const int U = ffn_units_kq(Hd, sub);
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(w1)
+        | reinterpret_cast<uintptr_t>(s1) | reinterpret_cast<uintptr_t>(z1)
+        | reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(s2)
+        | reinterpret_cast<uintptr_t>(z2);
+    if (!ffn_plan_ok(D, Hd, U, ffn_layout(D, U, vpb, sub, planes).total,
+                     bases))
+        return ERR_SHAPE;
+    auto st = static_cast<cudaStream_t>(stream);
+    return (int)with_kq_fmt(fmt, [&](auto f) {
+        constexpr int FMT = decltype(f)::value;
+#define WA_FFN_KQ(XT)                                                        \
+        (cudaError_t)ffn_block_t<XT, WKq<FMT>>(                              \
+            U, x, D, Hd, (const float*)ln_w, (const float*)ln_b,             \
+            (const int8_t*)w1, (const float*)s1, (const float*)z1,           \
+            (const float*)b1, (const int8_t*)w2, (const float*)s2,           \
+            (const float*)z2, (const float*)b2, x_out, (float*)ypart,        \
+            (int*)tickets, st)
+        if (x_dtype == F32) return WA_FFN_KQ(float);
+        if (x_dtype == BF16) return WA_FFN_KQ(__nv_bfloat16);
+#undef WA_FFN_KQ
+        return (cudaError_t)ERR_DTYPE;
+    });
 }

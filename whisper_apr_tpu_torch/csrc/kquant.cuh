@@ -1,8 +1,8 @@
-// The k-quant weight reader: a column matvec over the planar Q4_K, Q5_K
-// and Q6_K weights, templated on the format. K10/K11 (kquant_matvec.cu)
-// run it over row tiles of activations, K14 (decode_blocks_kq.cu) at one
-// row with the LayerNorm recomputed per column block. (K12 and K13 run on
-// K2's head-cluster kernel, decode_blocks.cu, over these planar forms.)
+// The k-quant planar weight forms and K11's reader: a column matvec over
+// the planar Q5_K and Q6_K weights, templated on the format, over row
+// tiles of activations (kquant_matvec.cu). K10, the Q4_K matvec, runs on
+// the tensor cores (kquant_matvec.cu); K12-K14 run on K1's, K2's and
+// K3's kernels over these planar forms (decode_blocks.cu).
 //
 // Planar forms (ops/q4k.py, ops/kquants.py), per layer, input-major:
 //   Q4_K: wq int8 [K/2, N], byte row r holds K value 2r in its low nibble
@@ -14,21 +14,20 @@
 // The scales are the effective per-group values (the super-block d/dmin
 // already folded in): nothing here decodes an f16 super-block.
 //
-// out[b, n] = sum_g S[g, n] * sum_{k in g} h[b, k] q[k, n]
-//             - Z[g, n] * sum_{k in g} h[b, k]
-// with f32 accumulation, h = [LN](x) [rounded to bf16] staged in shared
-// memory as f32. What bounds it: the weight bytes, 0.75 a weight for Q4_K
-// (half a byte of nibbles plus 8 bytes of scale and zero per 32 values),
-// 1.25 for Q5_K (one byte plus 8 per 32) and for Q6_K (one plus 4 per 16);
-// two flops a weight per row stay far under the card's flop/byte ratio.
+// K11: out[b, n] = sum_g S[g, n] * sum_{k in g} x[b, k] q[k, n]
+//                  - Z[g, n] * sum_{k in g} x[b, k]
+// with f32 accumulation, x staged in shared memory as f32. What bounds it:
+// the weight bytes, 1.25 a weight for Q5_K (one byte plus 8 per 32) and
+// for Q6_K (one plus 4 per 16); two flops a weight per row stay far under
+// the card's flop/byte ratio.
 //
 // Design (the matvec tiling of common.cuh): a block owns MV_COLS columns, each
 // thread four neighbouring columns (one 32-bit load of a weight row) and one
-// of MV_KLANES k-lanes. A k-lane walks whole groups: 16 byte rows of Q4_K, 32
-// value rows of Q5_K, 16 of Q6_K; it keeps the group's partial sums h.q in
-// registers and applies S (and -Z times the group's sum of h) once at the
+// of MV_KLANES k-lanes. A k-lane walks whole groups (32 value rows of Q5_K,
+// 16 of Q6_K); it keeps the group's partial sums x.q in
+// registers and applies S (and -Z times the group's sum of x) once at the
 // group's end, so each scale and zero is read once per group. The group sums
-// of h are computed once per block into shared memory. A row tile (1, 4 or 8
+// of x are computed once per block into shared memory. A row tile (1, 4 or 8
 // rows, the smallest that holds the batch) is staged in chunks of KC values
 // whose groups the k-lanes share, and every weight byte feeds every row of the
 // tile.
@@ -73,8 +72,6 @@ struct KqShared {
     float gsum[KC / 16][ROWS];               // sums of h per group
     float red[KQ_WARPS][ROWS][MV_COLS];     // per-warp column partials
     float out[ROWS][MV_COLS + 1];            // the block's sums
-    float mean[ROWS];
-    float rstd[ROWS];
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -82,15 +79,14 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 }
 
 // Rows [r0, r0 + nb) of x [*, K], nb <= ROWS, against the block's columns
-// of one layer's planar weight (wq, sc, zr at the layer); fills
-// s.out[r][c]. K is a multiple of the group. Ends with a barrier.
+// of one layer's planar Q5_K or Q6_K weight (wq, sc, zr at the layer);
+// fills s.out[r][c]. K is a multiple of the group. Ends with a barrier.
 template <int FMT, typename IT, int ROWS>
 __device__ __forceinline__ void kq_block(
         const IT* __restrict__ x, int K, int r0, int nb,
-        const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-        int round_to_bf16, const int8_t* __restrict__ wq,
-        const float* __restrict__ sc, const float* __restrict__ zr, int N,
-        KqShared<ROWS>& s) {
+        const int8_t* __restrict__ wq, const float* __restrict__ sc,
+        const float* __restrict__ zr, int N, KqShared<ROWS>& s) {
+    static_assert(FMT != KQ_Q4K, "K10 runs on the tensor cores");
     constexpr int SUB = KqTraits<FMT>::SUB;
     constexpr bool ZERO = KqTraits<FMT>::ZERO;
     constexpr int KC = KqShared<ROWS>::KC;
@@ -98,24 +94,6 @@ __device__ __forceinline__ void kq_block(
     const int cg = tid % MV_CGROUPS;
     const int kl = tid / MV_CGROUPS;
     const int n0 = blockIdx.x * MV_COLS + cg * 4;
-    if (ln_w != nullptr) {
-        for (int r = wid; r < nb; r += KQ_WARPS) {
-            const IT* xr = x + (size_t)(r0 + r) * K;
-            float sum = 0.f;
-            for (int i = lane; i < K; i += 32) sum += to_f32(xr[i]);
-            const float mean = warp_sum(sum) / (float)K;
-            float v = 0.f;
-            for (int i = lane; i < K; i += 32) {
-                const float d = to_f32(xr[i]) - mean;
-                v += d * d;
-            }
-            const float var = warp_sum(v) / (float)K;
-            if (lane == 0) {
-                s.mean[r] = mean;
-                s.rstd[r] = rsqrtf(var + LN_EPS);
-            }
-        }
-    }
     float acc[ROWS][4];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
@@ -126,11 +104,7 @@ __device__ __forceinline__ void kq_block(
         __syncthreads();          // the previous chunk is consumed
         for (int i = tid; i < nb * kc; i += MV_THREADS) {
             const int r = i / kc, k = i % kc;
-            float v = to_f32(x[(size_t)(r0 + r) * K + k0 + k]);
-            if (ln_w != nullptr)
-                v = (v - s.mean[r]) * s.rstd[r] * ln_w[k0 + k] + ln_b[k0 + k];
-            if (round_to_bf16) v = round_bf16(v);
-            s.hs[kidx(k)][r] = v;
+            s.hs[kidx(k)][r] = to_f32(x[(size_t)(r0 + r) * K + k0 + k]);
         }
         __syncthreads();
         if constexpr (ZERO) {
@@ -148,37 +122,30 @@ __device__ __forceinline__ void kq_block(
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
                 ga[r][0] = ga[r][1] = ga[r][2] = ga[r][3] = 0.f;
-            if constexpr (FMT == KQ_Q4K) {
-                const int8_t* wp =
-                    wq + (size_t)((k0 >> 1) + g * (SUB / 2)) * N + n0;
-#pragma unroll 4
-                for (int i = 0; i < SUB / 2; ++i) {
-                    const char4 b = __ldg(
-                        reinterpret_cast<const char4*>(wp + (size_t)i * N));
-                    const unsigned u[4] = {
-                        (unsigned)(unsigned char)b.x,
-                        (unsigned)(unsigned char)b.y,
-                        (unsigned)(unsigned char)b.z,
-                        (unsigned)(unsigned char)b.w};
-                    const int ke = kidx(g * SUB + 2 * i);   // ke + 1: odd k
+            // the group's rows eight at a time, the next eight requested
+            // while these multiply (carried across the loop, so that the
+            // compiler keeps the loads in flight)
+            const int8_t* wp = wq + (size_t)(k0 + g * SUB) * N + n0;
+            uint32_t w[8];
 #pragma unroll
-                    for (int r = 0; r < ROWS; ++r) {
-                        const float he = s.hs[ke][r], ho = s.hs[ke + 1][r];
+            for (int u = 0; u < 8; ++u)
+                w[u] = __ldg(reinterpret_cast<const uint32_t*>(
+                    wp + (size_t)u * N));
+#pragma unroll 1
+            for (int i0 = 0; i0 < SUB; i0 += 8) {
+                uint32_t wn[8];
 #pragma unroll
-                        for (int j = 0; j < 4; ++j)
-                            ga[r][j] += he * (float)(u[j] & 15u)
-                                + ho * (float)(u[j] >> 4);
-                    }
-                }
-            } else {
-                const int8_t* wp = wq + (size_t)(k0 + g * SUB) * N + n0;
-#pragma unroll 4
-                for (int i = 0; i < SUB; ++i) {
-                    const char4 b = __ldg(
-                        reinterpret_cast<const char4*>(wp + (size_t)i * N));
+                for (int u = 0; u < 8; ++u)
+                    wn[u] = i0 + 8 < SUB
+                        ? __ldg(reinterpret_cast<const uint32_t*>(
+                              wp + (size_t)(i0 + 8 + u) * N))
+                        : 0u;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const char4 b = *reinterpret_cast<const char4*>(&w[i]);
                     const float q[4] = {(float)b.x, (float)b.y, (float)b.z,
                                         (float)b.w};
-                    const int k = kidx(g * SUB + i);
+                    const int k = kidx(g * SUB + i0 + i);
 #pragma unroll
                     for (int r = 0; r < ROWS; ++r) {
                         const float h = s.hs[k][r];
@@ -186,6 +153,8 @@ __device__ __forceinline__ void kq_block(
                         for (int j = 0; j < 4; ++j) ga[r][j] += h * q[j];
                     }
                 }
+#pragma unroll
+                for (int u = 0; u < 8; ++u) w[u] = wn[u];
             }
             const size_t gi = (size_t)(k0 / SUB + g) * N + n0;
             const float4 S4 = ldg4(sc + gi);
@@ -230,71 +199,60 @@ __device__ __forceinline__ void kq_block(
     __syncthreads();
 }
 
-enum KqEpi { KEPI_OUT = 0, KEPI_GELU = 1, KEPI_RESID = 2 };
-
-// out[b, n] = epilogue(k-quant matvec of h[b]) for x [B, K]:
-//   KEPI_OUT:    acc rounded to OT                     (K10, K11)
-//   KEPI_GELU:   gelu(acc + bias) [bf16-rounded]       (OT = float)
-//   KEPI_RESID:  acc + bias + resid[b, n], cast once   (OT = resid's type)
-// Grid (N / MV_COLS, ceil(B / ROWS)).
-template <int FMT, typename IT, typename OT, int EPI, int ROWS>
+// out[b, n] = the k-quant matvec of x[b] rounded to OT, for x [B, K]
+// (K11). Grid (N / MV_COLS, ceil(B / ROWS)).
+template <int FMT, typename IT, typename OT, int ROWS>
 __global__ void __launch_bounds__(MV_THREADS) kq_kernel(
         const IT* __restrict__ x, int B, int K, int N,
-        const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-        int round_to_bf16, const int8_t* __restrict__ wq,
-        const float* __restrict__ sc, const float* __restrict__ zr,
-        const float* __restrict__ bias, const OT* __restrict__ resid,
-        OT* __restrict__ out) {
+        const int8_t* __restrict__ wq, const float* __restrict__ sc,
+        const float* __restrict__ zr, OT* __restrict__ out) {
     __shared__ KqShared<ROWS> s;
     const int r0 = blockIdx.y * ROWS;
     const int nb = min(ROWS, B - r0);
-    kq_block<FMT, IT, ROWS>(x, K, r0, nb, ln_w, ln_b, round_to_bf16, wq, sc,
-                            zr, N, s);
+    kq_block<FMT, IT, ROWS>(x, K, r0, nb, wq, sc, zr, N, s);
     for (int i = threadIdx.x; i < nb * MV_COLS; i += MV_THREADS) {
         const int r = i / MV_COLS, c = i % MV_COLS;
         const int n = blockIdx.x * MV_COLS + c;
-        const size_t o = (size_t)(r0 + r) * N + n;
-        const float y = s.out[r][c];
-        if constexpr (EPI == KEPI_OUT) {
-            out[o] = from_f32<OT>(y);
-        } else if constexpr (EPI == KEPI_GELU) {
-            const float z = y + bias[n];
-            float g = 0.5f * z * (1.0f + erff(z * 0.7071067811865475f));
-            if (round_to_bf16) g = round_bf16(g);
-            out[o] = g;
-        } else {
-            out[o] = from_f32<OT>(y + bias[n] + to_f32(resid[o]));
-        }
+        out[(size_t)(r0 + r) * N + n] = from_f32<OT>(s.out[r][c]);
     }
 }
 
-// Calls f(std::integral_constant<int, ROWS>{}) with the row tile for B;
-// MAX_ROWS 1 instantiates the single-row kernel only (K14).
-template <int MAX_ROWS, typename F>
+// Calls f(std::integral_constant<int, ROWS>{}) with the row tile for B
+template <typename F>
 cudaError_t with_kq_row_tile(int B, F&& f) {
-    if constexpr (MAX_ROWS == 1) {
-        return f(std::integral_constant<int, 1>{});
-    } else {
-        if (B <= 1) return f(std::integral_constant<int, 1>{});
-        if (B <= 4) return f(std::integral_constant<int, 4>{});
-        return f(std::integral_constant<int, KQ_ROWS>{});
-    }
+    if (B <= 1) return f(std::integral_constant<int, 1>{});
+    if (B <= 4) return f(std::integral_constant<int, 4>{});
+    return f(std::integral_constant<int, KQ_ROWS>{});
 }
 
-template <int FMT, typename IT, typename OT, int EPI, int MAX_ROWS = KQ_ROWS>
-cudaError_t launch_kq(const void* x, int B, int K, int N, const float* ln_w,
-                      const float* ln_b, int round_to_bf16, const int8_t* wq,
-                      const float* sc, const float* zr, const float* bias,
-                      const void* resid, void* out, cudaStream_t st) {
-    return with_kq_row_tile<MAX_ROWS>(B, [&](auto rows) {
+template <int FMT, typename IT, typename OT>
+cudaError_t launch_kq(const void* x, int B, int K, int N, const int8_t* wq,
+                      const float* sc, const float* zr, void* out,
+                      cudaStream_t st) {
+    return with_kq_row_tile(B, [&](auto rows) {
         constexpr int R = decltype(rows)::value;
         const dim3 grid(N / MV_COLS, (B + R - 1) / R);
-        kq_kernel<FMT, IT, OT, EPI, R><<<grid, MV_THREADS, 0, st>>>(
-            static_cast<const IT*>(x), B, K, N, ln_w, ln_b, round_to_bf16,
-            wq, sc, zr, bias, static_cast<const OT*>(resid),
+        kq_kernel<FMT, IT, OT, R><<<grid, MV_THREADS, 0, st>>>(
+            static_cast<const IT*>(x), B, K, N, wq, sc, zr,
             static_cast<OT*>(out));
         return cudaGetLastError();
     });
+}
+
+// Q4_K's bytes of one 32-bit word (four columns of a byte row) widened
+// exactly at the FMA rate: lo[c] the low nibble of byte c (the even K
+// value), hi[c] the high one, each set as the low byte of the f32 2^23 + q
+// by a byte permute and 2^23 taken off by one subtraction
+__device__ __forceinline__ void nibbles4(uint32_t w, float (&lo)[4],
+                                         float (&hi)[4]) {
+    const uint32_t l = w & 0x0F0F0F0Fu, h = (w >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+        lo[b] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540 | b))
+            - 8388608.f;
+        hi[b] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540 | b))
+            - 8388608.f;
+    }
 }
 
 // Calls f(std::integral_constant<int, FMT>{}) for a format code; the

@@ -66,12 +66,12 @@ _SIGNATURES = {
                        _P],
     "wa_qmatvec_stacked": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     "wa_ffn_fused": [_P, _I, _I, _I, _I, *[_P] * 5, _I, _I, _I, _P, _P, _P],
-    "wa_kq_matvec": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "wa_kq_matvec": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     "wa_self_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
                          *[_P] * 9, _I, _I, _I, _P, _P, _P, _P],
     "wa_cross_block_kq": [_P, _I, _I, _I, _I, *[_P] * 10, _I, _I, _I,
                           *[_P] * 5, _I, _I, _I, _P, _P, _P],
-    "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 13],
+    "wa_ffn_block_kq": [_P, _I, _I, _I, _I, *[_P] * 14],
     "wa_paged_attention": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
                            _I, _I, _P],
     "wa_flash_attention": [*[_P, _LL, _LL, _LL] * 4, _I, _I, _I, _I, _I, _I,

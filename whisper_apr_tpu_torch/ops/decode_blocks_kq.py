@@ -17,11 +17,12 @@ plane packs two K values per row, so its rows are 16 per scale row; the
 int8 value planes keep one value per row (32 per scale row for Q5_K, 16
 for Q6_K, which has no zero).
 
-Each wrapper runs its hand-written CUDA kernel for CUDA tensors (K12 and
-K13 on K1's and K2's head-cluster kernel in ``csrc/decode_blocks.cu``,
-both planned by :func:`cross_kq_plan`; K14 in
-``csrc/decode_blocks_kq.cu``) and the plain PyTorch version, in this
-module, for CPU tensors; nothing else picks between the two. Numerics
+Each wrapper runs its hand-written CUDA kernel for CUDA tensors, all in
+``csrc/decode_blocks.cu`` (K12 and K13 on K1's and K2's head-cluster
+kernel, both planned by :func:`cross_kq_plan`; K14 on K3's cluster
+kernel, its units a block as :func:`ffn_kq_units` says) and the plain
+PyTorch version, in this module, for CPU tensors; nothing else picks
+between the two. Numerics
 kept from the JAX kernels: LayerNorm in f32; every matvec input (the LN
 output, the attention output, the GELU output) rounded to the compute
 dtype before its dot and before its group sums; f32 accumulation;
@@ -110,8 +111,7 @@ def ffn_block_kq_plain(x, blk, layer: int):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/decode_blocks.cu: K12, K13; csrc/decode_blocks_kq.cu:
-# K14)
+# CUDA kernels (csrc/decode_blocks.cu: K12, K13, K14)
 # ---------------------------------------------------------------------------
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -292,19 +292,55 @@ def _cross_block_kq_cuda(x, blk, kq, ks, vq, vs, enc_len: int, l: int,
     return x_out
 
 
+# K14's launch (csrc ffn_block_kernel over WKq): K3's grid of clusters of
+# FFN_CLUSTER blocks, each block ``ffn_kq_units`` hidden units; ``ffn_kq_smem``
+# mirrors its shared-memory layout (csrc ffn_layout).
+FFN_CLUSTER = 8                 # csrc FB_CLUSTER
+FFN_MIN_BLOCKS = 96             # csrc FB_MIN_BLOCKS
+FFN_WARPS = 8                   # csrc FB_WARPS
+
+
+def ffn_kq_units(H: int, fmt: str) -> int:
+    """Hidden units a K14 block owns for a hidden layer of H (csrc
+    ffn_units_kq): K3's (32 where that still gives ``FFN_MIN_BLOCKS``
+    blocks, else 16), but at least a group, so that a block's rows of fc2
+    are whole groups."""
+    k3 = 32 if H // 32 >= FFN_MIN_BLOCKS else 16
+    return max(k3, KQ_SUB[fmt])
+
+
+def ffn_kq_smem(D: int, H: int, fmt: str) -> int:
+    """Bytes of shared memory of a K14 block (csrc ffn_layout): x in f32,
+    W1's slab of U columns (byte rows) and its groups' f32 planes, W2's U
+    rows (byte rows) and theirs, the groups' sums of h and g, the warps'
+    fc1 sums, g, the cluster's shares of the block's columns, the flag and
+    the barrier."""
+    U = ffn_kq_units(H, fmt)
+    sub, vpb, planes = KQ_SUB[fmt], KQ_VPB[fmt], KQ_PLANES[fmt]
+    return (4 * D + D // vpb * U + planes * (D // sub) * U * 4
+            + U // vpb * D + planes * (U // sub) * D * 4
+            + 16 * -(-(D // sub + U // sub) // 4)
+            + FFN_WARPS * U * 4 + U * 4 + 4 * D + 32)
+
+
 def _ffn_block_kq_cuda(x, blk, l: int):
     _check_call(x, blk, l)
     D, H = x.shape[1], blk["b_fc1"].shape[2]
     dev, st = x.device, _build.stream()
     x_out = torch.empty_like(x)
+    lib = _build.library()
+    W = _build.workspace
     P = _build.ptr
-    rc = _build.library().wa_ffn_block_kq(
+    # K3's scratch: the kernel cuts the hidden layer over clusters itself
+    rc = lib.wa_ffn_block_kq(
         P(x), _build.DTYPE_CODES[x.dtype], D, H,
         KQ_FMT[weight_fmt(blk["fc1"])],
         P(blk["ln3_w"], l * D), P(blk["ln3_b"], l * D),
         *_w(blk["fc1"], l), P(blk["b_fc1"], l * H),
         *_w(blk["fc2"], l), P(blk["b_fc2"], l * D), P(x_out),
-        _build.workspace(st, dev, "g", H), st)
+        W(st, dev, "ffn_y", max(1, lib.wa_ffn_scratch(D, H))),
+        W(st, dev, "ffn_tickets", CROSS_MAX_CLUSTER, torch.int32, zero=True),
+        st)
     _build.check(rc, "ffn_block_kq")
     LAUNCHES["ffn_block_kq"] += 1
     return x_out

@@ -29,18 +29,21 @@ carried on a QTensor with a ``zero`` (``ops/quant.py``).
 
 K10 ``q4k_matvec_stacked``: y [M, N] = x [M, K] @ the planar weight of
 one layer of an [L, ...] stack, per 32-group S·Σ(x·q) − Z·Σx, f32
-accumulation; the wrapper runs the CUDA kernel (``csrc/kquant_matvec.cu``)
-for CUDA tensors and the plain version below for CPU tensors.
+accumulation; the wrapper runs the CUDA kernel (``csrc/kquant_matvec.cu``,
+on the tensor cores, K split over a cluster as ``q4k_plan`` says) for CUDA
+tensors and the plain version below for CPU tensors.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from .int8_matmul import SplitPlan
 from .quant import QTensor
 
 
@@ -257,11 +260,54 @@ def q4k_matvec_stacked_plain(x: torch.Tensor, wq: torch.Tensor,
                       zero[layer]).to(x.dtype)
 
 
+# K10's launch (csrc/kquant_matvec.cu q4k_mv_mma_kernel): a block owns
+# STRIP output columns and a range of whole 32-groups of K, taken by its
+# WARPS warps in turn; the splits of a strip form one cluster. A block holds
+# its SM (200+ registers a thread), so a launch takes at most BLOCKS blocks,
+# in clusters of a power of 2 (clusters of 3, 10, 12 or 13 measured a
+# second wave's time on an H100, PERF.md). ``q4k_smem`` mirrors its shared
+# memory.
+STRIP = 128
+WARPS = 8
+MAX_SPLIT = 16
+BLOCKS = 120
+SLOT_ROW = 8 * 17      # a warp's slot row: 8 vectors of 16 columns, padded
+
+
+def q4k_plan(K: int, N: int) -> SplitPlan:
+    """How K10 spreads K over blocks: each strip of ``STRIP`` columns
+    takes the most splits, a power of 2 up to ``MAX_SPLIT`` and the
+    groups of K, that keep the launch within ``BLOCKS`` blocks (summed
+    inside their cluster, in the same launch: no scratch), each whole
+    32-groups, spread evenly, none empty. The scan step's D x D
+    projections take 8-16 splits where one block a strip would leave most
+    of the card idle. The same plan at every row count: above 8 rows the
+    block holds its SM too."""
+    G = K // SUB
+    strips = math.ceil(N / STRIP)
+    n = 1
+    while 2 * n <= min(MAX_SPLIT, G) and 2 * n * strips <= BLOCKS:
+        n *= 2
+    per = math.ceil(G / n)
+    return SplitPlan(math.ceil(G / per), SUB * per)
+
+
+def q4k_smem(M: int, plan: SplitPlan) -> int:
+    """Bytes of shared memory of a K10 block (csrc q4k_smem_floats): the
+    warps' slots and, with split K, every split's share of the block's
+    outputs."""
+    total = M * STRIP
+    shares = plan.n_split * math.ceil(total / plan.n_split) \
+        if plan.n_split > 1 else 0
+    return 4 * (WARPS * M * SLOT_ROW + shares)
+
+
 def kq_matvec_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                    zero: Optional[torch.Tensor], layer: int, fmt: str,
                    name: str, launches: dict) -> torch.Tensor:
-    """Launch ``wa_kq_matvec`` (K10 for "q4k", K11 for "q5k"/"q6k") once
-    per 32-row chunk of x [M, K]; returns [M, N] in x's dtype."""
+    """Launch ``wa_kq_matvec`` (K10 for "q4k", with ``q4k_plan``; K11 for
+    "q5k"/"q6k") once per 32-row chunk of x [M, K]; returns [M, N] in x's
+    dtype."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     if wq.dtype != torch.int8 or scale.dtype != torch.float32 \
@@ -293,11 +339,12 @@ def kq_matvec_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     G = K // sub
 
     def launch(rows):
-        r = rows.start                     # chunk = pointer offsets
+        r, m = rows.start, rows.stop - rows.start   # chunk = pointer offsets
+        plan = q4k_plan(K, N) if fmt == "q4k" else SplitPlan(1, K)
         rc = _build.library().wa_kq_matvec(
-            P(x, r * K), _build.DTYPE_CODES[x.dtype], rows.stop - r, K,
-            KQ_FMT[fmt], P(wq, layer * KW * N), N, P(scale, layer * G * N),
-            P(zero, layer * G * N), P(out, r * N), st)
+            P(x, r * K), _build.DTYPE_CODES[x.dtype], m, K, KQ_FMT[fmt],
+            P(wq, layer * KW * N), N, P(scale, layer * G * N),
+            P(zero, layer * G * N), P(out, r * N), *plan, st)
         _build.check(rc, name)
         launches[name] += 1
 
