@@ -43,14 +43,14 @@ encoder with the int8 switch on. With ``--batched`` each process times
 the B > 1 decode path instead (``time_batched_tree``): K5 and K6 split by
 kernel, K4, K7 and K9 at one row, K4-K9 at B = 8 and 32, K10-K14 at B =
 1 (K12 and K14 in q4k, q5k and q6k, K12 over compute-dtype and int8 self
-rows; K10 and K11 at the scan step's four shapes, M = 1 and 8), the
-large-v3 scan and fused steps at B = 8 and 32, the whisper-tiny dense
-serving tick and the large-v3 q4k B = 1 fused and scan decode steps
-(``kq_steps_ms``: K12-K14, or K10, in every layer, device ms). With
-``--bits`` each process prints, instead of times, a SHA-256 digest of
-K1's, K2's, K3's and K13's outputs over fixed inputs (``bits_tree``):
-equal digests in two checkouts mean bit-identical kernels. Needs one CUDA
-GPU.
+rows; K10 and K11, in q5k and q6k, at the scan step's four shapes, M = 1
+and 8), the large-v3 scan and fused steps at B = 8 and 32, the
+whisper-tiny dense serving tick and the large-v3 q4k, q5k and q6k B = 1
+fused and scan decode steps (``kq_steps_ms``: K12-K14, or K10 / K11, in
+every layer, device ms). With ``--bits`` each process prints, instead of
+times, a SHA-256 digest of K1's, K2's, K3's, K13's and K10's outputs over
+fixed inputs (``bits_tree``): equal digests in two checkouts mean
+bit-identical kernels. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -104,19 +104,21 @@ def time_tree(root: Path, mode: str = "") -> dict:
 
 
 def bits_tree(c) -> dict:
-    """SHA-256 digests (first 16 hex digits) of K1's, K2's, K3's and K13's
-    outputs, at the whisper-tiny and large-v3 shapes in bf16 and f32: K1
-    over bf16 / f32, int8 and fp8 self rows at ``chip_smoke.SELF_EDGES``
-    positions (its new rows and scales too), K2 over
-    ``chip_smoke.CROSS_CACHES`` at ``CROSS_EDGES`` lengths, K3 over 16
-    inputs at both layers, K13 in q4k,
-    q5k and q6k (whisper-base's width in the whisper-tiny run) over the
-    same caches at ``KQ_CROSS_EDGES`` lengths, inputs from fixed
-    seeds."""
+    """SHA-256 digests (first 16 hex digits) of K1's, K2's, K3's, K13's
+    and K10's outputs, at the whisper-tiny and large-v3 shapes in bf16 and
+    f32: K1 over bf16 / f32, int8 and fp8 self rows at
+    ``chip_smoke.SELF_EDGES`` positions (its new rows and scales too), K2
+    over ``chip_smoke.CROSS_CACHES`` at ``CROSS_EDGES`` lengths, K3 over
+    16 inputs at both layers, K13 in q4k, q5k and q6k (whisper-base's
+    width in the whisper-tiny run) over the same caches at
+    ``KQ_CROSS_EDGES`` lengths, K10 at the scan step's four shapes of that
+    width and two odd group counts over ``Q4K_ROWS`` rows, inputs from
+    fixed seeds."""
     import hashlib
     import torch
     from whisper_apr_tpu_torch.ops import decode_blocks as db
     from whisper_apr_tpu_torch.ops import decode_blocks_kq as dbk
+    from whisper_apr_tpu_torch.ops import q4k
     dev = torch.device("cuda")
     out = {}
     for i, (name, shape) in enumerate(SHAPES.items()):
@@ -125,7 +127,7 @@ def bits_tree(c) -> dict:
             gen = torch.Generator(device=dev).manual_seed(90 + i)
             blk = c.make_blk(D, 2, gen, dev)
             digest = {k: hashlib.sha256()
-                      for k in ("K1", "K2", "K3", "K13")}
+                      for k in ("K1", "K2", "K3", "K13", "K10")}
 
             def feed(k, *ts):
                 for t in ts:
@@ -163,6 +165,21 @@ def bits_tree(c) -> dict:
                             x, kblk, kq, ks, vq, vs, enc_len, enc_len % 2,
                             Hk))
                 del kblk
+            # K10 at the scan step's four shapes of the run's width
+            # (whisper-base's in the whisper-tiny run) and odd group
+            # counts, every row count of chip_smoke.Q4K_ROWS
+            for K, N in ((Dk, 3 * Dk), (Dk, Dk), (Dk, 4 * Dk), (4 * Dk, Dk),
+                         (96, 160), (288, 32)):
+                wq = torch.randint(-128, 128, (2, K // 2, N), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                s = (0.5 + torch.rand((2, K // 32, N), generator=gen,
+                                      device=dev)) / (7.5 * K ** 0.5)
+                z = 7.5 * s * (0.9 + 0.2 * torch.rand(
+                    s.shape, generator=gen, device=dev))
+                for M in c.Q4K_ROWS:
+                    x = torch.randn((M, K), generator=gen, device=dev).to(
+                        cdt)
+                    feed("K10", q4k.q4k_matvec_stacked(x, wq, s, z, 1))
             out[f"{name}_{str(cdt)[6:]}"] = {
                 k: v.hexdigest()[:16] for k, v in digest.items()}
             torch.cuda.empty_cache()
@@ -340,16 +357,14 @@ def time_batched_tree(c, root: Path) -> dict:
                 t["K13"] = us(lambda: dbk.cross_block_kq(
                     x, kblk, ck, cks, cv, cvs, shape["enc_len"], layer, Hk))
             t["K14"] = us(lambda: dbk.ffn_block_kq(x, kblk, layer))
-            if fmt != "q6k":        # K10 (q4k), K11 (q5k, the control)
-                k = "K10" if fmt == "q4k" else "K11"
-                for w in ("fc1", "qkv", "self_o", "fc2"):
-                    K = Dk * (4 if w == "fc2" else 1)
-                    for M in (1, 8):
-                        xm = torch.randn((M, K), generator=gen,
-                                         device=dev).to(bf)
-                        name = k if (w, M) == ("fc1", 1) else f"{k}_{w}_m{M}"
-                        t[name] = us(lambda: c._kq_matvec(fmt)(
-                            xm, *kblk[w], layer))
+            k = "K10" if fmt == "q4k" else "K11"
+            for w in ("fc1", "qkv", "self_o", "fc2"):
+                K = Dk * (4 if w == "fc2" else 1)
+                for M in (1, 8):
+                    xm = torch.randn((M, K), generator=gen, device=dev).to(bf)
+                    name = k if (w, M) == ("fc1", 1) else f"{k}_{w}_m{M}"
+                    t[name] = us(lambda: c._kq_matvec(fmt)(
+                        xm, *kblk[w], layer))
             del kblk
         del sk, sv, ck, cks, cv, cvs
         torch.cuda.empty_cache()
@@ -368,33 +383,36 @@ def time_batched_tree(c, root: Path) -> dict:
 def kq_steps_ms(c, D: int = 1280, H: int = 20, L: int = 32,
                 n_vocab: int = 51866, pos: int = 128) -> dict:
     """Device ms (CUDA-graph replay, best of two) of the large-v3 B=1
-    decode steps over a random q4k qd, timed here alike for every
-    checkout: the fused step (K12-K14 a layer, the K8 logits; cross8
-    cache) and the scan step (K10 six times a layer, torch attention over
-    the dense cache, the K8 logits), bf16."""
+    decode steps over a random q4k, q5k and q6k qd, timed here alike for
+    every checkout: the fused step ("<fmt>": K12-K14 a layer, the K8
+    logits; cross8 cache) and the scan step ("<fmt>_scan": K10 or K11 six
+    times a layer, torch attention over the dense cache, the K8 logits),
+    bf16."""
     import torch
     from whisper_apr_tpu_torch.config import ModelConfig
     from whisper_apr_tpu_torch.model import qdecode
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(60)
     cfg = ModelConfig("timing", n_vocab, 1500, D, H, L, 448, D, H, L, 80)
-    blk = c.make_kq_blk("q4k", D, L, gen, dev)
-    params, qd, kv = c.scan_case(blk, D, L, n_vocab, 1, gen, dev,
-                                 torch.bfloat16)
-    qd["mode"] = "q4k"
-    qkv = qdecode.quantize_cache(kv, "cross8")
-    tok = torch.randint(0, n_vocab, (1,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    steps = {
-        "q4k": lambda: qdecode.decode_step_qf(
-            params, qd, tok, pos, qkv, cfg, compute_dtype=torch.bfloat16),
-        "q4k_scan": lambda: qdecode.decode_step_q(
-            params, qd, tok, pos, kv, cfg, compute_dtype=torch.bfloat16)}
-    out = {k: round(min(c.graph_ms(f, reps=3, replays=5),
-                        c.graph_ms(f, reps=3, replays=5)), 4)
-           for k, f in steps.items()}
-    del blk, params, qd, kv, qkv
-    torch.cuda.empty_cache()
+    out = {}
+    for fmt in ("q4k", "q5k", "q6k"):
+        blk = c.make_kq_blk(fmt, D, L, gen, dev)
+        params, qd, kv = c.scan_case(blk, D, L, n_vocab, 1, gen, dev,
+                                     torch.bfloat16)
+        qd["mode"] = fmt
+        qkv = qdecode.quantize_cache(kv, "cross8")
+        tok = torch.randint(0, n_vocab, (1,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        steps = {
+            fmt: lambda: qdecode.decode_step_qf(
+                params, qd, tok, pos, qkv, cfg, compute_dtype=torch.bfloat16),
+            f"{fmt}_scan": lambda: qdecode.decode_step_q(
+                params, qd, tok, pos, kv, cfg, compute_dtype=torch.bfloat16)}
+        out.update({k: round(min(c.graph_ms(f, reps=3, replays=5),
+                                 c.graph_ms(f, reps=3, replays=5)), 4)
+                    for k, f in steps.items()})
+        del blk, params, qd, kv, qkv
+        torch.cuda.empty_cache()
     return out
 
 

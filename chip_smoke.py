@@ -83,8 +83,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               every format at enc_len 0, 1, 31, 32, 33, 1500 and 1536 over
               int8, bf16, f32 and fp8 cross rows, bf16 and f32 x, both
               widths, each call twice and bit-identical (check_cross_kq);
-              their times and bounds; the large-v3 32-layer B=1 k-quant
-              step (q4k, q5k).
+              K10 and K11 (q5k, q6k) at the scan step's four shapes and
+              odd group counts against part strips, M 1-40, bf16 and f32,
+              each call twice and bit-identical (check_q4k_edges,
+              check_kq_edges); their times and bounds; the large-v3
+              32-layer B=1 k-quant steps, fused and scan (q4k, q5k,
+              q6k).
 7b. kquant (after phase 7) - whisper-base .apr files with header
               quantization q4k, q5k and q6k written by the port and loaded
               by load_from_apr: 30 s of noise at B=1 (K12-K14 L times and
@@ -138,7 +142,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               .t().contiguous() for P3 (d)) and time / yardstick; then
               P1 at ragged shapes, K staged whole and through its
               ring, unaligned rows (INT8_EDGES; exact, two runs
-              identical); then
+              identical); P2's kernel at ragged shapes (MIXED_EDGES: K
+              not a multiple of 16, K past one panel, M and N of 33 and
+              65, both tiles) and in P3 (b)'s and (i)'s operand forms
+              and kin, within 2e-5, two runs identical; then
               P3's contraction at shapes the tool does not reach (K =
               1281, M and N of 33 and 65, a batch of 3 with split K, a
               transposed int8 A, the 2-stage ring) within 2e-5.
@@ -2412,6 +2419,59 @@ def check_q4k_edges(cdt, seed: int) -> float:
     return worst
 
 
+# K11's shapes: the scan step's four at whisper-base and large-v3, and 1,
+# 3 and 9 groups of K (32, 96, 288 for Q5_K; 16, 48, 144 for Q6_K: splits
+# of an odd group count) against part strips (N = 32, 96, 160), at every
+# ``Q4K_ROWS`` row count
+KQ_EDGE_GROUPS = (1, 3, 9)
+
+
+def kq_edges(fmt: str) -> tuple:
+    """(K, N) of K11's smoke cases in ``fmt`` (see ``KQ_EDGE_GROUPS``)."""
+    sub = 16 if fmt == "q6k" else 32
+    return Q4K_EDGES[:8] + tuple((G * sub, N) for G in KQ_EDGE_GROUPS
+                                 for N in (32, 96, 160))
+
+
+def check_kq_edges(fmt: str, cdt, seed: int) -> float:
+    """K11 in ``fmt`` (q5k or q6k) against its plain version at every
+    ``kq_edges`` shape and ``Q4K_ROWS`` row count, layer 1 of a stack of
+    two with values over the format's range, each call twice and
+    bit-identical; returns the max abs error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import kquants
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = TOL_BF16 if cdt == torch.bfloat16 else TOL_F32
+    sub = 16 if fmt == "q6k" else 32
+    lo = -32 if fmt == "q6k" else 0
+    worst = 0.0
+    for K, N in kq_edges(fmt):
+        wq = torch.randint(lo, 32, (2, K, N), generator=gen, device=dev,
+                           dtype=torch.int8)
+        s = (0.5 + torch.rand((2, K // sub, N), generator=gen, device=dev)) \
+            / (KQ_AMP[fmt] * np.sqrt(K))
+        z = None if fmt == "q6k" else s * KQ_AMP[fmt] * (
+            0.9 + 0.2 * torch.rand(s.shape, generator=gen, device=dev))
+        for M in Q4K_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(cdt)
+            got = kquants.kq_matvec_stacked(x, wq, s, z, 1)
+            again = kquants.kq_matvec_stacked(x, wq, s, z, 1)
+            ref = kquants.kq_matvec_stacked_plain(x, wq, s, z, 1)
+            what = (f"[kquant] {str(cdt)[6:]} {fmt} kq_matvec_stacked M={M} "
+                    f"K={K} N={N}")
+            assert got.dtype == cdt and got.shape == (M, N), what
+            assert torch.equal(got, again), f"{what}: two runs differ"
+            e = rel_err(got, ref)
+            assert e <= tol, f"{what}: rel err {e:.3g} > {tol:.3g}"
+            worst = max(worst, abs_err(got, ref))
+    torch.cuda.synchronize()
+    log(f"[kquant] {str(cdt)[6:]} {fmt}: K11 at {len(kq_edges(fmt))} shapes "
+        f"x M in {list(Q4K_ROWS)} agrees with the plain version, two runs "
+        f"bit-identical; max abs err {worst:.3g}")
+    return worst
+
+
 # K13's cross lengths over a 1536-row cache: none (every padded row at
 # NEG), one row, either side of a 32-row group, the encoder's 1500 frames
 # and the whole cache
@@ -2517,13 +2577,12 @@ def time_kq(fmt: str, D: int, H: int, L: int, T_self: int, T_cross: int,
 
 
 def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
-                  seed: int, pos: int = 128, fmts=("q4k", "q5k"),
-                  scan_fmts=("q4k",)) -> dict:
+                  seed: int, pos: int = 128, fmts=KQ_MODES) -> dict:
     """Device ms of one B=1 decode step over a k-quant qd (K12-K14 per
     layer, the K8 logits tail; cross8 cache, bf16) by CUDA-graph replay,
-    eager in brackets, with random planar stacks of each format; for
-    ``scan_fmts`` also the scan step ("<fmt>_scan": K10 or K11 six times a
-    layer, torch attention over the dense cache, the K8 logits)."""
+    eager in brackets, with random planar stacks of each format, and of
+    the scan step ("<fmt>_scan": K10 or K11 six times a layer, torch
+    attention over the dense cache, the K8 logits)."""
     import torch
     from whisper_apr_tpu_torch.config import ModelConfig
     from whisper_apr_tpu_torch.model import qdecode
@@ -2548,8 +2607,6 @@ def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
             return qdecode.decode_step_q(params, qd, tok, pos, kv, cfg,
                                          compute_dtype=torch.bfloat16)
         for key, fn in ((fmt, step), (f"{fmt}_scan", scan)):
-            if key == f"{fmt}_scan" and fmt not in scan_fmts:
-                continue
             out[key] = {"ms": min(graph_ms(fn, reps=3, replays=5),
                                   graph_ms(fn, reps=3, replays=5)),
                         "eager_ms": cuda_ms(fn, iters=10)}
@@ -2564,10 +2621,10 @@ def time_kq_steps(D: int, H: int, L: int, n_vocab: int, label: str,
 
 def phase_kquant_kernels() -> tuple:
     """K10-K14 against their plain versions in every format at the
-    whisper-base and large-v3 decoder shapes (bf16; f32 at base), K10 at
-    its edges (``check_q4k_edges``, bf16 and f32), then their times at
-    both and the large-v3 B=1 k-quant steps. Returns (max abs errors,
-    times)."""
+    whisper-base and large-v3 decoder shapes (bf16; f32 at base), K10 and
+    K11 at their edges (``check_q4k_edges``, ``check_kq_edges``, bf16 and
+    f32), then their times at both and the large-v3 B=1 k-quant steps.
+    Returns (max abs errors, times)."""
     import torch
     base = dict(D=512, H=8, L=4, T_self=512, T_cross=1536, enc_len=1500)
     large = dict(D=1280, H=20, L=4, T_self=512, T_cross=1536, enc_len=1500)
@@ -2589,6 +2646,10 @@ def phase_kquant_kernels() -> tuple:
     for seed, cdt in ((36, torch.bfloat16), (37, torch.float32)):
         errs["q4k_matvec_stacked"] = max(errs["q4k_matvec_stacked"],
                                          check_q4k_edges(cdt, seed))
+        for i, fmt in enumerate(("q5k", "q6k")):
+            errs["kq_matvec_stacked"] = max(
+                errs["kq_matvec_stacked"],
+                check_kq_edges(fmt, cdt, seed + 2 * (i + 1)))
     times = {}
     for i, fmt in enumerate(KQ_MODES):
         times[f"base_{fmt}"] = time_kq(fmt, **base, pos=128, label="base",
@@ -3757,14 +3818,76 @@ def int8_edge_cases(device) -> list:
     return out
 
 
+# P2's kernel off the probes' shapes: P2 (int8 . bf16) at one element, K
+# not a multiple of 16, K past one staged panel (the 2-stage ring), M and N
+# of 33 and 65, and 64 x 64 tiles staged whole and through the ring; then
+# the kernel's other operand forms through tricks_dot (P3 (b), (i) and
+# kin): transposed and cast A, a batch, int8 . int8, bf16 . bf16, rows
+# that are not 16-byte aligned
+MIXED_EDGES = ((1, 1, 1), (33, 1281, 65), (65, 23, 33), (100, 257, 130),
+               (7, 4096, 9), (40, 48, 1000), (512, 300, 512),
+               (1024, 256, 1024))
+
+
+def mixed_edge_cases(device) -> list:
+    """P2's kernel at ``MIXED_EDGES`` (``mixed_dot``) and in its other
+    operand forms (``tricks_dot``), inputs from np.random.default_rng(9).
+    Returns (case, the kernel's launch plan) pairs."""
+    import torch
+    from whisper_apr_tpu_torch.ops import probe_mma as pm
+    from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
+    rng = np.random.default_rng(9)
+
+    def draw(shape, dt):
+        if dt == "int8":
+            return torch.from_numpy(rng.integers(-127, 128, shape).astype(
+                np.int8)).to(device)
+        t = torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(device)
+        return t if dt == "f32" else t.to(torch.bfloat16)
+
+    out = []
+    for M, K, N in MIXED_EDGES:
+        a, b = draw((M, K), "int8"), draw((K, N), "bf16")
+        out.append((tool.ProbeCase(
+            f"int8xbf16 {M}x{K}x{N}", "P2 edge",
+            lambda a=a, b=b: pm.mixed_dot(a, b),
+            lambda a=a, b=b: pm.mixed_dot_plain(a, b), False, (a, b)),
+            pm.mixed_plan(1, M, K, N)))
+    for name, a, b, trans_a, cast in (
+            ("dotT bf16xint8 M=65 N=33 K=300", draw((300, 65), "bf16"),
+             draw((300, 33), "int8"), True, False),
+            ("dot bf16(cast)xint8 M=33 K=129 N=65", draw((33, 129), "f32"),
+             draw((129, 65), "int8"), False, True),
+            ("dotT bf16(cast)xbf16 K=45 M=33 N=77", draw((45, 33), "f32"),
+             draw((45, 77), "bf16"), True, True),
+            ("bdot int8xbf16 batch 3", draw((3, 40, 200), "int8"),
+             draw((3, 200, 70), "bf16"), False, False),
+            ("dotT int8xint8 K=257", draw((257, 33), "int8"),
+             draw((257, 100), "int8"), True, False),
+            ("dot bf16xbf16 64 x 64 tiles", draw((520, 96), "bf16"),
+             draw((96, 530), "bf16"), False, False)):
+        batch = a.shape[0] if a.dim() == 3 else 1
+        K, M = a.shape[-2:] if trans_a else a.shape[-2:][::-1]
+        plan = pm.mixed_plan(batch, M, K, b.shape[-1], trans_a,
+                             a.element_size(), b.element_size())
+        out.append((tool.ProbeCase(
+            name, "P3 mma edge",
+            lambda a=a, b=b, t=trans_a, c=cast: pm.tricks_dot(a, b, t, c),
+            lambda a=a, b=b, t=trans_a, c=cast: pm.tricks_dot_plain(
+                a, b, t, c), False, (a, b)), plan))
+    return out
+
+
 def phase_probes() -> tuple:
     """P1-P3 against their plain versions on the card at the probes'
     shapes (P1 and the transposes exact, the rest within TOL_F32 of the
     plain version's largest magnitude), then each case's device time,
     plain time, bound and yardstick (and time / yardstick); then P1's
     edge cases (``int8_edge_cases``) exact and the same over two runs,
-    and P3's (``probe_edge_cases``) within TOL_F32. Returns (max abs
-    errors, {"cases": [...], and one entry per kernel of the summary
+    P2's kernel's (``mixed_edge_cases``) within TOL_F32 and the same over
+    two runs, and P3's (``probe_edge_cases``) within TOL_F32. Returns (max
+    abs errors, {"cases": [...], and one entry per kernel of the summary
     line: P1, P2, and P3's eleven calls summed})."""
     import torch
     from whisper_apr_tpu_torch.tools import probe_layer_kernel as tool
@@ -3822,6 +3945,23 @@ def phase_probes() -> tuple:
             f"{rows[-1]['ms'] * 1e3:.2f} us (plain "
             f"{rows[-1]['plain_ms'] * 1e3:.2f}); K staged {k_chunk} at a "
             f"time")
+    for case, plan in mixed_edge_cases("cuda"):
+        got, ref = case.kernel(), case.plain()
+        again = case.kernel()
+        torch.cuda.synchronize()
+        err = tool.rel_err(got, ref)
+        assert got.shape == ref.shape and err <= TOL_F32, (
+            f"[probes] {case.name}: rel err {err:.3g} > {TOL_F32} ({plan})")
+        assert torch.equal(got, again), (
+            f"[probes] {case.name}: two runs differ")
+        key = "mixed_dot" if case.probe == "P2 edge" else "tricks"
+        errs[key] = max(errs[key], abs_err(got, ref))
+        rows.append({"probe": case.probe, "name": case.name, "rel_err": err,
+                     "plan": plan._asdict(), "ms": graph_ms(case.kernel),
+                     "plain_ms": graph_ms(case.plain)})
+        log(f"[probes] {case.probe} {case.name}: rel err {err:.3g}, two runs "
+            f"bit-identical; {rows[-1]['ms'] * 1e3:.2f} us (plain "
+            f"{rows[-1]['plain_ms'] * 1e3:.2f}); {plan}")
     for case, plan in probe_edge_cases("cuda"):
         got, ref = case.kernel(), case.plain()
         torch.cuda.synchronize()

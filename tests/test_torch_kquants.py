@@ -22,6 +22,8 @@ kernels run in interpret mode. Tolerances, each with its reason:
 - engine tokens: identical.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -207,6 +209,47 @@ class TestCodecs:
 # K10, K11
 # ---------------------------------------------------------------------------
 
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """``__byte_perm(x, y, s)``: byte i of the result is byte (s >> 4i) & 7
+    of the 8 bytes of y:x."""
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] \
+        + [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
+
+
+def _bf16(bits: int) -> float:
+    return float(np.array([bits << 16], np.uint32).view(np.float32)[0])
+
+
+def _kq_pair(mode: str, e: int, o: int, b: int):
+    """csrc ``kq_pair``: byte b of e and of o, masked into the mantissa of
+    a bf16 128 (Q6_K: with bit 5 flipped), less 128 (Q6_K: 160); the two
+    halves' values. The subtraction is exact where its result is a bf16,
+    which the integers of the range are."""
+    mask, bias = (0x007F007F, 0x43004300) if mode == "q5k" \
+        else (0x003F003F, 0x43204320)
+    v = (_byte_perm(e, o, b | ((4 + b) << 8)) & mask) ^ bias
+    off = _bf16(bias & 0xFFFF)
+    return (_bf16(v & 0xFFFF) - off, _bf16(v >> 16) - off)
+
+
+def _check_kq_plan(plan, K: int, N: int, M: int, sub: int) -> None:
+    """K10's / K11's launch: every split whole ``sub``-groups, none empty,
+    the splits covering every K row once, in order; clusters within the
+    plan's limit, the launch within ``BLOCKS`` blocks once split; shared
+    memory within 227 KB."""
+    assert 1 <= plan.n_split <= tq4k.MAX_SPLIT
+    assert plan.n_split == 1 or \
+        plan.n_split * -(-N // tq4k.STRIP) <= tq4k.BLOCKS
+    assert plan.split_rows % sub == 0
+    ranges = plan.k_ranges(K)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a < b and (b - a) % sub == 0 for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0]
+               for i in range(len(ranges) - 1))
+    assert tq4k.kq_smem(M, plan) <= 227 * 1024
+
+
 class TestMatvecs:
     @pytest.mark.parametrize("mode", MODES)
     @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -275,6 +318,43 @@ class TestMatvecs:
         assert got.dtype == tdt and tuple(got.shape) == (M, N)
         _close(got, want, dtype, "q4k")
 
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    @pytest.mark.parametrize("N", [32, 160])
+    @pytest.mark.parametrize("G", [1, 3, 9])
+    @pytest.mark.parametrize("M", [1, 9, 17, 33])
+    @pytest.mark.parametrize("mode", ["q5k", "q6k"])
+    def test_kq_matvec_edges(self, mode, M, G, N, dtype):
+        """K11's plain version against the JAX kernel at the edges of the
+        card kernel's cut: 8-row tiles and 32-row chunks (M 9, 17, 33), odd
+        group counts (K of 1, 3, 9 groups: 32, 96, 288 for Q5_K, 16, 48,
+        144 for Q6_K; splits end mid-range) and part strips of 128 columns
+        (N 32, 160). Values span each format's range (Q5_K 0..31, Q6_K
+        -32..31). The JAX kernel takes N in lanes of 128: it runs on the
+        weights padded with zero columns, which leave the real columns'
+        sums as they are, and its first N columns are compared."""
+        tdt, jdt = DTYPES[dtype]
+        sub = 16 if mode == "q6k" else 32
+        K = G * sub
+        lo, amp = (-32, 16.0) if mode == "q6k" else (0, 15.5)
+        rng = np.random.default_rng(M * 1000 + K + N)
+        wq = rng.integers(lo, 32, (2, K, N), dtype=np.int8)
+        s = rng.uniform(0.5, 1.5, (2, G, N)).astype(np.float32) \
+            / (amp * np.sqrt(K))
+        z = None if mode == "q6k" else \
+            s * amp * rng.uniform(0.9, 1.1, s.shape).astype(np.float32)
+        x = rng.normal(0, 1, (M, K)).astype(np.float32)
+        pad = ((0, 0), (0, 0), (0, -N % 128))
+        xj, xt = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+        want = jkquants.kq_matvec_stacked(
+            xj, jnp.asarray(np.pad(wq, pad)), jnp.asarray(np.pad(s, pad)),
+            None if z is None else jnp.asarray(np.pad(z, pad)), 1,
+            interpret=True)[:, :N]
+        got = tkquants.kq_matvec_stacked(
+            xt, torch.from_numpy(wq), torch.from_numpy(s),
+            None if z is None else torch.from_numpy(z), 1)
+        assert got.dtype == tdt and tuple(got.shape) == (M, N)
+        _close(got, want, dtype, mode)
+
     @pytest.mark.parametrize("D", [384, 512, 1280])
     @pytest.mark.parametrize("M", [1, 8, 17, 32])
     def test_q4k_plan(self, D, M):
@@ -285,24 +365,26 @@ class TestMatvecs:
         within ``BLOCKS`` blocks once split; shared memory within
         227 KB."""
         for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
-            plan = tq4k.q4k_plan(K, N)
-            assert 1 <= plan.n_split <= tq4k.MAX_SPLIT
-            assert plan.n_split == 1 or \
-                plan.n_split * -(-N // tq4k.STRIP) <= tq4k.BLOCKS
-            assert plan.split_rows % 32 == 0
-            ranges = plan.k_ranges(K)
-            assert ranges[0][0] == 0 and ranges[-1][1] == K
-            assert all(a < b and (b - a) % 32 == 0 for a, b in ranges)
-            assert all(ranges[i][1] == ranges[i + 1][0]
-                       for i in range(len(ranges) - 1))
-            assert tq4k.q4k_smem(M, plan) <= 227 * 1024
+            _check_kq_plan(tq4k.kq_plan(K, N), K, N, M, 32)
+
+    @pytest.mark.parametrize("D", [384, 512, 1280])
+    @pytest.mark.parametrize("M", [1, 8, 17, 32])
+    @pytest.mark.parametrize("mode", ["q5k", "q6k"])
+    def test_kq_plan(self, mode, D, M):
+        """K11's launch at the scan step's four shapes of the whisper-tiny,
+        base and large-v3 widths, with ``test_q4k_plan``'s assertions in
+        the format's groups (Q6_K's 16)."""
+        sub = 16 if mode == "q6k" else 32
+        for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+            _check_kq_plan(tq4k.kq_plan(K, N, sub), K, N, M, sub)
 
     @pytest.mark.parametrize("mode", MODES)
     def test_matvec_one_call_per_chunk(self, monkeypatch, mode):
         """``kq_matvec_cuda`` calls ``wa_kq_matvec`` once per chunk of at
         most 32 rows (40 rows: 32, then 8), each call with one argument
-        per ctypes type, the chunk's pointer offsets and K10's plan for
-        its rows (q4k; K11 takes none), and counts each launch."""
+        per ctypes type, the chunk's pointer offsets and the plan of K10
+        (q4k) or K11 (q5k, q6k) in the format's groups, and counts each
+        launch."""
         calls = []
 
         class Lib:
@@ -328,9 +410,67 @@ class TestMatvecs:
             assert args[2:5] == (m, K, tq4k.KQ_FMT[mode])
             assert args[5] == wq.data_ptr() + rows * N
             assert args[9] == y.data_ptr() + r0 * N * 2
-            plan = tq4k.q4k_plan(K, N) if mode == "q4k" else (1, K)
-            assert tuple(args[10:12]) == tuple(plan)
+            assert tuple(args[10:12]) == tuple(tq4k.kq_plan(K, N, sub))
             assert (args[8] is None) == (mode == "q6k") and args[-1] == 7
+
+    @pytest.mark.parametrize("mode", ["q5k", "q6k"])
+    def test_kq_pair_exact_over_the_range(self, mode):
+        """csrc ``kq_pair`` in numpy: for every pair of values of the
+        format's range (Q5_K 0..31, Q6_K -32..31) at every byte position
+        of the two words, the bf16 pair it makes is (even row's value, odd
+        row's value), exactly."""
+        rng = np.random.default_rng(11)
+        vals = range(0, 32) if mode == "q5k" else range(-32, 32)
+        for e, o in itertools.product(vals, vals):
+            for b in range(4):
+                we, wo = (int(w) for w in rng.integers(0, 2 ** 32, 2))
+                we = we & ~(0xFF << 8 * b) | (e & 0xFF) << 8 * b
+                wo = wo & ~(0xFF << 8 * b) | (o & 0xFF) << 8 * b
+                assert _kq_pair(mode, we, wo, b) == (e, o)
+
+    @pytest.mark.parametrize("mode", ["q5k", "q6k"])
+    def test_kq_fragments_mirror(self, mode):
+        """K11's reader in numpy, over one group of a 128-column strip that
+        holds every value of the format's range: lane (g, t) loads the
+        16-byte vectors at vector g of value rows 2t, 2t + 1, 2t + 8,
+        2t + 9 of each k16 step (csrc ``fetch_w``), and its A registers of
+        mma j (``kq_pair``) hold the weights at their (row, k) of the
+        m16n8k16 layout: A row g is column 16g + 2j, row g + 8 column
+        16g + 2j + 1; a0 K 2t, 2t + 1 of row g, a1 of row g + 8, a2 and a3
+        K 2t + 8, 2t + 9."""
+        sub, lo = (32, 0) if mode == "q5k" else (16, -32)
+        n_vals = 32 if mode == "q5k" else 64
+        rng = np.random.default_rng(12)
+        W = rng.permutation(np.arange(sub * 128) % n_vals + lo).astype(
+            np.int8).reshape(sub, 128)
+        wb = W.view(np.uint8)
+
+        def words(row, g):
+            v = wb[row, 16 * g:16 * g + 16]
+            return [int.from_bytes(bytes(v[4 * i:4 * i + 4]), "little")
+                    for i in range(4)]
+
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            rows = [16 * (i // 4) + 2 * t + (i & 1) + 8 * ((i >> 1) & 1)
+                    for i in range(2 * sub // 8)]
+            r = [words(row, g) for row in rows]
+            for s in range(sub // 16):
+                k = 16 * s + 2 * t
+                for j in range(8):
+                    wd, b0 = j // 2, 2 * (j % 2)
+                    c0, c1 = 16 * g + 2 * j, 16 * g + 2 * j + 1
+                    a = [_kq_pair(mode, r[4 * s][wd], r[4 * s + 1][wd], b0),
+                         _kq_pair(mode, r[4 * s][wd], r[4 * s + 1][wd],
+                                  b0 + 1),
+                         _kq_pair(mode, r[4 * s + 2][wd], r[4 * s + 3][wd],
+                                  b0),
+                         _kq_pair(mode, r[4 * s + 2][wd], r[4 * s + 3][wd],
+                                  b0 + 1)]
+                    assert a == [(W[k, c0], W[k + 1, c0]),
+                                 (W[k, c1], W[k + 1, c1]),
+                                 (W[k + 8, c0], W[k + 9, c0]),
+                                 (W[k + 8, c1], W[k + 9, c1])]
 
     def test_q4k_nibbles_zero_extend(self):
         """Bytes >= 0x80 (negative as int8) split into 8..15 high

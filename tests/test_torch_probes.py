@@ -477,3 +477,294 @@ def test_int8_fragments_mirror():
             out[row, 8 * t:8 * t + 8] = [acc[nt][0] for nt in range(4)] \
                 + [acc[nt][1] for nt in range(4)]
     np.testing.assert_array_equal(out, A64 @ B64)
+
+
+# P2 off the probe's 256^3: one element, K not a multiple of 16, K past
+# one staged panel (the 2-stage ring), M and N of 33 and 65
+MIXED_RAGGED = [(1, 1, 1), (33, 1281, 65), (65, 23, 33), (100, 257, 130),
+                (7, 4096, 9), (40, 48, 1000)]
+
+
+@pytest.mark.parametrize("shape", MIXED_RAGGED,
+                         ids=["x".join(map(str, s)) for s in MIXED_RAGGED])
+def test_mixed_plain_matches_jax_at_ragged_shapes(shape):
+    """``mixed_dot``'s plain version against the JAX tool's P2 body,
+    ``jax.lax.dot`` of int8 and bf16 with an f32 result."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    b = torch.from_numpy(rng.normal(0, 1, (K, N)).astype(
+        np.float32)).to(torch.bfloat16)
+    want = np.asarray(JAX_BODIES["P2"](jnp.asarray(_np(a)),
+                                       jnp.asarray(_np(b))))
+    got = pm.mixed_dot(a, b)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    assert _rel(got.numpy(), want) <= TOL
+
+
+# (batch, M, K, N, trans_a, a size, b size): P2, P3 (b), (i), the ragged
+# shapes, a batch, K past the panel in every element size, grids of 64
+# tiles of 64 x 64 whose stages fit only in shallower chunks
+MIXED_PLAN_SHAPES = [(1, 256, 256, 256, False, 1, 2),
+                     (1, 32, 128, 1280, True, 2, 1),
+                     (1, 32, 128, 1280, False, 4, 1),
+                     (1, 33, 1281, 65, False, 1, 2), (1, 1, 1, 1, False, 1, 2),
+                     (3, 96, 1280, 32, False, 1, 2),
+                     (1, 256, 4096, 512, True, 4, 1),
+                     (1, 512, 256, 512, False, 4, 2),
+                     (1, 512, 300, 512, True, 4, 2),
+                     (2, 300, 257, 700, True, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", MIXED_PLAN_SHAPES,
+                         ids=[str(s[:5]) for s in MIXED_PLAN_SHAPES])
+def test_mixed_plan_covers_k_once(shape):
+    """P2's launch: a tile of 32, or of 64 where that still gives 64
+    blocks; K chunks a multiple of 32 (two k16 steps, one a k group),
+    whole where K fits one panel of at most 256, the chunks covering
+    every K index once, the last not empty; the block's shared memory
+    within 48 KB."""
+    batch, M, K, N, trans_a, a_size, b_size = shape
+    plan = pm.mixed_plan(*shape)
+    blocks = lambda t: batch * math.ceil(M / t) * math.ceil(N / t)
+    assert plan.tile == (64 if blocks(64) >= pm.MX_MIN_BLOCKS else 32)
+    assert plan.k_chunk % 32 == 0
+    whole = 32 * math.ceil(K / 32)
+    assert plan.k_chunk == whole or (plan.k_chunk in pm.MX_RING_K
+                                     and plan.k_chunk < K)
+    ranges = [(k, min(K, k + plan.k_chunk))
+              for k in range(0, K, plan.k_chunk)]
+    assert ranges[-1][0] < K and sorted(
+        i for s, e in ranges for i in range(s, e)) == list(range(K))
+    assert pm.mixed_smem(plan, K, trans_a, a_size, b_size) <= pm.MX_SMEM
+
+
+def test_mixed_plan_at_the_probes():
+    """P2 at 256^3: 64 blocks of 32 x 32, K = 256 whole behind one
+    barrier; P3 (b) and (i), 32 x 128 x 1280: 40 blocks of 32 x 32, K =
+    128 whole."""
+    assert pm.mixed_plan(1, 256, 256, 256) == pm.MixedPlan(32, 256)
+    assert pm.mixed_plan(1, 32, 128, 1280, True, 2, 1) == pm.MixedPlan(
+        32, 128)
+    assert pm.mixed_plan(1, 32, 128, 1280, False, 4, 1) == pm.MixedPlan(
+        32, 128)
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), (33, 1281, 65)])
+def test_mixed_dot_one_launch(monkeypatch, shape):
+    """``mixed_dot``'s CUDA path makes one call of the C entry point with
+    its dims, the plan and the stream, and counts one launch."""
+    calls = []
+
+    class Lib:
+        def wa_probe_mma_bf16(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pm._build, "library", Lib)
+    monkeypatch.setattr(pm._build, "stream", lambda: 9)
+    monkeypatch.setattr(pm, "_check_cuda", lambda *ts: None)
+    monkeypatch.setattr(pm, "_check_device", lambda a: None)
+    M, K, N = shape
+    a = torch.zeros((M, K), dtype=torch.int8)
+    b = torch.zeros((K, N), dtype=torch.bfloat16)
+    before = pm.LAUNCHES["mixed_dot"]
+    out = pm._mma(a, b, False, (1, M, K, N))
+    assert len(calls) == 1 and out.shape == (M, N)
+    args = calls[0]
+    assert len(args) == len(pm._build._SIGNATURES["wa_probe_mma_bf16"])
+    assert args[6:10] == (1, M, K, N)
+    assert args[10:12] == tuple(pm.mixed_plan(1, M, K, N, False, 1, 2))
+    assert args[-1] == 9 and pm.LAUNCHES["mixed_dot"] == before
+
+
+def _f32_bits(x: int) -> np.float32:
+    return np.array([x], np.uint32).view(np.float32)[0]
+
+
+def _i8_f32(ux: int, sel: int) -> np.float32:
+    """csrc ``i8_f32``: byte ``sel & 3`` of ux (bytes ^ 0x80) as the low
+    byte of the f32 2^23, less 2^23 + 128 in f32."""
+    return _f32_bits(_byte_perm(ux, 0x4B000000, sel)) - np.float32(8388736)
+
+
+def _hi_pair(lo: np.float32, hi: np.float32):
+    """csrc ``hi_pair``: the f32s' high halves as a bf16 pair; returns the
+    pair's two values."""
+    w = _byte_perm(int(np.float32(lo).view(np.uint32)),
+                   int(np.float32(hi).view(np.uint32)), 0x7632)
+    return (float(_f32_bits((w & 0xFFFF) << 16)),
+            float(_f32_bits(w & 0xFFFF0000)))
+
+
+def _i8_pair(u: int):
+    """csrc ``i8_pair``: int8 bytes 0 and 1 of u as a bf16 pair."""
+    ux = u ^ 0x8080
+    return _hi_pair(_i8_f32(ux, 0x7440), _i8_f32(ux, 0x7441))
+
+
+def test_mixed_int8_pairs_exact():
+    """P2's widening in numpy: every int8 value, in either byte of a pair
+    (``i8_pair``, A's reader) and at every byte of two words (B's reader),
+    comes out as the bf16 of that value, exactly."""
+    vals = np.arange(256, dtype=np.uint8).view(np.int8)
+    rng = np.random.default_rng(13)
+    for v in vals:
+        o = int(rng.integers(-128, 128))
+        u = (int(v) & 0xFF) | (o & 0xFF) << 8
+        assert _i8_pair(u) == (float(v), float(o))
+        assert _i8_pair((o & 0xFF) | (int(v) & 0xFF) << 8) == (o, float(v))
+        for j in range(4):
+            we, wo = (int(w) for w in rng.integers(0, 2 ** 32, 2))
+            we = we & ~(0xFF << 8 * j) | (int(v) & 0xFF) << 8 * j
+            b = _hi_pair(_i8_f32(we ^ 0x80808080, 0x7440 | j),
+                         _i8_f32(wo ^ 0x80808080, 0x7440 | j))
+            assert b == (float(v), float(np.int8(np.uint8(
+                (wo >> 8 * j) & 0xFF))))
+
+
+def _ldmatrix(panel: np.ndarray, addrs, trans: bool):
+    """``ldmatrix.x4`` (``.trans``) over a flat panel of 16-bit values:
+    lane l gives row l % 8 of matrix l // 8 at ``addrs[l]``; lane (g, t)
+    gets matrix i's (row g, columns 2t, 2t + 1), or with .trans (rows 2t,
+    2t + 1, column g). Returns [lane][i] = (lo, hi)."""
+    mats = [np.stack([panel[addrs[8 * i + r]:addrs[8 * i + r] + 8]
+                      for r in range(8)]) for i in range(4)]
+    out = []
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        out.append([(m[2 * t, g], m[2 * t + 1, g]) if trans
+                    else (m[g, 2 * t], m[g, 2 * t + 1]) for m in mats])
+    return out
+
+
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("tb", ["bf16", "int8"])
+@pytest.mark.parametrize("ta", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("tile", [32, 64])
+def test_mixed_fragments_mirror(tile, ta, tb, trans_a):
+    """P2's kernel in numpy over one staged tile and one k16 step: the
+    panels laid out as the kernel stages them (rows 16 bytes longer),
+    each warp's fragments read by ``a_frag`` / ``b_frags``' addresses
+    (``ldmatrix`` modelled; int8 through ``i8_pair`` and the word reader),
+    multiplied as m16n8k16 lays its fragments out and stored as the
+    kernel stores: every output equals A . B of the bf16 operands (f32 A
+    rounded to nearest even)."""
+    rng = np.random.default_rng(tile + len(ta) + 3 * len(tb) + trans_a)
+    kc, WM = 32, tile // 16
+    if ta == "int8":
+        A = rng.integers(-128, 128, (tile, 16)).astype(np.int8)
+        Av = A.astype(np.float64)
+    else:
+        Af = rng.normal(0, 1, (tile, 16)).astype(np.float32)
+        Ab = torch.from_numpy(Af).to(torch.bfloat16)
+        A = Af if ta == "f32" else Ab
+        Av = Ab.double().numpy()
+    if tb == "int8":
+        B = rng.integers(-128, 128, (16, tile)).astype(np.int8)
+        Bv = B.astype(np.float64)
+    else:
+        B = torch.from_numpy(rng.normal(0, 1, (16, tile)).astype(
+            np.float32)).to(torch.bfloat16)
+        Bv = B.double().numpy()
+    asize = {"f32": 4, "bf16": 2, "int8": 1}[ta]
+    bsize = 2 if tb == "bf16" else 1
+
+    def vals(x):   # an operand's values as the kernel reads them
+        return x.double().numpy() if isinstance(x, torch.Tensor) else x
+
+    # the staged panels, flat, in elements
+    ald = (tile if trans_a else kc) + 16 // asize
+    a_rows = kc if trans_a else tile
+    ap = np.zeros(a_rows * ald, np.float64 if ta != "int8" else np.int64)
+    src = vals(A)
+    for m in range(tile):
+        for k in range(16):
+            ap[(k * ald + m) if trans_a else (m * ald + k)] = src[m, k]
+    bld = tile + 16 // bsize
+    bp = np.zeros(kc * bld, np.float64 if tb == "bf16" else np.int64)
+    for k in range(16):
+        bp[k * bld:k * bld + tile] = vals(B)[k]
+
+    def bf16_round(x):
+        return float(torch.tensor(float(x)).to(torch.bfloat16).float())
+
+    def u8(x):
+        return int(x) & 0xFF
+
+    out = np.full((tile, tile), np.nan)
+    for rg in range(WM):
+        r0 = 16 * rg
+        # A fragments, [lane][reg] = (lo, hi)
+        if ta == "bf16":
+            addrs = [((lane & 7) + 8 * ((lane >> 3) >> 1)) * ald + r0
+                     + 8 * ((lane >> 3) & 1) if trans_a
+                     else (r0 + (lane & 15)) * ald + 8 * (lane >> 4)
+                     for lane in range(32)]
+            af = _ldmatrix(ap, addrs, trans_a)
+        else:
+            af = []
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                regs = []
+                for j in range(4):
+                    if trans_a:
+                        q = (2 * t) * ald + r0 + g + 8 * (j & 1) \
+                            + 8 * ald * (j >> 1)
+                        lo, hi = ap[q], ap[q + ald]
+                    else:
+                        q = (r0 + g) * ald + 2 * t + 8 * ald * (j & 1) \
+                            + 8 * (j >> 1)
+                        lo, hi = ap[q], ap[q + 1]
+                    regs.append((bf16_round(lo), bf16_round(hi))
+                                if ta == "f32"
+                                else _i8_pair(u8(lo) | u8(hi) << 8))
+                af.append(regs)
+        # B fragments, [lane][n-tile] = (b0, b1), each (lo, hi)
+        bfr = [[None] * (tile // 8) for _ in range(32)]
+        if tb == "bf16":
+            for np_ in range(tile // 16):
+                addrs = [((lane & 7) + 8 * ((lane >> 3) & 1)) * bld
+                         + 16 * np_ + 8 * ((lane >> 3) >> 1)
+                         for lane in range(32)]
+                r = _ldmatrix(bp, addrs, True)
+                for lane in range(32):
+                    bfr[lane][2 * np_] = (r[lane][0], r[lane][1])
+                    bfr[lane][2 * np_ + 1] = (r[lane][2], r[lane][3])
+        else:
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for q in range(tile // 32):
+                    p = 2 * t * bld + 32 * q + 4 * g
+                    w = [sum(u8(bp[p + d * bld + i]) << 8 * i
+                             for i in range(4)) ^ 0x80808080
+                         for d in (0, 1, 8, 9)]
+                    for j in range(4):
+                        bfr[lane][4 * q + j] = (
+                            _hi_pair(_i8_f32(w[0], 0x7440 | j),
+                                     _i8_f32(w[1], 0x7440 | j)),
+                            _hi_pair(_i8_f32(w[2], 0x7440 | j),
+                                     _i8_f32(w[3], 0x7440 | j)))
+        # the mma: A 16 x 16 and each n-tile's B 16 x 8 from the layout
+        A16 = np.full((16, 16), np.nan)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for j, (row, k) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                          (g, 2 * t + 8), (g + 8, 2 * t + 8))):
+                A16[row, k:k + 2] = af[lane][j]
+        for nt in range(tile // 8):
+            B8 = np.full((16, 8), np.nan)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                B8[2 * t:2 * t + 2, g] = bfr[lane][nt][0]
+                B8[2 * t + 8:2 * t + 10, g] = bfr[lane][nt][1]
+            C = A16 @ B8
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for e in range(4):
+                    row = r0 + g + 8 * (e >> 1)
+                    col = (32 * (nt // 4) + 4 * (2 * t + (e & 1)) + nt % 4
+                           if tb == "int8" else 8 * nt + 2 * t + (e & 1))
+                    assert np.isnan(out[row, col])
+                    out[row, col] = C[g + 8 * (e >> 1), 2 * t + (e & 1)]
+    np.testing.assert_array_equal(out, Av @ Bv)

@@ -572,11 +572,62 @@ def test_q4k_edges_reach_each_path(smoke):
     for D in (512, 1280):
         for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
             assert (K, N) in smoke.Q4K_EDGES
-    plans = [q4k.q4k_plan(K, N) for K, N in smoke.Q4K_EDGES]
+    plans = [q4k.kq_plan(K, N) for K, N in smoke.Q4K_EDGES]
     assert {p.n_split > 1 for p in plans} == {True, False}
     assert any(K % p.split_rows for (K, _), p in zip(smoke.Q4K_EDGES, plans))
-    assert all(q4k.q4k_smem(min(M, 32), p) <= 227 * 1024
+    assert all(q4k.kq_smem(min(M, 32), p) <= 227 * 1024
                for p in plans for M in smoke.Q4K_ROWS)
+
+
+@pytest.mark.parametrize("fmt", ["q5k", "q6k"])
+def test_kq_edges_reach_each_path(smoke, fmt):
+    """K11's smoke cases (``check_kq_edges``) take the four scan shapes
+    at whisper-base and large-v3, 1, 3 and 9 groups of the format's size
+    (Q6_K: 16) against part strips, split and unsplit K, splits of an odd
+    group count, every width a multiple of 32, every plan within its
+    shared memory at each of ``Q4K_ROWS``."""
+    from whisper_apr_tpu_torch.ops import q4k
+    sub = 16 if fmt == "q6k" else 32
+    edges = smoke.kq_edges(fmt)
+    for D in (512, 1280):
+        for K, N in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+            assert (K, N) in edges
+    assert {K // sub for K, N in edges if K < 512} == {1, 3, 9}
+    assert all(K % sub == 0 and N % 32 == 0 for K, N in edges)
+    assert any(N % q4k.STRIP for _, N in edges)
+    plans = [q4k.kq_plan(K, N, sub) for K, N in edges]
+    assert {p.n_split > 1 for p in plans} == {True, False}
+    assert any(K % p.split_rows for (K, _), p in zip(edges, plans))
+    assert all(q4k.kq_smem(min(M, 32), p) <= 227 * 1024
+               for p in plans for M in smoke.Q4K_ROWS)
+
+
+def test_mixed_edge_cases_cover_each_path(smoke):
+    """P2's kernel's smoke cases run on the CPU (plain versions) to the
+    kernel's output shapes, and their plans take both tiles, K staged
+    whole and through the ring at each tile, K not a multiple of 16, rows
+    not 16-byte aligned, and every operand form P2, P3 (b) and (i) give
+    the kernel: int8 . bf16, a transposed bf16 A with an int8 B, an f32 A
+    cast in the kernel, a batch."""
+    import torch
+    cases = smoke.mixed_edge_cases("cpu")
+    for case, plan in cases:
+        got, ref = case.kernel(), case.plain()
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    shapes = smoke.MIXED_EDGES
+    assert (256, 256, 256) not in shapes      # the probe's own case
+    assert any(K % 16 for _, K, _ in shapes)
+    assert any(N % 8 for _, _, N in shapes)
+    plans = [(plan, case.inputs[1].shape[-2]) for case, plan in cases]
+    for tile in (32, 64):
+        ks = {p.k_chunk >= K for p, K in plans if p.tile == tile}
+        assert ks == {True, False}, tile
+    forms = {(c.inputs[0].dtype, c.inputs[1].dtype, "dotT" in c.name)
+             for c, _ in cases}
+    assert {(torch.int8, torch.bfloat16, False),
+            (torch.bfloat16, torch.int8, True),
+            (torch.float32, torch.int8, False)} <= forms
+    assert any(c.inputs[0].dim() == 3 for c, _ in cases)
 
 
 def test_k8_scan_bounds(smoke):

@@ -1,6 +1,6 @@
 // Shared device helpers of the kernels (decode_blocks.cu,
 // int8_matmul.cu, ...): dtype and error codes, element conversions, warp
-// reductions and the column tiling of the k-quant matvec (kquant.cuh).
+// reductions and the column granule of the decoder's weights.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,13 +19,9 @@ enum ArgError { ERR_DTYPE = -1, ERR_SHAPE = -2 };
 constexpr float LN_EPS = 1e-5f;
 constexpr int HD = 64;                 // head dim of every Whisper size
 
-// matvec tiling: a block owns MV_COLS output columns; each thread reads 4
-// neighbouring int8 columns (one 32-bit load) of one K row, MV_KLANES
-// rows in flight per block
+// the column granule of the decoder's weights: every output width a
+// multiple of it (attention.cuh, kquant.cuh)
 constexpr int MV_COLS = 32;
-constexpr int MV_THREADS = 256;
-constexpr int MV_CGROUPS = MV_COLS / 4;              // 8
-constexpr int MV_KLANES = MV_THREADS / MV_CGROUPS;   // 32
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -19,10 +19,10 @@
 //
 // Design. Output tiles per block, K in chunks; tiles past the edges are
 // zero-filled when staged and masked when stored, so any shape runs.
-// Operands are read from device memory in their own dtype and converted
-// in registers on the way into shared memory: there is no separate cast
-// pass over memory, which is the question the probes ask for the int8
-// K/V rows of the batched attention kernels.
+// Operands are read from device memory and staged in their own dtype and
+// converted in registers as they are read from shared memory: there is no
+// separate cast pass over memory, which is the question the probes ask for
+// the int8 K/V rows of the batched attention kernels.
 //   int8_mma_kernel (P1): mma.sync m16n8k32 s8.s8 -> s32. At 256^3 the
 //     bound is 0.12 us and a launch's latency is the limit, so the design
 //     cuts each block's serial path and fills the card:
@@ -41,11 +41,24 @@
 //       all four n-tiles come from one 32-bit word of each of four rows,
 //       transposed by eight byte permutes (int8_mma_kernel below).
 //   mixed_mma_kernel (P2, P3 (b), (i)): Hopper has no mixed int8 x bf16
-//     MMA. int8 converts to bf16 exactly (|v| <= 127 needs 7 bits), f32
-//     rounds to nearest even (case (i)'s in-kernel cast), both in
-//     registers; A is staged [M][K] (a transposed A [K, M] is transposed
-//     while staged), B [N][K]; then mma.sync m16n8k16 bf16 with f32 sums.
-//     Products of bf16 and int8 values are exact in f32.
+//     MMA, so both operands become bf16 in registers, exactly for int8
+//     (a byte permute and an f32 subtraction, not the quarter-rate
+//     int-to-float conversion) and rounded to nearest even for f32 (case
+//     (i)'s in-kernel cast), then mma.sync m16n8k16 bf16 with f32 sums:
+//     products of bf16 and int8 values are exact in f32. P1's design:
+//     - tiles of 32 x 32, or 64 x 64 where that still gives 64 blocks
+//       (ops/probe_mma.mixed_plan: 256^3 takes 64 blocks of 32 x 32, P3
+//       (b)'s 32 x 128 x 1280 40); the two warps that share a 16-row
+//       group take alternate k16 steps and add their f32 sums in a fixed
+//       order at the end;
+//     - both panels staged in their own dtype with 16-byte cp.async
+//       copies, zero-filled past the edges, rows not 16-byte aligned an
+//       element a thread; K up to 256 whole behind one barrier, deeper K
+//       through a 2-stage ring, the chunk the plan's;
+//     - bf16 fragments by ldmatrix.x4 (.trans for B [K][N] and a
+//       transposed A); int8 widened as read into fragments, an int8 B
+//       read as P1 reads it (a word of four columns from each of rows k
+//       and k + 1, paired by byte permutes).
 //   f32_dot_kernel (P3 (a), (c), (e)-(h), (j)): any f32 operand stays on
 //     the CUDA cores in f32 (int8 widened exactly in registers): the
 //     tensor cores would round f32 inputs to TF32 (about 3 digits), and
@@ -74,15 +87,14 @@
 //       order, without atomics, so every run gives the same sums.
 //   transpose_kernel (P3 (d)): a 32 x 33 shared-memory tile (the pad
 //     column keeps the transposed reads off one bank); exact.
+#include <type_traits>
+
 #include "common.cuh"
 #include "cp_async.cuh"
 
 namespace wa {
 namespace {
 
-constexpr int PT = 64;               // output tile rows and columns
-constexpr int MMA_K = 32;            // K chunk of the tensor-core kernels
-constexpr int MMA_THREADS = 128;     // 4 warps x 16 rows
 constexpr int DOT_THREADS = 128;     // f32_dot_kernel
 constexpr int DOT_TN = 4;            // its columns per thread
 constexpr int DOT_SMEM = 48 * 1024;  // its staged panels, all stages
@@ -109,102 +121,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
     return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
-    return __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
-    return v;
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t v) {
-    return __float2bfloat16_rn((float)v);
-}
-
-template <typename T> __device__ __forceinline__ T zero_of() { return T(0); }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
-    return __float2bfloat16_rn(0.f);
-}
-
-// element (m, k) of A, given [M, K] or (TA_T) [K, M]; 0 past the edges
-template <typename T, bool TA_T>
-__device__ __forceinline__ T a_at(const T* a, int m, int k, int M, int K) {
-    if (m >= M || k >= K) return zero_of<T>();
-    return TA_T ? a[(size_t)k * M + m] : a[(size_t)m * K + k];
-}
-
-template <typename T>
-__device__ __forceinline__ T b_at(const T* b, int k, int n, int K, int N) {
-    return (k < K && n < N) ? b[(size_t)k * N + n] : zero_of<T>();
-}
-
-// which (row, k) of a PT x KC tile element e stands for: along k for a
-// row-major source, along the rows for a transposed one (coalesced reads)
-template <bool ALONG_ROWS, int KC>
-__device__ __forceinline__ void tile_pos(int e, int& r, int& k) {
-    if (ALONG_ROWS) {
-        k = e / PT;
-        r = e % PT;
-    } else {
-        r = e / KC;
-        k = e % KC;
-    }
-}
-
-// P2, P3 (b), (i): C [M, N] f32 = A . B on the tensor cores in bf16, A
-// [M, K] or (TA_T) [K, M] of TA in {f32, bf16, int8}, B [K, N] of TB in
-// {bf16, int8}; blockIdx.z walks a leading batch axis
-template <typename TA, typename TB, bool TA_T>
-__global__ void __launch_bounds__(MMA_THREADS) mixed_mma_kernel(
-        const TA* __restrict__ a, const TB* __restrict__ b,
-        float* __restrict__ c, int M, int K, int N) {
-    constexpr int LD = MMA_K + 8;    // bf16 elements: 80-byte rows
-    __shared__ __align__(16) __nv_bfloat16 as[PT][LD];   // [m][k]
-    __shared__ __align__(16) __nv_bfloat16 bs[PT][LD];   // [n][k]
-    a += (size_t)blockIdx.z * M * K;
-    b += (size_t)blockIdx.z * K * N;
-    c += (size_t)blockIdx.z * M * N;
-    const int m0 = blockIdx.y * PT, n0 = blockIdx.x * PT;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    float acc[PT / 8][4];
-#pragma unroll
-    for (int i = 0; i < PT / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] =
-        acc[i][3] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += MMA_K) {
-        __syncthreads();
-        for (int e = tid; e < PT * MMA_K; e += MMA_THREADS) {
-            int r, k;
-            tile_pos<TA_T, MMA_K>(e, r, k);
-            as[r][k] = to_bf16(a_at<TA, TA_T>(a, m0 + r, k0 + k, M, K));
-            tile_pos<true, MMA_K>(e, r, k);
-            bs[r][k] = to_bf16(b_at(b, k0 + k, n0 + r, K, N));
-        }
-        __syncthreads();
-        const int r = warp * 16 + g;
-#pragma unroll
-        for (int kc = 0; kc < MMA_K; kc += 16) {
-            const int kb = kc + 2 * t;
-            const uint32_t af[4] = {ld32(&as[r][kb]), ld32(&as[r + 8][kb]),
-                                    ld32(&as[r][kb + 8]),
-                                    ld32(&as[r + 8][kb + 8])};
-#pragma unroll
-            for (int nt = 0; nt < PT / 8; ++nt) {
-                const __nv_bfloat16* bp = &bs[nt * 8 + g][kb];
-                mma_bf16(acc[nt], af, ld32(bp), ld32(bp + 8));
-            }
-        }
-    }
-    const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int nt = 0; nt < PT / 8; ++nt) {
-        const int col = n0 + nt * 8 + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int row = e < 2 ? r0 : r1, cc = col + (e & 1);
-            if (row < M && cc < N) c[(size_t)row * N + cc] = acc[nt][e];
-        }
-    }
 }
 
 // P3 (a), (c), (e)-(h), (j): the same contraction on the CUDA cores in f32
@@ -400,6 +316,250 @@ __global__ void __launch_bounds__(I8_THREADS) int8_mma_kernel(
     }
 }
 
+// P2, P3 (b), (i): C [M, N] f32 = A . B on the tensor cores in bf16 with
+// f32 sums, A [M, K] or (TA_T) [K, M] of TA in {f32, bf16, int8}, B [K, N]
+// of TB in {bf16, int8}, over a BT x BT tile (ops/probe_mma.mixed_plan: 32
+// or 64), K staged k_chunk at a time (whole, or a 2-stage ring); the
+// panels hold each operand in its own dtype (bf16 as its 16 bits).
+// 4 BT threads: warp w takes rows 16 (w % (BT / 16)) .. + 16 of the tile
+// by its BT columns and every other k16 step of each staged chunk, from
+// step w / (BT / 16); the two warps of a row group add their f32 sums in
+// that order at the end. Fragments:
+// - bf16 operands by ldmatrix.x4: A [m][k] as it is, a transposed A
+//   [k][m] and B [k][n] with .trans (16-bit elements: sm_90 has it);
+// - f32 A rounded to bf16 pairs (round to nearest even) as it is read;
+// - int8 widened exactly as it is read: the byte b ^ 0x80 = b + 128 as
+//   the low byte of the f32 2^23 by a byte permute, 2^23 + 128 taken off
+//   by one f32 subtraction, the f32's high half IS b as a bf16 (at most 8
+//   significant bits), two such halves one pair by a byte permute. An
+//   int8 B [k][n] is read as P1 reads it: lane (g, t) takes one 32-bit
+//   word at columns 4g of K rows 2t, 2t + 1, 2t + 8, 2t + 9 of each
+//   32-column group, and byte j of the even row and of the odd row make
+//   the pair of n-tile j, whose mma column g stands for column 4g + j:
+//   the lane's sums land on 8 neighbouring columns of a row.
+template <typename T> struct Raw { using type = T; };
+template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
+
+constexpr int MX_SMEM = 48 * 1024;   // a block's shared bytes, at most
+
+// elements of a staged row of `cols` columns: 16 bytes of pad after each
+template <typename T>
+__host__ __device__ __forceinline__ int mx_ld(int cols) {
+    return cols + 16 / (int)sizeof(T);
+}
+
+// bytes of one stage: A [bt][k_chunk] (TA_T: [k_chunk][bt]), then B
+// [k_chunk][bt]; mirrors ops/probe_mma.mixed_stage_bytes
+template <typename TA, typename TB, bool TA_T>
+__host__ __device__ __forceinline__ int mx_a_bytes(int bt, int kc) {
+    return (TA_T ? kc * mx_ld<TA>(bt) : bt * mx_ld<TA>(kc))
+        * (int)sizeof(TA);
+}
+template <typename TA, typename TB, bool TA_T>
+__host__ __device__ __forceinline__ int mx_stage_bytes(int bt, int kc) {
+    return mx_a_bytes<TA, TB, TA_T>(bt, kc)
+        + kc * mx_ld<TB>(bt) * (int)sizeof(TB);
+}
+// a block's: one stage, or two when K takes more than one chunk; at least
+// the second k group's sums (bt^2 floats)
+template <typename TA, typename TB, bool TA_T>
+int mx_smem(int bt, int K, int kc) {
+    return max((K > kc ? 2 : 1) * mx_stage_bytes<TA, TB, TA_T>(bt, kc),
+               4 * bt * bt);
+}
+
+// byte `sel & 3` of ux (int8 bytes ^ 0x80) as an f32, exactly
+__device__ __forceinline__ float i8_f32(uint32_t ux, int sel) {
+    return __uint_as_float(__byte_perm(ux, 0x4B000000u, sel)) - 8388736.f;
+}
+
+// two integer-valued f32 of at most 8 significant bits as a bf16 pair
+// (lo in bits 0-15): their high halves
+__device__ __forceinline__ uint32_t hi_pair(float lo, float hi) {
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// the int8 bytes 0 (K k) and 1 (K k + 1) of u as a bf16 pair
+__device__ __forceinline__ uint32_t i8_pair(uint32_t u) {
+    const uint32_t ux = u ^ 0x8080u;
+    return hi_pair(i8_f32(ux, 0x7440), i8_f32(ux, 0x7441));
+}
+
+__device__ __forceinline__ uint32_t f32_pair(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A fragment of rows r0 .. r0 + 15 and K k0 .. k0 + 15 from a staged
+// panel as [m][ld] (TA_T: [k][ld])
+template <typename TA, bool TA_T>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
+                                       const typename Raw<TA>::type* as,
+                                       int ld, int r0, int k0, int lane) {
+    const int g = lane >> 2, t = lane & 3, i = lane >> 3;
+    if constexpr (std::is_same<TA, __nv_bfloat16>::value) {
+        if (TA_T)
+            ldmatrix_x4_trans(a, as + (k0 + (lane & 7) + 8 * (i >> 1)) * ld
+                                     + r0 + 8 * (i & 1));
+        else
+            ldmatrix_x4(a, as + (r0 + (lane & 15)) * ld + k0
+                               + 8 * (lane >> 4));
+    } else if constexpr (TA_T) {
+        // [k][m]: K 2t and 2t + 1 of row g are a row apart
+        const auto* p = as + (k0 + 2 * t) * ld + r0 + g;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const auto* q = p + 8 * (j & 1) + 8 * ld * (j >> 1);
+            if constexpr (std::is_same<TA, float>::value)
+                a[j] = f32_pair(q[0], q[ld]);
+            else
+                a[j] = i8_pair((uint32_t)(uint8_t)q[0]
+                               | (uint32_t)(uint8_t)q[ld] << 8);
+        }
+    } else {
+        const auto* p = as + (r0 + g) * ld + k0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const auto* q = p + 8 * ld * (j & 1) + 8 * (j >> 1);
+            if constexpr (std::is_same<TA, float>::value) {
+                const float2 v = *reinterpret_cast<const float2*>(q);
+                a[j] = f32_pair(v.x, v.y);
+            } else {
+                a[j] = i8_pair(*reinterpret_cast<const uint16_t*>(q));
+            }
+        }
+    }
+}
+
+// the B fragments of the warp's NTILE n-tiles, K k0 .. k0 + 15, from a
+// staged panel [k][ld] (int8: n-tile 4q + j's column g is 32q + 4g + j)
+template <typename TB, int NTILE>
+__device__ __forceinline__ void b_frags(uint32_t (&b)[NTILE][2],
+                                        const typename Raw<TB>::type* bs,
+                                        int ld, int k0, int lane) {
+    const int g = lane >> 2, t = lane & 3, i = lane >> 3;
+    if constexpr (std::is_same<TB, __nv_bfloat16>::value) {
+#pragma unroll
+        for (int np = 0; np < NTILE / 2; ++np) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, bs + (k0 + (lane & 7) + 8 * (i & 1)) * ld
+                                     + 16 * np + 8 * (i >> 1));
+            b[2 * np][0] = r[0];
+            b[2 * np][1] = r[1];
+            b[2 * np + 1][0] = r[2];
+            b[2 * np + 1][1] = r[3];
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < NTILE / 4; ++q) {
+            const auto* p = bs + (k0 + 2 * t) * ld + 32 * q + 4 * g;
+            const uint32_t w[4] = {ld32(p) ^ 0x80808080u,
+                                   ld32(p + ld) ^ 0x80808080u,
+                                   ld32(p + 8 * ld) ^ 0x80808080u,
+                                   ld32(p + 9 * ld) ^ 0x80808080u};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                b[4 * q + j][0] = hi_pair(i8_f32(w[0], 0x7440 | j),
+                                          i8_f32(w[1], 0x7440 | j));
+                b[4 * q + j][1] = hi_pair(i8_f32(w[2], 0x7440 | j),
+                                          i8_f32(w[3], 0x7440 | j));
+            }
+        }
+    }
+}
+
+template <typename TA, typename TB, bool TA_T, int BT>
+__global__ void __launch_bounds__(4 * BT) mixed_mma_kernel(
+        const TA* __restrict__ a, const TB* __restrict__ b,
+        float* __restrict__ c, int M, int K, int N, int k_chunk, int a_vec,
+        int b_vec) {
+    using SA = typename Raw<TA>::type;
+    using SB = typename Raw<TB>::type;
+    constexpr int THREADS = 4 * BT;
+    constexpr int WM = BT / 16;          // row groups: warps a k group
+    constexpr int NTILE = BT / 8;        // n-tiles a warp
+    extern __shared__ __align__(16) unsigned char mx_smem_buf[];
+    const SA* ag = reinterpret_cast<const SA*>(a)
+        + (size_t)blockIdx.z * M * K;
+    const SB* bg = reinterpret_cast<const SB*>(b)
+        + (size_t)blockIdx.z * K * N;
+    c += (size_t)blockIdx.z * M * N;
+    const int m0 = blockIdx.y * BT, n0 = blockIdx.x * BT;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rg = warp % WM, kw = warp / WM;
+    const int ald = TA_T ? mx_ld<TA>(BT) : mx_ld<TA>(k_chunk);
+    const int bld = mx_ld<TB>(BT);
+    const int a_bytes = mx_a_bytes<TA, TB, TA_T>(BT, k_chunk);
+    const int sbytes = mx_stage_bytes<TA, TB, TA_T>(BT, k_chunk);
+    const int n_chunks = (K + k_chunk - 1) / k_chunk;
+
+    auto stage = [&](int ci) {   // chunk ci into stage ci % 2
+        SA* as = reinterpret_cast<SA*>(mx_smem_buf + (ci & 1) * sbytes);
+        SB* bs = reinterpret_cast<SB*>(mx_smem_buf + (ci & 1) * sbytes
+                                       + a_bytes);
+        const int k0 = ci * k_chunk;
+        if constexpr (TA_T)   // A [K, M]: rows k, contiguous along m
+            stage_panel<THREADS>(as, ald, ag + (size_t)k0 * M + m0, M,
+                                 k_chunk, BT, K - k0, M - m0, a_vec);
+        else                  // A [M, K]: rows m, contiguous along k
+            stage_panel<THREADS>(as, ald, ag + (size_t)m0 * K + k0, K, BT,
+                                 k_chunk, M - m0, K - k0, a_vec);
+        stage_panel<THREADS>(bs, bld, bg + (size_t)k0 * N + n0, N, k_chunk,
+                             BT, K - k0, N - n0, b_vec);
+    };
+
+    float acc[NTILE][4];
+#pragma unroll
+    for (int i = 0; i < NTILE; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    stage(0);
+    cp_async_commit();
+    for (int ci = 0; ci < n_chunks; ++ci) {
+        cp_async_wait<0>();
+        __syncthreads();     // chunk ci has landed; chunk ci - 1 is read
+        if (ci + 1 < n_chunks) stage(ci + 1);
+        cp_async_commit();
+        const SA* as = reinterpret_cast<const SA*>(mx_smem_buf
+                                                   + (ci & 1) * sbytes);
+        const SB* bs = reinterpret_cast<const SB*>(
+            mx_smem_buf + (ci & 1) * sbytes + a_bytes);
+        for (int ks = 16 * kw; ks < k_chunk; ks += 32) {
+            uint32_t af[4], bf[NTILE][2];
+            a_frag<TA, TA_T>(af, as, ald, 16 * rg, ks, lane);
+            b_frags<TB, NTILE>(bf, bs, bld, ks, lane);
+#pragma unroll
+            for (int nt = 0; nt < NTILE; ++nt)
+                mma_bf16(acc[nt], af, bf[nt][0], bf[nt][1]);
+        }
+    }
+    // the second k group hands its sums to the first through the panels'
+    // shared memory
+    cp_async_wait<0>();
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(mx_smem_buf)
+        + (rg * 32 + lane) * NTILE * 4;
+    if (kw == 1) {
+#pragma unroll
+        for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) red[nt * 4 + e] = acc[nt][e];
+    }
+    __syncthreads();
+    if (kw == 1) return;
+#pragma unroll
+    for (int nt = 0; nt < NTILE; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float v = acc[nt][e] + red[nt * 4 + e];
+            const int row = m0 + 16 * rg + g + 8 * (e >> 1);
+            const int col = n0 + (std::is_same<TB, int8_t>::value
+                ? 32 * (nt / 4) + 4 * (2 * t + (e & 1)) + nt % 4
+                : 8 * nt + 2 * t + (e & 1));
+            if (row < M && col < N) c[(size_t)row * N + col] = v;
+        }
+}
+
 // Row stride (elements) of a staged A panel: [BM][k_chunk + 16 bytes]
 // for a row-major A (the pad turns rows 4 banks apart), [k_chunk][BM]
 // for a transposed one; and one stage's bytes (A panel, then B [k_chunk]
@@ -565,36 +725,42 @@ __global__ void __launch_bounds__(256) transpose_kernel(
     }
 }
 
-dim3 tiles(int M, int N, int batch) {
-    return dim3((N + PT - 1) / PT, (M + PT - 1) / PT, batch);
-}
-
 bool bad_shape(int batch, int M, int K, int N) {
     return batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1
-        || (M + PT - 1) / PT > 65535;
+        || (M + 31) / 32 > 65535;
 }
 
-template <template <typename, typename, bool> class Launch, typename TA,
-          typename TB>
-int by_trans(int trans_a, const void* a, const void* b, void* c, int batch,
-             int M, int K, int N, cudaStream_t st) {
-    if (trans_a)
-        Launch<TA, TB, true>::run(a, b, c, batch, M, K, N, st);
-    else
-        Launch<TA, TB, false>::run(a, b, c, batch, M, K, N, st);
+template <typename TA, typename TB, bool TA_T, int BT>
+int mixed_launch(const void* a, const void* b, void* c, int batch, int M,
+                 int K, int N, int k_chunk, cudaStream_t st) {
+    const int smem = mx_smem<TA, TB, TA_T>(BT, K, k_chunk);
+    if (smem > MX_SMEM) return ERR_SHAPE;
+    const bool a_vec = reinterpret_cast<uintptr_t>(a) % 16 == 0
+        && (size_t)(TA_T ? M : K) * sizeof(TA) % 16 == 0;
+    const bool b_vec = reinterpret_cast<uintptr_t>(b) % 16 == 0
+        && (size_t)N * sizeof(TB) % 16 == 0;
+    mixed_mma_kernel<TA, TB, TA_T, BT>
+        <<<dim3((N + BT - 1) / BT, (M + BT - 1) / BT, batch), 4 * BT, smem,
+           st>>>(static_cast<const TA*>(a), static_cast<const TB*>(b),
+                 static_cast<float*>(c), M, K, N, k_chunk, a_vec, b_vec);
     return (int)cudaGetLastError();
 }
 
-template <typename TA, typename TB, bool TA_T>
-struct MixedLaunch {
-    static void run(const void* a, const void* b, void* c, int batch, int M,
-                    int K, int N, cudaStream_t st) {
-        mixed_mma_kernel<TA, TB, TA_T><<<tiles(M, N, batch), MMA_THREADS, 0,
-                                         st>>>(
-            static_cast<const TA*>(a), static_cast<const TB*>(b),
-            static_cast<float*>(c), M, K, N);
-    }
-};
+template <typename TA, typename TB>
+int mixed_by_plan(int trans_a, const void* a, const void* b, void* c,
+                  int batch, int M, int K, int N, int tile, int k_chunk,
+                  cudaStream_t st) {
+#define WA_MX(T_, BT)                                                       \
+    if ((trans_a != 0) == T_ && tile == BT)                                 \
+        return mixed_launch<TA, TB, T_, BT>(a, b, c, batch, M, K, N,        \
+                                            k_chunk, st);
+    WA_MX(false, 32)
+    WA_MX(false, 64)
+    WA_MX(true, 32)
+    WA_MX(true, 64)
+#undef WA_MX
+    return ERR_SHAPE;
+}
 
 // the launch plan of P3's f32 contraction (ops/probe_mma.DotPlan)
 struct DotPlan {
@@ -678,20 +844,24 @@ extern "C" int wa_probe_int8_mma(const void* a, const void* b, void* c,
 
 // P2, P3 (b), (i): c [batch, M, N] f32 = a . b on the tensor cores; a
 // [batch, M, K] or (trans_a) [batch, K, M] of dtype ta (f32, bf16, int8),
-// b [batch, K, N] of dtype tb (bf16, int8), all contiguous.
+// b [batch, K, N] of dtype tb (bf16, int8), all contiguous; tile x tile
+// outputs a block (32 or 64), K staged k_chunk (a multiple of 32) at a
+// time (ops/probe_mma.mixed_plan).
 extern "C" int wa_probe_mma_bf16(const void* a, int ta, int trans_a,
                                  const void* b, int tb, void* c, int batch,
-                                 int M, int K, int N, void* stream) {
+                                 int M, int K, int N, int tile, int k_chunk,
+                                 void* stream) {
     using namespace wa;
-    if (bad_shape(batch, M, K, N)) return ERR_SHAPE;
+    if (bad_shape(batch, M, K, N) || k_chunk < 32 || k_chunk % 32 != 0)
+        return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
 #define WA_MIXED(TA_CODE, TA)                                               \
     if (ta == TA_CODE && tb == BF16)                                        \
-        return by_trans<MixedLaunch, TA, __nv_bfloat16>(trans_a, a, b, c,   \
-                                                        batch, M, K, N, st); \
+        return mixed_by_plan<TA, __nv_bfloat16>(trans_a, a, b, c, batch, M, \
+                                                K, N, tile, k_chunk, st);   \
     if (ta == TA_CODE && tb == I8)                                          \
-        return by_trans<MixedLaunch, TA, int8_t>(trans_a, a, b, c, batch, M, \
-                                                 K, N, st);
+        return mixed_by_plan<TA, int8_t>(trans_a, a, b, c, batch, M, K, N,  \
+                                         tile, k_chunk, st);
     WA_MIXED(F32, float)
     WA_MIXED(BF16, __nv_bfloat16)
     WA_MIXED(I8, int8_t)

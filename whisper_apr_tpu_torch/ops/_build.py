@@ -79,14 +79,15 @@ _SIGNATURES = {
     "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
     "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
     "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
     "wa_probe_dot_f32": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P, _P],
     "wa_probe_transpose": [_P, _P, _I, _I, _P],
 }
 
 MAX_ROWS = 32          # rows one launch of a batched entry takes (csrc
-                       # KQ_MAX_B, FF_MAX_ROWS); the wrappers chunk larger
+                       # KM_MAX_M, FF_MAX_ROWS); the wrappers chunk larger
                        # batches
 
 _lib: Optional[ctypes.CDLL] = None

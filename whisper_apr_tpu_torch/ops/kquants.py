@@ -35,8 +35,9 @@ Planar forms on the device: an input-major ``[K, N]`` weight becomes
 
 K11 ``kq_matvec_stacked``: y [M, N] = x [M, K] @ one layer of such an
 [L, ...] stack, per group S·Σ(x·q) (− Z·Σx for Q5_K), f32 accumulation;
-the CUDA kernel is K10's (``csrc/kquant_matvec.cu``) for the int8 value
-planes.
+the CUDA kernel is K10's tensor-core kernel (``csrc/kquant_matvec.cu``
+``kq_mv_mma_kernel``) over the int8 value planes, launched by
+``q4k.kq_matvec_cuda`` at ``q4k.kq_plan`` in the format's groups.
 """
 
 from __future__ import annotations

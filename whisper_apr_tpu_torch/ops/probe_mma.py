@@ -11,7 +11,8 @@ them in a separate pass.
   (``mma.sync`` m16n8k32 s8 over 32 x 32 tiles; ``int8_plan`` sizes its
   K chunks).
 - P2 ``mixed_dot``: int8 [M, K] . bf16 [K, N] -> f32 (int8 converted to
-  bf16 in registers, then ``mma.sync`` m16n8k16 bf16).
+  bf16 in registers, then ``mma.sync`` m16n8k16 bf16; ``mixed_plan``
+  sizes its tiles and K chunks, as ``int8_plan`` P1's).
 - P3 ``tricks_dot`` / ``tricks_transpose``: ``dot`` / ``dot_general``
   with an f32 result over f32, bf16 and int8 operands, the left operand
   given transposed (contracting its dim 0) and a leading batch axis;
@@ -130,16 +131,74 @@ def _int8_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # P2 and P3: contractions with an f32 result
 # ---------------------------------------------------------------------------
 
+# the tensor-core contraction's launch plan (csrc mixed_mma_kernel)
+MX_SMEM = 48 * 1024       # a block's shared bytes, at most
+MX_MIN_BLOCKS = 64        # the 64 x 64 tile only where it gives this many
+MX_PANEL_K = 256          # K staged whole up to this depth
+MX_RING_K = (128, 64, 32)   # else chunks this deep, the first that fits
+
+
+class MixedPlan(NamedTuple):
+    """A ``tile`` x ``tile`` output block (4 ``tile`` threads), K staged
+    ``k_chunk`` at a time: whole, or through a 2-stage ring."""
+    tile: int
+    k_chunk: int
+
+
+def mixed_stage_bytes(tile: int, k_chunk: int, trans_a: bool, a_size: int,
+                      b_size: int) -> int:
+    """Shared bytes of one stage (csrc ``mx_stage_bytes``): A [tile]
+    [k_chunk] (``trans_a``: [k_chunk][tile]) and B [k_chunk][tile], each
+    row 16 bytes longer, in the operands' own element sizes."""
+    a = (k_chunk * (tile + 16 // a_size) if trans_a
+         else tile * (k_chunk + 16 // a_size)) * a_size
+    return a + k_chunk * (tile + 16 // b_size) * b_size
+
+
+def mixed_smem(plan: MixedPlan, K: int, trans_a: bool, a_size: int,
+               b_size: int) -> int:
+    """A block's shared bytes (csrc ``mx_smem``): one stage, two when K
+    takes more than one chunk; at least the second k group's sums."""
+    stages = 2 if K > plan.k_chunk else 1
+    return max(stages * mixed_stage_bytes(plan.tile, plan.k_chunk, trans_a,
+                                          a_size, b_size),
+               4 * plan.tile * plan.tile)
+
+
+def mixed_plan(batch: int, M: int, K: int, N: int, trans_a: bool = False,
+               a_size: int = 1, b_size: int = 2) -> MixedPlan:
+    """The launch of P2 and P3 (b), (i) for [batch, M, K] . [batch, K, N]
+    with elements of ``a_size`` and ``b_size`` bytes: the 64 x 64 tile
+    where it gives at least ``MX_MIN_BLOCKS`` blocks, else 32 x 32 (256^3:
+    64 blocks; P3 (b)'s 32 x 1280: 40); K rounded up to 32 and staged whole
+    up to ``MX_PANEL_K`` where one stage fits in ``MX_SMEM``, else the
+    deepest of ``MX_RING_K`` whose two stages fit."""
+    tile = 64 if batch * math.ceil(M / 64) * math.ceil(N / 64) \
+        >= MX_MIN_BLOCKS else 32
+    whole = 32 * math.ceil(K / 32)
+    if whole <= MX_PANEL_K and mixed_stage_bytes(
+            tile, whole, trans_a, a_size, b_size) <= MX_SMEM:
+        return MixedPlan(tile, whole)
+    for k_chunk in MX_RING_K:
+        if 2 * mixed_stage_bytes(tile, k_chunk, trans_a, a_size,
+                                 b_size) <= MX_SMEM:
+            break
+    return MixedPlan(tile, k_chunk)
+
+
 def _mma(a, b, trans_a, dims) -> torch.Tensor:
-    """The tensor-core kernel (bf16 products, f32 sums)."""
+    """The tensor-core kernel (bf16 products, f32 sums), at
+    ``mixed_plan``."""
     batch, M, K, N = dims
     _check_cuda(a, b)
     out = torch.empty(((batch,) if a.dim() == 3 else ()) + (M, N),
                       dtype=torch.float32, device=a.device)
+    plan = mixed_plan(batch, M, K, N, trans_a, a.element_size(),
+                      b.element_size())
     rc = _build.library().wa_probe_mma_bf16(
         a.data_ptr(), _build.DTYPE_CODES[a.dtype], int(trans_a),
         b.data_ptr(), _build.DTYPE_CODES[b.dtype], out.data_ptr(), batch,
-        M, K, N, _build.stream())
+        M, K, N, *plan, _build.stream())
     _build.check(rc, "probe mma")
     return out
 

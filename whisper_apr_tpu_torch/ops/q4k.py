@@ -30,8 +30,9 @@ carried on a QTensor with a ``zero`` (``ops/quant.py``).
 K10 ``q4k_matvec_stacked``: y [M, N] = x [M, K] @ the planar weight of
 one layer of an [L, ...] stack, per 32-group S·Σ(x·q) − Z·Σx, f32
 accumulation; the wrapper runs the CUDA kernel (``csrc/kquant_matvec.cu``,
-on the tensor cores, K split over a cluster as ``q4k_plan`` says) for CUDA
-tensors and the plain version below for CPU tensors.
+on the tensor cores, K split over a cluster as ``kq_plan`` says; K11's
+kernel too) for CUDA tensors and the plain version below for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -260,13 +261,13 @@ def q4k_matvec_stacked_plain(x: torch.Tensor, wq: torch.Tensor,
                       zero[layer]).to(x.dtype)
 
 
-# K10's launch (csrc/kquant_matvec.cu q4k_mv_mma_kernel): a block owns
-# STRIP output columns and a range of whole 32-groups of K, taken by its
-# WARPS warps in turn; the splits of a strip form one cluster. A block holds
-# its SM (200+ registers a thread), so a launch takes at most BLOCKS blocks,
-# in clusters of a power of 2 (clusters of 3, 10, 12 or 13 measured a
-# second wave's time on an H100, PERF.md). ``q4k_smem`` mirrors its shared
-# memory.
+# The launch of K10 and K11 (csrc/kquant_matvec.cu kq_mv_mma_kernel): a
+# block owns STRIP output columns and a range of whole groups of K (32
+# values; Q6_K's 16), taken by its WARPS warps in turn; the splits of a
+# strip form one cluster. A block holds its SM (200+ registers a thread),
+# so a launch takes at most BLOCKS blocks, in clusters of a power of 2
+# (clusters of 3, 10, 12 or 13 measured a second wave's time on an H100,
+# PERF.md). ``kq_smem`` mirrors its shared memory.
 STRIP = 128
 WARPS = 8
 MAX_SPLIT = 16
@@ -274,28 +275,28 @@ BLOCKS = 120
 SLOT_ROW = 8 * 17      # a warp's slot row: 8 vectors of 16 columns, padded
 
 
-def q4k_plan(K: int, N: int) -> SplitPlan:
-    """How K10 spreads K over blocks: each strip of ``STRIP`` columns
-    takes the most splits, a power of 2 up to ``MAX_SPLIT`` and the
-    groups of K, that keep the launch within ``BLOCKS`` blocks (summed
+def kq_plan(K: int, N: int, sub: int = SUB) -> SplitPlan:
+    """How K10 and K11 spread K over blocks: each strip of ``STRIP``
+    columns takes the most splits, a power of 2 up to ``MAX_SPLIT`` and
+    the groups of K, that keep the launch within ``BLOCKS`` blocks (summed
     inside their cluster, in the same launch: no scratch), each whole
-    32-groups, spread evenly, none empty. The scan step's D x D
-    projections take 8-16 splits where one block a strip would leave most
-    of the card idle. The same plan at every row count: above 8 rows the
-    block holds its SM too."""
-    G = K // SUB
+    ``sub``-groups (32, or Q6_K's 16), spread evenly, none empty. The scan
+    step's D x D projections take 8-16 splits where one block a strip
+    would leave most of the card idle. The same plan at every row count:
+    above 8 rows the block holds its SM too."""
+    G = K // sub
     strips = math.ceil(N / STRIP)
     n = 1
     while 2 * n <= min(MAX_SPLIT, G) and 2 * n * strips <= BLOCKS:
         n *= 2
     per = math.ceil(G / n)
-    return SplitPlan(math.ceil(G / per), SUB * per)
+    return SplitPlan(math.ceil(G / per), sub * per)
 
 
-def q4k_smem(M: int, plan: SplitPlan) -> int:
-    """Bytes of shared memory of a K10 block (csrc q4k_smem_floats): the
-    warps' slots and, with split K, every split's share of the block's
-    outputs."""
+def kq_smem(M: int, plan: SplitPlan) -> int:
+    """Bytes of shared memory of a K10 / K11 block (csrc
+    ``kq_smem_floats``): the warps' slots and, with split K, every split's
+    share of the block's outputs."""
     total = M * STRIP
     shares = plan.n_split * math.ceil(total / plan.n_split) \
         if plan.n_split > 1 else 0
@@ -305,8 +306,8 @@ def q4k_smem(M: int, plan: SplitPlan) -> int:
 def kq_matvec_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                    zero: Optional[torch.Tensor], layer: int, fmt: str,
                    name: str, launches: dict) -> torch.Tensor:
-    """Launch ``wa_kq_matvec`` (K10 for "q4k", with ``q4k_plan``; K11 for
-    "q5k"/"q6k") once per 32-row chunk of x [M, K]; returns [M, N] in x's
+    """Launch ``wa_kq_matvec`` (K10 for "q4k"; K11 for "q5k"/"q6k") with
+    ``kq_plan`` once per 32-row chunk of x [M, K]; returns [M, N] in x's
     dtype."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
@@ -337,10 +338,10 @@ def kq_matvec_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     P = _build.ptr
     st = _build.stream()
     G = K // sub
+    plan = kq_plan(K, N, sub)
 
     def launch(rows):
         r, m = rows.start, rows.stop - rows.start   # chunk = pointer offsets
-        plan = q4k_plan(K, N) if fmt == "q4k" else SplitPlan(1, K)
         rc = _build.library().wa_kq_matvec(
             P(x, r * K), _build.DTYPE_CODES[x.dtype], m, K, KQ_FMT[fmt],
             P(wq, layer * KW * N), N, P(scale, layer * G * N),
