@@ -59,6 +59,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               kv_mode "scan" engine: K8 4L+1 and K9 L times per tick.
 6. batch    - transcribe_batch of 4 clips: K5-K7 L times and K4 once per
               step; f32 tokens as in phase 5.
+6b. longform - the long-audio and streaming entry points on the e2e
+              engines: transcribe_file on a 75 s 44.1 kHz WAV (3 windows
+              in one transcribe_batch: K5-K7 L times and K4 once a
+              step; segment offsets multiples of 29 s), transcribe_with_vad
+              on three tone bursts (one batch of three), a StreamingSession
+              at 44.1 kHz in 0.5 s blocks with partial reuse on and off
+              (K1-K4 for every partial and chunk decode; per-partial
+              latency p50 / p95, host clock), transcribe_prefixed
+              continuing a decode's own prefix (near-tie rule), hotwords
+              at boost 0 against the fused greedy path (near-tie rule)
+              and a boosted run (ms per host-stepped token), word
+              timestamps on a 10 s clip (monotone words within the clip;
+              the traced forward's and the DTW's ms); each path's
+              launches held to the decodes it ran; in f32 tokens, texts
+              and words through the kernels == plain versions.
 7. decoders - the other decoders through the engine's entry points: greedy
               in kv_mode "scan" (K8 4L+1 and K9 L times per token), beam
               search (5 beams on one clip and on 8 clips: 40 rows),
@@ -71,7 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. large-v3 - a large-v3-shaped model built in memory (random int8
               weights): 30 s of noise through encoder, prefill and decode
               at full width, f32 tokens through the kernels against the
-              plain versions (near-tie rule).
+              plain versions (near-tie rule); transcribe_long of 45 s of
+              noise (2 windows: K5-K7 at large-v3 width).
 3b. kquant kernels (after phase 3) - K10-K14 against their plain versions
               in Q4_K, Q5_K and Q6_K at the whisper-base and large-v3
               decoder shapes (bf16; f32 at base), K12 (K1's head-cluster
@@ -1932,6 +1948,329 @@ def check_same(eng, audio, got: list, want: list, what: str):
     return check_follows(eng, audio, got, want, what)
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: long audio, VAD, streaming, prefix reuse, hotwords, words
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def decode_log():
+    """Record every greedy decode of the fused pipeline (the decoder of
+    transcribe_batch, transcribe_prefixed and the streaming partials) as
+    (rows, prompt length, decode steps), in the yielded list."""
+    from whisper_apr_tpu_torch import pipeline
+    real = pipeline.greedy_generate_body
+    calls = []
+
+    def logged(params, enc_out, prompt, *a, **kw):
+        res = real(params, enc_out, prompt, *a, **kw)
+        P = prompt.shape[1]
+        calls.append((prompt.shape[0], P, int(res.lengths.max()) - P - 1))
+        return res
+    pipeline.greedy_generate_body = logged
+    try:
+        yield calls
+    finally:
+        pipeline.greedy_generate_body = real
+
+
+def want_decodes(calls: list, L: int) -> dict:
+    """The launches of those decodes in kv_mode cross8: per step K1-K3 L
+    times (one row) or K5-K7 L times (several), and K4 once."""
+    one = sum(n for b, _, n in calls if b == 1)
+    many = sum(n for b, _, n in calls if b > 1)
+    return want_counts(self_block=L * one, cross_block=L * one,
+                       ffn_block=L * one, self_block_batched=L * many,
+                       cross_block_batched=L * many,
+                       ffn_block_batched=L * many,
+                       qmatvec_greedy_head=one + many)
+
+
+def write_wav(path: Path, audio: np.ndarray, sr: int) -> None:
+    """16-bit mono WAV through Python's ``wave``."""
+    import wave
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+
+
+def tone_noise(seconds: float, sr: int, seed: int, freq: float = 220.0
+               ) -> np.ndarray:
+    """make_clips' tone and noise at any rate."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    return (0.3 * np.sin(2 * np.pi * freq * t)
+            + rng.normal(0, 0.05, t.size)).astype(np.float32)
+
+
+def bursts(plan, sr: int, seed: int) -> np.ndarray:
+    """(seconds, frequency or 0 for near-silence) pieces, concatenated."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        tone_noise(sec, sr, seed + i, f) if f else
+        rng.normal(0, 1e-4, int(sec * sr)).astype(np.float32)
+        for i, (sec, f) in enumerate(plan)])
+
+
+VAD_PLAN = ((3, 0), (8, 250), (5, 0), (8, 330), (5, 0), (8, 410), (3, 0))
+STREAM_PLAN = ((1, 0), (8, 230), (2, 0), (7, 290), (2, 0))
+STREAM_RATE = 44_100
+
+
+def percentile_ms(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else 0.0
+
+
+def run_session(eng, audio: np.ndarray, opts, reuse: bool,
+                block_s: float = 0.5) -> dict:
+    """A StreamingSession at STREAM_RATE: ``audio`` pushed in blocks, the
+    partial after each push when there is one, then finalize. Returns
+    the chunk texts, the partial texts, the final transcript and each
+    get_partial's host-clock seconds."""
+    from whisper_apr_tpu_torch.inference.streaming import StreamingSession
+    sess = StreamingSession(eng, opts, input_sample_rate=STREAM_RATE,
+                            partial_reuse=reuse)
+    block = int(block_s * STREAM_RATE)
+    chunks, partials, lat = [], [], []
+    for i in range(0, len(audio), block):
+        chunks += [r.text for r in sess.push(audio[i:i + block])
+                   if r.kind == "chunk"]
+        if sess.has_partial():
+            t0 = time.perf_counter()
+            p = sess.get_partial()
+            sync(eng.device)
+            lat.append(time.perf_counter() - t0)
+            partials.append(p)
+    final = sess.finalize()
+    return {"chunks": chunks, "partials": partials, "final": final,
+            "latency_s": lat}
+
+
+def phase_longform(eng, eng32, workdir: Path, device="cuda",
+                   max_tokens: int = 64, stream_tokens: int = 32,
+                   long_seconds: float = 75.0) -> dict:
+    """The long-audio and streaming entry points on the e2e engines (int8
+    weights, bf16; ``eng32`` the f32 twin), each path's launches counted
+    from 0 just before it and held to the decodes it ran (``decode_log``):
+    (a) transcribe_file on a ``long_seconds`` 44.1 kHz WAV (every window
+    in one transcribe_batch), (b) transcribe_with_vad on three tone bursts
+    (one batch of three), (c) a StreamingSession at 44.1 kHz with
+    partial reuse on and off, ``stream_tokens`` a decode (per-partial
+    host latency), (d)
+    transcribe_prefixed continuing a decode's own prefix, (e) hotwords
+    (the host-stepped plain step) against the fused greedy path, (f)
+    word timestamps (the traced forward and DTW). In f32, tokens, texts
+    and words through the kernels equal the plain versions'. On the CPU
+    (a rehearsal through the plain versions) nothing launches and the
+    counts are not held."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+    from whisper_apr_tpu_torch.alignment import (AlignmentConfig,
+                                                 WordTimestampExtractor)
+    from whisper_apr_tpu_torch.audio.resample import SincResampler
+    from whisper_apr_tpu_torch.audio.wav import parse_wav
+    from whisper_apr_tpu_torch.model.traced import decoder_forward_traced
+    from whisper_apr_tpu_torch.vad import VoiceActivityDetector
+    check_counts = torch.device(device).type == "cuda"
+    cfg = eng.config
+    L = cfg.n_text_layer
+    sr = 16_000
+    window = 2 * cfg.n_audio_ctx * 160
+    overlap = min(sr, window // 4)
+    step_s = (window - overlap) / sr
+    opts = TranscribeOptions(language="en", max_tokens=max_tokens)
+    out = {"paths": {}}
+
+    def path(name, fn, rows=None):
+        """Run ``fn`` from zeroed counts; hold them to its decodes."""
+        reset_launches()
+        sync(device)
+        with decode_log() as calls:
+            t0 = time.perf_counter()
+            res = fn()
+            sync(device)
+            dt = time.perf_counter() - t0
+        counts = launches()
+        want = want_decodes(calls, L)
+        out["paths"][name] = {"seconds": dt, "launches": counts,
+                              "decodes": calls}
+        log(f"[longform] {name}: {dt * 1e3:.1f} ms, {len(calls)} decodes "
+            f"(rows, prompt, steps) {calls[:4]}{'...' if len(calls) > 4 else ''}"
+            f", launches { {k: v for k, v in counts.items() if v} }")
+        if rows is not None:
+            assert [b for b, _, _ in calls] == rows, (name, calls)
+        if check_counts:
+            assert counts == want, f"[longform] {name}: launches {counts}, " \
+                f"want {want}"
+        return res
+
+    # (a) a long 44.1 kHz WAV: every window in one transcribe_batch; the
+    # f32 checks and the decode's own time on the resampled samples
+    # (transcribe_file's second half), since the resampler is slow
+    wav = workdir / "long.wav"
+    write_wav(wav, tone_noise(long_seconds, STREAM_RATE, seed=5),
+              STREAM_RATE)
+    n16 = int(np.ceil(long_seconds * sr))
+    n_win = max(1, -(-(n16 - overlap) // (window - overlap)))
+    res = path("transcribe_file", lambda: eng.transcribe_file(str(wav),
+                                                              opts),
+               rows=[n_win])
+    offs = [s.start / step_s for s in res.segments]
+    assert res.segments and all(abs(o - round(o)) < 1e-9 for o in offs), offs
+    t0 = time.perf_counter()
+    samples, rate = parse_wav(wav.read_bytes())
+    samples = SincResampler(rate, sr).resample(samples)
+    resample_s = time.perf_counter() - t0
+    assert eng.transcribe_long(samples, opts).tokens == res.tokens
+    sync(device)
+    t0 = time.perf_counter()
+    eng.transcribe_long(samples, opts)
+    sync(device)
+    long_s = time.perf_counter() - t0
+    kern = eng32.transcribe_long(samples, opts)
+    with plain_kernels():
+        plain = eng32.transcribe_long(samples, opts)
+    assert kern.tokens == plain.tokens, "[longform] file: f32 tokens differ"
+    out["file"] = {"resample_s": resample_s, "transcribe_long_s": long_s}
+    log(f"[longform] (a) {long_seconds:g} s at {STREAM_RATE} Hz: {n_win} "
+        f"windows in one batch, {len(res.segments)} segments at offsets "
+        f"{[round(s.start, 3) for s in res.segments]} s; of it the WAV "
+        f"read and resampling {resample_s * 1e3:.1f} ms, transcribe_long "
+        f"(warm) {long_s * 1e3:.1f} ms; f32 kernels == plain "
+        f"({len(kern.tokens)} tokens)")
+
+    # (b) VAD: three bursts, one batch of three
+    vad_audio = bursts(VAD_PLAN, sr, seed=7)
+    spans = VoiceActivityDetector().detect(vad_audio)
+    assert len(spans) == 3, spans
+    vres = path("transcribe_with_vad",
+                lambda: eng.transcribe_with_vad(vad_audio, opts), rows=[3])
+    kern = eng32.transcribe_with_vad(vad_audio, opts)
+    with plain_kernels():
+        plain = eng32.transcribe_with_vad(vad_audio, opts)
+    assert kern.tokens == plain.tokens, "[longform] vad: f32 tokens differ"
+    log(f"[longform] (b) VAD spans {[(s / sr, e / sr) for s, e in spans]} s"
+        f", {len(vres.segments)} segments; f32 kernels == plain")
+
+    # (c) streaming sessions, partial reuse on and off
+    stream = bursts(STREAM_PLAN, STREAM_RATE, seed=9)
+    sopts = TranscribeOptions(language="en", max_tokens=stream_tokens)
+    out["stream"] = {}
+    for reuse in (True, False):
+        name = f"session reuse={'on' if reuse else 'off'}"
+        s = path(name, lambda: run_session(eng, stream, sopts, reuse))
+        assert s["final"] and s["partials"], s
+        p50 = percentile_ms(s["latency_s"], 50)
+        p95 = percentile_ms(s["latency_s"], 95)
+        out["stream"][name] = {"partials": len(s["partials"]),
+                               "chunks": len(s["chunks"]),
+                               "partial_p50_ms": p50, "partial_p95_ms": p95}
+        log(f"[longform] (c) {name}: {len(s['partials'])} partials, "
+            f"{len(s['chunks'])} chunks; per-partial latency (host clock) "
+            f"p50 {p50:.2f} ms, p95 {p95:.2f} ms")
+    # chunks and the final transcript do not depend on the push size, so
+    # the f32 check pushes 2 s blocks (fewer partial decodes)
+    kern = run_session(eng32, stream, sopts, True, block_s=2.0)
+    with plain_kernels():
+        plain = run_session(eng32, stream, sopts, True, block_s=2.0)
+    assert (kern["chunks"], kern["final"]) == (plain["chunks"],
+                                               plain["final"]), \
+        "[longform] session: f32 texts differ"
+    log(f"[longform] (c) f32 reuse=on, 2 s blocks: {len(kern['chunks'])} "
+        f"chunk texts and the final transcript through the kernels == "
+        f"plain versions")
+
+    # (d) prefix reuse continues a decode's own prefix
+    clip = tone_noise(12, sr, seed=11)
+    full = eng32.transcribe(clip, opts)
+    initial = eng32.get_initial_tokens("en")
+    gen = [t for t in full.tokens[len(initial):] if t != eng32.specials.eot]
+    assert len(gen) > eng32.PREFIX_BUCKET, gen
+    pre = path("transcribe_prefixed", lambda: eng32.transcribe_prefixed(
+        clip, gen[:-2], opts), rows=[1])
+    gap_d = check_follows(eng32, clip, pre.tokens, full.tokens,
+                          "longform prefixed")
+    log(f"[longform] (d) f32 prefix of {len(gen) - 2} tokens "
+        f"({(len(gen) - 2) // 8 * 8} forced): continuation "
+        f"{'== full decode' if gap_d is None else f'near tie {gap_d:.3g}'}")
+
+    # (e) hotwords: the host-stepped plain step against the fused path
+    # (f32 self and cross rows, so that only rounding differs)
+    rows32 = WhisperApr(cfg, eng32.params, eng32.tokenizer,
+                        eng32.mel_filters, ComputeConfig(
+                            quantization="int8", compute_dtype="float32",
+                            kv_mode="bf16"), eng32.specials, device=device)
+    clips = make_clips((6, 11), seed=13)
+    hw = TranscribeOptions(language="en", max_tokens=max_tokens,
+                           hotwords=[("zzzz_not_present_zzzz", 0.0)])
+    got = rows32.transcribe_batch(clips, hw).results
+    fused = path("hotwords reference (fused greedy)",
+                 lambda: rows32.transcribe_batch(clips, opts).results,
+                 rows=[2])
+    gaps_e = [check_follows(rows32, c, g.tokens, f.tokens, "hotwords")
+              for c, g, f in zip(clips, got, fused)]
+    boosted = TranscribeOptions(language="en", max_tokens=max_tokens,
+                                hotwords=["hello world:4", ("tok", 2.0)])
+    sync(device)
+    t0 = time.perf_counter()
+    b = eng.transcribe_batch(clips, boosted).results
+    sync(device)
+    dt = time.perf_counter() - t0
+    P = len(initial)
+    hw_steps = max(len(r.tokens) for r in b) - P - 1
+    out["hotword_ms_per_step"] = 1e3 * dt / max(hw_steps, 1)
+    log(f"[longform] (e) hotwords at boost 0 (f32) follow the fused greedy "
+        f"path, near-tie gaps {[g for g in gaps_e if g is not None]}; a "
+        f"boosted batch of 2 in bf16: {dt * 1e3:.1f} ms, {hw_steps} host "
+        f"steps, {out['hotword_ms_per_step']:.3f} ms per host-stepped token")
+
+    # (f) word timestamps on a 10 s clip, over a vocabulary of words (the
+    # random .apr carries none: its fallback tokens hold no space)
+    from whisper_apr_tpu_torch.tokenizer import BpeTokenizer, Vocabulary
+    vocab = Vocabulary.with_base_tokens()
+    while len(vocab) < cfg.n_vocab:
+        vocab.add_token(b" w%d" % len(vocab))
+    eng, eng32 = (WhisperApr(cfg, e.params, BpeTokenizer(vocab),
+                             e.mel_filters, e.compute, e.specials,
+                             device=device) for e in (eng, eng32))
+    clip = tone_noise(10, sr, seed=17)
+    wt = TranscribeOptions(language="en", max_tokens=max_tokens,
+                           word_timestamps=True)
+    r = path("word timestamps", lambda: eng.transcribe(clip, wt), rows=[1])
+    starts = [w.start for w in r.words]
+    assert r.words and starts == sorted(starts) and all(
+        0 <= w.start and w.end <= 10.0 for w in r.words), r.words
+    kern = eng32.transcribe(clip, wt)
+    with plain_kernels():
+        plain = eng32.transcribe(clip, wt)
+    assert kern.tokens == plain.tokens and [
+        dataclasses.astuple(w) for w in kern.words] == [
+        dataclasses.astuple(w) for w in plain.words], \
+        "[longform] words: f32 kernels differ from plain"
+    enc = eng.encode(eng.compute_mel(clip))
+    toks = torch.tensor([r.tokens], device=eng.device)
+    sync(device)
+    t0 = time.perf_counter()
+    _, _, weights = decoder_forward_traced(eng.params, toks, enc, cfg)
+    weights = weights.float().cpu().numpy()
+    t1 = time.perf_counter()
+    WordTimestampExtractor(eng.tokenizer, AlignmentConfig(
+        method="dtw")).extract(weights, r.tokens, min(500, enc.shape[1]))
+    t2 = time.perf_counter()
+    out["words"] = {"n": len(r.words), "tokens": len(r.tokens),
+                    "traced_ms": 1e3 * (t1 - t0), "dtw_ms": 1e3 * (t2 - t1),
+                    "weights_mb": weights.nbytes / 1e6}
+    log(f"[longform] (f) {len(r.words)} words over {len(r.tokens)} tokens, "
+        f"monotone, within [0, 10] s; f32 kernels == plain (tokens and "
+        f"words); traced forward {out['words']['traced_ms']:.1f} ms "
+        f"({out['words']['weights_mb']:.1f} MB of weights), DTW and words "
+        f"{out['words']['dtw_ms']:.1f} ms")
+    return out
+
+
 def phase_decoders(apr: Path, device="cuda", specials=None,
                    max_tokens: int = 64) -> dict:
     """The logits-tail decoders and the scan step through the engine's
@@ -2089,7 +2428,8 @@ def phase_large_v3(device="cuda", max_tokens: int = 24) -> dict:
     int8 quantize_params, no .apr): 30 s of noise through the mel, the
     encoder, the prefill and ``max_tokens`` decode steps at full width,
     f32 compute, cross8 cache; tokens through the kernels against the
-    plain versions (near-tie rule), launch counts, times."""
+    plain versions (near-tie rule), launch counts, times; then
+    transcribe_long of 45 s of noise (two windows, one batch)."""
     from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
                                        TranscribeOptions, WhisperApr)
     from whisper_apr_tpu_torch.model.params import (init_params,
@@ -2132,6 +2472,27 @@ def phase_large_v3(device="cuda", max_tokens: int = 24) -> dict:
     out = {"build_s": build_s, "seconds": dt, "plain_seconds": dt_plain,
            "decode_steps": n, "tokens": len(kern.tokens), "launches": counts,
            "near_tie_gap": gap}
+
+    # transcribe_long over 45 s: two windows, K5-K7 at large-v3 width
+    long_audio = np.random.default_rng(8).normal(0, 0.1, 45 * 16_000).astype(
+        np.float32)
+    reset_launches()
+    sync(device)
+    with decode_log() as calls:
+        t0 = time.perf_counter()
+        lr = eng.transcribe_long(long_audio, opts)
+        sync(device)
+        dt_long = time.perf_counter() - t0
+    counts = launches()
+    assert [b for b, _, _ in calls] == [2], calls
+    want = want_decodes(calls, L)
+    assert counts == want, f"[large-v3] long: launches {counts}, want {want}"
+    out["long"] = {"seconds": dt_long, "launches": counts, "decodes": calls,
+                   "segments": len(lr.segments)}
+    log(f"[large-v3] transcribe_long of 45 s noise: 2 windows in one batch, "
+        f"{calls[0][2]} decode steps, {dt_long * 1e3:.1f} ms wall, "
+        f"{len(lr.segments)} segments; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
     del eng
     return out
 
@@ -4232,6 +4593,8 @@ def main() -> int:
         paged = phase_paged(e2e["apr"])
         check_paged_launches(paged)
         batch = phase_batch(e2e["engine"], e2e["engine_f32"])
+        longform = phase_longform(e2e["engine"], e2e["engine_f32"],
+                                  Path(work))
         decoders = phase_decoders(e2e["apr"])
         kq = phase_kquant(Path(work))
         check_kq_launches(kq)
@@ -4253,7 +4616,8 @@ def main() -> int:
     # each path's counts, taken from 0 just before it ran (the probe
     # tool's in its own process)
     runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
-            batch["launches"], large["launches"],
+            batch["launches"], large["launches"], large["long"]["launches"],
+            *(p["launches"] for p in longform["paths"].values()),
             *(p["launches"] for p in decoders["paths"].values()),
             *(p["launches"] for p in kq["paths"].values()),
             *(r["launches"] for r in paged["runs"].values()),
@@ -4278,6 +4642,7 @@ def main() -> int:
                             if k != "want_launches"},
                   "batch": {k: v for k, v in batch.items()
                             if k != "want_launches"},
+                  "longform": longform,
                   "decoders": decoders, "large_v3": large,
                   "kquant": {k: v for k, v in kq.items()
                              if k != "launch_checks"},

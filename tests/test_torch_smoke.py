@@ -136,6 +136,35 @@ def test_batch_phase_on_cpu(smoke, e2e_small):
         smoke.phase_batch(out["engine"], out["engine_f32"], device="cpu")
 
 
+def test_longform_phase_on_cpu(smoke, e2e_small, tmp_path):
+    """The longform phase at a small width through the plain versions:
+    a 2 s 44.1 kHz WAV over four 10 240-sample windows in one batch, the
+    VAD's batch of three, both streaming sessions, the prefixed
+    continuation, hotwords against the fused path and word timestamps
+    run, every decode is logged with its rows, and nothing launches."""
+    out, _ = e2e_small
+    lf = smoke.phase_longform(out["engine"], out["engine_f32"], tmp_path,
+                              device="cpu", max_tokens=12, stream_tokens=20,
+                              long_seconds=2.0)
+    paths = lf["paths"]
+    assert set(paths) == {
+        "transcribe_file", "transcribe_with_vad", "session reuse=on",
+        "session reuse=off", "transcribe_prefixed",
+        "hotwords reference (fused greedy)", "word timestamps"}
+    assert [b for b, _, _ in paths["transcribe_file"]["decodes"]] == [4]
+    assert all(b == 1 for p in ("session reuse=on", "session reuse=off")
+               for b, _, _ in paths[p]["decodes"])
+    assert max(P for _, P, _ in paths["session reuse=on"]["decodes"]) > \
+        max(P for _, P, _ in paths["session reuse=off"]["decodes"])
+    assert not any(any(p["launches"].values()) for p in paths.values())
+    assert lf["words"]["n"] > 1 and lf["hotword_ms_per_step"] > 0
+    assert lf["stream"]["session reuse=on"]["partials"] > 10
+    L = out["engine"].config.n_text_layer
+    want = smoke.want_decodes([(1, 4, 5), (3, 4, 7)], L)
+    assert (want["self_block"], want["self_block_batched"],
+            want["qmatvec_greedy_head"]) == (5 * L, 7 * L, 12)
+
+
 def test_near_tie_rule(smoke, e2e_small):
     """Identical token lists pass with no gap; a difference where the
     logits are not tied fails."""

@@ -17,7 +17,7 @@ The matmuls are f32; on a GPU they stay full f32 only while
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +53,16 @@ def _mel_to_hz_slaney(mels: np.ndarray) -> np.ndarray:
     return np.where(mels >= min_log_mel,
                     min_log_hz * np.exp(logstep * (mels - min_log_mel)),
                     freqs)
+
+
+def hz_to_mel_htk(hz: float) -> float:
+    """HTK mel scale (reference: src/audio/mel.rs:201 hz_to_mel)."""
+    return 2595.0 * np.log10(1.0 + hz / 700.0)
+
+
+def mel_to_hz_htk(mel: float) -> float:
+    """Inverse HTK mel scale (reference: src/audio/mel.rs:210 mel_to_hz)."""
+    return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
 
 
 def mel_filterbank(n_mels: int = 80, n_fft: int = N_FFT,
@@ -182,6 +192,13 @@ class MelFilterbank:
         return log_mel_body(audio, *self.constants(device), self.n_fft,
                             hop_length)
 
+    def compute(self, audio: np.ndarray,
+                hop_length: int = HOP_LENGTH) -> np.ndarray:
+        """Host (numpy) variant of :meth:`compute_device`: the log-mel of
+        audio of any length, ``(len - n_fft) // hop + 1`` frames, no
+        padding; ``[0, n_mels]`` below one FFT window."""
+        return self.compute_device(audio, hop_length, device="cpu").numpy()
+
     def compute_30s_device(self, audio: np.ndarray,
                            hop_length: int = HOP_LENGTH,
                            n_frames: int = N_FRAMES,
@@ -207,3 +224,12 @@ class MelFilterbank:
         """Host (numpy) variant of :meth:`compute_30s_device`."""
         return self.compute_30s_device(audio, hop_length, n_frames,
                                        device="cpu").numpy()
+
+
+def log_mel_spectrogram(audio: np.ndarray, n_mels: int = 80,
+                        filters: Optional[np.ndarray] = None,
+                        pad_to_30s: bool = True) -> np.ndarray:
+    """One-shot host log-mel: audio -> ``[3000, n_mels]`` (or unpadded)."""
+    fb = MelFilterbank(filters, N_FFT) if filters is not None \
+        else MelFilterbank.create(n_mels)
+    return fb.compute_30s(audio) if pad_to_30s else fb.compute(audio)

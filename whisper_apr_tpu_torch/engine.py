@@ -23,9 +23,15 @@ USE_PALLAS_INT4`` send the quantized linears (encoder, prefill, cross
 K/V) through K17 and K18. The engine lives on one ``device`` ("cuda" by
 default; "cpu" runs the kernels' plain PyTorch versions).
 Continuous-batching serving over an engine, dense or paged, is
-``parallel/serving.BatchScheduler``. Hotwords,
-speculative decoding and audio longer than one window are the port's
-slice 3b; word timestamps need the traced decoder (ROADMAP.md queue 1).
+``parallel/serving.BatchScheduler``.
+
+Audio of any length (``transcribe_long``: every 30 s window of a file in
+one ``transcribe_batch``), VAD-gated transcription, streaming sessions
+with prefix-reuse partials (``transcribe_prefixed``), hotwords (a
+host-stepped greedy loop over the plain step, the trie applied to the
+logits each step) and word timestamps (the traced forward's
+cross-attention, aligned by DTW) are the JAX engine's, on the engine's
+device. Speculative decoding is not ported (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -59,6 +65,14 @@ from .tokenizer import special_tokens as st
 from .utils.progress import ProgressTracker
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _is_float(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
 
 
 @dataclasses.dataclass
@@ -503,16 +517,6 @@ class WhisperApr:
         options = options or TranscribeOptions()
         if not audios:
             raise ValueError("transcribe_batch needs at least one clip")
-        if options.hotwords:
-            raise NotImplementedError(
-                "hotwords (vocabulary.py): the port's slice 3b")
-        if options.speculative:
-            raise NotImplementedError(
-                "speculative decoding: the port's slice 3b")
-        if options.word_timestamps:
-            raise NotImplementedError(
-                "word timestamps need the traced decoder: not ported yet "
-                "(ROADMAP.md queue 1, item 5)")
 
         lang = self._language(audios[0], options.language)
         prompt_list = self.get_initial_tokens(lang, options.task,
@@ -520,7 +524,15 @@ class WhisperApr:
         P = len(prompt_list)
         prompt = torch.tensor([prompt_list] * len(audios), dtype=torch.int64,
                               device=self.device)
-        bias = self._suppress_bias(options.timestamps)
+        bias = self._suppress_bias(options.timestamps
+                                   or options.word_timestamps)
+        if options.hotwords:
+            return self._transcribe_hotwords(audios, options, lang,
+                                             prompt_list, bias, t0)
+        if options.speculative:
+            raise NotImplementedError(
+                "speculative decoding is not ported (ROADMAP.md queue 1, "
+                "item 9)")
         eot = self.specials.eot
         common = dict(max_len=self._max_tokens(options), prompt_len=P,
                       compute_dtype=self._compute_dtype,
@@ -599,6 +611,9 @@ class WhisperApr:
                 no_speech_prob=float(ns_prob_np[i]),
                 compression_ratio=compression_ratio(text.strip()),
                 temperature=options.temperature))
+        if options.word_timestamps:
+            self._attach_word_timestamps(results, audios,
+                                         method=options.word_alignment)
         return BatchTranscriptionResult(results, time.time() - t0)
 
     def transcribe_nbest(self, audio: np.ndarray,
@@ -639,19 +654,253 @@ class WhisperApr:
                 no_speech_prob=ns))
         return out
 
+    @staticmethod
+    def parse_hotwords(items) -> List:
+        """["phrase", "phrase:3.5", ("phrase", 4.0)] -> [(phrase, boost)]."""
+        out = []
+        for it in items or ():
+            if isinstance(it, (tuple, list)):
+                out.append((str(it[0]), float(it[1])))
+            else:
+                text, sep, boost = str(it).rpartition(":")
+                if sep and _is_float(boost):
+                    out.append((text, float(boost)))
+                else:
+                    out.append((str(it), 5.0))
+        return out
+
+    def _transcribe_hotwords(self, audios, options: TranscribeOptions,
+                             lang: str, prompt_list: List[int],
+                             bias: torch.Tensor, t0: float
+                             ) -> BatchTranscriptionResult:
+        """Host-stepped greedy decode with trie prefix boosts (reference:
+        src/vocabulary/mod.rs:86 VocabularyCustomizer::apply, trie.rs:324
+        apply_prefix_boost), the JAX engine's design: the boosts depend on
+        the generated prefix, so the plain step (``decoder.decode_step``)
+        runs one token at a time on the engine's device and each step's
+        logits come to the host for the trie."""
+        from .model.decoder import decode_step
+        from .vocabulary import HotwordBooster
+
+        booster = HotwordBooster(self.tokenizer)
+        for phrase, boost in self.parse_hotwords(options.hotwords):
+            booster.add_hotword(phrase, boost)
+
+        enc = self._encode_clips(audios)
+        B = enc.shape[0]
+        max_tokens = self._max_tokens(options)
+        cache = init_cache(self.params, enc, self.config, max_tokens,
+                           compute_dtype=self._compute_dtype)
+        prompt = torch.tensor([prompt_list] * B, dtype=torch.int64,
+                              device=self.device)
+        logits, cache = prefill(self.params, prompt, enc, cache, self.config,
+                                compute_dtype=self._compute_dtype)
+        bias_np = bias.cpu().numpy()
+        eot = self.specials.eot
+        P = len(prompt_list)
+        seqs = [list(prompt_list) for _ in range(B)]
+        done = [False] * B
+        pos = P
+        logits_np = logits.float().cpu().numpy()
+        while pos < max_tokens and not all(done):
+            nxt = []
+            for i in range(B):
+                row = booster.apply(logits_np[i] + bias_np, seqs[i][P:])
+                tok = int(np.argmax(row)) if not done[i] else eot
+                nxt.append(tok)
+                if not done[i]:
+                    seqs[i].append(tok)
+                    done[i] = tok == eot
+            if all(done) or pos + 1 >= max_tokens:
+                break
+            logits, cache = decode_step(
+                self.params, torch.tensor(nxt, device=self.device), pos,
+                cache, self.config, compute_dtype=self._compute_dtype)
+            logits_np = logits.float().cpu().numpy()
+            pos += 1
+
+        results = []
+        for i in range(B):
+            gen = seqs[i][P:]
+            text = self.tokenizer.decode_with_options(gen, skip_special=True)
+            segments = ([Segment(0.0, len(audios[i]) / SAMPLE_RATE, text,
+                                 gen)] if text.strip() else [])
+            results.append(TranscriptionResult(
+                text=text.strip(), language=lang, segments=segments,
+                tokens=seqs[i], temperature=options.temperature))
+        return BatchTranscriptionResult(results, time.time() - t0)
+
+    def _attach_word_timestamps(self, results, audios,
+                                method: str = "dtw") -> None:
+        """Word-level timestamps by cross-attention alignment (reference:
+        src/timestamps/alignment.rs): a teacher-forced traced forward over
+        each result's tokens (``model/traced``), its cross-attention
+        weights aligned per token (``method`` "dtw", the default, or the
+        reference's per-token "peak"), tokens grouped into words, the
+        boundaries snapped to nearby energy minima."""
+        from .alignment import (AlignmentConfig, WordTimestampExtractor,
+                                refine_boundaries_by_silence)
+        from .model.traced import decoder_forward_traced
+        extractor = WordTimestampExtractor(
+            self.tokenizer, AlignmentConfig(method=method))
+        for result, audio in zip(results, audios):
+            if not result.tokens:
+                continue
+            enc = self.encode(self.compute_mel(audio))
+            toks = torch.tensor([result.tokens], dtype=torch.int64,
+                                device=self.device)
+            _, _, weights = decoder_forward_traced(self.params, toks, enc,
+                                                   self.config)
+            n_frames = min(int(np.ceil(len(audio) / SAMPLE_RATE / 0.02)),
+                           enc.shape[1])
+            words = extractor.extract(weights.float().cpu().numpy(),
+                                      result.tokens, n_frames)
+            result.words = refine_boundaries_by_silence(
+                words, np.asarray(audio, np.float32))
+
+    # -- streaming / VAD --------------------------------------------------------
+    def create_streaming_session(self,
+                                 options: Optional[TranscribeOptions] = None,
+                                 input_sample_rate: int = 44_100,
+                                 config=None):
+        """Real-time session (reference: src/lib.rs:1555):
+        ``inference.streaming.StreamingSession``."""
+        from .inference.streaming import StreamingSession
+        return StreamingSession(self, options, input_sample_rate, config)
+
+    def transcribe_partial(self, audio: np.ndarray, is_final: bool = False,
+                           options: Optional[TranscribeOptions] = None
+                           ) -> TranscriptionResult:
+        """Transcribe a growing prefix (reference: src/lib.rs:1482)."""
+        return self.transcribe(audio, options)
+
+    # Prefix lengths round DOWN to a multiple of this. The JAX engine
+    # chose 8 to reuse compiled shapes; it decides which tokens are forced,
+    # so it is kept for equal results.
+    PREFIX_BUCKET = 8
+
+    def transcribe_prefixed(self, audio: np.ndarray,
+                            prefix_tokens: Sequence[int],
+                            options: Optional[TranscribeOptions] = None
+                            ) -> TranscriptionResult:
+        """Greedy transcription continuing a forced text prefix: the
+        streaming-reuse path (reference machinery: StreamingKVCache::
+        warm_up, src/model/decoder.rs:739). New audio changes every
+        encoder position, so the previous partial's decoder K/V cannot be
+        reused; its tokens are forced as a decode prefix instead, their
+        self-attention rows rebuilt against the new encoder output in one
+        prefill, and only the new suffix decodes step by step. Greedy
+        continuation of a prefix the full decode itself produces gives the
+        full decode's tokens (but for rounding at a near tie).
+
+        The prefix is cut down to a multiple of ``PREFIX_BUCKET``; with no
+        room left to decode at the budget, this is ``transcribe``.
+        """
+        from .pipeline import fused_transcribe_step, pad_audio_batch
+        options = options or TranscribeOptions()
+        lang = options.language or "en"
+        initial = self.get_initial_tokens(lang, options.task,
+                                          options.timestamps)
+        prefix = [int(t) for t in prefix_tokens]
+        keep = (len(prefix) // self.PREFIX_BUCKET) * self.PREFIX_BUCKET
+        prompt_list = initial + prefix[:keep]
+        max_tokens = self._max_tokens(options)
+        if len(prompt_list) + 1 >= max_tokens:
+            return self.transcribe(audio, options)
+
+        n_samples = 2 * self.config.n_audio_ctx * 160
+        batch = torch.from_numpy(pad_audio_batch([audio], n_samples)).to(
+            self.device)
+        res = fused_transcribe_step(
+            self.params, batch, *self.mel_filters.constants(self.device),
+            torch.tensor([prompt_list], dtype=torch.int64,
+                         device=self.device),
+            self._suppress_bias(options.timestamps), self.specials.eot,
+            self.config, max_len=max_tokens, prompt_len=len(prompt_list),
+            compute_dtype=self._compute_dtype, no_speech=self._no_speech_id,
+            qd=self._qdecode, qf_mode=self._qf_mode,
+            use_flash=self._use_flash)
+        toks = res.tokens[0, : int(res.lengths[0])].tolist()
+        gen = toks[len(initial):]            # prefix + new suffix
+        text = self.tokenizer.decode_with_options(gen, skip_special=True)
+        segments = ([Segment(0.0, len(audio) / SAMPLE_RATE, text.strip(),
+                             gen)] if text.strip() else [])
+        return TranscriptionResult(text=text.strip(), language=lang,
+                                   segments=segments, tokens=toks)
+
+    def transcribe_with_vad(self, audio: np.ndarray,
+                            options: Optional[TranscribeOptions] = None
+                            ) -> TranscriptionResult:
+        """VAD-segmented transcription: only the speech spans, decoded in
+        one ``transcribe_batch`` (reference: src/lib.rs:1237)."""
+        from .vad import VoiceActivityDetector
+        options = options or TranscribeOptions()
+        audio = np.asarray(audio, dtype=np.float32)
+        segments = VoiceActivityDetector().detect(audio)
+        clips = [audio[s:e] for s, e in segments if e - s >= 400]
+        if not clips:
+            return TranscriptionResult("", options.language or "en", [], [])
+        batch = self.transcribe_batch(clips, options)
+        texts, segs, toks = [], [], []
+        for (s, e), r in zip(segments, batch.results):
+            if r.text:
+                texts.append(r.text)
+                segs.append(Segment(s / SAMPLE_RATE, e / SAMPLE_RATE,
+                                    r.text, r.tokens))
+                toks.extend(r.tokens)
+        return TranscriptionResult(" ".join(texts),
+                                   batch.results[0].language, segs, toks)
+
+    def transcribe_long(self, audio: np.ndarray,
+                        options: Optional[TranscribeOptions] = None,
+                        overlap_seconds: float = 1.0,
+                        fallback: bool = False) -> TranscriptionResult:
+        """Audio of any length: windows of one encoder context (30 s for
+        the standard models) overlapping by ``overlap_seconds`` (at most a
+        quarter window), every window in one ``transcribe_batch`` (or
+        ``transcribe_batch_with_fallback``), segment times offset by each
+        window's start, texts stitched with the overlap's repeated words
+        dropped (``inference.streaming.dedup_overlap_words``). Audio of
+        one window is ``transcribe`` (``transcribe_with_fallback``)."""
+        from .audio.batch import split_into_chunks
+        from .inference.streaming import dedup_overlap_words
+        options = options or TranscribeOptions()
+        audio = np.asarray(audio, dtype=np.float32)
+        window = 2 * self.config.n_audio_ctx * 160
+        if len(audio) <= window:
+            return (self.transcribe_with_fallback(audio, options) if fallback
+                    else self.transcribe(audio, options))
+        overlap = min(int(overlap_seconds * SAMPLE_RATE), window // 4)
+        chunks = split_into_chunks(audio, chunk_samples=window,
+                                   overlap_samples=overlap)
+        batch = (self.transcribe_batch_with_fallback(chunks, options)
+                 if fallback else self.transcribe_batch(chunks, options))
+        step = (window - overlap) / SAMPLE_RATE
+        texts, segs, toks = [], [], []
+        for i, r in enumerate(batch.results):
+            if not r.text:
+                continue
+            text = (dedup_overlap_words(texts[-1], r.text) if texts
+                    else r.text)
+            if not text:
+                continue
+            texts.append(text)
+            toks.extend(r.tokens)
+            offset = i * step
+            for s in r.segments:
+                segs.append(Segment(s.start + offset, s.end + offset,
+                                    s.text, s.tokens))
+        return TranscriptionResult(" ".join(texts),
+                                   batch.results[0].language, segs, toks)
+
     # -- file helpers ----------------------------------------------------------
     def transcribe_file(self, path: str,
                         options: Optional[TranscribeOptions] = None
                         ) -> TranscriptionResult:
-        """Transcribe a WAV file of at most one window (30 s for the
-        standard models); longer files are chunked by ``transcribe_long``,
-        which the port's slice 3b brings."""
+        """Transcribe a WAV file of any length (``transcribe_long``),
+        resampled to 16 kHz first."""
         with open(path, "rb") as f:
             samples, sr = parse_wav(f.read())
         if sr != SAMPLE_RATE:
             samples = SincResampler(sr, SAMPLE_RATE).resample(samples)
-        if len(samples) > 2 * self.config.n_audio_ctx * 160:
-            raise NotImplementedError(
-                "audio longer than one window needs transcribe_long: the "
-                "port's slice 3b")
-        return self.transcribe(samples, options)
+        return self.transcribe_long(samples, options)
