@@ -74,6 +74,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               the traced forward's and the DTW's ms); each path's
               launches held to the decodes it ran; in f32 tokens, texts
               and words through the kernels == plain versions.
+6c. cli     - the port's CLI and HTTP server on the e2e .apr, as a user
+              runs them: cli.run of transcribe (json, srt), batch of 4
+              WAVs, detect-language, model (H100 floors), validate and
+              diagnose (the card, the kernels loaded), each command's
+              launches held to its decodes; --fp32 tokens == the engine's
+              transcribe_long through the plain versions; the same
+              transcribe as a subprocess (python -m
+              whisper_apr_tpu_torch.cli), its stdout the in-process one;
+              TranscribeServer(n_slots=8), threaded, the device loop on
+              the main thread: 12 clips posted at once, an OpenAI
+              multipart request of 2 s at 44.1 kHz, an async request
+              polled, a cancelled one, then a 30 s clip alone and a 20 s
+              streaming session in
+              0.5 s blocks and /metrics (every answer 2xx, completions
+              "ok" but the cancelled one, no session error event; ticks
+              K5-K8, session decodes K1-K4, counts held); f32 HTTP tokens
+              behind --single-thread follow per-clip transcribe
+              (near-tie rule); per-request latency, queue / decode ms,
+              HTTP overhead, resample ms, per-partial ms as data lines.
 7. decoders - the other decoders through the engine's entry points: greedy
               in kv_mode "scan" (K8 4L+1 and K9 L times per token), beam
               search (5 beams on one clip and on 8 clips: 40 rows),
@@ -2268,6 +2287,474 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
         f"words); traced forward {out['words']['traced_ms']:.1f} ms "
         f"({out['words']['weights_mb']:.1f} MB of weights), DTW and words "
         f"{out['words']['dtw_ms']:.1f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the CLI and the HTTP server
+# ---------------------------------------------------------------------------
+
+def cli_run(argv: list) -> tuple:
+    """(exit code, stdout, stderr) of ``whisper_apr_tpu_torch.cli.run``."""
+    import io
+    from whisper_apr_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.run(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def http(base: str, method: str, path: str, body: bytes = None,
+         headers: dict = None) -> tuple:
+    """(status, body, host-clock seconds) of one request; an answer
+    other than 2xx raises."""
+    import urllib.request
+    req = urllib.request.Request(base + path, data=body,
+                                 headers=headers or {}, method=method)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = r.read()
+        code = r.status
+    return code, data, time.perf_counter() - t0
+
+
+def multipart(fields: dict, boundary: str = "smoke0boundary") -> tuple:
+    """(content type, body) of a multipart/form-data request; ``file`` is
+    WAV bytes, the other fields text."""
+    body = b""
+    for name, value in fields.items():
+        body += f"--{boundary}\r\n".encode()
+        if name == "file":
+            body += (b'Content-Disposition: form-data; name="file"; '
+                     b'filename="clip.wav"\r\nContent-Type: audio/wav'
+                     b"\r\n\r\n" + value)
+        else:
+            body += (f'Content-Disposition: form-data; name="{name}"'
+                     f"\r\n\r\n{value}").encode()
+        body += b"\r\n"
+    return (f"multipart/form-data; boundary={boundary}",
+            body + f"--{boundary}--\r\n".encode())
+
+
+def serve_with_clients(server, clients) -> dict:
+    """``server.serve_forever()`` on THIS thread (the device loop) while
+    ``clients(base)`` runs on another; the server is shut down when the
+    clients end, however they end. Returns what ``clients`` returned;
+    what it raised is raised here."""
+    import threading
+    res = {}
+
+    def run():
+        base = None
+        try:
+            deadline = time.time() + 120
+            while server._httpd is None and time.time() < deadline:
+                time.sleep(0.01)
+            base = f"http://127.0.0.1:{server._httpd.server_address[1]}"
+            res["out"] = clients(base)
+        except BaseException as e:  # noqa: BLE001 — raised on this thread
+            res["error"] = e
+        finally:
+            server.shutdown()
+            if server.single_thread and base is not None:
+                # wake the blocked handle_request
+                with contextlib.suppress(OSError):
+                    http(base, "GET", "/healthz")
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    server.serve_forever()
+    t.join(timeout=600)
+    assert not t.is_alive(), "[cli] server clients did not finish"
+    if "error" in res:
+        raise res["error"]
+    return res["out"]
+
+
+def phase_cli(apr: Path, workdir: Path, card: str, device="cuda",
+              max_tokens: int = 64, clip_seconds: float = 12.0,
+              serve_seconds=SERVE_SECONDS, session_seconds: float = 20.0,
+              f32_clips: int = 4, f32_tokens: int = 48) -> dict:
+    """The port's CLI and HTTP server over the e2e ``.apr`` (int8 weights;
+    bf16, cross8 unless ``--fp32``), as a user runs them: (a) ``cli.run``
+    of transcribe (json, srt; 1 decode), batch of 4 WAVs (1 decode of 4
+    rows), detect-language, model (H100 floors), validate and diagnose,
+    each command's launches counted from 0 and held to its decodes; the
+    ``--fp32`` tokens against the same engine's ``transcribe_long``
+    through the plain versions; (b) ``python -m whisper_apr_tpu_torch.cli
+    transcribe`` in a subprocess on the built kernels, its stdout (a)'s;
+    (c) ``TranscribeServer(n_slots=8)``, threaded, the device loop on this
+    thread and clients on a thread pool: the ``serve_seconds`` clips
+    posted at once, an OpenAI multipart request of a 2 s 44.1 kHz WAV, an
+    async request with a poll and a cancelled one; then the second clip
+    alone (the HTTP overhead without contention), a streaming session
+    (``session_seconds`` at 16 kHz in 0.5 s blocks, finalize) and
+    ``/metrics``: every answer 2xx, every completion "ok" but the
+    cancelled one, no session "error" event, the ticks' launches (K5-K7 L
+    times and K8 once a tick) and the session's decodes' (K1-K4); then an
+    f32 int8-KV engine behind a ``--single-thread`` server, whose HTTP
+    tokens follow per-clip transcribe (near-tie rule); (d) latency data
+    lines, each with ``card``. On the CPU (a rehearsal through the plain
+    versions) nothing launches and the counts are not held."""
+    import argparse
+    import urllib.parse
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+    from whisper_apr_tpu_torch.audio.resample import SincResampler
+    from whisper_apr_tpu_torch.audio.wav import parse_wav
+    from whisper_apr_tpu_torch.cli import commands
+    from whisper_apr_tpu_torch.cli.args import parse_args
+    from whisper_apr_tpu_torch.cli.serve import TranscribeServer
+    from whisper_apr_tpu_torch.format import AprReader
+    check_counts = torch.device(device).type == "cuda"
+    header = AprReader.from_file(str(apr)).header
+    L = header.n_text_layer
+    sr = 16_000
+    window = 2 * header.n_audio_ctx * 160
+    overlap = min(sr, window // 4)
+    n16 = int(clip_seconds * sr)
+    # transcribe_long: every window of the clip in one decode
+    n_win = 1 if n16 <= window else -(-(n16 - overlap) // (window - overlap))
+    out = {"commands": {}, "launches": []}
+
+    def held(name: str, counts: dict, want: dict) -> None:
+        out["launches"].append(counts)
+        if check_counts:
+            assert counts == want, f"[cli] {name}: launches {counts}, " \
+                f"want {want}"
+
+    def command(name: str, argv: list, rows=None) -> str:
+        """``cli.run(argv)`` from zeroed counts; exit 0, launches equal
+        its decodes'; returns its stdout."""
+        reset_launches()
+        sync(device)
+        with decode_log() as calls:
+            t0 = time.perf_counter()
+            rc, stdout, stderr = cli_run(argv)
+            sync(device)
+            dt = time.perf_counter() - t0
+        counts = launches()
+        out["commands"][name] = {"seconds": dt, "decodes": calls}
+        log(f"[cli] (a) {name}: exit {rc}, {dt * 1e3:.1f} ms with the load, "
+            f"decodes (rows, prompt, steps) {calls}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert rc == 0, f"[cli] {name}: exit {rc}\n{stderr[-3000:]}"
+        if rows is not None:
+            assert [b for b, _, _ in calls] == rows, (name, calls)
+        held(name, counts, want_decodes(calls, L))
+        return stdout
+
+    # (a) the commands in process
+    wav = workdir / "cli_clip.wav"
+    write_wav(wav, tone_noise(clip_seconds, sr, seed=21), sr)
+    dec = ["-l", "en", "--no-fallback", "--max-tokens", str(max_tokens),
+           "--device", device]
+    as_json = command("transcribe json", ["transcribe", str(wav), "-m",
+                                          str(apr), "-of", "json"] + dec,
+                      rows=[n_win])
+    text = json.loads(as_json)["text"]
+    srt = command("transcribe srt", ["transcribe", str(wav), "-m", str(apr),
+                                     "-of", "srt"] + dec, rows=[n_win])
+    assert srt.startswith("1\n00:00:00,000 --> ") and text.strip() in srt, \
+        srt[:300]
+    batch_wavs = []
+    for i, sec in enumerate((3, 7, 12, 25)):
+        batch_wavs.append(workdir / f"cli_batch_{i}.wav")
+        write_wav(batch_wavs[-1], tone_noise(sec, sr, seed=30 + i,
+                                             freq=200 + 50 * i), sr)
+    listing = command("batch", ["batch", *map(str, batch_wavs), "-m",
+                                str(apr), "-of", "json"] + dec, rows=[4])
+    for w in batch_wavs:
+        assert f"{w} -> {w.with_suffix('.json')}" in listing, listing
+        json.loads(w.with_suffix(".json").read_text())["text"]
+    langs = command("detect-language", ["detect-language", str(wav), "-m",
+                                        str(apr), "--device", device],
+                    rows=[])
+    assert len(langs.splitlines()) == 5, langs
+    info = command("model", ["model", "-m", str(apr)], rows=[])
+    assert "nvidia-h100-sxm floors (int8)" in info and \
+        "v5e" not in info.lower(), info
+    report = command("validate", ["validate", "-m", str(apr)], rows=[])
+    assert "25/25 checks passed" in report, report
+    diag = command("diagnose", ["diagnose", "-m", str(apr), "--device",
+                                device], rows=[])
+    if check_counts:
+        assert (f"[OK] torch device: {torch.cuda.get_device_name(0)} (sm_"
+                in diag and "[OK] kernels: libwhisper_kernels_" in diag), \
+            diag
+    else:
+        assert "[OK] kernels: skipped (device cpu)" in diag, diag
+
+    argv32 = ["transcribe", str(wav), "-m", str(apr), "-of", "json-full",
+              "--fp32"] + dec
+    cli32 = json.loads(command("transcribe --fp32", argv32, rows=[n_win]))
+    args32 = parse_args(argv32)
+    eng32 = commands._load_engine(args32)
+    with plain_kernels():
+        plain = eng32.transcribe_long(commands._load_audio(str(wav)),
+                                      commands._options_from_args(
+                                          args32, "transcribe"))
+    assert cli32["tokens"] == plain.tokens, (
+        f"[cli] --fp32 tokens {cli32['tokens'][:12]}..., plain "
+        f"{plain.tokens[:12]}...")
+    log(f"[cli] (a) --fp32: {len(plain.tokens)} tokens through the kernels "
+        f"== the engine's transcribe_long through the plain versions")
+
+    # (b) one subprocess, as a user starts it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "whisper_apr_tpu_torch.cli", "transcribe",
+         str(wav), "-m", str(apr), "-of", "json"] + dec, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    out["subprocess_s"] = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout == as_json, (proc.stdout[:300], as_json[:300])
+    log(f"[cli] (b) python -m whisper_apr_tpu_torch.cli transcribe: exit 0 "
+        f"in {out['subprocess_s']:.2f} s (process start, load, decode), "
+        f"the text of (a)")
+
+    # (c) the server, as run_serve builds it
+    args = parse_args(["serve", "-m", str(apr), "--port", "0", "--slots",
+                       "8", "--device", device])
+    server = TranscribeServer(
+        commands._load_engine(args), host=args.host, port=args.port,
+        n_slots=args.slots, single_thread=args.single_thread,
+        batched_admission=not args.staged_admission)
+    clips = make_clips(serve_seconds, seed=23)
+    wav44 = workdir / "cli_44k.wav"
+    write_wav(wav44, tone_noise(2.0, STREAM_RATE, seed=25), STREAM_RATE)
+    samples44, _ = parse_wav(wav44.read_bytes())
+    t0 = time.perf_counter()
+    SincResampler(STREAM_RATE, sr).resample(samples44)
+    resample_ms = 1e3 * (time.perf_counter() - t0)
+    session_audio = bursts(((2, 0), (7, 240), (2, 0), (6, 300), (3, 0)),
+                           sr, seed=27)[: int(session_seconds * sr)]
+    push_s = []        # (seconds, emitted a partial) of each session push
+    f32le = {"X-Sample-Format": "f32le"}
+    q = f"?language=en&max_tokens={max_tokens}"
+
+    def clients(base: str) -> dict:
+        def clip(audio):
+            code, data, s = http(base, "POST", "/v1/transcribe" + q,
+                                 audio.astype("<f4").tobytes(), f32le)
+            return code, json.loads(data), s
+
+        def openai():
+            ctype, body = multipart({"file": wav44.read_bytes(),
+                                     "language": "en",
+                                     "response_format": "verbose_json"})
+            code, data, s = http(base, "POST", "/v1/audio/transcriptions",
+                                 body, {"Content-Type": ctype})
+            return code, json.loads(data), s
+
+        def job(rid):
+            while True:
+                code, data, _ = http(base, "GET", f"/v1/jobs/{rid}")
+                body = json.loads(data)
+                if body["status"] != "pending":
+                    return code, body
+                time.sleep(0.005)
+
+        def async_poll():
+            code, data, _ = http(base, "POST", "/v1/transcribe" + q
+                                 + "&async=1", clips[0].astype("<f4")
+                                 .tobytes(), f32le)
+            assert code == 202, code
+            return job(json.loads(data)["id"])
+
+        def cancelled():
+            code, data, _ = http(base, "POST", "/v1/transcribe?language=en"
+                                 "&max_tokens=224&async=1",
+                                 clips[1].astype("<f4").tobytes(), f32le)
+            rid = json.loads(data)["id"]
+            c, ack, _ = http(base, "POST", f"/v1/cancel?id={rid}", b"")
+            assert (code, c, json.loads(ack)) == (
+                202, 200, {"id": rid, "cancelled": True}), ack
+            return job(rid)
+
+        res = {}
+        with ThreadPoolExecutor(max_workers=len(clips) + 3) as pool:
+            futs = [pool.submit(clip, c) for c in clips]
+            extra = {name: pool.submit(fn) for name, fn in (
+                ("openai", openai), ("async", async_poll),
+                ("cancel", cancelled))}
+            res["clips"] = [f.result() for f in futs]
+            res.update({k: f.result() for k, f in extra.items()})
+        # one 30 s clip alone, the device loop otherwise idle: the HTTP
+        # overhead without contention for the interpreter
+        res["alone"] = clip(clips[1])
+        # the session, after the burst: its partials serialize with ticks
+        code, data, _ = http(base, "POST", "/v1/sessions?language=en"
+                             f"&rate={sr}")
+        assert code == 201, code
+        sid = json.loads(data)["session"]
+        sess = server._sessions[sid].session
+        real_push = sess.push
+
+        def timed_push(chunk):
+            t0 = time.perf_counter()
+            r = real_push(chunk)
+            sync(device)
+            push_s.append((time.perf_counter() - t0,
+                           any(e.kind == "partial" for e in r)))
+            return r
+        sess.push = timed_push
+        for i in range(0, len(session_audio), sr // 2):
+            code, _, _ = http(base, "POST", f"/v1/sessions/{sid}/audio",
+                              session_audio[i:i + sr // 2].astype("<f4")
+                              .tobytes())
+            assert code == 200
+        code, _, _ = http(base, "POST", f"/v1/sessions/{sid}/finalize", b"")
+        assert code == 202
+        while True:
+            code, data, _ = http(base, "GET",
+                                 f"/v1/sessions/{sid}/events?since=0")
+            events = json.loads(data)
+            if events["final"] is not None:
+                break
+            time.sleep(0.01)
+        code, data, _ = http(base, "DELETE", f"/v1/sessions/{sid}")
+        assert code == 200 and json.loads(data) == {"deleted": True}
+        res["session"] = events
+        res["metrics"] = http(base, "GET", "/metrics")[1].decode()
+        return res
+
+    reset_launches()
+    sync(device)
+    with decode_log() as calls:
+        t0 = time.perf_counter()
+        res = serve_with_clients(server, clients)
+        wall_s = time.perf_counter() - t0
+    counts = launches()
+    st = server.scheduler.stats()
+    for code, body, _ in res["clips"]:
+        assert code == 200 and body["status"] == "ok", body
+        t = np.asarray(body["tokens"])
+        assert t.size > 1 and t.min() >= 0 and t.max() < server.engine \
+            .config.n_vocab, body
+    code, body, openai_s = res["openai"]
+    assert code == 200 and body["task"] == "transcribe" and \
+        abs(body["duration"] - 2.0) < 1e-3, body
+    assert res["async"][0] == 200 and res["async"][1]["status"] == "ok"
+    assert res["cancel"][1]["status"] == "cancelled", res["cancel"]
+    events = res["session"]["events"]
+    errors = [e for e in events if e["kind"] == "error"]
+    assert not errors, f"[cli] session error events: {errors}"
+    partials = [e for e in events if e["kind"] == "partial"]
+    assert partials and events[-1]["kind"] == "final" and \
+        res["session"]["final"], events[-3:]
+    metrics = dict(line.split() for line in res["metrics"].splitlines()
+                   if not line.startswith("#"))
+    code, body, _ = res["alone"]
+    assert code == 200 and body["status"] == "ok", body
+    n_ok = len(clips) + 3
+    assert (int(metrics["whisper_apr_completed_ok"]),
+            int(metrics["whisper_apr_cancelled"])) == (n_ok, 1), metrics
+    want = want_decodes(calls, L)
+    assert all(b == 1 for b, _, _ in calls), calls
+    for k in ("self_block_batched", "cross_block_batched",
+              "ffn_block_batched"):
+        want[k] += L * st["ticks"]
+    want["qmatvec_stacked"] += st["ticks"]
+    held("serve", counts, want)
+    if check_counts:
+        assert all(counts[k] > 0 for k in (
+            "self_block", "cross_block", "ffn_block", "qmatvec_greedy_head",
+            "self_block_batched", "cross_block_batched",
+            "ffn_block_batched", "qmatvec_stacked")), counts
+
+    # (d) the data lines
+    lat = [1e3 * s for _, _, s in res["clips"]]
+    queue = [b["queue_ms"] for _, b, _ in res["clips"]]
+    decode = [b["decode_ms"] for _, b, _ in res["clips"]]
+    over = [a - b - c for a, b, c in zip(lat, queue, decode)]
+    _, body, s_alone = res["alone"]
+    alone = {"latency_ms": 1e3 * s_alone, "queue_ms": body["queue_ms"],
+             "decode_ms": body["decode_ms"]}
+    alone["http_overhead_ms"] = (alone["latency_ms"] - alone["queue_ms"]
+                                 - alone["decode_ms"])
+    part = [s for s, p in push_s if p]
+    pct = lambda xs, p: float(np.percentile(xs, p))
+    out["server"] = {
+        "requests": len(clips), "wall_s": wall_s, "ticks": st["ticks"],
+        "latency_ms_p50": pct(lat, 50), "latency_ms_p95": pct(lat, 95),
+        "queue_ms_p50": pct(queue, 50), "queue_ms_p95": pct(queue, 95),
+        "decode_ms_p50": pct(decode, 50), "decode_ms_p95": pct(decode, 95),
+        "http_overhead_ms_p50": pct(over, 50),
+        "http_overhead_ms_p95": pct(over, 95),
+        "http_overhead_ms_max": max(over), "alone": alone,
+        "resample_ms_2s_44k": resample_ms,
+        "openai_request_ms": 1e3 * openai_s,
+        "tokens_per_decode_second": float(
+            metrics["whisper_apr_tokens_per_decode_second"]),
+        "session_pushes": len(push_s), "session_partials": len(part),
+        "partial_ms_p50": percentile_ms(part, 50),
+        "partial_ms_p95": percentile_ms(part, 95),
+        "stats": st}
+    s = out["server"]
+    log(f"[cli] (c) {card}: {len(clips)} clips at once + multipart + async "
+        f"+ cancel, one clip alone, then a {session_seconds:g} s session: {wall_s:.2f} s, "
+        f"{st['ticks']} ticks, completed_ok {n_ok}, cancelled 1, no session "
+        f"error event, {len(partials)} partial events; launches held "
+        f"(ticks K5-K8, session decodes K1-K4)")
+    log(f"[cli] (d) {card}: per-request latency (host clock, "
+        f"{len(clips)} concurrent /v1/transcribe, {max_tokens} tokens) p50 "
+        f"{s['latency_ms_p50']:.2f} ms, p95 {s['latency_ms_p95']:.2f}; "
+        f"server queue_ms p50 {s['queue_ms_p50']:.1f} / p95 "
+        f"{s['queue_ms_p95']:.1f}, decode_ms p50 {s['decode_ms_p50']:.1f} / "
+        f"p95 {s['decode_ms_p95']:.1f}")
+    log(f"[cli] (d) {card}: HTTP overhead (latency - queue - decode) p50 "
+        f"{s['http_overhead_ms_p50']:.2f} ms, p95 "
+        f"{s['http_overhead_ms_p95']:.2f}, max "
+        f"{s['http_overhead_ms_max']:.2f}; one {serve_seconds[1]:g} s clip "
+        f"alone afterwards: latency {alone['latency_ms']:.2f} ms, queue "
+        f"{alone['queue_ms']:.1f}, decode {alone['decode_ms']:.1f}, "
+        f"overhead {alone['http_overhead_ms']:.2f}")
+    log(f"[cli] (d) {card}: resampling the 2 s 44.1 kHz request on the "
+        f"host {resample_ms:.1f} ms; the multipart request "
+        f"{s['openai_request_ms']:.1f} ms in all")
+    log(f"[cli] (d) {card}: tokens_per_decode_second "
+        f"{s['tokens_per_decode_second']:.1f}; session: {len(push_s)} "
+        f"pushes, {len(part)} with a partial, per-partial push p50 "
+        f"{s['partial_ms_p50']:.2f} ms, p95 {s['partial_ms_p95']:.2f}")
+
+    # f32 (int8 KV, as the scheduler serves cross8) behind --single-thread
+    eng_f32 = WhisperApr.load_from_apr(
+        str(apr), ComputeConfig(quantization="int8", compute_dtype="float32",
+                                kv_mode="int8"), device=device)
+    server32 = TranscribeServer(eng_f32, port=0, n_slots=8,
+                                single_thread=True)
+    short = clips[:f32_clips]
+
+    def clients32(base: str) -> list:
+        ids = [json.loads(http(base, "POST", f"/v1/transcribe?language=en"
+                               f"&max_tokens={f32_tokens}&async=1",
+                               c.astype("<f4").tobytes(), f32le)[1])["id"]
+               for c in short]
+        toks = []
+        for rid in ids:
+            while True:
+                body = json.loads(http(base, "GET", f"/v1/jobs/{rid}")[1])
+                if body["status"] != "pending":
+                    assert body["status"] == "ok", body
+                    toks.append(body["tokens"])
+                    break
+        return toks
+
+    reset_launches()
+    got = serve_with_clients(server32, clients32)
+    out["launches"].append(launches())
+    P = len(eng_f32.get_initial_tokens("en"))
+    opts = TranscribeOptions(language="en", max_tokens=P + f32_tokens)
+    gaps = [check_follows(eng_f32, c, g, eng_f32.transcribe(c, opts).tokens,
+                          "cli serve f32") for c, g in zip(short, got)]
+    out["f32_gaps"] = gaps
+    log(f"[cli] (c) f32 int8-KV, --single-thread: HTTP tokens of "
+        f"{len(short)} clips against per-clip transcribe: "
+        f"{sum(g is None for g in gaps)} identical, near-tie gaps "
+        f"{[g for g in gaps if g is not None]}")
     return out
 
 
@@ -4595,6 +5082,7 @@ def main() -> int:
         batch = phase_batch(e2e["engine"], e2e["engine_f32"])
         longform = phase_longform(e2e["engine"], e2e["engine_f32"],
                                   Path(work))
+        cli = phase_cli(e2e["apr"], Path(work), smi)
         decoders = phase_decoders(e2e["apr"])
         kq = phase_kquant(Path(work))
         check_kq_launches(kq)
@@ -4618,6 +5106,7 @@ def main() -> int:
     runs = [e2e["total"], serve["launches"], serve["scan"]["launches"],
             batch["launches"], large["launches"], large["long"]["launches"],
             *(p["launches"] for p in longform["paths"].values()),
+            *cli["launches"],
             *(p["launches"] for p in decoders["paths"].values()),
             *(p["launches"] for p in kq["paths"].values()),
             *(r["launches"] for r in paged["runs"].values()),
@@ -4643,6 +5132,7 @@ def main() -> int:
                   "batch": {k: v for k, v in batch.items()
                             if k != "want_launches"},
                   "longform": longform,
+                  "cli": {k: v for k, v in cli.items() if k != "launches"},
                   "decoders": decoders, "large_v3": large,
                   "kquant": {k: v for k, v in kq.items()
                              if k != "launch_checks"},

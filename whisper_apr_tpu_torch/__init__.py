@@ -6,6 +6,8 @@ built at first use) for the per-token decode step on an NVIDIA Hopper
 GPU. Imports torch and numpy only — never JAX.
 """
 
+__version__ = "0.1.0"
+
 from .config import ComputeConfig, ModelConfig
 from .engine import (BatchTranscriptionResult, TranscribeOptions,
                      TranscriptionResult, WhisperApr)
@@ -17,5 +19,5 @@ __all__ = [
     "ModelConfig", "ComputeConfig", "WhisperApr", "TranscribeOptions",
     "TranscriptionResult", "BatchTranscriptionResult", "AprReader",
     "AprWriter", "WhisperError", "FormatError", "AudioError", "ModelError",
-    "InferenceError",
+    "InferenceError", "__version__",
 ]
