@@ -102,6 +102,31 @@ Phases, in order; any failure raises and the script exits non-zero:
               fallback; in f32 each gives
               the same tokens through the kernels as through the plain
               versions (near-tie rule).
+7d. mesh (after 7) - serving and decoding on a (dp, tp) mesh, each run
+              a launch of parallel/dryrun.py's ranks (no kernel: the mesh
+              path is the plain step, as in JAX): (a) one rank, NCCL, a
+              1 x 1 mesh, whisper-tiny at full width, f32: sharded greedy
+              over 2 clips == single-device greedy, the scheduler drains;
+              (b) two ranks, gloo (NCCL refuses two ranks on one GPU; the
+              tensors stay on the card), dp=2 x tp=1, whisper-tiny: greedy
+              over 4 clips (2 a rank) == single-device, BatchScheduler(
+              n_slots=4, mesh) drains 5 clips with the single-device
+              scheduler's tokens; (c) two ranks, gloo, dp=1 x tp=2 at
+              large-v3's widths (4 + 4 layers, vocab 51866, the only
+              released one that splits over 2), f32: teacher-forced logits
+              within 1e-4 of the largest single-device magnitude, 24
+              greedy tokens equal (near-tie rule); ms per token sharded
+              and single, as data (one card over gloo predicts nothing of
+              a run across cards).
+7e. speculative (after 7d) - transcribe(speculative=True) on an f32
+              engine over the e2e .apr (int8 weights, f32 rows: kv_mode
+              "bf16") at (draft_tokens, draft_layers) = (2, 1), (4, 1),
+              (4, L): tokens == the same engine's plain greedy through
+              K1-K4 (near-tie rule), no kernel launched on the
+              speculative path; at draft_layers = L every draft accepted;
+              the bf16 engine's mismatches counted, not failed; verify
+              passes, accepted drafts and ms per emitted token against
+              plain greedy's, as data.
 8. large-v3 - a large-v3-shaped model built in memory (random int8
               weights): 30 s of noise through encoder, prefill and decode
               at full width, f32 tokens through the kernels against the
@@ -2910,6 +2935,151 @@ def phase_decoders(apr: Path, device="cuda", specials=None,
     return out
 
 
+MESH_RUNS = (
+    # (name, ranks, backend, [(config, tp), ...], dryrun options)
+    ("a", 1, "nccl", [("tiny", 1)], ["--clips", "2"]),
+    ("b, c", 2, "gloo", [("tiny", 1), ("large-v3-4x4", 2)],
+     ["--clips", "4", "--slots", "4", "--requests", "5"]),
+)
+# shared by every run: 24 greedy tokens a clip (3 forced), 24
+# teacher-forced tokens, logits within 1e-4 of the largest magnitude;
+# the scheduler's clips 3 s of noise each, up to 16 tokens a request
+MESH_COMMON = ["--max-len", "24", "--tf-tokens", "24", "--tol", "1e-4",
+               "--clip-samples", "48000", "--sched-len", "32",
+               "--sched-tokens", "16"]
+
+
+def phase_mesh(card: str, device="cuda", runs=MESH_RUNS,
+               common=MESH_COMMON, timeout: float = 240.0) -> dict:
+    """Phase 7d: (a) in this process (one rank: no process start), (b)
+    and (c) as one launch of two ranks of ``parallel/dryrun.py`` running
+    both cases in turn. The ranks check themselves: a failed rank or
+    check raises. Returns each case's rank-0 report and the runs' wall
+    seconds."""
+    from whisper_apr_tpu_torch.parallel import dryrun
+    out = {"wall_s": {}}
+    for name, n, backend, cases, extra in runs:
+        argv = ["--job", "mesh", "--n", str(n), "--backend", backend,
+                "--device", device, "--timeout", str(timeout), "--out",
+                str(ROOT / "build" / "smoke" / f"mesh_{name[0]}"),
+                *(a for c, tp in cases for a in ("--case", f"{c}:{tp}")),
+                *common, *extra]
+        t0 = time.perf_counter()
+        reports = (dryrun.run_here if n == 1 else dryrun.launch)(argv)
+        out["wall_s"][name] = time.perf_counter() - t0
+        for label, case in zip(name.split(", "), reports):
+            r = {k: v for k, v in case[0].items() if k not in ("arrays",
+                                                               "log")}
+            assert all(rep["completions"] == r["completions"]
+                       for rep in case), f"[mesh] ({label}) ranks " \
+                "completed differently"
+            r["rank_seconds"] = [rep["seconds"] for rep in case]
+            out[label] = r
+            ms = r["ms_per_token"]
+            log(f"[mesh] ({label}) {n} rank(s), {backend}, dp x tp "
+                f"{r['mesh']['dp']} x {r['mesh']['tp']}, {r['config']}: "
+                f"logits max err {r['logits_max_err']:.3g} (of "
+                f"{r['logits_scale']:.3g}), greedy "
+                f"{'identical' if r['greedy_exact'] else 'near ties'} "
+                f"{r['greedy_gaps']}, scheduler {len(r['completions'])} "
+                f"requests ({len({tuple(c) for c in r['completions']})} "
+                f"distinct) "
+                f"{'identical' if r['serve_exact'] else 'near ties'}"
+                f"; {ms['tokens']} tokens: {ms['mesh']:.3f} ms/token on the "
+                f"mesh, {ms['single']:.3f} single; ranks "
+                f"{max(r['rank_seconds']):.1f} s ({card})")
+        log(f"[mesh] run ({name}): {out['wall_s'][name]:.1f} s with "
+            f"{'the rank' if n == 1 else 'the launch'}")
+    return out
+
+
+SPEC_CASES = ((2, 1), (4, 1), (4, None))  # (draft_tokens, draft_layers); L
+
+
+def phase_speculative(apr: Path, eng_bf16, card: str, device="cuda",
+                      specials=None, max_tokens: int = 64) -> dict:
+    """Phase 7e: speculative greedy through the engine's entry point on an
+    f32 engine over ``apr`` (int8 weights, f32 rows), held to the same
+    engine's plain greedy through the kernels (near-tie rule); the
+    speculative path launches no kernel. At draft_layers = L every draft
+    is accepted. The bf16 engine's mismatches are counted."""
+    import torch
+    from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
+                                       WhisperApr)
+    from whisper_apr_tpu_torch.inference import speculative as spec_mod
+    eng = WhisperApr.load_from_apr(
+        str(apr), ComputeConfig(quantization="int8", compute_dtype="float32",
+                                kv_mode="bf16"),
+        specials=specials, device=device)
+    L = eng.config.n_text_layer
+    P = len(eng.get_initial_tokens("en"))
+    clips = make_clips((8, 20), seed=11)
+    base = dict(language="en", max_tokens=P + max_tokens)
+    check_counts = torch.device(device).type == "cuda"
+    rounds = []
+    real = spec_mod.speculative_greedy_generate
+
+    def counted(*a, **kw):
+        res = real(*a, **kw)
+        rounds.append((res.n_verify_passes, res.n_accepted))
+        return res
+
+    def timed(e, audio, opts):
+        sync(device)
+        t0 = time.perf_counter()
+        r = e.transcribe(audio, opts)
+        sync(device)
+        return r, time.perf_counter() - t0
+
+    out = {"cases": [], "bf16_mismatches": 0}
+    spec_mod.speculative_greedy_generate = counted
+    try:
+        for ci, audio in enumerate(clips):
+            opts = TranscribeOptions(**base)
+            timed(eng, audio, opts)                      # warm-up
+            plain, t_plain = timed(eng, audio, opts)
+            n = max(len(plain.tokens) - P, 1)
+            for k, ld in SPEC_CASES:
+                ld = ld or L
+                sopts = TranscribeOptions(**base, speculative=True,
+                                          draft_tokens=k, draft_layers=ld)
+                reset_launches()
+                got, t_spec = timed(eng, audio, sopts)
+                counts = launches()
+                assert not check_counts or counts == want_counts(), \
+                    f"[speculative] launches {counts}, want none"
+                n_ver, n_acc = rounds[-1]
+                gap = check_follows(eng, audio, got.tokens, plain.tokens,
+                                    "speculative")
+                if ld == L and gap is None:
+                    assert n_acc == k * n_ver, (k, n_ver, n_acc)
+                case = {"clip": ci, "draft_tokens": k,
+                        "draft_layers": ld, "verify_passes": n_ver,
+                        "accepted": n_acc, "tokens": len(got.tokens),
+                        "near_tie_gap": gap,
+                        "ms_per_token": 1e3 * t_spec / n,
+                        "plain_ms_per_token": 1e3 * t_plain / n}
+                out["cases"].append(case)
+                log(f"[speculative] clip {ci} k={k} draft_layers={ld}: "
+                    f"{n_ver} verify passes, {n_acc} drafts accepted, "
+                    f"{len(got.tokens) - P} tokens "
+                    f"{'identical' if gap is None else f'near tie {gap:.3g}'}"
+                    f"; {case['ms_per_token']:.2f} ms/token against plain "
+                    f"greedy's {case['plain_ms_per_token']:.2f} (kernels) "
+                    f"({card})")
+            # the bf16 engine: a fidelity-f32 property, counted only
+            b_plain = eng_bf16.transcribe(audio, TranscribeOptions(**base))
+            b_spec = eng_bf16.transcribe(audio, TranscribeOptions(
+                **base, speculative=True))
+            out["bf16_mismatches"] += int(b_spec.tokens != b_plain.tokens)
+    finally:
+        spec_mod.speculative_greedy_generate = real
+    log(f"[speculative] bf16 engine: {out['bf16_mismatches']} of "
+        f"{len(clips)} clips differ from its plain greedy (not a failure)")
+    del eng
+    return out
+
+
 def phase_large_v3(device="cuda", max_tokens: int = 24) -> dict:
     """A large-v3-shaped model built in memory (init_params seed 0 +
     int8 quantize_params, no .apr): 30 s of noise through the mel, the
@@ -5084,6 +5254,10 @@ def main() -> int:
                                   Path(work))
         cli = phase_cli(e2e["apr"], Path(work), smi)
         decoders = phase_decoders(e2e["apr"])
+        with trace.trace_span("mesh"):
+            mesh = phase_mesh(smi)
+        with trace.trace_span("speculative"):
+            spec = phase_speculative(e2e["apr"], e2e["engine"], smi)
         kq = phase_kquant(Path(work))
         check_kq_launches(kq)
         int4 = phase_int4(e2e["apr"])
@@ -5133,7 +5307,8 @@ def main() -> int:
                             if k != "want_launches"},
                   "longform": longform,
                   "cli": {k: v for k, v in cli.items() if k != "launches"},
-                  "decoders": decoders, "large_v3": large,
+                  "decoders": decoders, "mesh": mesh,
+                  "speculative": spec, "large_v3": large,
                   "kquant": {k: v for k, v in kq.items()
                              if k != "launch_checks"},
                   "paged": paged["runs"],

@@ -485,12 +485,24 @@ def test_diagnose_on_cpu(model):
     assert "jax" not in out.lower()
 
 
-def test_speculative_is_a_clean_error(model, wavs):
-    rc, out, err = run_cli(tcli.run, ["transcribe", wavs["one"], "-m", model,
-                                      "--device", "cpu", "--speculative"]
-                           + DECODE)
-    assert rc == 1 and out == ""
-    assert err.startswith("error: ") and "speculative" in err
+def test_speculative_is_a_clean_error(model, wavs, monkeypatch):
+    """``--speculative``, once refused, decodes through the speculative
+    path: the JAX CLI's stdout, and the same stdout as without it
+    (speculative greedy is token-exact)."""
+    from whisper_apr_tpu_torch.inference import speculative as tspec
+    argv = ["transcribe", wavs["one"], "-m", model, "--device", "cpu"] \
+        + DECODE
+    rc, plain, _ = run_cli(tcli.run, argv)
+    assert rc == 0 and plain
+    calls = []
+    real = tspec.speculative_greedy_generate
+    monkeypatch.setattr(tspec, "speculative_greedy_generate",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    spec = same(argv[:4] + DECODE + ["--speculative"])
+    rc, out, err = run_cli(tcli.run, argv + ["--speculative"])
+    assert rc == 0 and err == ""
+    assert out == plain == spec
+    assert calls == [1, 1]
 
 
 @pytest.mark.parametrize("argv", [

@@ -389,15 +389,14 @@ class TestWholeSlice:
 
     @pytest.mark.parametrize("opts,slice_", [
         pytest.param(dict(hotwords=["a"]), None, id="opts0-slice 3b"),
-        pytest.param(dict(speculative=True), "queue 1, item 9",
-                     id="opts1-slice 3b"),
+        pytest.param(dict(speculative=True), None, id="opts1-slice 3b"),
         pytest.param(dict(word_timestamps=True), None,
                      id="opts2-queue 1, item 5"),
     ])
     def test_later_slices_raise(self, cfg, params, opts, slice_):
-        """Speculative decoding is refused, naming its ROADMAP item.
-        Hotwords and word timestamps, once refused here, now
-        decode (their parity with JAX: tests/test_torch_hotwords.py,
+        """Hotwords, speculative decoding and word timestamps, once
+        refused here, now decode (their parity with JAX:
+        tests/test_torch_hotwords.py, test_torch_speculative.py,
         test_torch_alignment.py)."""
         _, tp = params
         eng = WhisperApr(cfg, tp, specials=_specials(cfg, TSpecials),

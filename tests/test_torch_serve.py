@@ -135,8 +135,10 @@ class Served:
         self.server.shutdown()
         if self.single_thread:
             # wake a blocked handle_request; a loop that saw the stop
-            # first has closed the socket already
-            with contextlib.suppress(urllib.error.URLError):
+            # first has closed the socket already (refused), or closes it
+            # with this connection still in its backlog (reset)
+            with contextlib.suppress(urllib.error.URLError,
+                                     ConnectionResetError):
                 self.call("GET", "/healthz")
         self.thread.join(timeout=60)
         assert not self.thread.is_alive()

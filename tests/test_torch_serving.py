@@ -22,6 +22,7 @@ from whisper_apr_tpu.parallel.serving import BatchScheduler as JScheduler
 from whisper_apr_tpu.tokenizer import SpecialTokens
 from whisper_apr_tpu_torch import ComputeConfig as TCompute
 from whisper_apr_tpu_torch import TranscribeOptions, WhisperApr
+from whisper_apr_tpu_torch.model.decoder import KVCache
 from whisper_apr_tpu_torch.model.params import from_jax_params
 from whisper_apr_tpu_torch.ops import decode_blocks as tdb
 from whisper_apr_tpu_torch.parallel.serving import BatchScheduler
@@ -93,6 +94,17 @@ def _run_jax(sched, audios, **kw):
         return _drain(sched, audios, **kw)
     finally:
         jqd.INTERPRET = False
+
+
+class _OneDeviceMesh:
+    """A 1 x 1 stand-in for a ``DeviceMesh``: a mesh of one device runs no
+    collective, so the scheduler needs no process group."""
+
+    mesh_dim_names = ("dp", "tp")
+    shape = (1, 1)
+
+    def get_coordinate(self):
+        return [0, 0]
 
 
 class TestSchedulerMatchesJax:
@@ -220,11 +232,28 @@ class TestSchedulerControl:
             cfg.n_text_layer * sched.stats()["ticks"]
 
     @pytest.mark.parametrize("kw,slice_", [
-        pytest.param(dict(mesh=object()), "slice 7", id="kw1-slice 7")])
+        pytest.param(dict(mesh=_OneDeviceMesh()), "slice 7",
+                     id="kw1-slice 7")])
     def test_later_slices_raise(self, cfg, params, kw, slice_):
-        _, teng = _engines(cfg, params, "int8")
-        with pytest.raises(NotImplementedError, match=slice_):
-            BatchScheduler(teng, n_slots=2, **kw)
+        """Serving on a mesh, once refused here, now serves (the id keeps
+        the refusal's old name): on a one-device mesh an int8 engine
+        ticks the plain dense step, as JAX's mesh scheduler does, and
+        completes JAX's tokens; paged slots stay refused on a mesh. (The
+        multi-rank meshes: tests/test_torch_parallel.py.)"""
+        from whisper_apr_tpu.parallel.mesh import make_mesh
+        jeng, teng = _engines(cfg, params, "int8")
+        ts = BatchScheduler(teng, n_slots=2, **kw)
+        assert ts._qf is None and ts._qd is None
+        assert isinstance(ts._cache, KVCache)
+        jm = make_mesh(1, tp=1)
+        js = JScheduler(jeng, n_slots=2, mesh=jm)
+        audios = _audios(3, seed=13)
+        with jm:
+            want = _drain(js, audios, max_tokens=4)
+        got = _drain(ts, audios, max_tokens=4)
+        assert [g.tokens for g in got] == [w.tokens for w in want]
+        with pytest.raises(ValueError, match="paged serving is per-device"):
+            BatchScheduler(teng, n_slots=2, paged=True, **kw)
 
 
 class TestDenseSlots:

@@ -31,7 +31,11 @@ with prefix-reuse partials (``transcribe_prefixed``), hotwords (a
 host-stepped greedy loop over the plain step, the trie applied to the
 logits each step) and word timestamps (the traced forward's
 cross-attention, aligned by DTW) are the JAX engine's, on the engine's
-device. Speculative decoding is not ported (ROADMAP.md queue 1, item 9).
+device, and so is speculative greedy decoding (``speculative`` with one
+clip, greedy at temperature 0, no timestamps: the model's first
+``draft_layers`` layers draft ``draft_tokens`` tokens and one full pass
+verifies them, ``inference/speculative.py``; the plain step, no kernel,
+as in JAX).
 """
 
 from __future__ import annotations
@@ -529,10 +533,11 @@ class WhisperApr:
         if options.hotwords:
             return self._transcribe_hotwords(audios, options, lang,
                                              prompt_list, bias, t0)
-        if options.speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported (ROADMAP.md queue 1, "
-                "item 9)")
+        if (options.speculative and len(audios) == 1
+                and options.strategy == "greedy"
+                and options.temperature == 0.0 and not options.timestamps):
+            return self._transcribe_speculative(audios[0], options, lang,
+                                                prompt, bias, t0)
         eot = self.specials.eot
         common = dict(max_len=self._max_tokens(options), prompt_len=P,
                       compute_dtype=self._compute_dtype,
@@ -615,6 +620,36 @@ class WhisperApr:
             self._attach_word_timestamps(results, audios,
                                          method=options.word_alignment)
         return BatchTranscriptionResult(results, time.time() - t0)
+
+    def _transcribe_speculative(self, audio: np.ndarray,
+                                options: TranscribeOptions, lang: str,
+                                prompt: torch.Tensor, bias: torch.Tensor,
+                                t0: float) -> BatchTranscriptionResult:
+        """One clip by ``speculative_greedy_generate`` (the JAX engine's
+        branch, engine.py:536-570): ``draft_layers`` 0 takes a quarter of
+        the decoder (at least one layer); one segment; the quality-gate
+        signals the plain greedy path gives (average log-prob of the
+        emitted tokens, no-speech probability at SOT)."""
+        from .inference.speculative import speculative_greedy_generate
+        mel = self.mel_filters.compute_30s_device(
+            audio, n_frames=2 * self.config.n_audio_ctx, device=self.device)
+        ld = options.draft_layers or max(1, self.config.n_text_layer // 4)
+        P = prompt.shape[1]
+        spec = speculative_greedy_generate(
+            self.params, self.encode(mel), prompt, bias, self.specials.eot,
+            self.config, max_len=self._max_tokens(options), prompt_len=P,
+            draft_tokens=options.draft_tokens, draft_layers=ld,
+            compute_dtype=self._compute_dtype, no_speech=self._no_speech_id)
+        toks = spec.tokens[0, : int(spec.lengths[0])].tolist()
+        gen = toks[P:]
+        text = self.tokenizer.decode_with_options(gen, skip_special=True)
+        segments = ([Segment(0.0, len(audio) / SAMPLE_RATE, text, gen)]
+                    if text.strip() else [])
+        return BatchTranscriptionResult([TranscriptionResult(
+            text=text.strip(), language=lang, segments=segments, tokens=toks,
+            avg_logprob=float(spec.sum_logprob[0]) / max(len(gen), 1),
+            no_speech_prob=float(spec.no_speech_prob[0]))],
+            time.time() - t0)
 
     def transcribe_nbest(self, audio: np.ndarray,
                          options: Optional[TranscribeOptions] = None,

@@ -31,6 +31,7 @@ from ..config import ModelConfig
 from ..errors import InferenceError
 from ..ops.basic import causal_mask, gelu, layer_norm, linear, mha
 from ..ops.quant import dequant, is_quantized
+from ..ops.tp import is_shard, local_config, vocab_logits, vocab_lookup
 from .params import layer_slice
 
 
@@ -60,7 +61,9 @@ def precompute_cross_kv(params: dict, enc_out: torch.Tensor
 def init_cache(params: dict, enc_out: torch.Tensor, config: ModelConfig,
                max_len: Optional[int] = None,
                compute_dtype: torch.dtype = torch.float32) -> KVCache:
-    """Allocate the fixed-shape decode cache and fill the cross K/V."""
+    """Allocate the fixed-shape decode cache and fill the cross K/V (a tp
+    rank's cache is its own width, ``D / tp``)."""
+    config = local_config(params, config)
     max_len = max_len or config.n_text_ctx
     L, B = config.n_text_layer, enc_out.shape[0]
     D = config.n_text_state
@@ -85,11 +88,14 @@ def embed(params: dict, tokens: torch.Tensor, pos_start,
     """Token + learned positional embedding: tokens [B, T] -> [B, T, D].
     ``pos_start`` is one int for every row, or per-row starts [B] (a
     tensor on the tokens' device). Callers validate the ids
-    (:func:`check_tokens`)."""
+    (:func:`check_tokens`). A vocab-split table looks its rows up over the
+    tp group (``tp.vocab_lookup``)."""
     dec = params["decoder"]
     T = tokens.shape[-1]
     emb = dec["token_emb"]
-    if is_quantized(emb):
+    if is_shard(emb):
+        tok = vocab_lookup(emb, tokens)
+    elif is_quantized(emb):
         rows = emb.q[tokens]
         scale = emb.scale.to(compute_dtype)
         while scale.ndim > 1:
@@ -106,7 +112,10 @@ def embed(params: dict, tokens: torch.Tensor, pos_start,
 
 
 def project_to_vocab(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Weight-tied vocab projection, logits in f32."""
+    """Weight-tied vocab projection, logits in f32 (a vocab-split table
+    gathers every rank's columns: ``tp.vocab_logits``)."""
+    if is_shard(params["decoder"]["token_emb"]):
+        return vocab_logits(x, params["decoder"]["token_emb"])
     emb = dequant(params["decoder"]["token_emb"], x.dtype)
     return torch.matmul(x, emb.T).float()
 
@@ -119,6 +128,7 @@ def prefill(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     [0, T) in place. Returns (last-position logits [B, V], cache), or the
     logits of every prompt position [B, T, V] with ``all_logits``."""
     check_tokens(tokens, config.n_vocab)
+    config = local_config(params, config)
     B, T = tokens.shape
     x = embed(params, tokens, 0, compute_dtype)
     n_heads = config.n_text_head
@@ -189,6 +199,7 @@ def decode_step(params: dict, token: torch.Tensor, pos: int,
     the self rows at ``pos`` written in place. Callers validate the ids
     (:func:`check_tokens`)."""
     pos = int(pos)
+    config = local_config(params, config)
     T = cache.self_k.shape[2]
     if not 0 <= pos < min(T, params["decoder"]["pos_emb"].shape[0]):
         raise ValueError(f"pos {pos} outside the self cache ({T} rows)")
@@ -211,6 +222,7 @@ def decoder_forward(params: dict, tokens: torch.Tensor,
     """Teacher-forced forward over every position: tokens [B, T] ->
     logits [B, T, V] (the oracle of KV-cache correctness)."""
     check_tokens(tokens, config.n_vocab)
+    config = local_config(params, config)
     T = tokens.shape[1]
     x = embed(params, tokens, 0, compute_dtype)
     enc_out = enc_out.to(compute_dtype)

@@ -17,6 +17,7 @@ import torch
 from ..config import ModelConfig
 from ..ops import flash_attention as fa
 from ..ops.basic import gelu, layer_norm, linear, mha
+from ..ops.tp import local_config, require_unsharded
 from .params import layer_slice
 
 
@@ -66,7 +67,15 @@ def encode(params: dict, mel: torch.Tensor, config: ModelConfig,
            compute_dtype: torch.dtype = torch.float32,
            use_flash: bool = False) -> torch.Tensor:
     """Full encoder forward: conv stem -> +sinusoidal pos emb -> blocks ->
-    LN. mel [B, n_frames, n_mels] -> [B, n_frames//2, d_model]."""
+    LN. mel [B, n_frames, n_mels] -> [B, n_frames//2, d_model].
+
+    Over a tp-sharded tree (``parallel/mesh.shard_params``) each rank runs
+    its heads and hidden units (``ops/tp``): the output projection and
+    fc2 sum over tp, and the LayerNorms act on the summed rows. K16 takes
+    no sharded tree."""
+    if use_flash:
+        require_unsharded(params, "the flash encoder (K16)")
+    config = local_config(params, config)
     enc = params["encoder"]
     mel = mel.to(compute_dtype)
     x = conv_stem(mel, enc["conv1"], enc["conv2"])

@@ -32,6 +32,7 @@ from ..config import ModelConfig
 from ..errors import InferenceError
 from ..ops.basic import gelu, layer_norm, linear, mha
 from ..ops.dispatch import resolve_device
+from ..ops.tp import local_config
 from .decoder import (KVCache, block_step, embed, init_cache,
                       precompute_cross_kv, project_to_vocab)
 from .params import layer_slice
@@ -45,6 +46,7 @@ def decode_step_multi(params: dict, token: torch.Tensor, pos: torch.Tensor,
     """One plain-torch decode step with PER-SLOT positions: token [B]
     int32, pos [B] (each slot's current row) -> (logits [B, V] f32,
     cache), slot b's self rows at pos[b] written in place."""
+    config = local_config(params, config)
     B = token.shape[0]
     T = cache.self_k.shape[2]
     pos_d = pos.to(device=token.device, dtype=torch.long).reshape(B)

@@ -24,6 +24,7 @@ import torch
 from ..config import ModelConfig
 from ..ops import paged_attention as pa
 from ..ops.basic import gelu, layer_norm, linear, mha
+from ..ops.tp import require_unsharded
 from .decoder import embed, project_to_vocab
 from .kv_variants import PAGE_SIZE
 from .params import layer_slice
@@ -105,6 +106,7 @@ def paged_decode_steps(params: dict, token: torch.Tensor, pos: torch.Tensor,
     ``suppress_bias``) over the paged pools. The host must have extended
     each active slot's table to cover ``pos + n_steps`` tokens. Returns
     (tokens [B, n_steps] int32, k_pool, v_pool)."""
+    require_unsharded(params, "the paged step (K15)")
     pos = pos.to(device=token.device, dtype=torch.long)
     toks = []
     for _ in range(n_steps):

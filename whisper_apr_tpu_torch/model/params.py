@@ -24,16 +24,17 @@ from ..format.container import (QUANT_F16, QUANT_F32, QUANT_INT8,
                                 QUANT_Q4K, QUANT_Q5K, QUANT_Q6K)
 from ..ops.quant import (QTensor, is_quantized, quantize_int4, quantize_int8,
                          quantize_q4_block)
+from ..ops.tp import is_shard
 
 Params = Dict[str, Any]
 
 
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every tensor leaf (QTensors map q, scale and
-    zero)."""
+    zero; a tp shard its local slice)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if is_quantized(tree):
+    if is_quantized(tree) or is_shard(tree):
         return tree.map(fn)
     return fn(tree)
 
@@ -43,10 +44,11 @@ def to_device(params: Params, device) -> Params:
 
 
 def layer_slice(tree, layer: int):
-    """One layer of a stacked tree (QTensor q, scale and zero alike)."""
+    """One layer of a stacked tree (QTensor q, scale and zero alike; a tp
+    shard keeps its split)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, layer) for k, v in tree.items()}
-    if is_quantized(tree):
+    if is_quantized(tree) or is_shard(tree):
         return tree.map(lambda t: t[layer])
     return tree[layer]
 

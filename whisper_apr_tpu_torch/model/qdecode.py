@@ -35,6 +35,7 @@ from ..ops import decode_blocks, decode_blocks_kq, kquants, q4k, qmatvec
 from ..ops.basic import gelu, layer_norm, mha
 from ..ops.decode_attention import quantize_rows
 from ..ops.quant import QTensor, dequant, is_quantized
+from ..ops.tp import require_unsharded
 from .decoder import KVCache, embed
 
 _LANE = 128
@@ -95,6 +96,7 @@ def prepare_qdecode(params: dict, config: ModelConfig) -> Optional[dict]:
     [1, 1, V_pad] is the logits tail's (identity) output scale. ``blk``'s
     layout is checked here, once, for the kernels.
     """
+    require_unsharded(params, "the fused decode kernels (K1-K9)")
     if not supports_qdecode(params, config):
         return None
     dec = params["decoder"]
@@ -217,6 +219,7 @@ def prepare_q4k_decode(params: dict, config: ModelConfig) -> Optional[dict]:
     """The qd of planar Q4_K params (the JAX ``prepare_q4k_decode``):
     ``mode`` "q4k", the kernel operands ``blk`` (:func:`kq_block_operands`)
     and the int8 vocab projection; None for other params."""
+    require_unsharded(params, "the k-quant decode kernels (K10-K14)")
     if not supports_q4k_decode(params, config):
         return None
     return {"mode": "q4k", "blk": kq_block_operands(params),
@@ -227,6 +230,7 @@ def prepare_kq_decode(params: dict, config: ModelConfig) -> Optional[dict]:
     """The qd of planar Q5_K or Q6_K params (the JAX
     ``prepare_kq_decode``), as :func:`prepare_q4k_decode`'s with ``mode``
     "q5k" or "q6k"; None for other params."""
+    require_unsharded(params, "the k-quant decode kernels (K10-K14)")
     if supports_q5k_decode(params, config):
         mode = "q5k"
     elif supports_q6k_decode(params, config):
@@ -246,6 +250,7 @@ def transcode_kq_to_int8(params: dict, config: ModelConfig
     The k-quant params and the B = 1 path are untouched; the int8 copy
     adds one byte a weight. Returns a ``prepare_qdecode`` qd, or None if
     the block linears are not k-quant or group-scaled."""
+    require_unsharded(params, "the int8 transcode (K5-K8)")
     blocks = params["decoder"]["blocks"]
     if not all(is_quantized(w) and (w.kpack or w.group)
                for w in _block_leaves(params)):

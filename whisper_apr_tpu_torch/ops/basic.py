@@ -14,6 +14,7 @@ import torch
 from . import int4_matmul as i4
 from . import int8_matmul as i8
 from .quant import dequant, is_quantized
+from .tp import is_shard, linear_shard
 
 LN_EPS = 1e-5  # reference: src/model/encoder.rs:219
 _F32_MIN = torch.finfo(torch.float32).min
@@ -47,7 +48,13 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     so hands group-scaled, asymmetric and k-quant QTensors to kernels
     that ignore their groups, zeros and packing; here only the QTensors a
     kernel's contract covers (``i8.takes``, ``i4.takes``) reach it, and
-    the others dequantize as with the switches off."""
+    the others dequantize as with the switches off.
+
+    A tp-split weight (``ops/tp.TPShard``) multiplies its local slice: a
+    column split stays local, a row split sums its partial product over
+    the tp group and adds the bias once (``tp.linear_shard``)."""
+    if is_shard(w):
+        return linear_shard(x, w, b, linear)
     if is_quantized(w):
         route = kernel_route(w, x.device, i8.USE_PALLAS_INT8,
                              i4.USE_PALLAS_INT4)

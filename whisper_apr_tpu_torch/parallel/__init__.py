@@ -1,3 +1,4 @@
-"""Serving over a batch of slots (``serving.BatchScheduler``); the device
-mesh and the distributed runs of the JAX package come with the port's
-slice 7."""
+"""Serving over a batch of slots (``serving.BatchScheduler``, on one
+device or over a mesh), the (dp, tp) device mesh and its placements
+(``mesh``), multi-host process groups (``distributed``) and the
+multi-rank dry runs (``dryrun``)."""

@@ -38,8 +38,26 @@ once per layer, and K17 for every int8 linear when
 ``int8_matmul.USE_PALLAS_INT8`` is on.
 
 The tick advances one token, as the dense one; the JAX scheduler's
-``steps_per_tick`` and ``admit_buckets`` are not taken. A device mesh is
-the port's slice 7.
+``steps_per_tick`` and ``admit_buckets`` are not taken.
+
+With ``mesh`` (``parallel/mesh.make_mesh``) the slots split over the
+mesh's dp dim, as the JAX scheduler's slot caches do; its params stay
+whole on every rank, and the tick is the plain dense step (no fused or
+scan kernels, no pages), as in JAX. One process runs per rank, so the
+JAX multi-controller contract holds: every rank runs the same scheduler
+program and makes the same ``submit`` / ``cancel`` / ``step`` calls in
+the same order, synchronously (``start``, whose thread would step each
+rank at its own pace, is refused on a mesh). Each rank holds on its
+device only its dp index's slots (its tp peers hold the same slots as
+replicas) and admits only the requests that land in them; the host
+mirrors (queue, slot table, tokens, positions) are identical on every
+rank. Each tick decodes the local slots, and the ``[n_slots]`` next
+tokens (and the first tokens of an admission) reach every rank by one
+sum over the dp group of a zero buffer that each rank fills at its own
+slots, so the mirrors cannot drift. Every cancel and deadline decision,
+at admission and at each tick, is agreed by a max over the mesh before
+it acts, so a clock or a cancel seen on one rank first still acts on
+all of them at once.
 """
 
 from __future__ import annotations
@@ -59,6 +77,7 @@ from ..model.decoder import KVCache, init_cache, prefill
 from ..model.kv_variants import PAGE_SIZE, PagedKVCache, decode_steps_multi
 from ..model.qdecode import CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache
 from ..ops.decode_attention import quantize_rows
+from .mesh import coordinate, mesh_shape
 
 
 def _scatter_dense_slots(cache: KVCache, slots: torch.Tensor,
@@ -145,6 +164,11 @@ class BatchScheduler:
     Synchronous core (``submit`` + ``run_until_drained``) with an optional
     background thread (``start``/``stop``). The slots live on the engine's
     device; on a CUDA engine every tick runs the kernels.
+
+    ``mesh``: a (dp, tp) ``DeviceMesh``; the slots split over dp (module
+    docstring: every rank makes the same calls in the same order, and
+    ``n_slots`` must divide over dp). Dense slots only, served
+    synchronously.
     """
 
     def __init__(self, engine, n_slots: int = 8,
@@ -154,8 +178,14 @@ class BatchScheduler:
                  mesh=None,
                  batched_admission: bool = True) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh: the port's slice 7")
+            if paged:
+                raise ValueError("paged serving is per-device; use dense "
+                                 "slots with a mesh")
+            dp = mesh_shape(mesh)["dp"]
+            if n_slots % dp:
+                raise ValueError(
+                    f"n_slots={n_slots} not divisible by dp={dp}")
+        self.mesh = mesh
         self.engine = engine
         self.config: ModelConfig = engine.config
         self.n_slots = n_slots
@@ -185,20 +215,25 @@ class BatchScheduler:
         S = self.config.n_audio_ctx
         L = self.config.n_text_layer
         dt = engine._compute_dtype
-        B = n_slots
         dev = engine.device
+        # this rank's slots: all of them without a mesh
+        B = n_slots
+        if mesh is not None:
+            B = n_slots // mesh_shape(mesh)["dp"]
+        self._lo = 0 if mesh is None else coordinate(mesh)[0] * B
+        self._here = range(self._lo, self._lo + B)
 
         def z(shape, d):
             return torch.zeros(shape, dtype=d, device=dev)
 
         # dense slots: the JAX scheduler's cache forms (module docstring);
         # paged slots: the page pool, and dense cross K/V only
-        self._qf = None if paged else engine._qf_mode
+        self._qf = None if paged or mesh is not None else engine._qf_mode
         if self._qf == "cross8":
             # the reference serves cross8 as FULL int8 KV at B > 1
             self._qf = "int8"
         # a k-quant engine serves B > 1 slots through its int8 transcode
-        self._qd = None if paged else (
+        self._qd = None if paged or mesh is not None else (
             engine._qd_for(n_slots) if self._qf else engine._qdecode)
         Tp = -(-self.max_len // SELF_BLOCK_T) * SELF_BLOCK_T
         Sp = -(-S // CROSS_BLOCK_T) * CROSS_BLOCK_T
@@ -225,12 +260,13 @@ class BatchScheduler:
             self._cache = KVCache(
                 z((L, B, self.max_len, D), dt), z((L, B, self.max_len, D), dt),
                 z((L, B, S, D), dt), z((L, B, S, D), dt))
-        self._tokens = np.full((B, self.max_len), engine.specials.eot,
+        # host mirrors of every slot (identical on every rank of a mesh)
+        self._tokens = np.full((n_slots, self.max_len), engine.specials.eot,
                                dtype=np.int32)
-        self._pos = np.zeros(B, dtype=np.int32)
-        self._active = np.zeros(B, dtype=bool)
-        self._req: List[Optional[Request]] = [None] * B
-        self._decode_start = np.zeros(B, dtype=np.float64)
+        self._pos = np.zeros(n_slots, dtype=np.int32)
+        self._active = np.zeros(n_slots, dtype=bool)
+        self._req: List[Optional[Request]] = [None] * n_slots
+        self._decode_start = np.zeros(n_slots, dtype=np.float64)
         # the ENGINE's special tokens (English-only models and test rigs
         # shift them), not the vocab-size default
         self._bias = torch.from_numpy(WhisperTokenSuppressor(
@@ -302,10 +338,9 @@ class BatchScheduler:
                 break
             # cancelled / deadline-expired while queued: complete without
             # ever touching a slot
-            if req.request_id in self._cancelled:
-                self._complete_unadmitted(req, "cancelled", now)
-            elif req.deadline is not None and now > req.deadline:
-                self._complete_unadmitted(req, "timeout", now)
+            stop = self._stop(req, now)
+            if stop:
+                self._complete_unadmitted(req, stop, now)
             else:
                 if req.prompt is None:   # language "auto"
                     lang = self.engine.detect_language(req.audio).best[0]
@@ -314,27 +349,37 @@ class BatchScheduler:
                 reqs.append(req)
         if not reqs:
             return
-        if not self.batched_admission:
-            for slot, req in zip(free, reqs):
-                self._admit_one(slot, req)
-            return
-        # one fused admission per prompt length (prompts in a batch must
-        # stack rectangularly); slots assigned in order, leftovers spare
-        by_len: Dict[int, List[Tuple[Request, int]]] = {}
-        it = iter(free)
-        for req in reqs:
-            by_len.setdefault(len(req.prompt), []).append((req, next(it)))
-        spare = list(it)
-        for group in by_len.values():
-            self._admit_batch([r for r, _ in group], [s for _, s in group],
-                              spare)
+        # slots assigned in order, leftovers spare. This rank admits the
+        # requests that land in its own slots (all of them without a
+        # mesh), at its local slot indices: one fused admission per prompt
+        # length (prompts in a batch must stack rectangularly), or one
+        # request at a time without batched admission
+        slots = free[: len(reqs)]
+        lo = self._lo
+        spare = [s - lo for s in free[len(reqs):] if s in self._here]
+        groups: Dict[int, List[Tuple[Request, int]]] = {}
+        for req, slot in zip(reqs, slots):
+            if slot in self._here:
+                key = len(req.prompt) if self.batched_admission else slot
+                groups.setdefault(key, []).append((req, slot))
+        first = torch.zeros(self.n_slots, dtype=torch.long,
+                            device=self.engine.device)
+        for group in groups.values():
+            rs, at = [r for r, _ in group], [s for _, s in group]
+            if self.batched_admission:
+                first[at] = self._admit_batch(rs, [s - lo for s in at],
+                                              spare)
+            else:
+                first[at] = self._admit_one(at[0] - lo, rs[0])
+        self._admitted(reqs, slots, self._dp_sum(first).cpu().numpy()[slots])
 
     def _admit_batch(self, reqs: List[Request], slots: List[int],
-                     spare: List[int]) -> None:
+                     spare: List[int]) -> torch.Tensor:
         """Admit ``reqs`` into ``slots`` via fused_admit_step and one slot
         scatter; pads the batch up to the smallest admissible bucket with
         ``spare`` free slots as write targets (the next occupant's
-        admission overwrites them)."""
+        admission overwrites them). Returns the first tokens (on the
+        device)."""
         from ..pipeline import fused_admit_step, pad_audio_batch
 
         n = len(reqs)
@@ -380,9 +425,14 @@ class BatchScheduler:
             self._cache = _scatter_cross_slots(self._cache, slots_t, new)
         else:
             self._scatter(slots_t, new)
-        first = first.cpu().numpy()
+        return first[:n].long()
+
+    def _admitted(self, reqs: List[Request], slots: List[int],
+                  first: np.ndarray) -> None:
+        """Host bookkeeping of admitted requests: prompt and first token
+        into the mirrors, slots active (finished at once on an EOT)."""
         now = time.time()
-        eot = eng.specials.eot
+        eot = self.engine.specials.eot
         self._counters["admitted"] += len(reqs)
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             P = len(req.prompt)
@@ -396,9 +446,39 @@ class BatchScheduler:
             if first[i] == eot:
                 self._finish(slot)
 
-    def _admit_one(self, slot: int, req: Request) -> None:
+    def _dp_sum(self, buf: torch.Tensor) -> torch.Tensor:
+        """Sum over the mesh's dp group (each slot's value comes from the
+        one dp index that holds it); ``buf`` itself without a mesh."""
+        if self.mesh is not None and mesh_shape(self.mesh)["dp"] > 1:
+            import torch.distributed as dist
+            dist.all_reduce(buf, group=self.mesh.get_group("dp"))
+        return buf
+
+    def _stop(self, req: Request, now: float) -> Optional[str]:
+        """Whether a request stops now: "cancelled", "timeout" or None,
+        agreed over the mesh."""
+        flag = (1 if req.request_id in self._cancelled
+                else 2 if req.deadline is not None and now > req.deadline
+                else 0)
+        flag = int(self._agree(np.asarray([flag]))[0])
+        return (None, "cancelled", "timeout")[flag]
+
+    def _agree(self, flags: np.ndarray) -> np.ndarray:
+        """Host decisions taken from each rank's clock and cancel calls,
+        agreed by a max over the whole mesh (a no-op without one)."""
+        if self.mesh is None:
+            return flags
+        import torch.distributed as dist
+        t = torch.from_numpy(flags.astype(np.int64)).to(self.engine.device)
+        for dim in ("dp", "tp"):
+            if mesh_shape(self.mesh)[dim] > 1:
+                dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                                group=self.mesh.get_group(dim))
+        return t.cpu().numpy()
+
+    def _admit_one(self, slot: int, req: Request) -> int:
         """Staged per-slot admission (batched_admission off): mel ->
-        encode -> prefill as separate calls."""
+        encode -> prefill as separate calls. Returns the first token."""
         eng = self.engine
         enc = eng.encode(eng.compute_mel(req.audio))   # [1, S, D]
         one = init_cache(eng.params, enc, self.config, max_len=self.max_len,
@@ -422,16 +502,7 @@ class BatchScheduler:
             self._cache = _scatter_cross_slots(self._cache, slot_t, one)
         else:
             self._scatter(slot_t, one)
-        self._tokens[slot] = eng.specials.eot
-        self._tokens[slot, :P] = req.prompt
-        self._tokens[slot, P] = first
-        self._pos[slot] = P
-        self._active[slot] = True
-        self._req[slot] = req
-        self._decode_start[slot] = time.time()
-        self._counters["admitted"] += 1
-        if first == eng.specials.eot:
-            self._finish(slot)
+        return first
 
     def _scatter(self, slots: torch.Tensor, new: KVCache) -> None:
         """Write admitted sequences' caches into ``slots``."""
@@ -484,34 +555,30 @@ class BatchScheduler:
     def step(self) -> int:
         """One scheduler tick: admit, then advance every slot by one token
         in one step. Returns the number of active slots."""
-        # honor aborts and deadlines on in-flight slots before a step
-        if self._cancelled or any(
+        # honor aborts and deadlines on in-flight slots before a step (on
+        # a mesh at every tick: another rank may have seen one)
+        if self.mesh is not None or self._cancelled or any(
                 r is not None and r.deadline is not None for r in self._req):
             now = time.time()
+            stop = np.zeros(self.n_slots, np.int64)  # 1 cancel, 2 timeout
             for slot in range(self.n_slots):
                 req = self._req[slot]
                 if req is None or not self._active[slot]:
                     continue
                 if req.request_id in self._cancelled:
-                    self._finish(slot, status="cancelled")
+                    stop[slot] = 1
                 elif req.deadline is not None and now > req.deadline:
-                    self._finish(slot, status="timeout")
+                    stop[slot] = 2
+            stop = self._agree(stop)
+            for slot in np.flatnonzero(stop):
+                self._finish(int(slot), status=("cancelled" if stop[slot] == 1
+                                                else "timeout"))
         self._fill_slots()
         if not self._active.any():
             return 0
         self._counters["ticks"] += 1
 
-        dev = self.engine.device
-        token = torch.from_numpy(
-            self._tokens[np.arange(self.n_slots), self._pos]).to(dev)
-        if self.paged:
-            toks = self._paged_tick(token)
-        else:
-            toks, self._cache = decode_steps_multi(
-                self._params, token, self._pos, self._bias, self._cache,
-                self.config, n_steps=1,
-                compute_dtype=self.engine._compute_dtype, qd=self._qd)
-        toks = toks[:, 0].cpu().numpy()
+        toks = self._paged_tick() if self.paged else self._dense_tick()
 
         eot = self.engine.specials.eot
         for slot in range(self.n_slots):
@@ -530,9 +597,34 @@ class BatchScheduler:
                 self._finish(slot)
         return int(self._active.sum())
 
-    def _paged_tick(self, token: torch.Tensor) -> torch.Tensor:
+    def _dense_tick(self) -> np.ndarray:
+        """One token for every slot over the dense slots. On a mesh this
+        rank steps its own slots (none if they are all idle) and the dp
+        sum brings every slot's token to every rank."""
+        dev = self.engine.device
+        rows = np.asarray(self._here)
+        toks = None
+        if self._active[rows].any():
+            token = torch.from_numpy(self._tokens[rows, self._pos[rows]]).to(
+                dev)
+            toks, self._cache = decode_steps_multi(
+                self._params, token, self._pos[rows], self._bias,
+                self._cache, self.config, n_steps=1,
+                compute_dtype=self.engine._compute_dtype, qd=self._qd)
+            toks = toks[:, 0]
+        if self.mesh is None:
+            return toks.cpu().numpy()
+        buf = torch.zeros(self.n_slots, dtype=torch.long, device=dev)
+        if toks is not None:
+            buf[self._lo: self._lo + len(rows)] = toks.long()
+        return self._dp_sum(buf).cpu().numpy()
+
+    def _paged_tick(self) -> np.ndarray:
         """Advance every slot one token over the shared page pool."""
         from ..model.paged_decode import paged_decode_steps
+        token = torch.from_numpy(
+            self._tokens[np.arange(self.n_slots), self._pos]).to(
+            self.engine.device)
         pk = self._paged_kv
         # host: extend each active slot's table to cover the new token
         tables = np.full((self.n_slots, self._p_max), self._garbage_page,
@@ -557,7 +649,7 @@ class BatchScheduler:
             self._bias, torch.from_numpy(tables[:, :width].copy()).to(dev),
             pk.k_pool, pk.v_pool, self._cache.cross_k, self._cache.cross_v,
             self.config, n_steps=1, compute_dtype=self.engine._compute_dtype)
-        return toks
+        return toks[:, 0].cpu().numpy()
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
@@ -566,6 +658,11 @@ class BatchScheduler:
 
     # -- background serving thread ----------------------------------------------
     def start(self) -> None:
+        if self.mesh is not None:
+            raise ValueError(
+                "a mesh is served synchronously: every rank calls step / "
+                "run_until_drained in lockstep (a thread a rank would step "
+                "each at its own pace)")
         self._running = True
 
         def loop():
