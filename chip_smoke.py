@@ -8,6 +8,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   - require CUDA; print the card, its power limit, torch/CUDA.
 2. build    - build (or load) the hand-written kernels from csrc/, one
               nvcc per source, all started together.
+2b. native  - build the host runtime (native/aprcore.cpp, g++ with the JAX
+              package's flags) and hold its six functions against their
+              plain versions on the host at the sizes users run: CRC-32
+              of 64 MB (zlib), the resampler on 75 s at 44.1 and 48 kHz
+              to 16 kHz (NumPy, within 1e-5; the identity exact), PCM16
+              of 75 s of stereo (exact), the VAD's frame features
+              (within 1e-6), LZ4 decoding of the e2e whisper-tiny int8
+              .apr written compressed (the Python decoder's bytes, the
+              uncompressed twin's tensors), the DTW on a 224 x 1500 cost
+              (the same path); each pair's host-clock times as data.
 3. kernels  - K1-K4 at batch 1, K5-K8 and K4 at M > 1 (up to 40 rows: the
               32-row chunking) and K9 against their plain PyTorch versions
               on the card, in bf16 at the whisper-tiny and large-v3 decoder
@@ -73,7 +83,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               timestamps on a 10 s clip (monotone words within the clip;
               the traced forward's and the DTW's ms); each path's
               launches held to the decodes it ran; in f32 tokens, texts
-              and words through the kernels == plain versions.
+              and words through the kernels == plain versions. The
+              host runtime's calls held: one resample per file, one per
+              30 ms frame of a 44.1 kHz session (and one at finalize),
+              one DTW per word-timestamp decode, none elsewhere.
 6c. cli     - the port's CLI and HTTP server on the e2e .apr, as a user
               runs them: cli.run of transcribe (json, srt), batch of 4
               WAVs, detect-language, model (H100 floors), validate and
@@ -92,7 +105,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               K5-K8, session decodes K1-K4, counts held); f32 HTTP tokens
               behind --single-thread follow per-clip transcribe
               (near-tie rule); per-request latency, queue / decode ms,
-              HTTP overhead, resample ms, per-partial ms as data lines.
+              HTTP overhead, resample ms, per-partial ms as data lines;
+              the server run makes one resample (the 44.1 kHz request)
+              and no other host-runtime call.
 7. decoders - the other decoders through the engine's entry points: greedy
               in kv_mode "scan" (K8 4L+1 and K9 L times per token), beam
               search (5 beams on one clip and on 8 clips: 40 rows),
@@ -220,13 +235,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               v1 and v2 .apr files in f32 and int8, each loaded on the card
               with a progress callback (monotone, ending at 1.0) and
               validated (AprValidator passes); f32 greedy tokens over 30 s
-              of noise through K1-K4 from each v2 file equal its v1 twin's.
+              of noise through K1-K4 from each v2 file equal its v1 twin's;
+              so do phase 2b's compressed v1 int8 file's, its LZ4 blocks
+              decoded by the host runtime (load time printed).
 9. utils    - device_memory_stats on the card, the large-v3 H100 roofline
               floors beside the measured steps, run_pipeline_benchmark's
               mel / encode / decode split, and the trace_span events of
               phases 3d-9.
 
-The last three lines of stdout are the kernel summary JSON, the card's
+Before them a ``[native]`` line gives the host runtime's calls on the
+main path (the held runs of 6b, 6c and 7c). The last three lines of
+stdout are the kernel summary JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
 ``{"ok": true, "device": {...}}``. Imports torch and the port only.
 """
@@ -238,6 +257,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -317,6 +337,157 @@ def phase_build():
         f"); ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
         f"registers, {spills} bytes of spill stores in all")
     return lib
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the host runtime against its plain versions
+# ---------------------------------------------------------------------------
+
+# the resampler: the library's f64 taps against NumPy's, summed in another
+# order; the frame energy: f64 sums in another order, rounded to f32
+RESAMPLE_TOL = 1e-5
+ENERGY_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def lz4_plain():
+    """Compressed .apr files decode their LZ4 blocks with the Python
+    decoder: the library's binding answers None, as for a malformed
+    block, and is not called."""
+    from whisper_apr_tpu_torch import native
+    real = native.lz4_decompress_block
+    native.lz4_decompress_block = lambda src, cap: None
+    try:
+        yield
+    finally:
+        native.lz4_decompress_block = real
+
+
+def phase_native(workdir: Path, cfg=None, seconds: float = 75.0,
+                 crc_mb: int = 64, dtw_shape=(224, 1500)) -> dict:
+    """Build the host runtime (native/aprcore.cpp, g++) and hold each of
+    its six functions against its plain version on this machine's host,
+    at the sizes users run: CRC-32 of ``crc_mb`` MB (zlib), the resampler
+    on ``seconds`` at 44.1 and 48 kHz (NumPy, within RESAMPLE_TOL; the
+    16 kHz identity exact), PCM16 of ``seconds`` of stereo (exact), the
+    VAD's frame features (within ENERGY_TOL), LZ4 decoding of the e2e
+    int8 model (``cfg``, whisper-tiny by default) written compressed (the
+    same bytes as through the Python decoder and as its uncompressed
+    twin's tensors) and the DTW over a ``dtw_shape`` cost (the same path).
+    Each pair's host-clock times are data lines."""
+    from whisper_apr_tpu_torch import ModelConfig, native
+    from whisper_apr_tpu_torch.format import AprReader
+    t0 = time.perf_counter()
+    native.library()
+    built = native.build_seconds
+    log(f"[native] {native.library_path().name}: "
+        f"{time.perf_counter() - t0:.2f} s (g++ "
+        f"{'%.2f s' % built if built else 'cached'}, "
+        f"{' '.join(native.FLAGS)})")
+    rng = np.random.default_rng(31)
+    pairs = {}
+
+    def pair(name: str, what: str, lib_fn, plain_fn):
+        t1 = time.perf_counter()
+        got = lib_fn()
+        t2 = time.perf_counter()
+        want = plain_fn()
+        t3 = time.perf_counter()
+        pairs[name] = {"ms": 1e3 * (t2 - t1), "plain_ms": 1e3 * (t3 - t2)}
+        log(f"[native] {name} ({what}): library {1e3 * (t2 - t1):.2f} ms, "
+            f"plain {1e3 * (t3 - t2):.2f} ms (host clock)")
+        return got, want
+
+    data = rng.bytes(crc_mb << 20)
+    got, want = pair("crc32", f"{crc_mb} MB, plain zlib",
+                     lambda: native.crc32(data),
+                     lambda: native.crc32_plain(data))
+    assert got == want, f"[native] crc32 {got:#x} != zlib {want:#x}"
+    del data
+
+    diffs = []
+    for rate in (44_100, 48_000):
+        x = tone_noise(seconds, rate, seed=rate)
+        got, want = pair(
+            f"resample_sinc {rate}", f"{seconds:g} s to 16 kHz, plain NumPy",
+            lambda: native.resample_sinc(x, rate, 16_000),
+            lambda: native.resample_sinc_plain(x, rate, 16_000))
+        assert got.shape == want.shape, (got.shape, want.shape)
+        diffs.append(float(np.abs(got - want).max()))
+        assert diffs[-1] <= RESAMPLE_TOL, f"[native] resample {rate}: " \
+            f"max difference {diffs[-1]}"
+    x = tone_noise(seconds, 16_000, seed=16)
+    assert np.array_equal(native.resample_sinc(x, 16_000, 16_000), x)
+    log(f"[native] resample_sinc max difference to NumPy {diffs} (tolerance"
+        f" {RESAMPLE_TOL}); 16 kHz identity exact")
+
+    pcm = rng.integers(-32768, 32768, 2 * int(seconds * 44_100),
+                       dtype=np.int16)
+    got, want = pair("pcm16_to_f32_mono", f"{seconds:g} s of 44.1 kHz "
+                     "stereo, plain NumPy",
+                     lambda: native.pcm16_to_f32_mono(pcm, 2),
+                     lambda: native.pcm16_to_f32_mono_plain(pcm, 2))
+    assert np.array_equal(got, want), "[native] pcm16 differs"
+
+    (energy, zcr), (p_energy, p_zcr) = pair(
+        "frame_energy_zcr", f"{seconds:g} s at 16 kHz, 30 ms frames, "
+        "plain NumPy", lambda: native.frame_energy_zcr(x, 480),
+        lambda: native.frame_energy_zcr_plain(x, 480))
+    e_diff = float(np.abs(energy - p_energy).max())
+    assert e_diff <= ENERGY_TOL and np.array_equal(zcr, p_zcr), \
+        f"[native] frame energy differs by {e_diff} or zcr differs"
+
+    cfg = cfg or ModelConfig.tiny()
+    lz4_apr = workdir / f"whisper-{cfg.model_type}-random-int8-lz4.apr"
+    twin_apr = workdir / f"whisper-{cfg.model_type}-random-int8.apr"
+    t1 = time.perf_counter()
+    write_random_apr(lz4_apr, cfg, compressed=True)
+    write_s = time.perf_counter() - t1
+    write_random_apr(twin_apr, cfg)
+    data = lz4_apr.read_bytes()
+    # the blocks a load hands the library, then each block's decode and
+    # the whole load, through the library and through the Python decoder
+    blocks = []
+    real = native.lz4_decompress_block
+    native.lz4_decompress_block = lambda src, cap: (
+        blocks.append((src, cap)), real(src, cap))[1]
+    try:
+        t1 = time.perf_counter()
+        got = AprReader(data)
+        load_s = time.perf_counter() - t1
+    finally:
+        native.lz4_decompress_block = real
+    with lz4_plain():
+        t1 = time.perf_counter()
+        want = AprReader(data)
+        plain_load_s = time.perf_counter() - t1
+    dec, plain_dec = pair(
+        "lz4_decompress_block", f"the {len(blocks)} compressed blocks of a "
+        f"{len(data) / 1e6:.1f} MB {cfg.model_type} int8 .apr, plain Python",
+        lambda: [native.lz4_decompress_block(b, c) for b, c in blocks],
+        lambda: [native.lz4_decompress_block_plain(b, c) for b, c in blocks])
+    twin = AprReader(twin_apr.read_bytes())
+    assert blocks and dec == plain_dec and got._payload == want._payload \
+        and all(np.array_equal(got.load_raw(n), twin.load_raw(n))
+                for n in twin.tensor_names()), "[native] LZ4 payload differs"
+    log(f"[native] lz4: blocks == Python decoder's, payload too, tensors == "
+        f"the uncompressed twin's ({len(twin.tensor_names())}); the whole "
+        f"load {load_s * 1e3:.2f} ms through the library, "
+        f"{plain_load_s * 1e3:.2f} ms through the Python decoder (host "
+        f"clock); the Python compressor wrote the file in {write_s:.1f} s")
+
+    cost = rng.normal(size=dtw_shape).astype(np.float32)
+    got, want = pair("dtw_path", f"{dtw_shape[0]} x {dtw_shape[1]} cost, "
+                     "plain NumPy DP", lambda: native.dtw_path(cost),
+                     lambda: native.dtw_path_plain(cost))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want)), \
+        "[native] DTW paths differ"
+    return {"build_s": native.build_seconds, "pairs": pairs,
+            "resample_max_diff": max(diffs), "energy_max_diff": e_diff,
+            "lz4_calls": len(blocks), "lz4_apr": lz4_apr,
+            "lz4_load_ms": 1e3 * load_s,
+            "lz4_plain_load_ms": 1e3 * plain_load_s,
+            "lz4_write_s": write_s}
 
 
 # ---------------------------------------------------------------------------
@@ -1574,12 +1745,14 @@ def reset_launches():
         mod.reset_launches()
 
 
-def write_random_apr(path: Path, cfg) -> None:
-    """Random-weight (seed 0) int8 .apr of ``cfg`` via the port's writer."""
+def write_random_apr(path: Path, cfg, compressed: bool = False) -> None:
+    """Random-weight (seed 0) int8 .apr of ``cfg`` via the port's writer
+    (``compressed``: its tensor data an LZ4 frame)."""
     from whisper_apr_tpu_torch.format import QUANT_INT8, AprWriter
     from whisper_apr_tpu_torch.model.params import (init_params,
                                                     params_to_apr_tensors)
     w = AprWriter.from_config(cfg, quantization=QUANT_INT8)
+    w.header.compressed = compressed
     for name, arr in params_to_apr_tensors(init_params(cfg, seed=0)).items():
         w.add_tensor(name, arr)
     w.write_file(str(path))
@@ -2058,6 +2231,10 @@ def bursts(plan, sr: int, seed: int) -> np.ndarray:
         for i, (sec, f) in enumerate(plan)])
 
 
+# the NumPy resampler and DTW the host runtime replaced, on an NVIDIA H100
+# 80GB HBM3 machine (700.00 W), host clock: 75 s at 44.1 kHz resampled,
+# transcribe_file of it, DTW and words on 10 s
+NUMPY_RESAMPLE_MS, NUMPY_FILE_MS, NUMPY_DTW_MS = 16682.0, 15735.0, 28.2
 VAD_PLAN = ((3, 0), (8, 250), (5, 0), (8, 330), (5, 0), (8, 410), (3, 0))
 STREAM_PLAN = ((1, 0), (8, 230), (2, 0), (7, 290), (2, 0))
 STREAM_RATE = 44_100
@@ -2111,10 +2288,11 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     counts are not held."""
     import torch
     from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
-                                       WhisperApr)
+                                       WhisperApr, native)
     from whisper_apr_tpu_torch.alignment import (AlignmentConfig,
                                                  WordTimestampExtractor)
     from whisper_apr_tpu_torch.audio.resample import SincResampler
+    from whisper_apr_tpu_torch.audio.streaming import StreamingProcessor
     from whisper_apr_tpu_torch.audio.wav import parse_wav
     from whisper_apr_tpu_torch.model.traced import decoder_forward_traced
     from whisper_apr_tpu_torch.vad import VoiceActivityDetector
@@ -2128,9 +2306,11 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     opts = TranscribeOptions(language="en", max_tokens=max_tokens)
     out = {"paths": {}}
 
-    def path(name, fn, rows=None):
-        """Run ``fn`` from zeroed counts; hold them to its decodes."""
+    def path(name, fn, rows=None, lib=None):
+        """Run ``fn`` from zeroed counts; hold them to its decodes, and
+        the host runtime's calls to ``lib(decodes)`` (none by default)."""
         reset_launches()
+        native.reset_calls()
         sync(device)
         with decode_log() as calls:
             t0 = time.perf_counter()
@@ -2138,22 +2318,28 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
             sync(device)
             dt = time.perf_counter() - t0
         counts = launches()
+        ncalls = dict(native.CALLS)
         want = want_decodes(calls, L)
         out["paths"][name] = {"seconds": dt, "launches": counts,
-                              "decodes": calls}
+                              "decodes": calls, "native": ncalls}
         log(f"[longform] {name}: {dt * 1e3:.1f} ms, {len(calls)} decodes "
             f"(rows, prompt, steps) {calls[:4]}{'...' if len(calls) > 4 else ''}"
-            f", launches { {k: v for k, v in counts.items() if v} }")
+            f", launches { {k: v for k, v in counts.items() if v} }, host "
+            f"runtime calls { {k: v for k, v in ncalls.items() if v} }")
         if rows is not None:
             assert [b for b, _, _ in calls] == rows, (name, calls)
         if check_counts:
             assert counts == want, f"[longform] {name}: launches {counts}, " \
                 f"want {want}"
+        want_lib = dict.fromkeys(ncalls, 0)
+        want_lib.update(lib(calls) if lib else {})
+        assert ncalls == want_lib, f"[longform] {name}: host runtime calls " \
+            f"{ncalls}, want {want_lib}"
         return res
 
-    # (a) a long 44.1 kHz WAV: every window in one transcribe_batch; the
-    # f32 checks and the decode's own time on the resampled samples
-    # (transcribe_file's second half), since the resampler is slow
+    # (a) a long 44.1 kHz WAV: every window in one transcribe_batch, one
+    # resample; the f32 checks and the decode's own time on the resampled
+    # samples (transcribe_file's second half)
     wav = workdir / "long.wav"
     write_wav(wav, tone_noise(long_seconds, STREAM_RATE, seed=5),
               STREAM_RATE)
@@ -2161,7 +2347,7 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     n_win = max(1, -(-(n16 - overlap) // (window - overlap)))
     res = path("transcribe_file", lambda: eng.transcribe_file(str(wav),
                                                               opts),
-               rows=[n_win])
+               rows=[n_win], lib=lambda calls: {"resample_sinc": 1})
     offs = [s.start / step_s for s in res.segments]
     assert res.segments and all(abs(o - round(o)) < 1e-9 for o in offs), offs
     t0 = time.perf_counter()
@@ -2182,9 +2368,11 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     log(f"[longform] (a) {long_seconds:g} s at {STREAM_RATE} Hz: {n_win} "
         f"windows in one batch, {len(res.segments)} segments at offsets "
         f"{[round(s.start, 3) for s in res.segments]} s; of it the WAV "
-        f"read and resampling {resample_s * 1e3:.1f} ms, transcribe_long "
-        f"(warm) {long_s * 1e3:.1f} ms; f32 kernels == plain "
-        f"({len(kern.tokens)} tokens)")
+        f"read and resampling (the host runtime) {resample_s * 1e3:.1f} ms "
+        f"(through NumPy {NUMPY_RESAMPLE_MS} ms, transcribe_file "
+        f"{NUMPY_FILE_MS} ms), "
+        f"transcribe_long (warm) {long_s * 1e3:.1f} ms; f32 kernels == "
+        f"plain ({len(kern.tokens)} tokens)")
 
     # (b) VAD: three bursts, one batch of three
     vad_audio = bursts(VAD_PLAN, sr, seed=7)
@@ -2199,13 +2387,17 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     log(f"[longform] (b) VAD spans {[(s / sr, e / sr) for s, e in spans]} s"
         f", {len(vres.segments)} segments; f32 kernels == plain")
 
-    # (c) streaming sessions, partial reuse on and off
+    # (c) streaming sessions, partial reuse on and off: one resample per
+    # 30 ms frame, and one of the rest at finalize
     stream = bursts(STREAM_PLAN, STREAM_RATE, seed=9)
     sopts = TranscribeOptions(language="en", max_tokens=stream_tokens)
+    frame_in = int(STREAM_RATE * StreamingProcessor.FRAME_MS / 1000)
+    frames = -(-len(stream) // frame_in)
     out["stream"] = {}
     for reuse in (True, False):
         name = f"session reuse={'on' if reuse else 'off'}"
-        s = path(name, lambda: run_session(eng, stream, sopts, reuse))
+        s = path(name, lambda: run_session(eng, stream, sopts, reuse),
+                 lib=lambda calls: {"resample_sinc": frames})
         assert s["final"] and s["partials"], s
         p50 = percentile_ms(s["latency_s"], 50)
         p95 = percentile_ms(s["latency_s"], 95)
@@ -2283,7 +2475,8 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     clip = tone_noise(10, sr, seed=17)
     wt = TranscribeOptions(language="en", max_tokens=max_tokens,
                            word_timestamps=True)
-    r = path("word timestamps", lambda: eng.transcribe(clip, wt), rows=[1])
+    r = path("word timestamps", lambda: eng.transcribe(clip, wt), rows=[1],
+             lib=lambda calls: {"dtw_path": len(calls)})
     starts = [w.start for w in r.words]
     assert r.words and starts == sorted(starts) and all(
         0 <= w.start and w.end <= 10.0 for w in r.words), r.words
@@ -2310,8 +2503,9 @@ def phase_longform(eng, eng32, workdir: Path, device="cuda",
     log(f"[longform] (f) {len(r.words)} words over {len(r.tokens)} tokens, "
         f"monotone, within [0, 10] s; f32 kernels == plain (tokens and "
         f"words); traced forward {out['words']['traced_ms']:.1f} ms "
-        f"({out['words']['weights_mb']:.1f} MB of weights), DTW and words "
-        f"{out['words']['dtw_ms']:.1f} ms")
+        f"({out['words']['weights_mb']:.1f} MB of weights), DTW (the host "
+        f"runtime) and words {out['words']['dtw_ms']:.1f} ms (through "
+        f"NumPy {NUMPY_DTW_MS} ms)")
     return out
 
 
@@ -2426,7 +2620,7 @@ def phase_cli(apr: Path, workdir: Path, card: str, device="cuda",
 
     import torch
     from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
-                                       WhisperApr)
+                                       WhisperApr, native)
     from whisper_apr_tpu_torch.audio.resample import SincResampler
     from whisper_apr_tpu_torch.audio.wav import parse_wav
     from whisper_apr_tpu_torch.cli import commands
@@ -2647,12 +2841,18 @@ def phase_cli(apr: Path, workdir: Path, card: str, device="cuda",
         return res
 
     reset_launches()
+    native.reset_calls()
     sync(device)
     with decode_log() as calls:
         t0 = time.perf_counter()
         res = serve_with_clients(server, clients)
         wall_s = time.perf_counter() - t0
     counts = launches()
+    # the host runtime: one resample, of the 44.1 kHz multipart request
+    out["native"] = dict(native.CALLS)
+    assert out["native"] == {**dict.fromkeys(native.CALLS, 0),
+                             "resample_sinc": 1}, \
+        f"[cli] serve: host runtime calls {out['native']}"
     st = server.scheduler.stats()
     for code, body, _ in res["clips"]:
         assert code == 200 and body["status"] == "ok", body
@@ -2738,7 +2938,8 @@ def phase_cli(apr: Path, workdir: Path, card: str, device="cuda",
         f"{alone['queue_ms']:.1f}, decode {alone['decode_ms']:.1f}, "
         f"overhead {alone['http_overhead_ms']:.2f}")
     log(f"[cli] (d) {card}: resampling the 2 s 44.1 kHz request on the "
-        f"host {resample_ms:.1f} ms; the multipart request "
+        f"host (the host runtime, once in the server run) "
+        f"{resample_ms:.1f} ms; the multipart request "
         f"{s['openai_request_ms']:.1f} ms in all")
     log(f"[cli] (d) {card}: tokens_per_decode_second "
         f"{s['tokens_per_decode_second']:.1f}; session: {len(push_s)} "
@@ -5059,20 +5260,27 @@ def write_apr_files(workdir: Path, cfg) -> dict:
 
 
 def phase_formats(workdir: Path, cfg=None, device="cuda",
-                  specials=None) -> dict:
+                  specials=None, lz4_apr=None) -> dict:
     """Each file loaded through load_from_apr with a progress callback
     (int8 weights, f32 compute: the kernels' path), its updates monotone
     and ending at 1.0; AprValidator passes on each; greedy tokens over 30
-    s of noise from each v2 file equal its v1 twin's, K1-K4 launched.
+    s of noise from each v2 file, and from the compressed v1 int8 file
+    (``lz4_apr``, phase 2b's, the same seed-0 weights; written here if
+    None), equal its v1 twin's, K1-K4 launched; the compressed file's
+    blocks decoded by the host runtime, the others' not at all.
     ``cfg``/``specials`` let a CPU rehearsal run it at a small width."""
     import torch
     from whisper_apr_tpu_torch import (ComputeConfig, ModelConfig,
-                                       TranscribeOptions, WhisperApr)
+                                       TranscribeOptions, WhisperApr, native)
     from whisper_apr_tpu_torch.format import (AprReader, AprReaderV2,
                                               AprValidator)
     cfg = cfg or ModelConfig.tiny()
     t0 = time.perf_counter()
     files = write_apr_files(workdir, cfg)
+    if lz4_apr is None:
+        lz4_apr = workdir / "tiny-v1-int8-lz4.apr"
+        write_random_apr(lz4_apr, cfg, compressed=True)
+    files[("v1", "int8_lz4")] = lz4_apr
     audio = np.random.default_rng(11).normal(0, 0.1, 30 * 16_000).astype(
         np.float32)
     opts = TranscribeOptions(language="en", max_tokens=48)
@@ -5083,12 +5291,16 @@ def phase_formats(workdir: Path, cfg=None, device="cuda",
         report = AprValidator(reader).validate_all()
         assert report.passed, f"[formats] {path.name}: {report}"
         updates = []
+        native.reset_calls()
         t1 = time.perf_counter()
         eng = WhisperApr.load_from_apr(
             str(path), ComputeConfig(quantization="int8",
                                      compute_dtype="float32"),
             specials=specials, progress=updates.append, device=device)
         load_s = time.perf_counter() - t1
+        lz4_calls = native.CALLS["lz4_decompress_block"]
+        assert (lz4_calls > 0) == (quant == "int8_lz4"), \
+            f"[formats] {path.name}: {lz4_calls} LZ4 blocks decoded"
         frac = [u.overall for u in updates]
         assert frac == sorted(frac) and frac[-1] == 1.0 \
             and updates[-1].phase == "finalize", \
@@ -5104,19 +5316,24 @@ def phase_formats(workdir: Path, cfg=None, device="cuda",
         out[f"{version}_{quant}"] = {
             "bytes": len(data), "load_s": load_s, "updates": len(updates),
             "checks_passed": sum(c.passed for c in report.checks),
-            "tokens": tokens, "launches": counts}
+            "tokens": tokens, "launches": counts, "lz4_blocks": lz4_calls}
         log(f"[formats] {path.name}: {len(data) / 1e6:.1f} MB, "
             f"{len(report.checks)} checks passed, loaded in {load_s:.2f} s "
-            f"({len(updates)} progress updates, monotone, last 1.0), "
+            f"({len(updates)} progress updates, monotone, last 1.0; "
+            f"{lz4_calls} LZ4 blocks through the host runtime), "
             f"{len(tokens)} tokens, launches "
             f"{ {k: v for k, v in counts.items() if v} }")
         del eng
-    for quant in ("f32", "int8"):
-        a, b = out[f"v1_{quant}"]["tokens"], out[f"v2_{quant}"]["tokens"]
-        assert a == b, f"[formats] {quant}: v2 tokens {b[:16]}... != v1 " \
+    for v, twin in (("v2_f32", "v1_f32"), ("v2_int8", "v1_int8"),
+                    ("v1_int8_lz4", "v1_int8")):
+        a, b = out[twin]["tokens"], out[v]["tokens"]
+        assert a == b, f"[formats] {v} tokens {b[:16]}... != {twin} " \
             f"{a[:16]}..."
     log(f"[formats] v2 tokens == v1 twin's (f32 compute, K1-K4) in f32 and "
-        f"int8; {time.perf_counter() - t0:.1f} s")
+        f"int8, the compressed v1 int8 file's too (loaded in "
+        f"{out['v1_int8_lz4']['load_s']:.2f} s, its twin in "
+        f"{out['v1_int8']['load_s']:.2f} s); "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5217,7 +5434,12 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     import torch
+    from whisper_apr_tpu_torch import native
     phase_build()
+    out_dir = ROOT / "build" / "smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    native_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    host = phase_native(native_dir)
     errs, times = phase_kernels()
     kq_errs, kq_times = phase_kquant_kernels()
     errs.update(kq_errs)
@@ -5232,8 +5454,6 @@ def main() -> int:
         pr_errs, pr_times = phase_probes()
     errs.update(pr_errs)
     times.update(pr_times)
-    out_dir = ROOT / "build" / "smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
     with trace.trace_span("probe_tool"):
         tool_res = phase_probe_tool(out_dir, times)
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -5268,7 +5488,8 @@ def main() -> int:
     large_optin = phase_large_v3_optin()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
         with trace.trace_span("formats"):
-            formats = phase_formats(Path(work))
+            formats = phase_formats(Path(work), lz4_apr=host["lz4_apr"])
+    shutil.rmtree(native_dir)
     with trace.trace_span("utils"):
         utils = phase_utils(times, tool_res)
     events = trace.drain_events()
@@ -5290,6 +5511,13 @@ def main() -> int:
     for name in ("int8_dot", "mixed_dot", "tricks"):
         assert tool_res["launches"][name] > 0, tool_res["launches"]
     assert all(total[name] > 0 for name, *_ in KERNELS), total
+    # the host runtime's calls on the main path, each run's from 0
+    lib_runs = [*(p["native"] for p in longform["paths"].values()),
+                cli["native"], {"lz4_decompress_block":
+                                formats["v1_int8_lz4"]["lz4_blocks"]}]
+    lib_total = {k: sum(r.get(k, 0) for r in lib_runs) for k in native.CALLS}
+    assert all(lib_total[k] > 0 for k in (
+        "resample_sinc", "lz4_decompress_block", "dtw_path")), lib_total
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -5299,6 +5527,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if detail_path is not None:
         detail = {"card": smi, "kernels_ms": times,
+                  "native": {**{k: v for k, v in host.items()
+                                if k != "lz4_apr"}, "calls": lib_total},
                   "requests": e2e["requests"], "bench_rtf": rtf,
                   "bench_rtf_plain": e2e["rtf_plain"],
                   "serve": {k: v for k, v in serve.items()
@@ -5320,6 +5550,8 @@ def main() -> int:
                   "utils": utils, "trace_events": events}
         detail_path.parent.mkdir(parents=True, exist_ok=True)
         detail_path.write_text(json.dumps(detail, indent=1))
+    log(f"[native] host runtime calls on the main path: "
+        f"{json.dumps(lib_total)}")
     log(json.dumps(summary))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port's word timestamps and diarization against the JAX package's,
 on the CPU: the DTW path (the JAX package's native library against the
-port's NumPy copy of its DP) on random and tied costs, the cross-attention
+port's copy of it) on random and tied costs, the cross-attention
 aligner (peak and DTW), the word extractor, the silence refinement, the
 speaker embeddings and clustering, the traced decoder and encoder
 forwards on f32 and int8 weights, and ``word_timestamps=True`` through

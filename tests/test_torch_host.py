@@ -70,7 +70,8 @@ class TestImportHygiene:
                 "whisper_apr_tpu_torch.ops.decode_blocks, "
                 "whisper_apr_tpu_torch.ops.qmatvec, "
                 "whisper_apr_tpu_torch.parallel.serving, "
-                "whisper_apr_tpu_torch.model.kv_variants; "
+                "whisper_apr_tpu_torch.model.kv_variants, "
+                "whisper_apr_tpu_torch.native; "
                 "bad = [m for m in sys.modules if m == 'jax' or "
                 "m.startswith('jax.') or m == 'whisper_apr_tpu' or "
                 "m.startswith('whisper_apr_tpu.')]; print(bad)")

@@ -437,13 +437,18 @@ def test_optin_bounds(smoke):
 
 def test_formats_phase_on_cpu(smoke, tmp_path):
     """The formats phase at a small width: the port's v1 and v2 files in
-    f32 and int8, each validated and loaded with monotone progress; the
-    v2 tokens equal the v1 twins'."""
+    f32 and int8 and a compressed v1 int8 file, each validated and loaded
+    with monotone progress; the v2 tokens equal the v1 twins', the
+    compressed file's its uncompressed twin's, its blocks decoded by the
+    host runtime."""
     cfg, sp = _small()
     out = smoke.phase_formats(tmp_path, cfg=cfg, device="cpu", specials=sp)
-    assert set(out) == {"v1_f32", "v1_int8", "v2_f32", "v2_int8"}
+    assert set(out) == {"v1_f32", "v1_int8", "v2_f32", "v2_int8",
+                        "v1_int8_lz4"}
     for q in ("f32", "int8"):
         assert out[f"v1_{q}"]["tokens"] == out[f"v2_{q}"]["tokens"]
+    assert out["v1_int8_lz4"]["tokens"] == out["v1_int8"]["tokens"]
+    assert out["v1_int8_lz4"]["lz4_blocks"] > 0
     assert all(r["checks_passed"] > 0 and r["updates"] > 5
                for r in out.values())
 

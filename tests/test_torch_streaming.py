@@ -6,8 +6,9 @@ splitting, the overlap dedup, the host log-mel, and the engine's
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 The host modules are copies, so their outputs must be identical; at
-44.1 kHz input the JAX resampler runs its native library and the port its
-NumPy copy, so chunks there agree within ``RESAMPLE_TOL``. The engines
+44.1 kHz input both packages resample with the same C++ (the port's copy
+of the JAX package's ``native/aprcore.cpp``, built with its flags), so
+chunks there are identical too (``RESAMPLE_TOL`` is 0). The engines
 share one random-init transformers Whisper (f32, the plain CPU path on
 both sides) with a word vocabulary, so that texts have words to stitch:
 tokens and texts must be identical and segment times within 1e-6. One
@@ -57,7 +58,7 @@ from whisper_apr_tpu_torch.tokenizer import Vocabulary as TVocab
 
 SR = 16_000
 MEL_TOL = 5.2e-5       # the port's mel against JAX's (test_torch_model.py)
-RESAMPLE_TOL = 1e-5    # NumPy resampler against the native one, 44.1 kHz
+RESAMPLE_TOL = 0.0     # both packages resample with the same C++
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -317,9 +318,8 @@ def test_processor_events_and_chunks_equal_jax_at_16k(name):
 
 @pytest.mark.parametrize("name", ["standard", "custom"])
 def test_processor_at_44k_same_events_chunks_in_tolerance(name):
-    """At 44.1 kHz the port resamples with NumPy and JAX with its native
-    library: on clearly voiced or silent audio the same events, and
-    chunks within RESAMPLE_TOL."""
+    """At 44.1 kHz both packages resample with the same C++ library: the
+    same events and identical chunks."""
     got = _drive_processor(tstream, name, 44_100)
     _same_log(got, _drive_processor(jstream, name, 44_100),
               atol=RESAMPLE_TOL)

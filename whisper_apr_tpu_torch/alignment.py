@@ -1,5 +1,4 @@
-# Copied from whisper_apr_tpu/alignment.py, with the NumPy DP of
-# whisper_apr_tpu/native/__init__.py dtw_path (host-side numpy, no JAX); keep them in step.
+# Copied from whisper_apr_tpu/alignment.py (host side, no JAX); keep the two in step.
 """Word-level timestamps via cross-attention alignment.
 
 (reference: src/timestamps/ — CrossAttentionAlignment::extract_token_alignments
@@ -15,9 +14,11 @@ Encoder positions are 20 ms apart (1500 positions / 30 s), so
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+from .native import dtw_path
 
 FRAME_SECONDS = 0.02  # one encoder position = 2 mel hops = 20 ms
 
@@ -63,48 +64,6 @@ class WordTimestamp:
     end: float
     confidence: float
     tokens: List[int]
-
-
-def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Monotonic DTW path over a [n_tokens, n_frames] cost matrix; returns
-    (text_indices, frame_indices) int32 arrays. The pure-NumPy DP of the
-    JAX package's ``native.dtw_path`` (the port carries no native
-    library), with its tie order: diagonal < down < right."""
-    cost = np.ascontiguousarray(cost, dtype=np.float32)
-    n, m = cost.shape
-    INF = np.inf
-    prev = np.full(m + 1, INF, dtype=np.float64)
-    prev[0] = 0.0
-    ptr = np.zeros((n, m), dtype=np.int8)
-    for i in range(n):
-        cur = np.full(m + 1, INF, dtype=np.float64)
-        crow = cost[i]
-        for j in range(1, m + 1):
-            d0, d1, d2 = prev[j - 1], prev[j], cur[j - 1]
-            if d0 <= d1 and d0 <= d2:
-                best, p = d0, 0
-            elif d1 <= d2:
-                best, p = d1, 1
-            else:
-                best, p = d2, 2
-            cur[j] = crow[j - 1] + best
-            ptr[i, j - 1] = p
-        prev = cur
-    i, j = n, m
-    ti_l, tj_l = [], []
-    while i > 0 and j > 0:
-        ti_l.append(i - 1)
-        tj_l.append(j - 1)
-        p = ptr[i - 1, j - 1]
-        if p == 0:
-            i -= 1
-            j -= 1
-        elif p == 1:
-            i -= 1
-        else:
-            j -= 1
-    return (np.asarray(ti_l[::-1], np.int32),
-            np.asarray(tj_l[::-1], np.int32))
 
 
 class CrossAttentionAlignment:

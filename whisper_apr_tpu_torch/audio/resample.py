@@ -1,4 +1,4 @@
-# Copied from whisper_apr_tpu/audio/resample.py (host-side numpy, no JAX); keep the two in step.
+# Copied from whisper_apr_tpu/audio/resample.py (host side, no JAX); keep the two in step.
 """Kaiser-windowed sinc resampling to 16 kHz.
 
 Numerically mirrors the reference resampler (reference:
@@ -7,15 +7,17 @@ interpolation with kernel half-length 16, Kaiser beta 6.0, anti-alias cutoff
 ``min(target/source, 1)``, and per-sample weight renormalization (which also
 handles signal edges, where out-of-range taps are dropped).
 
-The implementation is fully vectorized (gather + row-normalized dot) instead
-of the reference's scalar loop. Host-side numpy only: the port carries no
-native resampler.
+The port resamples through the host runtime's C++ (``native/aprcore.cpp``,
+the JAX package's source and build flags), so its samples equal the JAX
+package's bit for bit. The vectorized NumPy version (gather + row-normalized
+dot) is ``native.resample_sinc_plain``, the tests' reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..errors import AudioError
 
 DEFAULT_KERNEL_HALF_LEN = 16  # reference: src/audio/resampler.rs:23
@@ -39,56 +41,18 @@ class SincResampler:
         self.kaiser_beta = float(kaiser_beta)
 
     def resample(self, audio: np.ndarray) -> np.ndarray:
-        """Resample to the target rate (reference: resampler.rs:136-200).
-
-        Vectorized equivalent of the reference inner loop: for each output
-        sample, gather 2*half_len+1 input taps around ``out_idx / ratio`` and
-        take a weight-normalized windowed-sinc dot product.
-        """
+        """Resample to the target rate (reference: resampler.rs:136-200):
+        for each output sample, a weight-normalized windowed-sinc dot
+        product over 2*half_len+1 input taps around ``out_idx / ratio``,
+        in the host runtime's C++."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.size == 0:
             raise AudioError("cannot resample empty audio")
         if self.source_rate == self.target_rate:
             return audio.copy()
-
-        out_len = int(np.ceil(audio.size * self.ratio))
-        if out_len == 0:
-            raise AudioError("output length would be zero")
-
-        half = self.kernel_half_len
-        cutoff = min(self.ratio, 1.0)
-
-        in_pos = np.arange(out_len, dtype=np.float64) / self.ratio
-        center = np.floor(in_pos).astype(np.int64)
-        frac = in_pos - center
-
-        k = np.arange(-half, half + 1, dtype=np.int64)          # [T]
-        idx = center[:, None] + k[None, :]                      # [out, T]
-        x = k[None, :].astype(np.float64) - frac[:, None]       # [out, T]
-
-        # windowed sinc (reference: resampler.rs:205-226)
-        sinc_arg = cutoff * x
-        sinc = np.where(np.abs(sinc_arg) < 1e-10, 1.0,
-                        np.sin(np.pi * sinc_arg) / np.where(
-                            np.abs(sinc_arg) < 1e-10, 1.0, np.pi * sinc_arg))
-        warg = x / half
-        inside = np.abs(warg) <= 1.0
-        kaiser = np.where(
-            inside,
-            np.i0(self.kaiser_beta * np.sqrt(np.maximum(1.0 - warg * warg, 0.0)))
-            / np.i0(self.kaiser_beta),
-            0.0)
-        weights = sinc * kaiser
-
-        # drop out-of-range taps, renormalize (reference: resampler.rs:175-196)
-        valid = (idx >= 0) & (idx < audio.size)
-        weights = np.where(valid, weights, 0.0)
-        gathered = audio[np.clip(idx, 0, audio.size - 1)].astype(np.float64)
-
-        num = (gathered * weights).sum(axis=1)
-        den = weights.sum(axis=1)
-        out = np.where(np.abs(den) > 1e-10, num / np.where(den == 0, 1.0, den), 0.0)
-        return out.astype(np.float32)
+        return native.resample_sinc(audio, self.source_rate,
+                                    self.target_rate, self.kernel_half_len,
+                                    self.kaiser_beta)
 
 
 def resample(audio: np.ndarray, source_rate: int, target_rate: int = 16_000) -> np.ndarray:

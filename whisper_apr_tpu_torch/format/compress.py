@@ -1,5 +1,5 @@
 # Copied from whisper_apr_tpu/format/compress.py (host-side numpy, no JAX); keep the two in step.
-"""Pure-Python LZ4 block compression/decompression.
+"""LZ4 block compression (Python) and decompression (the host runtime's C++).
 
 (reference: src/format/compress.rs — pure-Rust LZ4 block decompressor for
 WASM, 64 KB blocks, sequence format documented at :1-22: token byte with
@@ -14,6 +14,7 @@ from __future__ import annotations
 import struct
 from typing import List
 
+from .. import native
 from ..errors import FormatError
 
 BLOCK_SIZE = 64 * 1024            # reference: compress.rs:27
@@ -37,57 +38,14 @@ def decompress_block(compressed: bytes, decompressed_size: int) -> bytes:
 
 def _decode_block(compressed: bytes, max_size: int = MAX_BLOCK_SIZE) -> bytes:
     """Decode a raw LZ4 block until the input is consumed (output size may
-    be unknown, as in standard LZ4 frames). Pure Python: the port carries
-    no native decoder."""
-    src = compressed
-    n = len(src)
-    out = bytearray()
-    i = 0
-    while i < n:
-        token = src[i]
-        i += 1
-        # literals
-        lit_len = token >> 4
-        if lit_len == 15:
-            while True:
-                if i >= n:
-                    raise FormatError("truncated LZ4 literal length")
-                b = src[i]
-                i += 1
-                lit_len += b
-                if b != 255:
-                    break
-        if i + lit_len > n:
-            raise FormatError("truncated LZ4 literals")
-        out += src[i: i + lit_len]
-        i += lit_len
-        if i >= n:
-            break  # last sequence is literals-only
-        # match
-        if i + 2 > n:
-            raise FormatError("truncated LZ4 match offset")
-        offset = src[i] | (src[i + 1] << 8)
-        i += 2
-        if offset == 0 or offset > len(out):
-            raise FormatError(f"invalid LZ4 match offset {offset}")
-        match_len = (token & 0x0F) + MIN_MATCH
-        if (token & 0x0F) == 15:
-            while True:
-                if i >= n:
-                    raise FormatError("truncated LZ4 match length")
-                b = src[i]
-                i += 1
-                match_len += b
-                if b != 255:
-                    break
-        # overlapping copy (byte-by-byte semantics)
-        pos = len(out) - offset
-        for _ in range(match_len):
-            out.append(out[pos])
-            pos += 1
-        if len(out) > max_size:
-            raise FormatError("LZ4 output exceeds expected size")
-    return bytes(out)
+    be unknown, as in standard LZ4 frames), in the host runtime's C++
+    (``native/aprcore.cpp``: the byte loop Python is worst at). On a
+    malformed block the Python decoder runs only to raise the exact
+    ``FormatError``."""
+    out = native.lz4_decompress_block(compressed, max_size)
+    if out is not None:
+        return out
+    return native.lz4_decompress_block_plain(compressed, max_size)
 
 
 def compress_block(data: bytes) -> bytes:
