@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Decode-kernel times of several checkouts, in turn, on one GPU.
 
-    python3 chip_ab.py [--optin | --split | --int8 | --batched | --bits]
-                       DIR [DIR ...]
+    python3 chip_ab.py [--optin | --split | --int8 | --batched | --bits |
+                        --f32] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into a gitignored directory.
@@ -50,7 +50,13 @@ fused and scan decode steps (``kq_steps_ms``: K12-K14, or K10 / K11, in
 every layer, device ms). With ``--bits`` each process prints, instead of
 times, a SHA-256 digest of K1's, K2's, K3's, K13's and K10's outputs over
 fixed inputs (``bits_tree``): equal digests in two checkouts mean
-bit-identical kernels. Needs one CUDA GPU.
+bit-identical kernels. With ``--f32`` each process times the f32 paths of
+K16-K18 instead (``time_f32_tree``), through the ``time_optin_f32`` of
+the chip_smoke beside this script, so every checkout is timed alike,
+and the f32 large-v3 encoder with and without K16 and K17 (host and
+CUDA-event ms), the f32 paths' relative error against f64
+(``f32_errors``), and K16-K18 in bf16 at B = 1 / M = 1500 with a digest
+of each output (``bf16_optin``). Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -77,6 +83,8 @@ def time_tree(root: Path, mode: str = "") -> dict:
     c.phase_build()
     if mode == "--optin":
         return time_optin_tree(c, root)
+    if mode == "--f32":
+        return time_f32_tree(root)
     if mode == "--split":
         return time_split_tree(c)
     if mode == "--int8":
@@ -581,6 +589,137 @@ def time_optin_tree(c, root: Path) -> dict:
     return out
 
 
+def this_smoke():
+    """This checkout's ``chip_smoke`` (the one beside this script), loaded
+    under another name: its functions time whichever checkout's package
+    the process imported, the same way in every checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().with_name("chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_f32_tree(root: Path) -> dict:
+    """Device microseconds of one checkout's K16-K18 on f32 inputs
+    (``time_optin_f32`` of the chip_smoke beside this script: K16 over
+    1500 frames at B = 1 and 4, K17 at M = 1500 and 224, K18 at 1500 and
+    64, at the whisper-tiny and large-v3 shapes; their plain versions and
+    yardsticks too), and the f32 large-v3 encoder (large-v3-turbo's
+    config: the same encoder) of 30 s of noise, int8 weights, attention
+    plain and through K16, the int8 switch off and on: host ms and device
+    ms by CUDA events (best of 3)."""
+    import numpy as np
+    from whisper_apr_tpu_torch import ComputeConfig, ModelConfig, WhisperApr
+    from whisper_apr_tpu_torch.model.params import (init_params,
+                                                    quantize_params,
+                                                    to_device)
+    s = this_smoke()
+    out = {}
+    for label, D, H, seed in (("tiny", 384, 6, 145),
+                              ("large-v3", 1280, 20, 146)):
+        t = s.time_optin_f32(label, D, H, seed)
+        for key, field in (("", "ms"), ("_plain", "plain_ms"),
+                           ("_library", "library_ms"),
+                           ("_dense", "dense_ms")):
+            out[label + key] = {k: round(v[field] * 1e3, 2)
+                                for k, v in t.items()
+                                if v.get(field) is not None}
+    out["bf16"], out["bf16_digest"] = bf16_optin(s)
+    out["f32_err"] = f32_errors(s)
+    cfg = ModelConfig.large_v3_turbo()
+    params = to_device(quantize_params(init_params(cfg, seed=0), "int8"),
+                       "cuda")
+    audio = np.random.default_rng(7).normal(0, 0.1, 30 * 16_000).astype(
+        np.float32)
+    enc = {}
+    for flash in (False, True):
+        eng = WhisperApr(cfg, params, compute=ComputeConfig(
+            quantization="int8", compute_dtype="float32",
+            use_flash_attention=flash), device="cuda")
+        mel = eng.compute_mel(audio)
+        for int8 in (False, True):
+            key = ("K16" if flash else "plain") + (" + K17" if int8 else "")
+            with s.optin_switches(int8=int8):
+                enc[key + " host"] = round(s.encoder_ms(eng, mel), 3)
+                enc[key + " device"] = round(s.encoder_event_ms(eng, mel), 3)
+    out["encoder_f32_ms"] = enc
+    return out
+
+
+def f32_errors(s) -> dict:
+    """Relative error against f64 (max |out - f64| over max |f64|) of K16
+    on f32 inputs over 1500 frames at B = 1 and over one key tile (Tq
+    128, Tk 64), and of K17 / K18 on f32 x at fc1's shape over 1500 rows,
+    at the whisper-tiny and large-v3 shapes, each beside its plain
+    version's (chip_smoke's ``attention_f64``; unit-normal draws, as the
+    smoke's)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    dev = torch.device("cuda")
+    out = {}
+    for label, D, H in (("tiny", 384, 6), ("large-v3", 1280, 20)):
+        gen = torch.Generator(device=dev).manual_seed(49)
+        for Tq, Tk in ((1500, 1500), (128, 64)):
+            qkv = [torch.randn((1, H, T, 64), generator=gen, device=dev)
+                   for T in (Tq, Tk, Tk)]
+            ref = s.attention_f64(*qkv)
+            out[f"{label} flash_attention {Tq}x{Tk}"] = s.rel_err(
+                fa.flash_attention(*qkv), ref)
+            out[f"{label} flash_attention {Tq}x{Tk} plain"] = s.rel_err(
+                fa.flash_attention_plain(*qkv), ref)
+        K, N = s.MATMUL_SHAPES[label][1]
+        for name, mod, bits in (("int8_matmul", i8, 8),
+                                ("int4_matmul", i4, 4)):
+            x, wq, sc = s.matmul_case(K, N, 1500, torch.float32, gen, dev,
+                                      bits)
+            w = wq.double() if bits == 8 else mod.unpack_plain(wq).double()
+            ref = (x.double() @ w) * sc.double()
+            out[f"{label} {name} m1500"] = s.rel_err(
+                getattr(mod, name)(x, wq, sc), ref)
+            out[f"{label} {name} m1500 plain"] = s.rel_err(
+                getattr(mod, name + "_plain")(x, wq, sc), ref)
+    return {k: float(f"{v:.3g}") for k, v in out.items()}
+
+
+def bf16_optin(s) -> tuple:
+    """Device microseconds of K16 (B = 1), K17 and K18 (M = 1500, fc1) in
+    bf16 at the whisper-tiny and large-v3 shapes, and a SHA-256 digest of
+    each one's output over fixed inputs (K16 also over rows of 65 values,
+    not 16-byte aligned): equal digests in two checkouts mean the bf16
+    paths compute the same bits."""
+    import hashlib
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    times, digests = {}, {}
+    for label, D, H in (("tiny", 384, 6), ("large-v3", 1280, 20)):
+        gen = torch.Generator(device=dev).manual_seed(48)
+        qkv = [torch.randn((1, H, 1500, 64), generator=gen, device=dev)
+               .to(bf) for _ in range(3)]
+        odd = [torch.randn((1, H, 448, 65), generator=gen, device=dev)
+               .to(bf)[..., :64] for _ in range(3)]
+        K, N = s.MATMUL_SHAPES[label][1]
+        x8, w8, s8 = s.matmul_case(K, N, 1500, bf, gen, dev, 8)
+        x4, w4, s4 = s.matmul_case(K, N, 1500, bf, gen, dev, 4)
+        calls = {"flash_attention": lambda: fa.flash_attention(*qkv),
+                 "flash_attention_rows65": lambda: fa.flash_attention(
+                     *odd, causal=True),
+                 "int8_matmul_m1500": lambda: i8.int8_matmul(x8, w8, s8),
+                 "int4_matmul_m1500": lambda: i4.int4_matmul(x4, w4, s4)}
+        for name, fn in calls.items():
+            key = f"{label} {name}"
+            times[key] = round(s.graph_ms(fn) * 1e3, 2)
+            digests[key] = hashlib.sha256(
+                fn().float().cpu().numpy().tobytes()).hexdigest()[:16]
+    return times, digests
+
+
 def paged_tick_device_ms(c, root: Path) -> dict:
     """Device ms per pure decode tick of a whisper-tiny int8 bf16
     ``BatchScheduler(paged=True)`` of 8 slots (``chip_smoke.
@@ -669,7 +808,8 @@ def time_e2e(c, root: Path) -> dict:
 def main() -> int:
     args = sys.argv[1:]
     modes = [a for a in args
-             if a in ("--optin", "--split", "--int8", "--batched", "--bits")]
+             if a in ("--optin", "--split", "--int8", "--batched", "--bits",
+                      "--f32")]
     args = [a for a in args if a not in modes]
     if len(args) == 2 and args[0] == "--one":
         root = Path(args[1])

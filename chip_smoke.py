@@ -184,15 +184,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               causal, kv_valid 1000; the ragged edges of its key ring,
               split and combine: Tk 1, 63, 65, 448, Tq 1 and 100 over
               1500 keys, kv_valid 1024 and 1025, causal at 448, an
-              uneven split over 1300 keys, mha_flash's strided heads),
+              uneven split over 1300 keys, mha_flash's strided heads,
+              rows that are not 16-byte aligned: FLASH_UNALIGNED),
               K17 and K18 (int8 / packed-int4 matmuls at M = 1, 8, 1500,
               odd widths for K18; K17 also at INT8_MM_EDGES, K18 at
               INT4_EDGES, each call twice and bit-identical) against
               their plain versions at the
-              tiny and large-v3 shapes in bf16 and f32; their bf16
-              times, bounds and library yardsticks (SDPA for K16,
-              torch._weight_int8pack_mm for K17,
-              torch._weight_int4pack_mm for K18), K16's time / SDPA.
+              tiny and large-v3 shapes in bf16 and f32 (f32 through the
+              three-term tensor-core kernels; their errors also apart,
+              as <name>_f32); their times, bounds and library yardsticks
+              (SDPA for K16, torch._weight_int8pack_mm for K17,
+              torch._weight_int4pack_mm for K18), K16's time / SDPA; the
+              same in f32 (time_optin_f32: K16 at B = 1 and 4, K17 at
+              M = 1500 and 224, K18 at 1500 and 64, each beside its f32
+              bound, tensor-core floor, yardstick and a dense f32
+              matmul; the SDPA backend that ran).
 5b. paged (after 5) - BatchScheduler(paged=True, n_slots=8) over the
               e2e .apr: the serve phase's 12 clips in two bursts with
               batched and with staged admission (K15 L times per tick,
@@ -203,10 +209,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               K17; counts held exactly).
 8b. opt-in at full width (after 7b and 8) - a whisper-tiny int4 engine
               with USE_PALLAS_INT4 (K18 in every linear, B=1, 30 s noise;
-              f32 tokens == plain); large-v3 with flash and the int8
-              switch (K16, K17 in the encoder, cross K/V and prefill; f32
-              tokens == plain) and its encoder ms with and without K16 in
-              f32 and bf16, and in bf16 with K17 on.
+              f32 tokens == plain, its launches held too: the 1500-row
+              linears through the f32 tile kernel); large-v3 with flash
+              and the int8 switch (K16, K17 in the encoder, cross K/V and
+              prefill; f32 tokens == plain; the f32 launches of K16 and
+              of K17's tile kernel held) and its encoder ms, host wall and
+              device by CUDA events, with and without K16, in f32 and
+              bf16, with K17 off and on.
 
 3d. probes (after 3c) - P1-P3, the lowering probes of the JAX kernel
               tool (csrc/probe_mma.cu), on the tool's inputs: P1 (int8 .
@@ -275,6 +284,15 @@ AUDIO_SECONDS = 30.0
 TOL_BF16 = 2.0 ** -6
 # f32 outputs: summation order only
 TOL_F32 = 2e-5
+# K16-K18's f32 tensor-core kernels against an f64 reference
+# (F32_TERM_FLASH, F32_TERM_ROWS): their three-term splits keep every
+# product above 2^-24 of it, so what is left is f32's rounding of the sums
+# (under 6e-7 in a numpy emulation, 4.5e-7 at most on an H100 in
+# chip_ab.py --f32, where the plain f32 versions come to 1.7e-6); a split
+# short of one product (hi.lo, lo.hi or mid.mid), or of x's lo term, is
+# 1.8e-6 or more away (tests/test_torch_optin_kernels.py
+# TestFlashF32Terms, test_f32_matmul_terms_against_f64)
+TOL_F32_TERMS = 1e-6
 # fp8 rows: one e4m3 ulp is 2^-3 of the value
 TOL_FP8 = 2.0 ** -3
 # per-slot positions of the batched checks: both sides of every 64-row
@@ -1714,10 +1732,14 @@ def _kernel_modules():
 def plain_kernels():
     """Route the decode step through the plain versions (same device):
     every wrapper of every kernel module is swapped for its plain
-    version, K5-K7 for K1-K3's (which take any B)."""
+    version, K5-K7 for K1-K3's (which take any B). A count of a
+    wrapper's f32 launches (``<name>_f32`` beside ``<name>``) names no
+    function; any other count names its wrapper."""
     swaps = []
     for mod in _kernel_modules():
         for name in mod.LAUNCHES:
+            if name.endswith("_f32") and name[:-4] in mod.LAUNCHES:
+                continue
             plain = getattr(mod, name.replace("_batched", "") + "_plain")
             swaps.append((mod, name, getattr(mod, name)))
             setattr(mod, name, plain)
@@ -4190,16 +4212,21 @@ FLASH_CASES = ((1, 1500, 1500, {}), (4, 1500, 1500, {}),
                (1, 1500, 1500, dict(kv_valid=1024)),
                (1, 1500, 1500, dict(kv_valid=1025)),
                (1, 448, 448, dict(causal=True)), (1, 64, 1300, {}))
+# K16 over operands whose rows are not 16-byte aligned (a row stride of
+# 65): one query tile split over many keys, the encoder's shape, causal
+FLASH_UNALIGNED = ((1, 100, 1500, {}), (1, 1500, 1500, dict(kv_valid=1025)),
+                   (1, 448, 448, dict(causal=True)))
 
 
 def optin_bound(name: str, *, M: int = 0, K: int = 0, N: int = 0,
                 B: int = 0, H: int = 0, Tq: int = 0, Tk: int = 0,
                 pairs: int = 0, rows: int = 0, D: int = 0, P: int = 0,
-                elem: int = 2, compute: str = "bfloat16"):
+                elem: int = 2, compute: str = "bfloat16", products: int = 1):
     """(bound_ms, "bytes" or "operations") of one K15-K18 call, from the
     work these inputs need: each input byte read once, each output byte
     written once, over HBM_BPS, against the operations over the peak for
-    the compute type.
+    the compute type, ``products`` times over (an f32 product taken as
+    that many bf16 products on the tensor cores).
 
     paged_attention_stacked: ``rows`` K and V rows read (each slot's
     valid rows, at most 16 * P), q and out [B, D], tables [B, P] and
@@ -4222,7 +4249,7 @@ def optin_bound(name: str, *, M: int = 0, K: int = 0, N: int = 0,
     else:
         raise ValueError(name)
     t_bytes = nbytes / HBM_BPS
-    t_ops = flops / PEAK_FLOPS[compute]
+    t_ops = products * flops / PEAK_FLOPS[compute]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -4288,7 +4315,10 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
         err = rel_err(got, ref)
         assert err <= tol, f"[kernels] {label} {name} {what}: rel err " \
             f"{err:.3g} > {tol:.3g}"
-        worst[name] = max(worst.get(name, 0.0), abs_err(got, ref))
+        names = [name] + ([name + "_f32"] if cdt == torch.float32
+                          and name != "paged_attention_stacked" else [])
+        for n in names:
+            worst[n] = max(worst.get(n, 0.0), abs_err(got, ref))
 
     q, kp, vp, tables, lens = paged_case(D, 2, cdt, gen, dev)
     for layer in (0, 1):
@@ -4315,6 +4345,14 @@ def check_optin(label: str, D: int, H: int, cdt, seed: int) -> dict:
             causal=causal).transpose(1, 2).reshape(1, T, D)
         agree("flash_attention", fa.mha_flash(q, k_, v, H, causal=causal),
               ref, f"mha_flash T={T} causal={causal}")
+    for B, Tq, Tk, kw in FLASH_UNALIGNED:
+        # rows of 65 values, not 16-byte aligned: bf16 takes the kernel
+        # that does not split, f32 its tensor-core kernel's element loads
+        qkv = [torch.randn((B, H, T, 65), generator=gen, device=dev)
+               .to(cdt)[..., :64] for T in (Tq, Tk, Tk)]
+        agree("flash_attention", fa.flash_attention(*qkv, **kw),
+              fa.flash_attention_plain(*qkv, **kw),
+              f"rows of 65: B={B} Tq={Tq} Tk={Tk} {kw}")
 
     int8_cases = [(M, K, N, pc) for K, N in MATMUL_SHAPES[label]
                   for M in MATMUL_ROWS for pc in (True, False)]
@@ -4499,8 +4537,9 @@ def time_optin(label: str, D: int, H: int, seed: int) -> dict:
     (M = 1500), K18 there and at a decode step (M = 1; ``time_int4``).
     Each with its bound and its library yardstick
     (SDPA for K16, torch._weight_int8pack_mm for K17,
-    torch._weight_int4pack_mm for K18); K16's time over SDPA's is
-    printed beside them."""
+    torch._weight_int4pack_mm for K18); then K16-K18 on f32 inputs
+    (``time_optin_f32``, the entries ``<name>_f32...``); K16's time over
+    SDPA's is printed beside them."""
     import torch
     from whisper_apr_tpu_torch.ops import flash_attention as fa
     from whisper_apr_tpu_torch.ops import int4_matmul as i4
@@ -4560,16 +4599,193 @@ def time_optin(label: str, D: int, H: int, seed: int) -> dict:
         if k.startswith("int4_matmul") and v["library_ms"])
         + "; at 1500 rows over the dense bf16 matmul: "
         f"{out['int4_matmul_m1500']['ms'] / out['int4_matmul_m1500']['dense_ms']:.2f}x")
+    out.update(time_optin_f32(label, D, H, seed + 100))
     log(f"[time] {label} K16 / SDPA: " + ", ".join(
         f"{k} {v['ms'] / v['library_ms']:.2f}x" for k, v in out.items()
         if k.startswith("flash_attention") and v["library_ms"]))
     return out
 
 
+# K17 f32's prompt-sized row count (above the decode kernel's 32 rows:
+# the tile kernel): a prefill of bench.py's 224 forced tokens
+F32_MID_ROWS = {"int8_matmul": TOKENS_FORCED, "int4_matmul": 64}
+
+
+def tc_floor_ms(products: int, flops: float) -> float:
+    """The tensor-core floor of a kernel that takes each f32 product as
+    ``products`` bf16 products: their operations over the bf16 peak."""
+    return 1e3 * products * flops / PEAK_FLOPS["bfloat16"]
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The kernel that took most of the device time of one
+    scaled_dot_product_attention call on these tensors (torch.profiler):
+    which SDPA backend ran."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(q, k, v)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:80]}"
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return "not traced"
+    return max(ev, key=lambda e: e.self_device_time_total).key[:120]
+
+
+def library_mm(name: str, x, wq, s) -> "float | None":
+    """Time of torch._weight_int8pack_mm (K17) on f32 x where it takes
+    it, with the weight [N, K] and the scale as that call wants them; a
+    yardstick only, the port never calls it. K18's _weight_int4pack_mm is
+    ``library_int4_mm``."""
+    import torch
+    if name == "int4_matmul":
+        return library_int4_mm(x, wq, s)
+    w_nk = wq.t().contiguous()
+    try:
+        return graph_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s))
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"[time] torch._weight_int8pack_mm on {x.dtype}: "
+            f"{str(e).splitlines()[0][:120]}")
+        torch.cuda.synchronize()
+        return None
+
+
+def time_optin_f32(label: str, D: int, H: int, seed: int) -> dict:
+    """Device times (CUDA-graph replay) of K16-K18 on f32 inputs and
+    their plain versions at one model's encoder shapes: K16 over 1500
+    frames at B = 1 and 4; K17 at fc1's shape for the encoder (M = 1500)
+    and a prompt (``F32_MID_ROWS``), K18 at M = 1500 and 64. Each with
+    its bound on the tensor cores the kernels run on (``bound_ms``: the
+    larger of its bytes over HBM_BPS and its tensor-core floor,
+    ``floor_ms`` = ``tc_floor_ms``: six bf16 products an f32 product in
+    K16, three in K17 / K18), its bound on the CUDA cores'
+    67 f32 TFLOP/s (``f32_simt_bound_ms``) and its library yardstick,
+    measured only: SDPA on the f32 inputs (``sdpa`` names the
+    backend that ran), ``_weight_int8pack_mm`` / ``_weight_int4pack_mm``
+    where they take f32 x (else None), and for K17 / K18 a dense f32
+    torch.matmul over the weight dequantized ahead of time
+    (``dense_ms``; TF32 off, as PyTorch's default)."""
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls"
+    f32 = torch.float32
+    out = {}
+    for B in (1, 4):
+        qkv = [torch.randn((B, H, 1500, 64), generator=gen, device=dev)
+               for _ in range(3)]
+        shape = dict(B=B, H=H, Tq=1500, Tk=1500, elem=4)
+        bnd, by = optin_bound("flash_attention", **shape, products=6)
+        out["flash_attention_f32" + ("" if B == 1 else f"_b{B}")] = {
+            "ms": graph_ms(lambda: fa.flash_attention(*qkv)),
+            "plain_ms": graph_ms(lambda: fa.flash_attention_plain(*qkv)),
+            "bound_ms": bnd, "bound_by": by,
+            "f32_simt_bound_ms": optin_bound("flash_attention", **shape,
+                                             compute="float32")[0],
+            "floor_ms": tc_floor_ms(6, 4 * 64 * B * H * 1500 * 1500),
+            "library_ms": library_sdpa(*qkv), "sdpa": sdpa_backend(*qkv),
+            "B": B, "H": H, "T": 1500}
+    K, N = MATMUL_SHAPES[label][1]
+    for name, mod, bits in (("int8_matmul", i8, 8), ("int4_matmul", i4, 4)):
+        kern, plain = _kernel_and_plain(mod, name)
+        for M in (1500, F32_MID_ROWS[name]):
+            x, wq, sc = matmul_case(K, N, M, f32, gen, dev, bits)
+            w = (mod.unpack_plain(wq) if bits == 4 else wq.float()) * sc
+            shape = dict(M=M, K=K, N=N, elem=4)
+            bnd, by = optin_bound(name, **shape, products=3)
+            out[f"{name}_f32" + ("" if M == 1500 else f"_m{M}")] = {
+                "ms": graph_ms(lambda: kern(x, wq, sc)),
+                "plain_ms": graph_ms(lambda: plain(x, wq, sc)),
+                "bound_ms": bnd, "bound_by": by,
+                "f32_simt_bound_ms": optin_bound(name, **shape,
+                                                 compute="float32")[0],
+                "floor_ms": tc_floor_ms(3, 2 * M * N * K),
+                "library_ms": library_mm(name, x, wq, sc),
+                "dense_ms": graph_ms(lambda: x @ w), "M": M, "K": K, "N": N}
+    log(f"[time] {label} K16-K18 f32, device ms (plain; bound on the "
+        f"tensor cores; CUDA-core f32 bound; library; dense f32): "
+        + "; ".join(
+            f"{k} {v['ms']:.4f} ({v['plain_ms']:.4f}; {v['bound_ms']:.4f}; "
+            f"{v['f32_simt_bound_ms']:.4f}; {v['library_ms']}; "
+            f"{v.get('dense_ms', '-')})" for k, v in out.items()))
+    log(f"[time] {label} SDPA on f32: " + ", ".join(
+        f"{k} {v['sdpa']}" for k, v in out.items() if "sdpa" in v))
+    return out
+
+
+# K16-K18's f32 kernels against f64 (TOL_F32_TERMS): K16 (Tq, Tk,
+# causal) over one key tile and over two, K17 / K18 at fc1's shape on the
+# decode rows and on the tile kernel
+F32_TERM_FLASH = ((128, 64, False), (128, 64, True), (64, 128, False))
+F32_TERM_ROWS = (8, 64)
+
+
+def attention_f64(q, k, v, causal: bool = False):
+    """softmax(q . k^T / 8) . v in f64, keys j > i masked when causal."""
+    import torch
+    q, k, v = (t.double() for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) * 64 ** -0.5
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        above = torch.ones((Tq, Tk), dtype=torch.bool,
+                           device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+def check_f32_terms(label: str, D: int, H: int, seed: int) -> dict:
+    """K16-K18 on f32 inputs against f64 at the smoke's unit-normal
+    draws, within TOL_F32_TERMS: the check that sees the three-term
+    splits' products (a split short of one of them misses it, where
+    TOL_F32 against the plain f32 version would not). Returns each
+    kernel's largest relative error."""
+    import torch
+    from whisper_apr_tpu_torch.ops import flash_attention as fa
+    from whisper_apr_tpu_torch.ops import int4_matmul as i4
+    from whisper_apr_tpu_torch.ops import int8_matmul as i8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = {}
+
+    def agree(name, got, ref, what):
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        assert got.shape == ref.shape and err <= TOL_F32_TERMS, (
+            f"[kernels] {label} {name} f32 {what} against f64: rel err "
+            f"{err:.3g} > {TOL_F32_TERMS:.3g}")
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for Tq, Tk, causal in F32_TERM_FLASH:
+        qkv = [torch.randn((1, H, T, 64), generator=gen, device=dev)
+               for T in (Tq, Tk, Tk)]
+        agree("flash_attention", fa.flash_attention(*qkv, causal=causal),
+              attention_f64(*qkv, causal=causal),
+              f"Tq={Tq} Tk={Tk} causal={causal}")
+    K, N = MATMUL_SHAPES[label][1]
+    for name, mod, bits in (("int8_matmul", i8, 8), ("int4_matmul", i4, 4)):
+        for M in F32_TERM_ROWS:
+            x, wq, sc = matmul_case(K, N, M, torch.float32, gen, dev, bits)
+            w = wq.double() if bits == 8 else mod.unpack_plain(wq).double()
+            agree(name, getattr(mod, name)(x, wq, sc),
+                  (x.double() @ w) * sc.double(), f"M={M} K={K} N={N}")
+    log(f"[kernels] {label} f32 against f64 (tolerance {TOL_F32_TERMS}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
 def phase_optin_kernels() -> tuple:
     """K15-K18 against their plain versions at the whisper-tiny and
-    large-v3 shapes in bf16 and f32, then their bf16 times. Returns
-    (max abs errors, {shape label: times})."""
+    large-v3 shapes in bf16 and f32, K16-K18 in f32 against f64, then
+    their times. Returns (max abs errors, {shape label: times})."""
     import torch
     errs = {}
     for label, D, H, seed in (("tiny", 384, 6, 41), ("large-v3", 1280, 20,
@@ -4581,6 +4797,7 @@ def phase_optin_kernels() -> tuple:
                 errs["paged_attention_stacked"],
                 check_paged_edges(label, D, H, cdt, seed + 100))
             seed += 1
+        check_f32_terms(label, D, H, seed + 200)
     times = {"tiny_optin": time_optin("tiny", 384, 6, seed=45),
              "large_v3_optin": time_optin("large-v3", 1280, 20, seed=46)}
     torch.cuda.empty_cache()
@@ -4784,7 +5001,9 @@ def phase_int4(apr: Path, device="cuda", specials=None,
     int4 linear of the encoder, the prefill, the cross K/V and each plain
     decode step through K18 (bf16; launch count held: 6 per encoder
     layer, 10 per decoder layer at admission, 8 per decoder layer and
-    step); then f32 tokens through K18 == the plain versions'."""
+    step); then f32 tokens through K18 == the plain versions' (the same
+    counts, the encoder's and the cross K/V's 1500 rows, 6 per encoder
+    layer and 2 per decoder layer, through the f32 tile kernel)."""
     from whisper_apr_tpu_torch import (ComputeConfig, TranscribeOptions,
                                        WhisperApr)
 
@@ -4811,17 +5030,24 @@ def phase_int4(apr: Path, device="cuda", specials=None,
         steps = len(res.tokens) - P - 1
         want = want_counts(int4_matmul=6 * La + 10 * L + 8 * L * steps)
         e32 = engine("float32")
+        reset_launches()
         kern = e32.transcribe(audio, opts).tokens
+        counts32 = launches()
         with plain_kernels():
             plain = e32.transcribe(audio, opts).tokens
     assert kern == plain, "[int4] f32 tokens: K18 vs plain"
+    steps32 = len(kern) - P - 1
+    want32 = want_counts(int4_matmul=6 * La + 10 * L + 8 * L * steps32,
+                         int4_matmul_f32=6 * La + 2 * L)
     log(f"[int4] tiny int4, USE_PALLAS_INT4: 30 s noise, {len(res.tokens)} "
         f"tokens ({steps} decode steps) in {dt * 1e3:.1f} ms "
         f"({1e3 * dt / max(steps, 1):.4f} ms per step); launches "
         f"{ {k: v for k, v in counts.items() if v} }; f32 tokens through "
-        f"K18 == plain ({len(kern)} tokens)")
+        f"K18 == plain ({len(kern)} tokens; launches "
+        f"{ {k: v for k, v in counts32.items() if v} })")
     return {"seconds": dt, "decode_steps": steps, "launches": counts,
-            "want_launches": want}
+            "want_launches": want, "launches_f32": counts32,
+            "want_launches_f32": want32}
 
 
 def encoder_ms(eng, mel, n: int = 3) -> float:
@@ -4838,16 +5064,36 @@ def encoder_ms(eng, mel, n: int = 3) -> float:
     return 1e3 * best
 
 
+def encoder_event_ms(eng, mel, n: int = 3) -> float:
+    """Device ms of one encode (CUDA events around it; best of ``n``
+    after a warm-up); NaN off the card."""
+    import torch
+    if torch.device(eng.device).type != "cuda":
+        return float("nan")
+    eng.encode(mel)
+    best = float("inf")
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.encode(mel)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
 def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
                          cfg=None, specials=None) -> dict:
     """The large-v3 model of phase 8 once more with use_flash_attention
     and USE_PALLAS_INT8 on: 30 s of noise in f32, K16 once per encoder
     layer and K17 for every int8 linear of the encoder, the cross K/V and
-    the prefill (the decode steps stay on K1-K4); tokens through the
-    kernels == the plain versions' (near-tie rule). Then encoder ms with
-    and without K16 (K17 off), in f32 and bf16, beside the selector's
-    TPU-measured threshold, and in bf16 with K17 on (with and without
-    K16). ``cfg`` and ``specials`` (default large-v3's)
+    the prefill (the decode steps stay on K1-K4; f32, so K16 and K17's
+    1500-row linears take the three-term tensor-core kernels, counted
+    apart); tokens through the kernels == the plain versions' (near-tie
+    rule). Then encoder ms, host wall and device by CUDA events, with and
+    without K16, in f32 and bf16, with K17 off and on. ``cfg`` and
+    ``specials`` (default large-v3's)
     let a CPU rehearsal run it at a small width, where nothing launches
     and the counts are not held."""
     import torch
@@ -4882,8 +5128,9 @@ def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
         n = len(kern.tokens) - P - 1
         want = want_counts(self_block=L * n, cross_block=L * n,
                            ffn_block=L * n, qmatvec_greedy_head=n,
-                           flash_attention=La,
-                           int8_matmul=6 * La + 10 * L)
+                           flash_attention=La, flash_attention_f32=La,
+                           int8_matmul=6 * La + 10 * L,
+                           int8_matmul_f32=6 * La + 2 * L)
         assert counts == want or torch.device(device).type == "cpu", \
             f"[large-v3 opt-in] launches {counts}, want {want}"
         with plain_kernels():
@@ -4891,27 +5138,29 @@ def phase_large_v3_optin(device="cuda", max_tokens: int = 24,
     gap = check_same(eng, audio, kern.tokens, plain.tokens,
                      "large-v3 opt-in")
     mel = eng.compute_mel(audio)
-    enc = {}
-    for dtype in ("float32", "bfloat16"):
-        for flash in (False, True):
-            enc[f"{dtype} {'K16' if flash else 'plain attention'}"] = \
-                encoder_ms(engine(dtype, flash), mel)
-    for flash in (False, True):     # every linear through K17
-        with optin_switches(int8=True):
-            enc[f"bfloat16 {'K16' if flash else 'plain attention'} + "
-                f"K17"] = encoder_ms(engine("bfloat16", flash), mel)
+    enc, enc_dev = {}, {}
+    for int8 in (False, True):      # every linear through K17
+        for dtype in ("float32", "bfloat16"):
+            for flash in (False, True):
+                key = (f"{dtype} {'K16' if flash else 'plain attention'}"
+                       + (" + K17" if int8 else ""))
+                e = engine(dtype, flash)
+                with optin_switches(int8=int8):
+                    enc[key] = encoder_ms(e, mel)
+                    enc_dev[key] = encoder_event_ms(e, mel)
     log(f"[large-v3 opt-in] flash + int8 switch, f32: {len(kern.tokens)} "
         f"tokens in {dt * 1e3:.1f} ms; tokens "
         f"{'identical' if gap is None else f'near tie {gap:.3g}'} to the "
         f"plain versions; launches "
         f"{ {k: v for k, v in counts.items() if v} }; encoder ms (one "
-        f"30 s clip, B=1): " + ", ".join(f"{k} {v:.3f}"
-                                          for k, v in enc.items()))
+        f"30 s clip, B=1; host wall / device by CUDA events): " + ", ".join(
+            f"{k} {v:.3f} / {enc_dev[k]:.3f}" for k, v in enc.items()))
     del eng, params
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     return {"seconds": dt, "launches": counts, "want_launches": want,
-            "near_tie_gap": gap, "encoder_ms": enc}
+            "near_tie_gap": gap, "encoder_ms": enc,
+            "encoder_device_ms": enc_dev}
 
 
 # ---------------------------------------------------------------------------
@@ -5416,6 +5665,14 @@ KERNELS = [
      "whisper_apr_tpu/ops/int8_matmul.py:72", "tiny_optin"),
     ("int4_matmul", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
      "whisper_apr_tpu/ops/int4_matmul.py:115", "tiny_optin"),
+    # the f32 paths (three bf16 terms on the tensor cores): K16 at B=1,
+    # K17 / K18's tile kernels at 1500 rows, at large-v3's shapes
+    ("flash_attention_f32", "whisper_apr_tpu_torch/csrc/flash_attention.cu",
+     "whisper_apr_tpu/ops/flash_attention.py:135", "large_v3_optin"),
+    ("int8_matmul_f32", "whisper_apr_tpu_torch/csrc/int8_matmul.cu",
+     "whisper_apr_tpu/ops/int8_matmul.py:72", "large_v3_optin"),
+    ("int4_matmul_f32", "whisper_apr_tpu_torch/csrc/dequant_matmul.cu",
+     "whisper_apr_tpu/ops/int4_matmul.py:115", "large_v3_optin"),
     ("int8_dot", "whisper_apr_tpu_torch/csrc/probe_mma.cu",
      "tools/probe_layer_kernel.py:427", "probes"),
     ("mixed_dot", "whisper_apr_tpu_torch/csrc/probe_mma.cu",
@@ -5481,9 +5738,10 @@ def main() -> int:
         kq = phase_kquant(Path(work))
         check_kq_launches(kq)
         int4 = phase_int4(e2e["apr"])
-        assert int4["launches"] == int4["want_launches"], (
-            f"[int4] launches {int4['launches']}, want "
-            f"{int4['want_launches']}")
+        for sfx in ("", "_f32"):
+            assert int4["launches" + sfx] == int4["want_launches" + sfx], (
+                f"[int4] launches{sfx} {int4['launches' + sfx]}, want "
+                f"{int4['want_launches' + sfx]}")
     large = phase_large_v3()
     large_optin = phase_large_v3_optin()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -5505,7 +5763,8 @@ def main() -> int:
             *(p["launches"] for p in decoders["paths"].values()),
             *(p["launches"] for p in kq["paths"].values()),
             *(r["launches"] for r in paged["runs"].values()),
-            int4["launches"], large_optin["launches"], tool_res["launches"],
+            int4["launches"], int4["launches_f32"], large_optin["launches"],
+            tool_res["launches"],
             *(f["launches"] for f in formats.values())]
     total = {k: sum(r.get(k, 0) for r in runs) for k in e2e["total"]}
     for name in ("int8_dot", "mixed_dot", "tricks"):
@@ -5518,11 +5777,16 @@ def main() -> int:
     lib_total = {k: sum(r.get(k, 0) for r in lib_runs) for k in native.CALLS}
     assert all(lib_total[k] > 0 for k in (
         "resample_sinc", "lz4_decompress_block", "dtw_path")), lib_total
+    # the f32 entries' bound is on the tensor cores they run on; beside it
+    # their bound on the CUDA cores' f32 rate
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    simt = "f32_simt_bound_ms"
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": errs[name],
-         **{k: times[at][name][k] for k in keys}}
+         **{k: times[at][name][k] for k in keys},
+         **({simt: times[at][name][simt]} if simt in times[at][name]
+            else {})}
         for name, src, rep, at in KERNELS]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if detail_path is not None:
@@ -5543,7 +5807,7 @@ def main() -> int:
                              if k != "launch_checks"},
                   "paged": paged["runs"],
                   "int4": {k: v for k, v in int4.items()
-                           if k != "want_launches"},
+                           if not k.startswith("want_launches")},
                   "large_v3_optin": {k: v for k, v in large_optin.items()
                                      if k != "want_launches"},
                   "probe_tool": tool_res, "formats": formats,

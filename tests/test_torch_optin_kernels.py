@@ -7,6 +7,8 @@ the flash encoder and engine, the kernel selector, and the routing of
 Inputs are made with numpy from fixed seeds and handed to both packages.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,6 +183,232 @@ class TestFlashSplit:
         plan = tfa.flash_split(1, 6, 64, 1300)
         assert plan == tfa.FlashSplit(4, 6)
         assert plan.key_ranges(1300)[-1] == (1152, 1300)
+
+    @pytest.mark.parametrize("dtype,width,split", [
+        (torch.float32, 64, True), (torch.float32, 65, True),
+        (torch.bfloat16, 64, True), (torch.bfloat16, 65, False)],
+        ids=["f32", "f32 rows of 65", "bf16", "bf16 rows of 65"])
+    @pytest.mark.parametrize("B,H,Tq,Tk", [(1, 6, 1500, 1500),
+                                           (1, 20, 1500, 1500),
+                                           (1, 6, 100, 1500)],
+                             ids=["tiny B=1", "large-v3 B=1", "Tq=100"])
+    def test_launch_takes_the_split(self, monkeypatch, dtype, width, split,
+                                    B, H, Tq, Tk):
+        """``_flash_cuda`` hands the C entry point ``flash_split``'s plan,
+        with scratch for the split's partials, for f32 at any strides (its
+        tensor-core kernel loads unaligned rows element by element) and for
+        bf16 rows that are 16-byte aligned; bf16 rows that are not (a row
+        of 65 values) run unsplit. f32 launches are counted apart."""
+        calls = []
+
+        class Lib:
+            def wa_flash_attention(self, *args):
+                calls.append(args)
+                return 0
+
+        monkeypatch.setattr(tfa._build, "library", Lib)
+        monkeypatch.setattr(tfa._build, "stream", lambda: 7)
+        q, k, v = (torch.zeros((B, H, T, width), dtype=dtype)[..., :64]
+                   for T in (Tq, Tk, Tk))
+        before = dict(tfa.LAUNCHES)
+        out = tfa._flash_cuda(q, k, v, 0.125, False, Tk, None)
+        assert out.shape == (B, H, Tq, 64) and len(calls) == 1
+        args = calls[0]
+        assert args[16] == (0 if dtype == torch.float32 else 1)
+        plan = tfa.flash_split(B, H, Tq, Tk) if split else \
+            tfa.FlashSplit(1, -(-Tk // tfa.BLOCK_K))
+        assert tuple(args[24:26]) == tuple(plan)
+        assert (args[26] is None) == (plan.n_split == 1)
+        assert args[28] == 7 and len(args) == 29
+        f32 = int(dtype == torch.float32)
+        assert tfa.LAUNCHES == {
+            "flash_attention": before["flash_attention"] + 1,
+            "flash_attention_f32": before["flash_attention_f32"] + f32}
+
+
+# csrc/flash_attention.cu mma_terms: the (q or p term, k or v term) pairs
+# of the f32 kernel's six bf16 products, in its order (hi 0, mid 1, lo 2)
+F32_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+TOL_F32 = 2e-5       # chip_smoke's: f32 outputs, summation order only
+TOL_F32_TERMS = 1e-6  # chip_smoke's: K16-K18 f32 against f64
+# the product sets of a split short of one product: hi.lo, lo.hi, mid.mid
+F32_SHORT = {f"no {n}": tuple(p for p in F32_PAIRS if p != d)
+             for n, d in (("hi.lo", (0, 2)), ("lo.hi", (2, 0)),
+                          ("mid.mid", (1, 1)))}
+
+
+def _terms_product(a, b, pairs=F32_PAIRS):
+    """a [.., M, K] @ b [.., K, N] as K16's f32 kernel takes it: the f32
+    sum of the bf16 products of the operands' three-term splits in
+    ``pairs``, 16 deep a step (the mma's k), each step's products summed
+    exactly and rounded once into the f32 sum."""
+    ta, tb = _bf16_terms(a), _bf16_terms(b)
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for c in range(0, a.shape[-1], 16):
+        for i, j in pairs:
+            step = np.matmul(ta[i][..., c:c + 16].astype(np.float64),
+                             tb[j][..., c:c + 16, :].astype(np.float64))
+            acc = (acc + step).astype(np.float32)
+    return acc
+
+
+def _emulate_f32_flash(q, k, v, causal=False, kv_valid=None,
+                       pairs=F32_PAIRS):
+    """K16's f32 kernel in numpy, [B, H, T, 64] f32 -> f32: q . k^T and
+    p . v by ``_terms_product``; the scores scaled into the log2 domain
+    and masked at -0.7 f32max; p = 2^(s - m) in f32, not rounded; out =
+    acc / l."""
+    f32, Tq, Tk = np.float32, q.shape[2], k.shape[2]
+    kv_valid = Tk if kv_valid is None else kv_valid
+    s = _terms_product(q, np.swapaxes(k, -1, -2), pairs)
+    s = (s * f32(64 ** -0.5 * np.log2(np.e))).astype(f32)
+    col, row = np.arange(Tk)[None, :], np.arange(Tq)[:, None]
+    ok = (col < kv_valid) & ((col <= row) if causal else True)
+    s = np.where(ok, s, f32(-0.7 * np.finfo(np.float32).max))
+    p = np.exp2((s - s.max(-1, keepdims=True)).astype(np.float64)).astype(f32)
+    l = p.sum(-1, keepdims=True, dtype=f32)
+    return _terms_product(p, v, pairs) / l
+
+
+def _softmax_f64(q, k, causal=False, kv_valid=None):
+    q, k = q.astype(np.float64), k.astype(np.float64)
+    Tq, Tk = q.shape[2], k.shape[2]
+    kv_valid = Tk if kv_valid is None else kv_valid
+    s = np.matmul(q, np.swapaxes(k, -1, -2)) * 64 ** -0.5
+    col, row = np.arange(Tk)[None, :], np.arange(Tq)[:, None]
+    ok = (col < kv_valid) & ((col <= row) if causal else True)
+    s = np.where(ok, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
+def _attention_f64(q, k, v, causal=False, kv_valid=None):
+    return np.matmul(_softmax_f64(q, k, causal, kv_valid),
+                     v.astype(np.float64))
+
+
+FLASH_TERM_CASES = pytest.mark.parametrize("H,Tq,Tk,kw", [
+    (6, 64, 1500, {}), (20, 64, 1500, {}),
+    (6, 64, 1500, dict(kv_valid=1025)), (20, 64, 1500, dict(kv_valid=1025)),
+    (6, 448, 448, dict(causal=True)), (20, 448, 448, dict(causal=True))],
+    ids=["tiny", "large-v3", "tiny kv_valid", "large-v3 kv_valid",
+         "tiny causal", "large-v3 causal"])
+
+FLASH_TERM_CASES_X30 = pytest.mark.parametrize("Tq,Tk,kw", [
+    (64, 1500, {}), (64, 1500, dict(kv_valid=1025)),
+    (448, 448, dict(causal=True))], ids=["1500 keys", "kv_valid", "causal"])
+
+
+class TestFlashF32Terms:
+    """The term set of K16's f32 kernel (``F32_PAIRS``: hi.hi, hi.mid,
+    mid.hi, hi.lo, lo.hi, mid.mid of the three-term bf16 splits), emulated
+    in numpy against f64, before any chip run: for the scores q . k^T and
+    for p . v (p the f64 softmax's, in f32) within chip_smoke's f32
+    tolerance of f64 at the smoke's unit-normal draws and at 30x them, and
+    the whole attention at the smoke's draws. (At 30x the scores reach
+    about 1e3, where f32's own rounding of a score, 2^-24 of it, moves an
+    output by more than that tolerance: the plain f32 version is 4e-5 to
+    3e-4 from f64 there, so at that gain the whole attention is held to
+    the plain f32 version's distance from f64.) Then that chip_smoke's
+    check against f64 (``TOL_F32_TERMS``) sees each product: a split short
+    of hi.lo, lo.hi or mid.mid misses it."""
+
+    @pytest.mark.parametrize("gain", [1.0, 30.0], ids=["x1", "x30"])
+    @FLASH_TERM_CASES
+    def test_products_within_tolerance_of_f64(self, H, Tq, Tk, kw, gain):
+        q, k, v = (a * np.float32(gain) for a in _qkv(11, 1, H, Tq, Tk=Tk))
+        kt = np.swapaxes(k, -1, -2)
+        want = np.matmul(q.astype(np.float64), kt.astype(np.float64))
+        assert _rel(_terms_product(q, kt), want) <= TOL_F32
+        p = _softmax_f64(q, k, **kw)
+        want = np.matmul(p, v.astype(np.float64))
+        assert _rel(_terms_product(p.astype(np.float32), v), want) <= TOL_F32
+
+    @FLASH_TERM_CASES
+    def test_attention_within_tolerance_of_f64(self, H, Tq, Tk, kw):
+        q, k, v = _qkv(11, 1, H, Tq, Tk=Tk)
+        err = _rel(_emulate_f32_flash(q, k, v, **kw),
+                   _attention_f64(q, k, v, **kw))
+        assert err <= TOL_F32, err
+
+    def test_fewer_terms_miss(self):
+        """The tolerance sees the terms: with hi.hi alone (plain bf16
+        operands) the scores and the attention are far outside it."""
+        q, k, v = _qkv(11, 1, 6, 64, Tk=1500)
+        kt = np.swapaxes(k, -1, -2)
+        want = np.matmul(q.astype(np.float64), kt.astype(np.float64))
+        assert _rel(_terms_product(q, kt, ((0, 0),)), want) > 10 * TOL_F32
+        got = _emulate_f32_flash(q, k, v, pairs=((0, 0),))
+        assert _rel(got, _attention_f64(q, k, v)) > 10 * TOL_F32
+
+    @pytest.mark.parametrize("short", [None, *F32_SHORT],
+                             ids=["six products", *F32_SHORT])
+    @pytest.mark.parametrize("H", [6, 20], ids=["tiny", "large-v3"])
+    @pytest.mark.parametrize("Tq,Tk,causal", [(128, 64, False),
+                                              (128, 64, True),
+                                              (64, 128, False)],
+                             ids=["one key tile", "causal", "two key tiles"])
+    def test_terms_check_sees_each_product(self, short, H, Tq, Tk, causal):
+        """chip_smoke's check of K16 f32 against f64 (``F32_TERM_FLASH``,
+        ``TOL_F32_TERMS``) at three seeds: the six products are within
+        it, and a split short of any one of hi.lo, lo.hi, mid.mid misses
+        it at every seed (``TOL_F32`` against the plain version would not
+        see these: they come 2e-6 to 8e-6 from it)."""
+        pairs = F32_PAIRS if short is None else F32_SHORT[short]
+        kw = dict(causal=causal)
+        for seed in (11, 12, 13):
+            q, k, v = _qkv(seed, 1, H, Tq, Tk=Tk)
+            err = _rel(_emulate_f32_flash(q, k, v, pairs=pairs, **kw),
+                       _attention_f64(q, k, v, **kw))
+            assert (err <= TOL_F32_TERMS) == (short is None), (seed, err)
+
+    @pytest.mark.parametrize("H", [6, 20], ids=["tiny", "large-v3"])
+    @FLASH_TERM_CASES_X30
+    def test_as_close_to_f64_as_plain_f32_at_x30(self, H, Tq, Tk, kw):
+        """At 30x the smoke's draws (scores near 1e3) no f32 attention is
+        within TOL_F32 of f64; the six products come about as far from
+        f64 as the port's plain f32 attention (at most 1.5x: 0.36x-1.10x
+        here), and each split short of one product more than twice as far
+        (3.1x-19x)."""
+        q, k, v = (a * np.float32(30) for a in _qkv(11, 1, H, Tq, Tk=Tk))
+        want = _attention_f64(q, k, v, **kw)
+        plain = _rel(tfa.flash_attention_plain(
+            *(torch.from_numpy(a) for a in (q, k, v)), **kw).numpy(), want)
+        assert _rel(_emulate_f32_flash(q, k, v, **kw), want) <= 1.5 * plain
+        for pairs in F32_SHORT.values():
+            got = _emulate_f32_flash(q, k, v, pairs=pairs, **kw)
+            assert _rel(got, want) > 2 * plain
+
+
+def _terms_matmul(x, w, terms=3):
+    """K17 / K18's f32 x @ exactly widened weights w: x as its first
+    ``terms`` bf16 terms, each step of 16 rows of K summed exactly and
+    rounded once into the f32 sum."""
+    tx = _bf16_terms(x)[:terms]
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for c in range(0, x.shape[1], 16):
+        step = sum(np.matmul(t[:, c:c + 16].astype(np.float64),
+                             w[c:c + 16].astype(np.float64)) for t in tx)
+        acc = (acc + step).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("terms", [3, 2], ids=["hi mid lo", "no lo"])
+@pytest.mark.parametrize("K,N", [(384, 1536), (1280, 5120)],
+                         ids=["tiny fc1", "large-v3 fc1"])
+def test_f32_matmul_terms_against_f64(terms, K, N):
+    """chip_smoke's check of K17 / K18 f32 against f64 (``TOL_F32_TERMS``
+    at fc1's shape): x as three bf16 terms times int8 weights is within
+    it; without x's lo term it misses it (and would pass ``TOL_F32``
+    against the plain version)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(64, K)).astype(np.float32)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    s = (0.001 + 0.01 * rng.random(N)).astype(np.float32)
+    want = (x.astype(np.float64) @ w.astype(np.float64)) * s
+    err = _rel(_terms_matmul(x, w, terms) * s, want)
+    assert (err <= TOL_F32_TERMS) == (terms == 3), err
+    assert err <= TOL_F32
 
 
 @pytest.fixture(scope="module")
@@ -427,7 +655,31 @@ class TestInt4Plan:
         args = calls[0]
         assert args[1:4] == (0, M, K) and args[5] == N and args[7] == N
         assert tuple(args[9:11]) == tuple(ti4.int4_plan(M, K, N))
-        assert args[11] == 7 and len(args) == 12
+        assert isinstance(args[11], int)     # where the kernel's route goes
+        assert args[12] == 7 and len(args) == 13
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("M", [16, 17, 1500])
+    def test_f32_tile_launches_counted(self, monkeypatch, dtype, M):
+        """A launch on f32 x that the C entry point reports as the tile
+        kernel's (above 16 rows: three bf16 terms) counts in
+        ``int4_matmul_f32`` beside ``int4_matmul``."""
+        def launch(self, *a):     # the entry point's report of its route
+            ctypes.c_int.from_address(a[11]).value = int(M > 16)
+            return 0
+
+        monkeypatch.setattr(ti4._build, "library", lambda: type(
+            "Lib", (), {"wa_int4_matmul": launch})())
+        monkeypatch.setattr(ti4._build, "stream", lambda: 7)
+        x = torch.zeros((M, 64), dtype=dtype)
+        before = dict(ti4.LAUNCHES)
+        ti4._int4_cuda(x, torch.zeros((64, 48), dtype=torch.int8),
+                       torch.ones(96))
+        tile = int(dtype == torch.float32 and M > 16)
+        assert ti4.LAUNCHES == {
+            "int4_matmul": before["int4_matmul"] + 1,
+            "int4_matmul_f32": before["int4_matmul_f32"] + tile}
 
 
 class TestInt8Plan:
@@ -504,7 +756,31 @@ class TestInt8Plan:
         args = calls[0]
         assert args[1:4] == (0, M, K) and args[5] == N and args[7] == N
         assert tuple(args[9:11]) == tuple(ti8.int8_plan(M, K, N))
-        assert args[11] == 7 and len(args) == 12
+        assert isinstance(args[11], int)     # where the kernel's route goes
+        assert args[12] == 7 and len(args) == 13
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("M", [32, 33, 1500])
+    def test_f32_tile_launches_counted(self, monkeypatch, dtype, M):
+        """A launch on f32 x that the C entry point reports as the tile
+        kernel's (above 32 rows: three bf16 terms) counts in
+        ``int8_matmul_f32`` beside ``int8_matmul``."""
+        def launch(self, *a):     # the entry point's report of its route
+            ctypes.c_int.from_address(a[11]).value = int(M > 32)
+            return 0
+
+        monkeypatch.setattr(ti8._build, "library", lambda: type(
+            "Lib", (), {"wa_int8_matmul": launch})())
+        monkeypatch.setattr(ti8._build, "stream", lambda: 7)
+        x = torch.zeros((M, 64), dtype=dtype)
+        before = dict(ti8.LAUNCHES)
+        ti8._int8_cuda(x, torch.zeros((64, 96), dtype=torch.int8),
+                       torch.ones(96))
+        tile = int(dtype == torch.float32 and M > 32)
+        assert ti8.LAUNCHES == {
+            "int8_matmul": before["int8_matmul"] + 1,
+            "int8_matmul_f32": before["int8_matmul_f32"] + tile}
 
 
 def _int8_widen(word: int, B: int) -> float:

@@ -87,7 +87,8 @@ def test_end_to_end_phase_on_cpu(smoke, e2e_small):
         "qmatvec_stacked", "ffn_fused", "q4k_matvec_stacked",
         "kq_matvec_stacked", "self_block_kq", "cross_block_kq",
         "ffn_block_kq", "paged_attention_stacked", "flash_attention",
-        "int8_matmul", "int4_matmul", "int8_dot", "mixed_dot", "tricks"}
+        "int8_matmul", "int4_matmul", "int8_dot", "mixed_dot", "tricks",
+        "flash_attention_f32", "int8_matmul_f32", "int4_matmul_f32"}
     assert not any(out["total"].values())
     steps = requests[0]["decode_steps"]
     assert requests[0]["want_launches"]["self_block"] == \
@@ -375,7 +376,14 @@ def test_optin_full_width_phases_on_cpu(smoke, e2e_small):
     assert large["near_tie_gap"] is None
     assert large["want_launches"]["int8_matmul"] == 6 * La + 10 * L
     assert large["want_launches"]["flash_attention"] == La
-    assert len(large["encoder_ms"]) == 6     # bf16 with K17 twice more
+    # f32: K16 and K17's 1500-row linears through the three-term kernels
+    assert large["want_launches"]["flash_attention_f32"] == La
+    assert large["want_launches"]["int8_matmul_f32"] == 6 * La + 2 * L
+    assert int4["want_launches_f32"]["int4_matmul_f32"] == 6 * La + 2 * L
+    assert not any(int4["launches_f32"].values())
+    # f32 and bf16, plain attention and K16, K17 off and on
+    assert len(large["encoder_ms"]) == 8
+    assert set(large["encoder_device_ms"]) == set(large["encoder_ms"])
     assert not int8_matmul.USE_PALLAS_INT8 and not int4_matmul.USE_PALLAS_INT4
 
 
@@ -435,6 +443,33 @@ def test_optin_bounds(smoke):
     assert abs(1e3 * ms4 - (0.1871 - 384 * 768 / 3.35e12 * 1e6)) < 1e-3
 
 
+def test_f32_bounds_and_floors(smoke):
+    """The f32 rows' bound on the CUDA cores (67 TFLOP/s: K16 at large-v3
+    B=1 0.172 ms, K17 / K18 fc1 at 1500 rows 0.293 ms, operations-bound)
+    and their tensor-core floors at six and three bf16 products an f32
+    one (69.9 and 59.6 us at 989 TFLOP/s), which are their bounds on the
+    tensor cores they run on (the bytes take 9.2 and 13.4 us); the prompt
+    row counts above the decode kernels' rows."""
+    ms, by = smoke.optin_bound("flash_attention", B=1, H=20, Tq=1500,
+                               Tk=1500, elem=4, compute="float32")
+    assert by == "operations" and abs(1e3 * ms - 171.9) < 0.1
+    ms, by = smoke.optin_bound("flash_attention", B=1, H=20, Tq=1500,
+                               Tk=1500, elem=4, products=6)
+    assert by == "operations" and abs(1e3 * ms - 69.9) < 0.1
+    for name in ("int8_matmul", "int4_matmul"):
+        ms, by = smoke.optin_bound(name, M=1500, K=1280, N=5120, elem=4,
+                                   compute="float32")
+        assert by == "operations" and abs(1e3 * ms - 293.4) < 0.1
+        ms, by = smoke.optin_bound(name, M=1500, K=1280, N=5120, elem=4,
+                                   products=3)
+        assert by == "operations" and abs(1e3 * ms - 59.6) < 0.1
+    assert abs(1e3 * smoke.tc_floor_ms(6, 4 * 64 * 20 * 1500 ** 2)
+               - 69.9) < 0.1
+    assert abs(1e3 * smoke.tc_floor_ms(3, 2 * 1500 * 5120 * 1280)
+               - 59.6) < 0.1
+    assert smoke.F32_MID_ROWS == {"int8_matmul": 224, "int4_matmul": 64}
+
+
 def test_formats_phase_on_cpu(smoke, tmp_path):
     """The formats phase at a small width: the port's v1 and v2 files in
     f32 and int8 and a compressed v1 int8 file, each validated and loaded
@@ -484,8 +519,11 @@ def test_probe_tool_command(smoke):
         "-m", "whisper_apr_tpu_torch.tools.probe_layer_kernel"]
     assert {"--int8dot", "--tricks", "--large"} <= set(smoke.PROBE_TOOL)
     names = [n for n, *_ in smoke.KERNELS]
-    assert len(names) == 21 and names[-3:] == ["int8_dot", "mixed_dot",
+    # the 21 sites, and K16-K18's f32 paths apart (three bf16 terms)
+    assert len(names) == 24 and names[-3:] == ["int8_dot", "mixed_dot",
                                                "tricks"]
+    assert {"flash_attention_f32", "int8_matmul_f32",
+            "int4_matmul_f32"} <= set(names)
 
 
 @pytest.mark.parametrize("H", [6, 20], ids=["tiny", "large-v3"])

@@ -209,12 +209,14 @@ class ComputeConfig:
     compute_dtype: str = "float32"
     # dtype parameters are stored in on device
     param_dtype: str = "float32"
-    # flash attention for encoder self-attention (kept for config parity;
-    # the port's encoder runs plain torch attention)
+    # flash attention for encoder self-attention: True runs each encoder
+    # layer's attention through K16 (ops/flash_attention.mha_flash, bf16 or
+    # f32 on the tensor cores), False plain torch attention, None the
+    # kernel selector's choice (ops/dispatch.KernelSelector)
     use_flash_attention: "bool | None" = None
     # runtime weight quantization: "none" | "int8" | "int4" | "q4" |
-    # "q4k" | "q5k" | "q6k" (model/params.quantize_params modes; the port
-    # implements "none" and "int8")
+    # "q4k" | "q5k" | "q6k" (model/params.quantize_params implements
+    # every mode)
     quantization: str = "none"
     # decode KV-cache / attention-kernel mode (quantized fast path only).
     # The semantics are the JAX package's; the default resolution ("auto"

@@ -17,8 +17,9 @@
 // Bound: at the encoder's 1500 rows the operations (2 M N K), at a few
 // decode rows the weight bytes.
 //
-// K18, redesigned for the H100, all on the tensor cores but f32 x above
-// 16 rows (dequant_mm_kernel, for the token checks). Every nibble is
+// K18, redesigned for the H100, all on the tensor cores, f32 x as three
+// bf16 terms whose sum is x (each multiplied by the exactly widened
+// weight into the same f32 sums). Every nibble is
 // widened without an int -> float convert (a quarter of the FMA rate):
 // (v & 15) ^ 8 goes into the mantissa of 128 as a bf16 (0x4300 | u) and
 // 136 is subtracted, two values a register, exactly. Integers of at most
@@ -41,16 +42,19 @@
 //   cluster's barrier, each block sums its share in split order. No
 //   scratch, one launch, and a result that does not depend on the order
 //   blocks run in.
-// - bf16 and M > 16 (the encoder, the cross K/V, a long prompt):
-//   int4_mma_kernel, operations-bound: a 128 x 128 output tile, 8 warps of
-//   64 x 32, 64-deep slices, a 3-stage ring of 16-byte cp.async copies of
-//   x's tile and of the packed tile (a quarter of the bf16 tile's bytes).
-//   The block widens the next slice's packed tile into a bf16 [k][n] tile
-//   (16 bytes of a row become 32 values, four 16-byte stores; two tiles,
-//   so one barrier a slice) while it multiplies this one: A from
-//   ldmatrix.x4 on x's tile, B from ldmatrix.x4.trans on the widened one,
-//   padded row strides (144 and 272 bytes) keeping both free of bank
-//   conflicts; the per-column scale and paired stores in the epilogue.
+// - M > 16 (the encoder, the cross K/V, a long prompt): int4_mma_kernel,
+//   operations-bound: a 128 x 128 output tile, 8 warps, 64-deep slices, a
+//   3-stage ring of 16-byte cp.async copies of x's tile and of the packed
+//   tile (a quarter of the bf16 tile's bytes). The block widens the next
+//   slice's packed tile into a bf16 [k][n] tile (16 bytes of a row become
+//   32 values, four 16-byte stores; two tiles, so one barrier a slice)
+//   while it multiplies this one: B from ldmatrix.x4.trans on the widened
+//   tile, padded row strides keeping the loads free of bank conflicts; the
+//   per-column scale and paired stores in the epilogue. x's side is K17's
+//   (quant_mma.cuh): bf16 by ldmatrix.x4, warps of 64 x 32, two blocks an
+//   SM; f32 split into three terms as each A fragment is built, warps of
+//   32 x 64, three products a fragment pair summed apart and added to the
+//   running sum once a step, one block an SM.
 //
 // Ragged M, N and K edges are masked, so every shape is taken; rows whose
 // addresses are not 16-byte aligned take the kernels' byte-wise loads.
@@ -309,42 +313,33 @@ int launch_mv(const void* x, const uint8_t* w, const float* scale,
 }
 
 // --------------------------------------------------------------------------
-// K18, bf16 and M > 16: tensor cores
+// K18, M > 16: 128 x 128 tiles (x's side in quant_mma.cuh)
 // --------------------------------------------------------------------------
 
-constexpr int T4_BM = 128, T4_BN = 128, T4_BK = 64, T4_STAGES = 3;
-constexpr int T4_THREADS = 256;
-constexpr int T4_XLD = T4_BK + 8;       // x tile row: 144 bytes
-constexpr int T4_WLD = T4_BN + 8;       // widened tile row: 272 bytes
-constexpr int T4_PB = T4_BN / 2;        // packed bytes of a tile row
+constexpr int T4_PB = TM_BN / 2;        // packed bytes of a tile row
 
-// dynamic shared memory (102400 bytes: two blocks an SM)
+// dynamic shared memory: bf16 x 102400 bytes (two blocks an SM), f32 x
+// 157696 (one)
+template <typename XT>
 struct T4Smem {
-    __nv_bfloat16 xs[T4_STAGES][T4_BM][T4_XLD];
-    uint8_t wp[T4_STAGES][T4_BK][T4_PB];
-    __nv_bfloat16 wt[2][T4_BK][T4_WLD];     // [k][n], two slices
+    XT xs[TM_STAGES][TM_BM][TM_XLD];
+    uint8_t wp[TM_STAGES][TM_BK][T4_PB];
+    __nv_bfloat16 wt[2][TM_BK][TM_WLD];     // [k][n], two slices
 };
 
 // stage the slice at k0 of x's tile and of the packed tile: 16-byte
 // cp.async copies (zero-filled past M, K and the row), or, when rows are
 // not 16-byte aligned, element loads
-template <bool ALIGNED>
+template <typename XT, bool ALIGNED>
 __device__ __forceinline__ void t4_stage(
-        T4Smem& s, int st, const __nv_bfloat16* __restrict__ x,
+        T4Smem<XT>& s, int st, const XT* __restrict__ x,
         const uint8_t* __restrict__ w, int M, int K, int N, int m0, int n0,
         int k0, int tid) {
     const int rowb = N / 2;
+    tile_stage_x<XT, ALIGNED>(s.xs[st], x, M, K, m0, k0, tid);
     if (ALIGNED) {
 #pragma unroll
-        for (int e = tid; e < T4_BM * (T4_BK / 8); e += T4_THREADS) {
-            const int r = e / (T4_BK / 8), c = 8 * (e % (T4_BK / 8));
-            const bool ok = m0 + r < M && k0 + c < K;
-            cp_async16(&s.xs[st][r][c],
-                       ok ? x + (size_t)(m0 + r) * K + k0 + c : x,
-                       ok ? 16 : 0);
-        }
-#pragma unroll
-        for (int e = tid; e < T4_BK * (T4_PB / 16); e += T4_THREADS) {
+        for (int e = tid; e < TM_BK * (T4_PB / 16); e += TM_THREADS) {
             const int r = e / (T4_PB / 16), c = 16 * (e % (T4_PB / 16));
             const bool ok = k0 + r < K && n0 / 2 + c < rowb;
             cp_async16(&s.wp[st][r][c],
@@ -353,12 +348,7 @@ __device__ __forceinline__ void t4_stage(
         }
         return;
     }
-    for (int e = tid; e < T4_BM * T4_BK; e += T4_THREADS) {
-        const int r = e / T4_BK, c = e % T4_BK;
-        s.xs[st][r][c] = m0 + r < M && k0 + c < K
-            ? x[(size_t)(m0 + r) * K + k0 + c] : __float2bfloat16_rn(0.f);
-    }
-    for (int e = tid; e < T4_BK * T4_PB; e += T4_THREADS) {
+    for (int e = tid; e < TM_BK * T4_PB; e += TM_THREADS) {
         const int r = e / T4_PB, c = e % T4_PB;
         s.wp[st][r][c] = k0 + r < K && n0 / 2 + c < rowb
             ? w[(size_t)(k0 + r) * rowb + n0 / 2 + c] : (uint8_t)0;
@@ -367,7 +357,8 @@ __device__ __forceinline__ void t4_stage(
 
 // widen stage st's packed slice into wt[buf]: each thread 16 bytes of a
 // row, 32 bf16 values, four 16-byte stores
-__device__ __forceinline__ void t4_widen(T4Smem& s, int st, int buf,
+template <typename XT>
+__device__ __forceinline__ void t4_widen(T4Smem<XT>& s, int st, int buf,
                                          int tid) {
     const int r = tid / (T4_PB / 16), c = 16 * (tid % (T4_PB / 16));
     const uint4 q = *reinterpret_cast<const uint4*>(&s.wp[st][r][c]);
@@ -386,88 +377,57 @@ __device__ __forceinline__ void t4_widen(T4Smem& s, int st, int buf,
 // is widened; the block requests stage it + 2 (into the ring slot that
 // slice it - 1 freed), widens slice it + 1 into the other wt buffer and
 // runs slice it's products
-template <bool ALIGNED>
-__global__ void __launch_bounds__(T4_THREADS) int4_mma_kernel(
-        const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-        const float* __restrict__ scale, int n_scale,
-        __nv_bfloat16* __restrict__ y, int M, int K, int N) {
-    static_assert(T4_THREADS == T4_BK * (T4_PB / 16), "one vector each");
+template <typename XT, bool ALIGNED>
+__global__ void __launch_bounds__(TM_THREADS, TileX<XT>::BLOCKS)
+int4_mma_kernel(
+        const XT* __restrict__ x, const uint8_t* __restrict__ w,
+        const float* __restrict__ scale, int n_scale, XT* __restrict__ y,
+        int M, int K, int N) {
+    static_assert(TM_THREADS == TM_BK * (T4_PB / 16), "one vector each");
+    using TX = TileX<XT>;
+    constexpr int I = TX::WM / 16, J = TX::WN / 8, WC = TM_BN / TX::WN;
     extern __shared__ __align__(16) unsigned char t4_smem[];
-    T4Smem& s = *reinterpret_cast<T4Smem*>(t4_smem);
+    T4Smem<XT>& s = *reinterpret_cast<T4Smem<XT>*>(t4_smem);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-    const int m0 = blockIdx.y * T4_BM, n0 = blockIdx.x * T4_BN;
-    const int nk = (K + T4_BK - 1) / T4_BK;
-    float acc[4][4][4];
+    const int wm = (warp / WC) * TX::WM, wn = (warp % WC) * TX::WN;
+    const int m0 = blockIdx.y * TM_BM, n0 = blockIdx.x * TM_BN;
+    const int nk = (K + TM_BK - 1) / TM_BK;
+    float acc[I][J][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < J; ++j)
             acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-    t4_stage<ALIGNED>(s, 0, x, w, M, K, N, m0, n0, 0, tid);
+    t4_stage<XT, ALIGNED>(s, 0, x, w, M, K, N, m0, n0, 0, tid);
     cp_async_commit();
-    if (nk > 1) t4_stage<ALIGNED>(s, 1, x, w, M, K, N, m0, n0, T4_BK, tid);
+    if (nk > 1)
+        t4_stage<XT, ALIGNED>(s, 1, x, w, M, K, N, m0, n0, TM_BK, tid);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     t4_widen(s, 0, 0, tid);
     for (int it = 0; it < nk; ++it) {
-        const int st = it % T4_STAGES, buf = it & 1;
+        const int st = it % TM_STAGES, buf = it & 1;
         cp_async_wait<0>();
         __syncthreads();
         if (it + 2 < nk)
-            t4_stage<ALIGNED>(s, (it + 2) % T4_STAGES, x, w, M, K, N, m0,
-                              n0, (it + 2) * T4_BK, tid);
+            t4_stage<XT, ALIGNED>(s, (it + 2) % TM_STAGES, x, w, M, K, N, m0,
+                                  n0, (it + 2) * TM_BK, tid);
         cp_async_commit();
-        if (it + 1 < nk) t4_widen(s, (it + 1) % T4_STAGES, buf ^ 1, tid);
+        if (it + 1 < nk) t4_widen(s, (it + 1) % TM_STAGES, buf ^ 1, tid);
 #pragma unroll
-        for (int kc = 0; kc < T4_BK / 16; ++kc) {
-            uint32_t a[4][4], b[4][2];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                ldmatrix_x4(a[i], &s.xs[st][wm + 16 * i + (lane & 15)]
-                                       [16 * kc + 8 * (lane >> 4)]);
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                uint32_t r[4];
-                ldmatrix_x4_trans(
-                    r, &s.wt[buf][16 * kc + (lane & 15)]
-                                 [wn + 16 * jj + 8 * (lane >> 4)]);
-                b[2 * jj][0] = r[0]; b[2 * jj][1] = r[1];
-                b[2 * jj + 1][0] = r[2]; b[2 * jj + 1][1] = r[3];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-        }
+        for (int kc = 0; kc < TM_BK / 16; ++kc)
+            tile_step<XT>(acc, s.xs[st], s.wt[buf], wm, wn, kc, lane);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + wn + 8 * j + 2 * t;     // even; N is even
-        if (gn >= N) continue;
-        const float s0 = col_scale(scale, n_scale, gn);
-        const float s1 = col_scale(scale, n_scale, gn + 1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int gm = m0 + wm + 16 * i + g + 8 * h;
-                if (gm < M)
-                    *reinterpret_cast<__nv_bfloat162*>(
-                        y + (size_t)gm * N + gn) = __floats2bfloat162_rn(
-                        acc[i][j][2 * h] * s0, acc[i][j][2 * h + 1] * s1);
-            }
-    }
+    tile_store<XT>(acc, scale, n_scale, y, M, N, m0 + wm, n0 + wn, lane);
 }
 
 template <typename XT>
 int launch_int4(const void* x, const uint8_t* w, const float* scale,
                 int n_scale, void* y, int M, int K, int N, int n_split,
-                int split_rows, cudaStream_t st) {
+                int split_rows, int* tile, cudaStream_t st) {
     const int rowb = N / 2;
+    if (tile != nullptr) *tile = M > 16;
     if (M <= 16) {
         if (n_split < 1 || n_split > Q4_MAX_SPLIT || split_rows < 1
                 || split_rows % 16 || (long long)n_split * split_rows < K
@@ -487,47 +447,39 @@ int launch_int4(const void* x, const uint8_t* w, const float* scale,
                                             n_split, split_rows, st);
     }
     if (n_split != 1) return ERR_SHAPE;
-    if (std::is_same<XT, __nv_bfloat16>::value) {
-        const bool al = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0
-                        && reinterpret_cast<uintptr_t>(w) % 16 == 0
-                        && rowb % 16 == 0;
-        const dim3 grid((N + T4_BN - 1) / T4_BN, (M + T4_BM - 1) / T4_BM);
-        const auto xp = static_cast<const __nv_bfloat16*>(x);
-        const auto yp = static_cast<__nv_bfloat16*>(y);
-        const auto kernel = al ? int4_mma_kernel<true>
-                               : int4_mma_kernel<false>;
-        const int smem = (int)sizeof(T4Smem);
-        static bool opted_in[2] = {false, false};   // once per kernel
-        if (!opted_in[al]) {
-            const cudaError_t e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (e != cudaSuccess) return (int)e;
-            opted_in[al] = true;
-        }
-        kernel<<<grid, T4_THREADS, smem, st>>>(xp, w, scale, n_scale, yp, M,
-                                               K, N);
-    } else {
-        dequant_mm_kernel<XT, 4><<<dim3((N + DM_BN - 1) / DM_BN,
-                                        (M + 63) / 64), DM_THREADS, 0, st>>>(
-            static_cast<const XT*>(x), reinterpret_cast<const int8_t*>(w),
-            scale, n_scale, static_cast<XT*>(y), M, K, N);
+    const bool al = tile_x_aligned<XT>(x, K)
+                    && reinterpret_cast<uintptr_t>(w) % 16 == 0
+                    && rowb % 16 == 0;
+    const dim3 grid((N + TM_BN - 1) / TM_BN, (M + TM_BM - 1) / TM_BM);
+    const auto kernel = al ? int4_mma_kernel<XT, true>
+                           : int4_mma_kernel<XT, false>;
+    const int smem = (int)sizeof(T4Smem<XT>);
+    static bool opted_in[2] = {false, false};   // once per kernel
+    if (!opted_in[al]) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        opted_in[al] = true;
     }
+    kernel<<<grid, TM_THREADS, smem, st>>>(static_cast<const XT*>(x), w,
+                                           scale, n_scale,
+                                           static_cast<XT*>(y), M, K, N);
     return (int)cudaGetLastError();
 }
 
 int dispatch_int4(const void* x, int dtype, int M, int K, const uint8_t* w,
                   int N, const float* scale, int n_scale, void* y,
-                  int n_split, int split_rows, void* stream) {
+                  int n_split, int split_rows, int* tile, void* stream) {
     if (M < 1 || K < 1 || N < 2 || N % 2 || n_scale < 1
-            || (M + T4_BM - 1) / T4_BM > 65535)
+            || (M + TM_BM - 1) / TM_BM > 65535)
         return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
     if (dtype == F32)
         return launch_int4<float>(x, w, scale, n_scale, y, M, K, N, n_split,
-                                  split_rows, st);
+                                  split_rows, tile, st);
     if (dtype == BF16)
         return launch_int4<__nv_bfloat16>(x, w, scale, n_scale, y, M, K, N,
-                                          n_split, split_rows, st);
+                                          n_split, split_rows, tile, st);
     return ERR_DTYPE;
 }
 
@@ -538,12 +490,13 @@ int dispatch_int4(const void* x, int dtype, int M, int K, const uint8_t* w,
 // every byte), scale [n_scale] f32, y [M, N] in x's dtype. For M <= 16
 // the caller's plan (ops/int4_matmul.int4_plan): n_split blocks over K
 // (at most 16: one cluster), each split_rows rows (a multiple of 16);
-// for M > 16, n_split 1. No scratch.
+// for M > 16, n_split 1. No scratch. *tile (unless null) is set to 1
+// where the launch is the tile kernel's (M > 16), else 0.
 extern "C" int wa_int4_matmul(const void* x, int dtype, int M, int K,
                               const int8_t* wq, int N, const float* scale,
                               int n_scale, void* y, int n_split,
-                              int split_rows, void* stream) {
+                              int split_rows, int* tile, void* stream) {
     return wa::dispatch_int4(x, dtype, M, K,
                              reinterpret_cast<const uint8_t*>(wq), N, scale,
-                             n_scale, y, n_split, split_rows, stream);
+                             n_scale, y, n_split, split_rows, tile, stream);
 }

@@ -23,9 +23,10 @@
 // Bound: at a few decode rows the weight bytes (K * N: 66.5 MB for
 // large-v3's vocab, 20 MB for whisper-tiny's), at the encoder's 1500 rows
 // the operations (2 M N K).
-// Both are carried by the tensor cores, as K18's kernels do for int4
-// (dequant_matmul.cu); f32 x above 32 rows in K17 takes the CUDA-core
-// dequant_mm_kernel (quant_mma.cuh), for the token checks.
+// Both are carried by the tensor cores at every M and for either dtype of
+// x, as K18's kernels do for int4 (dequant_matmul.cu): f32 x is fed as
+// three bf16 terms whose sum is x, each multiplied by the exactly widened
+// weight into the same f32 sums.
 //
 // Widening int8 to bf16 without an int -> float convert (I2F runs at a
 // quarter of the FMA rate): bf16 holds every int8 exactly, but no bf16
@@ -72,14 +73,23 @@
 //   the two-launch form and a ticket taken as the blocks end, this is the
 //   faster at every M: the merge starts one load round trip after the
 //   last strip, with no fence, atomic or launch in between.
-// - K17, bf16 and M > 32 (the encoder, the cross K/V, a long prefill):
-//   int8_mma_kernel, operations-bound: a 128 x 128 output tile, 8 warps of
-//   64 x 32, 64-deep slices, a 3-stage ring of 16-byte cp.async copies of
-//   x's tile and of the int8 tile. The block widens the next slice's int8
-//   tile into a bf16 [k][n] tile while it multiplies this one: A from
-//   ldmatrix.x4 on x's tile, B from ldmatrix.x4.trans on the widened one,
-//   padded row strides (144 and 272 bytes) keeping both free of bank
-//   conflicts.
+// - K17, M > 32 (the encoder, the cross K/V, a long prefill):
+//   int8_mma_kernel, operations-bound: a 128 x 128 output tile, 8 warps,
+//   64-deep slices, a 3-stage ring of 16-byte cp.async copies of x's tile
+//   and of the int8 tile. The block widens the next slice's int8 tile into
+//   a bf16 [k][n] tile while it multiplies this one: B from
+//   ldmatrix.x4.trans on the widened tile, padded row strides (272 bytes,
+//   and 144 / 288 for x's bf16 / f32 rows) keeping the loads free of bank
+//   conflicts. bf16 x: warps of 64 x 32, A from ldmatrix.x4, two blocks an
+//   SM. f32 x: warps of 32 x 64 (each x value split by two warps, not
+//   four), A split into its three terms from float2 loads as it is built
+//   (quant_mma.cuh tile_a), three products a fragment pair summed apart
+//   and added to the running sum once a step (quant_mma.cuh tile_step:
+//   the tensor cores truncate what an mma adds below its largest addend's
+//   24 bits), one block an SM (170 KB of shared memory). The three bf16
+//   products of each f32 one put its tensor-core floor at three times the
+//   bf16 kernel's, its bound (59.6 us at large-v3's fc1 over 1500 rows;
+//   on the CUDA cores' 67 f32 TFLOP/s it would be 293 us).
 //
 // Ragged M, N and K edges are masked; rows whose addresses are not 16-byte
 // aligned take the kernels' byte-wise loads.
@@ -558,41 +568,32 @@ int decode_rows(const void* x, const uint8_t* w, const float* scale,
 }
 
 // --------------------------------------------------------------------------
-// K17, bf16 and M > 32: 128 x 128 tiles
+// K17, M > 32: 128 x 128 tiles (x's side in quant_mma.cuh)
 // --------------------------------------------------------------------------
 
-constexpr int T8_BM = 128, T8_BN = 128, T8_BK = 64, T8_STAGES = 3;
-constexpr int T8_THREADS = 256;
-constexpr int T8_XLD = T8_BK + 8;       // x tile row: 144 bytes
-constexpr int T8_WLD = T8_BN + 8;       // widened tile row: 272 bytes
 
-// dynamic shared memory (114688 bytes: two blocks an SM)
+// dynamic shared memory: bf16 x 114688 bytes (two blocks an SM), f32 x
+// 169984 (one)
+template <typename XT>
 struct T8Smem {
-    __nv_bfloat16 xs[T8_STAGES][T8_BM][T8_XLD];
-    uint8_t wq[T8_STAGES][T8_BK][T8_BN];
-    __nv_bfloat16 wt[2][T8_BK][T8_WLD];     // [k][n], two slices
+    XT xs[TM_STAGES][TM_BM][TM_XLD];
+    uint8_t wq[TM_STAGES][TM_BK][TM_BN];
+    __nv_bfloat16 wt[2][TM_BK][TM_WLD];     // [k][n], two slices
 };
 
 // stage the slice at k0 of x's tile and of the int8 tile: 16-byte
 // cp.async copies (zero-filled past M, K and N), or, when rows are not
 // 16-byte aligned, element loads
-template <bool ALIGNED>
+template <typename XT, bool ALIGNED>
 __device__ __forceinline__ void t8_stage(
-        T8Smem& s, int st, const __nv_bfloat16* __restrict__ x,
+        T8Smem<XT>& s, int st, const XT* __restrict__ x,
         const uint8_t* __restrict__ w, int M, int K, int N, int m0, int n0,
         int k0, int tid) {
+    tile_stage_x<XT, ALIGNED>(s.xs[st], x, M, K, m0, k0, tid);
     if (ALIGNED) {
 #pragma unroll
-        for (int e = tid; e < T8_BM * (T8_BK / 8); e += T8_THREADS) {
-            const int r = e / (T8_BK / 8), c = 8 * (e % (T8_BK / 8));
-            const bool ok = m0 + r < M && k0 + c < K;
-            cp_async16(&s.xs[st][r][c],
-                       ok ? x + (size_t)(m0 + r) * K + k0 + c : x,
-                       ok ? 16 : 0);
-        }
-#pragma unroll
-        for (int e = tid; e < T8_BK * (T8_BN / 16); e += T8_THREADS) {
-            const int r = e / (T8_BN / 16), c = 16 * (e % (T8_BN / 16));
+        for (int e = tid; e < TM_BK * (TM_BN / 16); e += TM_THREADS) {
+            const int r = e / (TM_BN / 16), c = 16 * (e % (TM_BN / 16));
             const bool ok = k0 + r < K && n0 + c < N;
             cp_async16(&s.wq[st][r][c],
                        ok ? w + (size_t)(k0 + r) * N + n0 + c : w,
@@ -600,13 +601,8 @@ __device__ __forceinline__ void t8_stage(
         }
         return;
     }
-    for (int e = tid; e < T8_BM * T8_BK; e += T8_THREADS) {
-        const int r = e / T8_BK, c = e % T8_BK;
-        s.xs[st][r][c] = m0 + r < M && k0 + c < K
-            ? x[(size_t)(m0 + r) * K + k0 + c] : __float2bfloat16_rn(0.f);
-    }
-    for (int e = tid; e < T8_BK * T8_BN; e += T8_THREADS) {
-        const int r = e / T8_BN, c = e % T8_BN;
+    for (int e = tid; e < TM_BK * TM_BN; e += TM_THREADS) {
+        const int r = e / TM_BN, c = e % TM_BN;
         s.wq[st][r][c] = k0 + r < K && n0 + c < N
             ? w[(size_t)(k0 + r) * N + n0 + c] : (uint8_t)0;
     }
@@ -615,12 +611,13 @@ __device__ __forceinline__ void t8_stage(
 // widen stage st's int8 slice into wt[buf]: each thread two 16-byte
 // vectors (a warp reads 512 contiguous bytes), 16 bf16 values each, two
 // 16-byte stores
-__device__ __forceinline__ void t8_widen(T8Smem& s, int st, int buf,
+template <typename XT>
+__device__ __forceinline__ void t8_widen(T8Smem<XT>& s, int st, int buf,
                                          int tid) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        const int v = tid + T8_THREADS * h;
-        const int r = v / (T8_BN / 16), c = 16 * (v % (T8_BN / 16));
+        const int v = tid + TM_THREADS * h;
+        const int r = v / (TM_BN / 16), c = 16 * (v % (TM_BN / 16));
         const uint4 q = *reinterpret_cast<const uint4*>(&s.wq[st][r][c]);
         const uint32_t words[4] = {q.x ^ FLIP, q.y ^ FLIP, q.z ^ FLIP,
                                    q.w ^ FLIP};
@@ -642,101 +639,61 @@ __device__ __forceinline__ void t8_widen(T8Smem& s, int st, int buf,
 // is widened; the block requests stage it + 2 (into the ring slot that
 // slice it - 1 freed), widens slice it + 1 into the other wt buffer and
 // runs slice it's products
-template <bool ALIGNED>
-__global__ void __launch_bounds__(T8_THREADS) int8_mma_kernel(
-        const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-        const float* __restrict__ scale, int n_scale,
-        __nv_bfloat16* __restrict__ y, int M, int K, int N) {
-    static_assert(2 * T8_THREADS == T8_BK * (T8_BN / 16), "two vectors each");
+template <typename XT, bool ALIGNED>
+__global__ void __launch_bounds__(TM_THREADS, TileX<XT>::BLOCKS)
+int8_mma_kernel(
+        const XT* __restrict__ x, const uint8_t* __restrict__ w,
+        const float* __restrict__ scale, int n_scale, XT* __restrict__ y,
+        int M, int K, int N) {
+    static_assert(2 * TM_THREADS == TM_BK * (TM_BN / 16), "two vectors each");
+    using TX = TileX<XT>;
+    constexpr int I = TX::WM / 16, J = TX::WN / 8, WC = TM_BN / TX::WN;
     extern __shared__ __align__(16) unsigned char t8_smem[];
-    T8Smem& s = *reinterpret_cast<T8Smem*>(t8_smem);
+    T8Smem<XT>& s = *reinterpret_cast<T8Smem<XT>*>(t8_smem);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-    const int m0 = blockIdx.y * T8_BM, n0 = blockIdx.x * T8_BN;
-    const int nk = (K + T8_BK - 1) / T8_BK;
-    float acc[4][4][4];
+    const int wm = (warp / WC) * TX::WM, wn = (warp % WC) * TX::WN;
+    const int m0 = blockIdx.y * TM_BM, n0 = blockIdx.x * TM_BN;
+    const int nk = (K + TM_BK - 1) / TM_BK;
+    float acc[I][J][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < J; ++j)
             acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-    t8_stage<ALIGNED>(s, 0, x, w, M, K, N, m0, n0, 0, tid);
+    t8_stage<XT, ALIGNED>(s, 0, x, w, M, K, N, m0, n0, 0, tid);
     cp_async_commit();
-    if (nk > 1) t8_stage<ALIGNED>(s, 1, x, w, M, K, N, m0, n0, T8_BK, tid);
+    if (nk > 1)
+        t8_stage<XT, ALIGNED>(s, 1, x, w, M, K, N, m0, n0, TM_BK, tid);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     t8_widen(s, 0, 0, tid);
     for (int it = 0; it < nk; ++it) {
-        const int st = it % T8_STAGES, buf = it & 1;
+        const int st = it % TM_STAGES, buf = it & 1;
         cp_async_wait<0>();
         __syncthreads();
         if (it + 2 < nk)
-            t8_stage<ALIGNED>(s, (it + 2) % T8_STAGES, x, w, M, K, N, m0,
-                              n0, (it + 2) * T8_BK, tid);
+            t8_stage<XT, ALIGNED>(s, (it + 2) % TM_STAGES, x, w, M, K, N, m0,
+                                  n0, (it + 2) * TM_BK, tid);
         cp_async_commit();
-        if (it + 1 < nk) t8_widen(s, (it + 1) % T8_STAGES, buf ^ 1, tid);
+        if (it + 1 < nk) t8_widen(s, (it + 1) % TM_STAGES, buf ^ 1, tid);
 #pragma unroll
-        for (int kc = 0; kc < T8_BK / 16; ++kc) {
-            uint32_t a[4][4], b[4][2];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                ldmatrix_x4(a[i], &s.xs[st][wm + 16 * i + (lane & 15)]
-                                       [16 * kc + 8 * (lane >> 4)]);
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                uint32_t r[4];
-                ldmatrix_x4_trans(
-                    r, &s.wt[buf][16 * kc + (lane & 15)]
-                                 [wn + 16 * jj + 8 * (lane >> 4)]);
-                b[2 * jj][0] = r[0]; b[2 * jj][1] = r[1];
-                b[2 * jj + 1][0] = r[2]; b[2 * jj + 1][1] = r[3];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-        }
+        for (int kc = 0; kc < TM_BK / 16; ++kc)
+            tile_step<XT>(acc, s.xs[st], s.wt[buf], wm, wn, kc, lane);
     }
-    // paired stores where N is even (gn even: the pair is in the row and
-    // 4-byte aligned), else one value at a time
-    const bool pairs = N % 2 == 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + wn + 8 * j + 2 * t;
-        if (gn >= N) continue;
-        const float s0 = col_scale(scale, n_scale, gn);
-        const float s1 = gn + 1 < N ? col_scale(scale, n_scale, gn + 1) : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int gm = m0 + wm + 16 * i + g + 8 * h;
-                if (gm >= M) continue;
-                __nv_bfloat16* out = y + (size_t)gm * N + gn;
-                const float v0 = acc[i][j][2 * h] * s0;
-                const float v1 = acc[i][j][2 * h + 1] * s1;
-                if (pairs) {
-                    *reinterpret_cast<__nv_bfloat162*>(out) =
-                        __floats2bfloat162_rn(v0, v1);
-                } else {
-                    out[0] = __float2bfloat16_rn(v0);
-                    if (gn + 1 < N) out[1] = __float2bfloat16_rn(v1);
-                }
-            }
-    }
+    tile_store<XT>(acc, scale, n_scale, y, M, N, m0 + wm, n0 + wn, lane);
 }
 
+template <typename XT>
 int launch_tile8(const void* x, const uint8_t* w, const float* scale,
                  int n_scale, void* y, int M, int K, int N, cudaStream_t st) {
-    const bool al = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0
+    const bool al = tile_x_aligned<XT>(x, K)
                     && reinterpret_cast<uintptr_t>(w) % 16 == 0
                     && N % 16 == 0;
-    const dim3 grid((N + T8_BN - 1) / T8_BN, (M + T8_BM - 1) / T8_BM);
-    const auto kernel = al ? int8_mma_kernel<true> : int8_mma_kernel<false>;
-    const int smem = (int)sizeof(T8Smem);
+    const dim3 grid((N + TM_BN - 1) / TM_BN, (M + TM_BM - 1) / TM_BM);
+    const auto kernel = al ? int8_mma_kernel<XT, true>
+                           : int8_mma_kernel<XT, false>;
+    const int smem = (int)sizeof(T8Smem<XT>);
     static bool opted_in[2] = {false, false};   // once per kernel
     if (!opted_in[al]) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -744,31 +701,23 @@ int launch_tile8(const void* x, const uint8_t* w, const float* scale,
         if (e != cudaSuccess) return (int)e;
         opted_in[al] = true;
     }
-    kernel<<<grid, T8_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), w, scale, n_scale,
-        static_cast<__nv_bfloat16*>(y), M, K, N);
+    kernel<<<grid, TM_THREADS, smem, st>>>(
+        static_cast<const XT*>(x), w, scale, n_scale, static_cast<XT*>(y), M,
+        K, N);
     return (int)cudaGetLastError();
 }
 
 template <typename XT>
 int int8_matmul_t(const void* x, int M, int K, const uint8_t* w, int N,
                   const float* scale, int n_scale, void* y, int n_split,
-                  int split_rows, cudaStream_t st) {
+                  int split_rows, int* tile, cudaStream_t st) {
     const int out_f32 = std::is_same<XT, float>::value;
+    if (tile != nullptr) *tile = M > 32;
     if (M <= 32)
         return decode_rows<XT>(x, w, scale, n_scale, y, out_f32, M, K, N,
                                n_split, split_rows, st);
     if (n_split != 1) return ERR_SHAPE;
-    if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
-        return launch_tile8(x, w, scale, n_scale, y, M, K, N, st);
-    } else {
-        dequant_mm_kernel<float, 8><<<dim3((N + DM_BN - 1) / DM_BN,
-                                           (M + 63) / 64), DM_THREADS, 0,
-                                      st>>>(
-            static_cast<const float*>(x), reinterpret_cast<const int8_t*>(w),
-            scale, n_scale, static_cast<float*>(y), M, K, N);
-        return (int)cudaGetLastError();
-    }
+    return launch_tile8<XT>(x, w, scale, n_scale, y, M, K, N, st);
 }
 
 }  // namespace
@@ -780,22 +729,23 @@ using namespace wa;
 // per column), y [M, N] in x's dtype. For M <= 32 the caller's plan
 // (ops/int8_matmul.int8_plan): n_split blocks over K (at most 16: one
 // cluster), each split_rows rows (a multiple of 16); for M > 32, n_split
-// 1. No scratch.
+// 1. No scratch. *tile (unless null) is set to 1 where the launch is the
+// tile kernel's (M > 32), else 0.
 extern "C" int wa_int8_matmul(const void* x, int dtype, int M, int K,
                               const int8_t* wq, int N, const float* scale,
                               int n_scale, void* y, int n_split,
-                              int split_rows, void* stream) {
+                              int split_rows, int* tile, void* stream) {
     if (M < 1 || K < 1 || N < 1 || n_scale < 1
-            || (M + T8_BM - 1) / T8_BM > 65535)
+            || (M + TM_BM - 1) / TM_BM > 65535)
         return ERR_SHAPE;
     auto st = static_cast<cudaStream_t>(stream);
     const auto w = reinterpret_cast<const uint8_t*>(wq);
     if (dtype == F32)
         return int8_matmul_t<float>(x, M, K, w, N, scale, n_scale, y,
-                                    n_split, split_rows, st);
+                                    n_split, split_rows, tile, st);
     if (dtype == BF16)
         return int8_matmul_t<__nv_bfloat16>(x, M, K, w, N, scale, n_scale, y,
-                                            n_split, split_rows, st);
+                                            n_split, split_rows, tile, st);
     return ERR_DTYPE;
 }
 

@@ -1,97 +1,23 @@
-// Shared pieces of the matmuls over quantized weights, K17 and K8
-// (int8_matmul.cu) and K18 (dequant_matmul.cu): the scale of a column,
-// the CUDA-core kernel for f32 x above 16 rows, the bf16 tensor-core
-// product, x's pairs as B fragments of the decode-row kernels, and the
-// weights' 16-byte vector loads.
+// Shared pieces of the tensor-core kernels over f32 and bf16 x: the
+// matmuls over quantized weights, K17 and K8 (int8_matmul.cu) and K18
+// (dequant_matmul.cu), and K16's f32 kernel (flash_attention.cu): the
+// scale of a column, the bf16 tensor-core product, x's pairs as B
+// fragments of the decode-row kernels, f32 as three bf16 terms, the
+// weights' 16-byte vector loads, and x's side of the 128 x 128 tile
+// kernels (int8_mma_kernel, int4_mma_kernel).
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace wa {
 namespace {
 
-constexpr int DM_BN = 64;
-constexpr int DM_BK = 32;
-constexpr int DM_THREADS = 256;
-
-__device__ __forceinline__ float nibble(int8_t byte, int high) {
-    const int u = ((int)(uint8_t)byte >> (high ? 4 : 0)) & 15;
-    return (float)((u ^ 8) - 8);
-}
-
 __device__ __forceinline__ float col_scale(const float* scale, int n_scale,
                                            int gn) {
     return n_scale == 1 ? scale[0] : (gn < n_scale ? scale[gn] : 0.f);
-}
-
-// weight w[gk, gn] as a float (int8, or the nibble of a packed byte)
-template <int WBITS>
-__device__ __forceinline__ float weight(const int8_t* __restrict__ w, int wN,
-                                        int gk, int gn) {
-    if (WBITS == 8) return (float)w[(size_t)gk * wN + gn];
-    return nibble(w[(size_t)gk * wN + gn / 2], gn & 1);
-}
-
-// --------------------------------------------------------------------------
-// f32, M > 16: CUDA cores. WBITS 8: w [K, N] int8; 4: w [K, N / 2] bytes.
-// --------------------------------------------------------------------------
-
-template <typename XT, int WBITS>
-__global__ void __launch_bounds__(DM_THREADS) dequant_mm_kernel(
-        const XT* __restrict__ x, const int8_t* __restrict__ w,
-        const float* __restrict__ scale, int n_scale, XT* __restrict__ y,
-        int M, int K, int N) {
-    constexpr int BM = 64, TM = BM / 16;
-    __shared__ float xs[BM][DM_BK + 1];
-    __shared__ float ws[DM_BK][DM_BN];
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * DM_BN;
-    const int wN = WBITS == 8 ? N : N / 2;
-    float acc[TM][4];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += DM_BK) {
-        for (int e = tid; e < BM * DM_BK; e += DM_THREADS) {
-            const int r = e / DM_BK, c = e % DM_BK;
-            const int gm = m0 + r, gk = k0 + c;
-            xs[r][c] = gm < M && gk < K ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
-        }
-        for (int e = tid; e < DM_BK * DM_BN; e += DM_THREADS) {
-            const int r = e / DM_BN, c = e % DM_BN;
-            const int gk = k0 + r, gn = n0 + c;
-            ws[r][c] = gk < K && gn < N ? weight<WBITS>(w, wN, gk, gn) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < DM_BK; ++kk) {
-            float a[TM], bv[4];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) a[i] = xs[ty * TM + i][kk];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + tx + 16 * j;
-        if (gn >= N) continue;
-        const float s = col_scale(scale, n_scale, gn);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const int gm = m0 + ty * TM + i;
-            if (gm < M) y[(size_t)gm * N + gn] = from_f32<XT>(acc[i][j] * s);
-        }
-    }
 }
 
 // c += a . b, m16n8k16, bf16 in, f32 accumulate
@@ -156,6 +82,188 @@ __device__ __forceinline__ void x_terms(float2 v, uint32_t (&b)[3]) {
         b[i] = *reinterpret_cast<const uint32_t*>(&t);
         v.x -= __low2float(t);
         v.y -= __high2float(t);
+    }
+}
+
+// the three terms of an f32 pair as element e of three fragments
+template <int N>
+__device__ __forceinline__ void terms_at(float2 v, uint32_t (&f)[3][N],
+                                         int e) {
+    uint32_t b[3];
+    x_terms(v, b);
+    f[0][e] = b[0];
+    f[1][e] = b[1];
+    f[2][e] = b[2];
+}
+
+// --------------------------------------------------------------------------
+// x's side of the 128 x 128 tile kernels (K17 int8_mma_kernel, K18
+// int4_mma_kernel): a 3-stage ring of x's 64-deep slices, 8 warps. bf16 x
+// feeds the tensor cores as it is, by ldmatrix, a warp 64 x 32 outputs (4
+// x 4 fragments); f32 x as its three bf16 terms, split from float2 loads
+// as each A fragment is built, so every product with the exactly widened
+// weights is exact and the sums are f32: a warp 32 x 64 outputs (2 x 8
+// fragments, so each x value is split by two warps, not four), three
+// products a fragment pair.
+// --------------------------------------------------------------------------
+
+constexpr int TM_BM = 128, TM_BN = 128, TM_BK = 64, TM_STAGES = 3;
+constexpr int TM_THREADS = 256;
+constexpr int TM_XLD = TM_BK + 8;       // x tile row: 144 bytes (bf16), 288
+                                        // (f32): both free of conflicts
+constexpr int TM_WLD = TM_BN + 8;       // widened tile row: 272 bytes
+
+// TERMS bf16 terms an x value, warps of WM x WN outputs, BLOCKS blocks an
+// SM (their shared memory: two of bf16 x's, one of f32 x's, which may
+// then take up to 255 registers a thread)
+template <typename XT>
+struct TileX {                          // bf16
+    static constexpr int TERMS = 1, WM = 64, WN = 32, BLOCKS = 2;
+};
+template <>
+struct TileX<float> {
+    static constexpr int TERMS = 3, WM = 32, WN = 64, BLOCKS = 1;
+};
+
+// whether x's rows can be staged by 16-byte copies
+template <typename XT>
+__host__ __forceinline__ bool tile_x_aligned(const void* x, int K) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0
+           && K % (16 / (int)sizeof(XT)) == 0;
+}
+
+// stage the slice at k0 of x's tile: 16-byte cp.async copies (zero-filled
+// past M and K), or, when rows are not 16-byte aligned, element loads
+template <typename XT, bool ALIGNED>
+__device__ __forceinline__ void tile_stage_x(XT (*xs)[TM_XLD],
+                                             const XT* __restrict__ x, int M,
+                                             int K, int m0, int k0, int tid) {
+    constexpr int V = 16 / sizeof(XT);      // elements a copy
+    if (ALIGNED) {
+#pragma unroll
+        for (int e = tid; e < TM_BM * (TM_BK / V); e += TM_THREADS) {
+            const int r = e / (TM_BK / V), c = V * (e % (TM_BK / V));
+            const bool ok = m0 + r < M && k0 + c < K;
+            cp_async16(&xs[r][c], ok ? x + (size_t)(m0 + r) * K + k0 + c : x,
+                       ok ? 16 : 0);
+        }
+        return;
+    }
+    for (int e = tid; e < TM_BM * TM_BK; e += TM_THREADS) {
+        const int r = e / TM_BK, c = e % TM_BK;
+        xs[r][c] = m0 + r < M && k0 + c < K ? x[(size_t)(m0 + r) * K + k0 + c]
+                                            : from_f32<XT>(0.f);
+    }
+}
+
+// the A fragments of x's rows r0 .. r0 + 15, k 16 kc .. 16 kc + 15: bf16
+// by one ldmatrix.x4; f32 as three terms from four float2 loads (a0 row
+// g, k 2t; a1 row g + 8; a2, a3 at k + 8)
+__device__ __forceinline__ void tile_a(uint32_t (&a)[1][4],
+                                       const __nv_bfloat16 (*xs)[TM_XLD],
+                                       int r0, int kc, int lane) {
+    ldmatrix_x4(a[0], &xs[r0 + (lane & 15)][16 * kc + 8 * (lane >> 4)]);
+}
+
+__device__ __forceinline__ void tile_a(uint32_t (&a)[3][4],
+                                       const float (*xs)[TM_XLD], int r0,
+                                       int kc, int lane) {
+    const float* p = &xs[r0 + (lane >> 2)][16 * kc + 2 * (lane & 3)];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        terms_at(*reinterpret_cast<const float2*>(
+                     p + 8 * (e & 1) * TM_XLD + 8 * (e >> 1)), a, e);
+}
+
+// one 16-deep step of a warp's outputs: B from the widened [k][n] tile
+// (ldmatrix.x4.trans, two 8-column fragments each), A per 16-row tile,
+// every term of A against each B fragment. f32's three products (lo
+// first) go into a sum of their own that acc takes with one f32 add: the
+// tensor cores truncate what an mma's addends hold below 24 bits of the
+// largest, so each product summed into acc could lose an ulp of acc, all
+// the same way, where this loses one of the step's sum.
+template <typename XT, int I, int J>
+__device__ __forceinline__ void tile_step(
+        float (&acc)[I][J][4], const XT (*xs)[TM_XLD],
+        const __nv_bfloat16 (*wt)[TM_WLD], int wm, int wn, int kc,
+        int lane) {
+    constexpr int TERMS = TileX<XT>::TERMS;
+    uint32_t b[J][2];
+#pragma unroll
+    for (int jj = 0; jj < J / 2; ++jj) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, &wt[16 * kc + (lane & 15)]
+                                [wn + 16 * jj + 8 * (lane >> 4)]);
+        b[2 * jj][0] = r[0]; b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2]; b[2 * jj + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+        uint32_t a[TERMS][4];
+        tile_a(a, xs, wm + 16 * i, kc, lane);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            if constexpr (TERMS == 1) {
+                mma_bf16(acc[i][j], a[0], b[j][0], b[j][1]);
+            } else {
+                float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int tm = TERMS - 1; tm >= 0; --tm)
+                    mma_bf16(d, a[tm], b[j][0], b[j][1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+            }
+        }
+    }
+}
+
+// y[i], y[i + 1] (both when `two`) from f32 sums, in y's dtype
+__device__ __forceinline__ void store2(float* y, float v0, float v1,
+                                       bool pair, bool two) {
+    if (pair) {
+        *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+    } else {
+        y[0] = v0;
+        if (two) y[1] = v1;
+    }
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* y, float v0, float v1,
+                                       bool pair, bool two) {
+    if (pair) {
+        *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(v0, v1);
+    } else {
+        y[0] = __float2bfloat16_rn(v0);
+        if (two) y[1] = __float2bfloat16_rn(v1);
+    }
+}
+
+// the tile's epilogue: acc * the column's scale (col_scale), stored in
+// y's dtype, paired where N is even and y's rows keep the pair aligned
+template <typename XT, int I, int J>
+__device__ __forceinline__ void tile_store(
+        const float (&acc)[I][J][4], const float* __restrict__ scale,
+        int n_scale, XT* __restrict__ y, int M, int N, int m0, int n0,
+        int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const bool pairs = N % 2 == 0
+        && reinterpret_cast<uintptr_t>(y) % (2 * sizeof(XT)) == 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int gn = n0 + 8 * j + 2 * t;
+        if (gn >= N) continue;
+        const bool two = gn + 1 < N;
+        const float s0 = col_scale(scale, n_scale, gn);
+        const float s1 = two ? col_scale(scale, n_scale, gn + 1) : 0.f;
+#pragma unroll
+        for (int i = 0; i < I; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int gm = m0 + 16 * i + g + 8 * h;
+                if (gm < M)
+                    store2(y + (size_t)gm * N + gn, acc[i][j][2 * h] * s0,
+                           acc[i][j][2 * h + 1] * s1, pairs, two);
+            }
     }
 }
 

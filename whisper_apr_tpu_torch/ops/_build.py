@@ -76,8 +76,8 @@ _SIGNATURES = {
                            _I, _I, _P],
     "wa_flash_attention": [*[_P, _LL, _LL, _LL] * 4, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _I, _I, _P, _P, _P],
-    "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
-    "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P],
+    "wa_int8_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P],
+    "wa_int4_matmul": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     "wa_probe_int8_mma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "wa_probe_mma_bf16": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                           _P],

@@ -17,9 +17,12 @@ and are not taken here: the CUDA kernel picks its own tiles.
 ``flash_attention`` runs the hand-written CUDA kernel
 (``csrc/flash_attention.cu``, head dim 64) for CUDA tensors, addressed by
 strides so ``mha_flash`` transposes nothing, and the plain PyTorch
-version below for CPU tensors. In bf16 the kernel may split the key tiles
-of a (query tile, head) over several blocks and combine their partial
-sums in a second launch; ``flash_split`` decides how many.
+version below for CPU tensors. Both dtypes run on the tensor cores, f32
+with every operand as three bf16 terms (six bf16 products a product).
+The kernel may split the key tiles of a (query tile, head) over several
+blocks and combine their partial sums in a second launch;
+``flash_split`` decides how many (bf16 rows that are not 16-byte aligned
+take a kernel that does not split).
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from . import _build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# launches of the kernel in this process (reset by the caller)
-LAUNCHES = {"flash_attention": 0}
+# launches of the kernel in this process (reset by the caller): all, and
+# those on f32 inputs (the three-term kernel)
+LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0}
 
 
 def reset_launches() -> None:
@@ -42,8 +46,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# the bf16 kernel's tiles (csrc FM_BQ, FA_BK), and the blocks of it an
-# H100 holds at once (csrc FM_BLOCKS_PER_SM on each of 132 SMs)
+# the tensor-core kernels' tiles (csrc FM_BQ, FA_BK), and the blocks of
+# either an H100 holds at once (csrc FM_BLOCKS_PER_SM on each of 132 SMs)
 BLOCK_Q, BLOCK_K = 128, 64
 WAVE = 2 * 132
 MAX_SPLITS = 4
@@ -62,8 +66,9 @@ class FlashSplit(NamedTuple):
 
 
 def flash_split(B: int, H: int, Tq: int, Tk: int) -> FlashSplit:
-    """How the bf16 kernel splits the keys: where B * H * ceil(Tq / 128)
-    blocks fill at most half of one wave (the ``WAVE`` blocks the card
+    """How the tensor-core kernels (bf16, and f32 as three bf16 terms: the
+    same tiles, two blocks an SM) split the keys: where B * H * ceil(Tq /
+    128) blocks fill at most half of one wave (the ``WAVE`` blocks the card
     holds at once), each (query tile, head) takes as many blocks as still
     fit in that wave, at most ``MAX_SPLITS``, in whole key tiles, none
     empty; else one. At 1500 frames whisper-tiny's 6 heads at B=1 (72
@@ -128,7 +133,8 @@ def _flash_cuda(q, k, v, sm_scale, causal, kv_valid, out):
                              "dim contiguous")
     plan = FlashSplit(1, math.ceil(Tk / BLOCK_K))
     part_acc = part_ml = None
-    if q.dtype == torch.bfloat16 and all(     # the tensor-core kernel's rows
+    f32 = q.dtype == torch.float32
+    if f32 or all(                        # bf16: the tensor-core kernel's rows
             t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
             for t in (q, k, v, out)):
         plan = flash_split(B, H, Tq, Tk)
@@ -145,6 +151,7 @@ def _flash_cuda(q, k, v, sm_scale, causal, kv_valid, out):
         int(causal), *plan, P_(part_acc), P_(part_ml), _build.stream())
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_f32"] += f32
     return out
 
 

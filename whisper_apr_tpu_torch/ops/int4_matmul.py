@@ -14,13 +14,17 @@ per-channel int4 linears of ``basic.linear`` through this kernel for CUDA
 tensors. ``int4_matmul`` runs the hand-written CUDA kernel
 (``csrc/dequant_matmul.cu``) for CUDA tensors and the plain PyTorch
 version below for CPU tensors. The JAX signature's block sizes are the
-TPU kernel's tiling and are not taken. At most 16 rows the kernel splits
-K over the blocks of a thread block cluster and sums the splits inside
-it, in the same launch and with no scratch; ``int4_plan`` says how.
+TPU kernel's tiling and are not taken. Every row count runs on the
+tensor cores, f32 x as three bf16 terms whose sum is x (each product with
+the exactly widened weight exact, the sums f32). At most 16 rows the
+kernel splits K over the blocks of a thread block cluster and sums the
+splits inside it, in the same launch and with no scratch; ``int4_plan``
+says how.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -33,8 +37,10 @@ from .quant import QTensor
 # opt-in switch (see ops/basic.linear)
 USE_PALLAS_INT4 = False
 
-# launches of the kernel in this process (reset by the caller)
-LAUNCHES = {"int4_matmul": 0}
+# launches of the kernel in this process (reset by the caller): all, and
+# those of the tile kernel on f32 x (three bf16 terms), as the C entry
+# point reports the kernel it launched
+LAUNCHES = {"int4_matmul": 0, "int4_matmul_f32": 0}
 
 
 def reset_launches() -> None:
@@ -102,11 +108,13 @@ def _int4_cuda(x, wq, scale):
     _check_operands(x, wq, s, N)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     P = _build.ptr
+    tile = ctypes.c_int(0)     # the C entry sets it: 1 for the tile kernel
     rc = _build.library().wa_int4_matmul(
         P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(s), s.numel(),
-        P(y), *int4_plan(M, K, N), _build.stream())
+        P(y), *int4_plan(M, K, N), ctypes.addressof(tile), _build.stream())
     _build.check(rc, "int4_matmul")
     LAUNCHES["int4_matmul"] += 1
+    LAUNCHES["int4_matmul_f32"] += x.dtype == torch.float32 and tile.value
     return y
 
 

@@ -13,9 +13,12 @@ plain int8 linears of ``basic.linear`` through this kernel for CUDA
 tensors. ``int8_matmul`` runs the hand-written CUDA kernel
 (``csrc/int8_matmul.cu``) for CUDA tensors and the plain PyTorch
 version below for CPU tensors. The JAX signature's block sizes are the
-TPU kernel's tiling and are not taken. At most 32 rows the kernel splits
-K over the blocks of a thread block cluster and sums the splits inside
-it, in the same launch and with no scratch; ``int8_plan`` says how. K8
+TPU kernel's tiling and are not taken. Every row count runs on the
+tensor cores, f32 x as three bf16 terms whose sum is x (each product with
+the exactly widened weight exact, the sums f32). At most 32 rows the
+kernel splits K over the blocks of a thread block cluster and sums the
+splits inside it, in the same launch and with no scratch; ``int8_plan``
+says how. K8
 (``qmatvec.qmatvec_stacked``) runs the same decode-row kernel with the
 same plan, and K4 (``qmatvec.qmatvec_greedy_head``) with K whole and a
 head epilogue in place of the store.
@@ -23,6 +26,7 @@ head epilogue in place of the store.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -34,8 +38,10 @@ from .quant import QTensor
 # opt-in switch (see ops/basic.linear)
 USE_PALLAS_INT8 = False
 
-# launches of the kernel in this process (reset by the caller)
-LAUNCHES = {"int8_matmul": 0}
+# launches of the kernel in this process (reset by the caller): all, and
+# those of the tile kernel on f32 x (three bf16 terms), as the C entry
+# point reports the kernel it launched
+LAUNCHES = {"int8_matmul": 0, "int8_matmul_f32": 0}
 
 
 def reset_launches() -> None:
@@ -130,11 +136,13 @@ def _int8_cuda(x, wq, scale):
     _check_operands(x, wq, s, N)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     P = _build.ptr
+    tile = ctypes.c_int(0)     # the C entry sets it: 1 for the tile kernel
     rc = _build.library().wa_int8_matmul(
         P(x), _build.DTYPE_CODES[x.dtype], M, K, P(wq), N, P(s), s.numel(),
-        P(y), *int8_plan(M, K, N), _build.stream())
+        P(y), *int8_plan(M, K, N), ctypes.addressof(tile), _build.stream())
     _build.check(rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1
+    LAUNCHES["int8_matmul_f32"] += x.dtype == torch.float32 and tile.value
     return y
 
 
