@@ -5750,7 +5750,11 @@ def main() -> int:
     shutil.rmtree(native_dir)
     with trace.trace_span("utils"):
         utils = phase_utils(times, tool_res)
-    events = trace.drain_events()
+    # the phases' own spans (the program's spans sit inside them or on
+    # the serving threads)
+    phases = ("probes", "probe_tool", "mesh", "speculative", "formats",
+              "utils")
+    events = [e for e in trace.drain_events() if e[0] in phases]
     trace.enable_tracing(False)
     log("[utils] trace_span events: " + ", ".join(
         f"{name} {dur:.2f} s" for name, _, dur in events))

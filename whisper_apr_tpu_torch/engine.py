@@ -67,6 +67,7 @@ from .timestamps import Segment, extract_segments, has_timestamps
 from .tokenizer import BpeTokenizer, SpecialTokens, Vocabulary
 from .tokenizer import special_tokens as st
 from .utils.progress import ProgressTracker
+from .utils.trace import trace_span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -143,6 +144,12 @@ class WhisperApr:
                  compute: Optional[ComputeConfig] = None,
                  specials: Optional[SpecialTokens] = None,
                  device: Union[str, torch.device] = "cuda") -> None:
+        with trace_span("engine.init"):
+            self._init(config, params, tokenizer, mel_filters, compute,
+                       specials, device)
+
+    def _init(self, config, params, tokenizer, mel_filters, compute,
+              specials, device) -> None:
         self.device = resolve_device(device, "WhisperApr")
         self.config = config
         self.params = to_device(params, self.device)
@@ -300,11 +307,12 @@ class WhisperApr:
         if not hasattr(self, "_qdecode_cache"):
             from .model.qdecode import (prepare_kq_decode,
                                         prepare_q4k_decode, prepare_qdecode)
-            qd = prepare_qdecode(self.params, self.config)
-            if qd is None:
-                qd = prepare_q4k_decode(self.params, self.config)
-            if qd is None:
-                qd = prepare_kq_decode(self.params, self.config)
+            with trace_span("qdecode.prepare"):
+                qd = prepare_qdecode(self.params, self.config)
+                if qd is None:
+                    qd = prepare_q4k_decode(self.params, self.config)
+                if qd is None:
+                    qd = prepare_kq_decode(self.params, self.config)
             self._qdecode_cache = qd
         return self._qdecode_cache
 
@@ -517,6 +525,12 @@ class WhisperApr:
         temperature above 0: ``best_of`` samples per clip, the best by
         average log-prob; ``top_k``, ``top_p``; a generator seeded from
         ``seed``) or beam search (``beam_size``, ``patience``)."""
+        with trace_span("batch", windows=len(audios)):
+            return self._transcribe_batch(audios, options)
+
+    def _transcribe_batch(self, audios: Sequence[np.ndarray],
+                          options: Optional[TranscribeOptions]
+                          ) -> BatchTranscriptionResult:
         t0 = time.time()
         options = options or TranscribeOptions()
         if not audios:
@@ -589,11 +603,19 @@ class WhisperApr:
                 **common)
             tokens, lengths = res.tokens, res.lengths
             sum_lp, ns_prob = res.sum_logprob, res.no_speech_prob
+        with trace_span("batch.host"):
+            return self._batch_results(audios, options, lang, P, tokens,
+                                       lengths, sum_lp, ns_prob, t0)
 
-        tokens_np = tokens.cpu().numpy()
-        lengths_np = lengths.cpu().numpy()
-        sum_lp_np = sum_lp.cpu().numpy().astype(np.float64)
-        ns_prob_np = ns_prob.cpu().numpy().astype(np.float64)
+    def _batch_results(self, audios, options: TranscribeOptions, lang: str,
+                       P: int, tokens, lengths, sum_lp, ns_prob,
+                       t0: float) -> BatchTranscriptionResult:
+        """Detokenized results and segments of a decoded batch."""
+        with trace_span("sync"):
+            tokens_np = tokens.cpu().numpy()
+            lengths_np = lengths.cpu().numpy()
+            sum_lp_np = sum_lp.cpu().numpy().astype(np.float64)
+            ns_prob_np = ns_prob.cpu().numpy().astype(np.float64)
 
         results = []
         for i in range(len(audios)):

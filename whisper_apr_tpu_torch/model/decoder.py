@@ -32,6 +32,7 @@ from ..errors import InferenceError
 from ..ops.basic import causal_mask, gelu, layer_norm, linear, mha
 from ..ops.quant import dequant, is_quantized
 from ..ops.tp import is_shard, local_config, vocab_logits, vocab_lookup
+from ..utils.trace import trace_span
 from .params import layer_slice
 
 
@@ -67,7 +68,8 @@ def init_cache(params: dict, enc_out: torch.Tensor, config: ModelConfig,
     max_len = max_len or config.n_text_ctx
     L, B = config.n_text_layer, enc_out.shape[0]
     D = config.n_text_state
-    ck, cv = precompute_cross_kv(params, enc_out.to(compute_dtype))
+    with trace_span("cross_kv"):
+        ck, cv = precompute_cross_kv(params, enc_out.to(compute_dtype))
     z = dict(dtype=compute_dtype, device=enc_out.device)
     return KVCache(torch.zeros((L, B, max_len, D), **z),
                    torch.zeros((L, B, max_len, D), **z), ck, cv)
@@ -77,7 +79,8 @@ def check_tokens(tokens: torch.Tensor, n_vocab: int) -> None:
     """Token ids must index the embedding: torch raises (or, on a GPU,
     faults the context) on an out-of-range gather where XLA clamps, so
     ids are checked on the host first."""
-    lo, hi = int(tokens.min()), int(tokens.max())
+    with trace_span("sync"):
+        lo, hi = int(tokens.min()), int(tokens.max())
     if lo < 0 or hi >= n_vocab:
         raise InferenceError(
             f"token ids [{lo}, {hi}] out of range for n_vocab={n_vocab}")
@@ -127,6 +130,14 @@ def prefill(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     """Run the whole prompt in one forward, filling the self cache rows
     [0, T) in place. Returns (last-position logits [B, V], cache), or the
     logits of every prompt position [B, T, V] with ``all_logits``."""
+    with trace_span("prefill"):
+        return _prefill(params, tokens, enc_out, cache, config,
+                        compute_dtype, all_logits)
+
+
+def _prefill(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
+             cache: KVCache, config: ModelConfig, compute_dtype: torch.dtype,
+             all_logits: bool) -> Tuple[torch.Tensor, KVCache]:
     check_tokens(tokens, config.n_vocab)
     config = local_config(params, config)
     B, T = tokens.shape
@@ -323,28 +334,38 @@ def decode_loop(first: torch.Tensor, sum_lp: torch.Tensor,
     ``next_tokens`` holds a done row at EOT with lp 0 (:func:`hold_done`).
     One host sync per step (the new tokens). Returns (tokens [B, max_len]
     EOT-padded, lengths [B], sum_lp [B]) on the device of ``first``."""
+    with trace_span("loop"):
+        return _decode_loop(first, sum_lp, prompt, eot, config, max_len,
+                            prompt_len, next_tokens)
+
+
+def _decode_loop(first, sum_lp, prompt, eot, config, max_len, prompt_len,
+                 next_tokens):
     device = first.device
-    rows = [[int(t) for t in r] for r in prompt.tolist()]
-    for r, t in zip(rows, first.tolist()):
-        r.append(t)
+    with trace_span("sync"):
+        rows = [[int(t) for t in r] for r in prompt.tolist()]
+        for r, t in zip(rows, first.tolist()):
+            r.append(t)
     done = first == eot                                     # [B] device
     done_h = [r[-1] == eot for r in rows]
     tok = first
     pos = prompt_len
     while pos + 1 < max_len and not all(done_h):
-        nxt, lp = next_tokens(tok, pos, done)
-        sum_lp = sum_lp + lp
-        done = done | (nxt == eot)
-        new = nxt.tolist()                # the loop's one host sync
-        bad = [t for t in new if not 0 <= t < config.n_vocab]
-        if bad:
-            raise InferenceError(f"decode produced tokens {bad} outside "
-                                 f"n_vocab={config.n_vocab}")
-        for r, t in zip(rows, new):
-            r.append(t)
-        done_h = [d or t == eot for d, t in zip(done_h, new)]
-        tok = nxt
-        pos += 1
+        with trace_span("loop.step"):
+            nxt, lp = next_tokens(tok, pos, done)
+            sum_lp = sum_lp + lp
+            done = done | (nxt == eot)
+            with trace_span("sync"):
+                new = nxt.tolist()        # the loop's one host sync
+            bad = [t for t in new if not 0 <= t < config.n_vocab]
+            if bad:
+                raise InferenceError(f"decode produced tokens {bad} outside "
+                                     f"n_vocab={config.n_vocab}")
+            for r, t in zip(rows, new):
+                r.append(t)
+            done_h = [d or t == eot for d, t in zip(done_h, new)]
+            tok = nxt
+            pos += 1
 
     out = torch.full((len(rows), max_len), eot, dtype=torch.int32)
     lengths = []

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..errors import AudioError, FormatError
+from ..utils.trace import annotate, trace_span
 
 SRC = Path(__file__).resolve().parent / "aprcore.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
@@ -125,13 +126,14 @@ def library() -> ctypes.CDLL:
     """The loaded library (built on first call)."""
     global _lib
     if _lib is None:
-        with _load_lock:
+        with _load_lock, trace_span("native.load"):
             if _lib is None:
                 lib = ctypes.CDLL(str(build()))
                 for name, (restype, argtypes) in _SIGNATURES.items():
                     fn = getattr(lib, name)
                     fn.restype = restype
                     fn.argtypes = argtypes
+                annotate(build_s=build_seconds)
                 _lib = lib
     return _lib
 

@@ -40,6 +40,17 @@ once per layer, and K17 for every int8 linear when
 The tick advances one token, as the dense one; the JAX scheduler's
 ``steps_per_tick`` and ``admit_buckets`` are not taken.
 
+Every time the scheduler stamps (submission, deadlines, the admission
+and decode starts) is ``time.perf_counter()``: monotonic, one clock with
+the trace spans (``utils/trace.py``: ``serve.step``, ``serve.admit``,
+``serve.tick``, ``serve.finish``). ``stats()`` counts, besides
+completions and tokens: the wait from submission to the start of
+admission (``wait_seconds_sum``), the time admission takes
+(``admit_seconds_sum``), the rows admission ran and how many of them
+were bucket padding (``admit_rows``, ``admit_rows_padded``), and the
+slot-rows every tick stepped and how many of them held a live request
+(``tick_rows``, ``tick_live_rows``).
+
 With ``mesh`` (``parallel/mesh.make_mesh``) the slots split over the
 mesh's dp dim, as the JAX scheduler's slot caches do; its params stay
 whole on every rank, and the tick is the plain dense step (no fused or
@@ -77,6 +88,7 @@ from ..model.decoder import KVCache, init_cache, prefill
 from ..model.kv_variants import PAGE_SIZE, PagedKVCache, decode_steps_multi
 from ..model.qdecode import CROSS_BLOCK_T, SELF_BLOCK_T, QKVCache
 from ..ops.decode_attention import quantize_rows
+from ..utils.trace import annotate, trace_span
 from .mesh import coordinate, mesh_shape
 
 
@@ -141,8 +153,8 @@ class Request:
     audio: np.ndarray
     prompt: Optional[List[int]]  # None -> language auto-detect at admission
     max_tokens: int = 224
-    submitted_at: float = dataclasses.field(default_factory=time.time)
-    deadline: Optional[float] = None  # absolute wall clock; None = no limit
+    submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
+    deadline: Optional[float] = None  # time.perf_counter(); None = no limit
     task: str = "transcribe"  # used to build the prompt when auto-detecting
 
 
@@ -209,7 +221,10 @@ class BatchScheduler:
         self._counters = {
             "completed_ok": 0, "cancelled": 0, "timeout": 0,
             "tokens_generated": 0, "queue_seconds_sum": 0.0,
-            "decode_seconds_sum": 0.0, "admitted": 0, "ticks": 0}
+            "decode_seconds_sum": 0.0, "admitted": 0, "ticks": 0,
+            "wait_seconds_sum": 0.0, "admit_seconds_sum": 0.0,
+            "admit_rows": 0, "admit_rows_padded": 0, "tick_rows": 0,
+            "tick_live_rows": 0}
 
         D = self.config.n_text_state
         S = self.config.n_audio_ctx
@@ -279,7 +294,7 @@ class BatchScheduler:
                task: str = "transcribe", max_tokens: int = 224,
                timeout_s: Optional[float] = None) -> int:
         """Enqueue a request; returns its id. ``timeout_s`` sets a
-        wall-clock deadline — a request still queued or decoding past it
+        deadline — a request still queued or decoding past it
         completes with status "timeout" and whatever tokens it has.
         ``language`` None or "auto" detects the language at admission."""
         with self._lock:
@@ -287,7 +302,8 @@ class BatchScheduler:
             self._next_id += 1
         prompt = (None if language in (None, "auto")
                   else self.engine.get_initial_tokens(language, task))
-        deadline = None if timeout_s is None else time.time() + timeout_s
+        deadline = (None if timeout_s is None
+                    else time.perf_counter() + timeout_s)
         self._queue.put(Request(rid, np.asarray(audio, np.float32),
                                 prompt, max_tokens, deadline=deadline,
                                 task=task))
@@ -327,10 +343,14 @@ class BatchScheduler:
     def _fill_slots(self) -> None:
         """Admit queued requests into free slots (prefill their caches)."""
         free = [s for s in range(self.n_slots) if not self._active[s]]
-        if not free:
+        if not free or self._queue.empty():
             return
+        with trace_span("serve.admit"):
+            self._admit(free)
+
+    def _admit(self, free: List[int]) -> None:
         reqs: List[Request] = []
-        now = time.time()
+        now = time.perf_counter()
         while len(reqs) < len(free):
             try:
                 req = self._queue.get_nowait()
@@ -362,6 +382,7 @@ class BatchScheduler:
             if slot in self._here:
                 key = len(req.prompt) if self.batched_admission else slot
                 groups.setdefault(key, []).append((req, slot))
+        annotate(ids=[r.request_id for r in reqs])
         first = torch.zeros(self.n_slots, dtype=torch.long,
                             device=self.engine.device)
         for group in groups.values():
@@ -371,7 +392,11 @@ class BatchScheduler:
                                               spare)
             else:
                 first[at] = self._admit_one(at[0] - lo, rs[0])
-        self._admitted(reqs, slots, self._dp_sum(first).cpu().numpy()[slots])
+        first = self._dp_sum(first)
+        with trace_span("sync"):
+            first = first.cpu().numpy()
+        with trace_span("admit.host"):
+            self._admitted(reqs, slots, first[slots], now)
 
     def _admit_batch(self, reqs: List[Request], slots: List[int],
                      spare: List[int]) -> torch.Tensor:
@@ -389,6 +414,9 @@ class BatchScheduler:
                 b = cand
                 break
         pad = b - n
+        annotate(bucket=b, padded=pad)
+        self._counters["admit_rows"] += b
+        self._counters["admit_rows_padded"] += pad
         # paged pads repeat the last real slot (identical duplicate
         # writes: spare slots own no pages)
         targets = (slots + [slots[-1]] * pad if self.paged
@@ -405,35 +433,40 @@ class BatchScheduler:
             *eng.mel_filters.constants(dev), torch.from_numpy(prompt).to(dev),
             self._bias, self.config, compute_dtype=eng._compute_dtype,
             use_flash=eng._use_flash)
-        slots_t = torch.tensor(targets, dtype=torch.long, device=dev)
-        if self.paged:
-            from ..model.paged_decode import write_prefills_to_pool
-            pk = self._paged_kv
-            Pn = prompt.shape[1]
-            for slot in slots:
-                pk.free(slot)               # clear any previous occupant
-                pk.alloc(slot, Pn + 1)      # prompt + first generated token
-                pk._lengths[slot] = Pn
-            positions = np.arange(Pn)
-            pages = np.stack([np.asarray(pk._tables[s], np.int64)[
-                positions // PAGE_SIZE] for s in targets])       # [b, Pn]
-            offs = np.tile(positions % PAGE_SIZE, (b, 1))
-            write_prefills_to_pool(
-                pk.k_pool, pk.v_pool, new.self_k, new.self_v,
-                torch.from_numpy(pages).to(dev),
-                torch.from_numpy(offs).to(dev))
-            self._cache = _scatter_cross_slots(self._cache, slots_t, new)
-        else:
-            self._scatter(slots_t, new)
+        with trace_span("scatter"):
+            slots_t = torch.tensor(targets, dtype=torch.long, device=dev)
+            if self.paged:
+                from ..model.paged_decode import write_prefills_to_pool
+                pk = self._paged_kv
+                Pn = prompt.shape[1]
+                for slot in slots:
+                    pk.free(slot)           # clear any previous occupant
+                    pk.alloc(slot, Pn + 1)  # prompt + first generated token
+                    pk._lengths[slot] = Pn
+                positions = np.arange(Pn)
+                pages = np.stack([np.asarray(pk._tables[s], np.int64)[
+                    positions // PAGE_SIZE] for s in targets])   # [b, Pn]
+                offs = np.tile(positions % PAGE_SIZE, (b, 1))
+                write_prefills_to_pool(
+                    pk.k_pool, pk.v_pool, new.self_k, new.self_v,
+                    torch.from_numpy(pages).to(dev),
+                    torch.from_numpy(offs).to(dev))
+                self._cache = _scatter_cross_slots(self._cache, slots_t, new)
+            else:
+                self._scatter(slots_t, new)
         return first[:n].long()
 
     def _admitted(self, reqs: List[Request], slots: List[int],
-                  first: np.ndarray) -> None:
+                  first: np.ndarray, started: float) -> None:
         """Host bookkeeping of admitted requests: prompt and first token
-        into the mirrors, slots active (finished at once on an EOT)."""
-        now = time.time()
+        into the mirrors, slots active (finished at once on an EOT);
+        ``started`` is when their admission began."""
+        now = time.perf_counter()
         eot = self.engine.specials.eot
-        self._counters["admitted"] += len(reqs)
+        c = self._counters
+        c["admitted"] += len(reqs)
+        c["wait_seconds_sum"] += sum(started - r.submitted_at for r in reqs)
+        c["admit_seconds_sum"] += now - started
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             P = len(req.prompt)
             self._tokens[slot] = eot
@@ -474,7 +507,8 @@ class BatchScheduler:
             if mesh_shape(self.mesh)[dim] > 1:
                 dist.all_reduce(t, op=dist.ReduceOp.MAX,
                                 group=self.mesh.get_group(dim))
-        return t.cpu().numpy()
+        with trace_span("sync"):
+            return t.cpu().numpy()
 
     def _admit_one(self, slot: int, req: Request) -> int:
         """Staged per-slot admission (batched_admission off): mel ->
@@ -487,21 +521,25 @@ class BatchScheduler:
                               device=eng.device)
         logits, one = prefill(eng.params, prompt, enc, one, self.config,
                               compute_dtype=eng._compute_dtype)
-        first = int(torch.argmax(logits[0] + self._bias))
+        with trace_span("sync"):
+            first = int(torch.argmax(logits[0] + self._bias))
+        self._counters["admit_rows"] += 1
         P = len(req.prompt)
-        slot_t = torch.tensor([slot], dtype=torch.long, device=eng.device)
-        if self.paged:
-            from ..model.paged_decode import write_prefill_to_pool
-            pk = self._paged_kv
-            pk.free(slot)                   # clear any previous occupant
-            pk.alloc(slot, P + 1)           # prompt + first generated token
-            write_prefill_to_pool(pk.k_pool, pk.v_pool, one.self_k,
-                                  one.self_v,
-                                  np.asarray(pk._tables[slot], np.int64), P)
-            pk._lengths[slot] = P
-            self._cache = _scatter_cross_slots(self._cache, slot_t, one)
-        else:
-            self._scatter(slot_t, one)
+        with trace_span("scatter"):
+            slot_t = torch.tensor([slot], dtype=torch.long,
+                                  device=eng.device)
+            if self.paged:
+                from ..model.paged_decode import write_prefill_to_pool
+                pk = self._paged_kv
+                pk.free(slot)               # clear any previous occupant
+                pk.alloc(slot, P + 1)       # prompt + first generated token
+                write_prefill_to_pool(
+                    pk.k_pool, pk.v_pool, one.self_k, one.self_v,
+                    np.asarray(pk._tables[slot], np.int64), P)
+                pk._lengths[slot] = P
+                self._cache = _scatter_cross_slots(self._cache, slot_t, one)
+            else:
+                self._scatter(slot_t, one)
         return first
 
     def _scatter(self, slots: torch.Tensor, new: KVCache) -> None:
@@ -533,7 +571,7 @@ class BatchScheduler:
         # length: prompt + generated up to (and incl.) EOT
         end = self._pos[slot] + 1
         seq = self._tokens[slot, :end].tolist()
-        now = time.time()
+        now = time.perf_counter()
         queue_s = self._decode_start[slot] - req.submitted_at
         decode_s = now - self._decode_start[slot]
         with self._lock:
@@ -555,11 +593,15 @@ class BatchScheduler:
     def step(self) -> int:
         """One scheduler tick: admit, then advance every slot by one token
         in one step. Returns the number of active slots."""
+        with trace_span("serve.step"):
+            return self._step()
+
+    def _step(self) -> int:
         # honor aborts and deadlines on in-flight slots before a step (on
         # a mesh at every tick: another rank may have seen one)
         if self.mesh is not None or self._cancelled or any(
                 r is not None and r.deadline is not None for r in self._req):
-            now = time.time()
+            now = time.perf_counter()
             stop = np.zeros(self.n_slots, np.int64)  # 1 cancel, 2 timeout
             for slot in range(self.n_slots):
                 req = self._req[slot]
@@ -573,83 +615,101 @@ class BatchScheduler:
             for slot in np.flatnonzero(stop):
                 self._finish(int(slot), status=("cancelled" if stop[slot] == 1
                                                 else "timeout"))
+        admitted = self._counters["admitted"]
         self._fill_slots()
-        if not self._active.any():
+        live = int(self._active.sum())
+        annotate(admitted=self._counters["admitted"] - admitted, live=live)
+        if not live:
             return 0
         self._counters["ticks"] += 1
 
         toks = self._paged_tick() if self.paged else self._dense_tick()
 
         eot = self.engine.specials.eot
-        for slot in range(self.n_slots):
-            if not self._active[slot]:
-                continue
-            req = self._req[slot]
-            limit = min(len(req.prompt) + req.max_tokens, self.max_len)
-            self._pos[slot] += 1
-            p = self._pos[slot]
-            if p >= self.max_len:
-                self._pos[slot] = self.max_len - 1
-                self._finish(slot)
-                continue
-            self._tokens[slot, p] = toks[slot]
-            if toks[slot] == eot or p + 1 >= limit:
-                self._finish(slot)
+        with trace_span("serve.finish"):
+            for slot in range(self.n_slots):
+                if not self._active[slot]:
+                    continue
+                req = self._req[slot]
+                limit = min(len(req.prompt) + req.max_tokens, self.max_len)
+                self._pos[slot] += 1
+                p = self._pos[slot]
+                if p >= self.max_len:
+                    self._pos[slot] = self.max_len - 1
+                    self._finish(slot)
+                    continue
+                self._tokens[slot, p] = toks[slot]
+                if toks[slot] == eot or p + 1 >= limit:
+                    self._finish(slot)
         return int(self._active.sum())
 
     def _dense_tick(self) -> np.ndarray:
         """One token for every slot over the dense slots. On a mesh this
         rank steps its own slots (none if they are all idle) and the dp
         sum brings every slot's token to every rank."""
-        dev = self.engine.device
-        rows = np.asarray(self._here)
-        toks = None
-        if self._active[rows].any():
-            token = torch.from_numpy(self._tokens[rows, self._pos[rows]]).to(
-                dev)
-            toks, self._cache = decode_steps_multi(
-                self._params, token, self._pos[rows], self._bias,
-                self._cache, self.config, n_steps=1,
-                compute_dtype=self.engine._compute_dtype, qd=self._qd)
-            toks = toks[:, 0]
-        if self.mesh is None:
-            return toks.cpu().numpy()
-        buf = torch.zeros(self.n_slots, dtype=torch.long, device=dev)
-        if toks is not None:
-            buf[self._lo: self._lo + len(rows)] = toks.long()
-        return self._dp_sum(buf).cpu().numpy()
+        with trace_span("serve.tick"):
+            dev = self.engine.device
+            rows = np.asarray(self._here)
+            toks = None
+            live = int(self._active[rows].sum())
+            if live:
+                self._count_tick(len(rows), live)
+                token = torch.from_numpy(
+                    self._tokens[rows, self._pos[rows]]).to(dev)
+                toks, self._cache = decode_steps_multi(
+                    self._params, token, self._pos[rows], self._bias,
+                    self._cache, self.config, n_steps=1,
+                    compute_dtype=self.engine._compute_dtype, qd=self._qd)
+                toks = toks[:, 0]
+            if self.mesh is not None:
+                buf = torch.zeros(self.n_slots, dtype=torch.long, device=dev)
+                if toks is not None:
+                    buf[self._lo: self._lo + len(rows)] = toks.long()
+                toks = self._dp_sum(buf)
+            with trace_span("sync"):
+                return toks.cpu().numpy()
+
+    def _count_tick(self, rows: int, live: int) -> None:
+        """A tick stepped ``rows`` slot-rows, ``live`` of them a request's."""
+        self._counters["tick_rows"] += rows
+        self._counters["tick_live_rows"] += live
+        annotate(rows=rows, live=live)
 
     def _paged_tick(self) -> np.ndarray:
         """Advance every slot one token over the shared page pool."""
         from ..model.paged_decode import paged_decode_steps
-        token = torch.from_numpy(
-            self._tokens[np.arange(self.n_slots), self._pos]).to(
-            self.engine.device)
-        pk = self._paged_kv
-        # host: extend each active slot's table to cover the new token
-        tables = np.full((self.n_slots, self._p_max), self._garbage_page,
-                         dtype=np.int32)
-        used = 1
-        for slot in range(self.n_slots):
-            if not self._active[slot]:
-                continue
-            pk.extend(slot, 1)
-            t = pk._tables[slot]
-            tables[slot, : len(t)] = t[: self._p_max]
-            used = max(used, min(len(t), self._p_max))
-        # the kernel reads exactly the pages in use; a power-of-two width
-        # keeps the table shapes few
-        width = 1
-        while width < used:
-            width *= 2
-        width = min(width, self._p_max)
-        dev = self.engine.device
-        toks, pk.k_pool, pk.v_pool = paged_decode_steps(
-            self._params, token, torch.from_numpy(self._pos).to(dev),
-            self._bias, torch.from_numpy(tables[:, :width].copy()).to(dev),
-            pk.k_pool, pk.v_pool, self._cache.cross_k, self._cache.cross_v,
-            self.config, n_steps=1, compute_dtype=self.engine._compute_dtype)
-        return toks[:, 0].cpu().numpy()
+        with trace_span("serve.tick"):
+            self._count_tick(self.n_slots, int(self._active.sum()))
+            token = torch.from_numpy(
+                self._tokens[np.arange(self.n_slots), self._pos]).to(
+                self.engine.device)
+            pk = self._paged_kv
+            # host: extend each active slot's table to cover the new token
+            tables = np.full((self.n_slots, self._p_max), self._garbage_page,
+                             dtype=np.int32)
+            used = 1
+            for slot in range(self.n_slots):
+                if not self._active[slot]:
+                    continue
+                pk.extend(slot, 1)
+                t = pk._tables[slot]
+                tables[slot, : len(t)] = t[: self._p_max]
+                used = max(used, min(len(t), self._p_max))
+            # the kernel reads exactly the pages in use; a power-of-two
+            # width keeps the table shapes few
+            width = 1
+            while width < used:
+                width *= 2
+            width = min(width, self._p_max)
+            dev = self.engine.device
+            toks, pk.k_pool, pk.v_pool = paged_decode_steps(
+                self._params, token, torch.from_numpy(self._pos).to(dev),
+                self._bias, torch.from_numpy(tables[:, :width].copy()).to(dev),
+                pk.k_pool, pk.v_pool, self._cache.cross_k,
+                self._cache.cross_v, self.config, n_steps=1,
+                compute_dtype=self.engine._compute_dtype)
+            with trace_span("sync"):
+                return toks[:, 0].cpu().numpy()
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):

@@ -19,6 +19,7 @@ from .config import HOP_LENGTH, N_FFT, ModelConfig
 from .model.decoder import (DecodeResult, KVCache, greedy_generate_body,
                             init_cache, prefill)
 from .model.encoder import encode
+from .utils.trace import trace_span
 
 
 def _batch_mel(audio: torch.Tensor, window: torch.Tensor,
@@ -61,8 +62,10 @@ def fused_transcribe_step(params: dict, audio: torch.Tensor,
     f32 matmuls are full f32 while TF32 is off, PyTorch's default.
     ``use_flash`` runs the encoder's self-attention through K16.
     """
-    enc = encode(params, _batch_mel(audio, window, basis, filters_t, config),
-                 config, compute_dtype, use_flash)
+    with trace_span("mel"):
+        mel = _batch_mel(audio, window, basis, filters_t, config)
+    with trace_span("encode"):
+        enc = encode(params, mel, config, compute_dtype, use_flash)
     return greedy_generate_body(
         params, enc, prompt, suppress_bias, eot, config, max_len=max_len,
         prompt_len=prompt_len, compute_dtype=compute_dtype,
@@ -95,8 +98,10 @@ def fused_admit_step(params: dict, audio: torch.Tensor, window: torch.Tensor,
     holding exactly the prompt rows and cross K/V [L, n, S, D]).
     ``use_flash`` runs the encoder's self-attention through K16.
     """
-    enc = encode(params, _batch_mel(audio, window, basis, filters_t, config),
-                 config, compute_dtype, use_flash)
+    with trace_span("mel"):
+        mel = _batch_mel(audio, window, basis, filters_t, config)
+    with trace_span("encode"):
+        enc = encode(params, mel, config, compute_dtype, use_flash)
     cache = init_cache(params, enc, config, max_len=prompt.shape[1],
                        compute_dtype=compute_dtype)
     logits, cache = prefill(params, prompt, enc, cache, config,
